@@ -72,15 +72,15 @@ class PackedGraphs:
             if v is not None:
                 yield f.name, v
 
-    def to(self, device) -> "PackedGraphs":
-        """A copy with every field as a torch tensor on ``device``, less
-        the labels and the backward permutation, which the forward does
-        not read."""
+    def to(self, device, training: bool = False) -> "PackedGraphs":
+        """A copy with every field as a torch tensor on ``device``.
+        Prediction drops the labels and the backward permutation, which
+        the forward does not read; ``training=True`` keeps them."""
         import torch
 
+        drop = () if training else ("y", "node_y", "edge_bwd_perm")
         out = {name: torch.as_tensor(np.ascontiguousarray(v)).to(device)
-               for name, v in self.fields()
-               if name not in ("y", "node_y", "edge_bwd_perm")}
+               for name, v in self.fields() if name not in drop}
         return PackedGraphs(**out)
 
     def __getitem__(self, i) -> "PackedGraphs":

@@ -1,26 +1,47 @@
-"""Workload: graphs -> canonical-neighborhood samples -> gossip samples.
+"""Workload: graphs -> ground truth -> canonical-neighborhood samples ->
+gossip samples.
 
-The serving part of desco_tpu's ``Workload`` (``desco_tpu/data/workload.py``),
-copied so the port imports nothing of desco_tpu: neighborhood samples,
-gossip samples and the graph-level aggregations. Serving sees each
-graph once, so the disk caches and the ground-truth computation of the
-training workload are left out; the order-3 tconv samples come from the
-native C++ prep when it is available.
+desco_tpu's ``Workload`` (``desco_tpu/data/workload.py``), copied so the
+port imports nothing of desco_tpu: exact canonical-count ground truth
+(cached on disk under ``root``, keyed by the query-set signature),
+neighborhood samples, gossip samples and the graph-level aggregations.
+The order-3 tconv samples come from the native C++ prep when it is
+available. Left out (ROADMAP.md, Queue 1): the neighborhood sample
+cache, the truth shards of multi-host materialization and the labeled
+truth.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 
 from ..batch.build import gossip_sample, neighborhood_sample
 from ..batch.packed import GraphSample
+from ..graph.atlas import gen_queries as atlas_queries
 from ..graph.canonical import Neighborhood, extract_all_neighborhoods
 from ..graph.container import Graph
 from ..truth import native as truth_native
+
+
+def _query_signature(query_ids: Sequence[int], max_len: int = 30) -> str:
+    """Cache-file stem of a query set (desco_tpu's convention): a readable
+    prefix of the first ``max_len`` ids, plus a digest of the whole set
+    when it is longer, so two long sets that share a prefix and a length
+    do not collide."""
+    ids = list(query_ids)
+    sig = ("query_num_{:d}_atlas_ids_".format(len(ids))
+           + "_".join(map(str, ids[:max_len])))
+    if len(ids) > max_len:
+        import hashlib
+
+        digest = hashlib.sha1(
+            ",".join(map(str, ids)).encode()).hexdigest()[:10]
+        sig += "_h" + digest
+    return sig
 
 
 @dataclasses.dataclass
@@ -30,11 +51,49 @@ class NeighborhoodIndex:
 
 
 class Workload:
-    def __init__(self, graphs: List[Graph]) -> None:
+    def __init__(self, graphs: List[Graph], root: Optional[str] = None,
+                 name: str = "dataset") -> None:
+        """``root``: directory of this dataset's disk caches; None (a
+        serving request) keeps nothing on disk."""
         self.graphs = graphs
+        self.root = root
+        self.name = name
         self.node_offsets = np.concatenate(
             [[0], np.cumsum([g.n_nodes for g in graphs])]).astype(np.int64)
         self.total_nodes = int(self.node_offsets[-1])
+
+    # ------------------------------------------------------------ truth
+    def groundtruth_path(self, query_ids: Sequence[int]) -> str:
+        if self.root is None:
+            raise ValueError("this Workload has no root for disk caches")
+        return os.path.join(self.root, "CanonicalCountTruth",
+                            _query_signature(query_ids) + ".npy")
+
+    def compute_groundtruth(
+        self, query_ids: Sequence[int],
+        queries: Optional[List[Graph]] = None,
+        num_workers: Optional[int] = None,
+        use_cache: bool = True,
+    ) -> np.ndarray:
+        """(total_nodes, n_queries) float64 canonical counts, by the
+        native C++ VF2 (thread-parallel) or its Python twin; cached as
+        ``.npy`` under ``root`` when there is one."""
+        use_cache = use_cache and self.root is not None
+        if use_cache:
+            path = self.groundtruth_path(query_ids)
+            if os.path.exists(path):
+                truth = np.load(path)
+                if truth.shape == (self.total_nodes, len(query_ids)):
+                    return truth
+        if queries is None:
+            queries = atlas_queries(list(query_ids))
+        per_graph = truth_native.parallel_canonical_counts(
+            self.graphs, queries, num_workers)
+        truth = np.concatenate(per_graph, axis=0).astype(np.float64)
+        if use_cache:
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            np.save(path, truth)
+        return truth
 
     # ---------------------------------------------------- neighborhoods
     def extract_neighborhoods(self, depth: int):

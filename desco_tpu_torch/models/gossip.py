@@ -1,4 +1,4 @@
-"""Gossip propagation model (stage 3 of DeSCo) — the serving part of
+"""Gossip propagation model (stage 3 of DeSCo) — the port of
 ``desco_tpu/models/gossip.py``.
 
 A 2-layer gated GNN runs on the *original* graph; node features are the
@@ -14,7 +14,14 @@ residual correction:
   * update = Linear(cat(aggr, x)); relu; concat-skip; per-node post MLP
     (LeakyReLU 0.1) -> scalar residual.
 
-desco_tpu scans over the queries (``lax.scan``); here it is a loop.
+desco_tpu scans over the queries (``lax.scan``); here it is a loop. The
+training loss runs each query under ``torch.utils.checkpoint``
+(desco_tpu: ``jax.checkpoint`` around the scan body), so one query's
+activations live at a time. The recomputation must redraw the query's
+dropout masks: the generator's state is snapshot before each query and
+restored when the query runs again, which leaves the generator rewound
+after a backward pass — the training step puts it back
+(``train/loop.train_step``).
 """
 
 from __future__ import annotations
@@ -24,10 +31,12 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..batch.packed import PackedGraphs
 from ..ops.segment import typed_edge_aggregate
 from .init import linear_params, mlp_params
+from .shmp_gnn import dropout as _dropout
 
 
 def init_gossip_model(input_dim: int = 1, hidden_dim: int = 64,
@@ -61,6 +70,14 @@ def _gate(conv_params, query_emb: torch.Tensor) -> torch.Tensor:
     return F.leaky_relu(torch.sigmoid(g2(h)))[0]
 
 
+def gate_values(params, query_embs: torch.Tensor) -> torch.Tensor:
+    """(layers, n_queries) gate table — the paper's homophily /
+    antisymmetry analysis output."""
+    return torch.stack([
+        torch.stack([_gate(conv, q) for q in query_embs])
+        for conv in params["convs"]])
+
+
 def direction_degrees(batch: PackedGraphs) -> torch.Tensor:
     """[N, 2] in-degrees per direction bit (pad edges drop)."""
     return typed_edge_aggregate(
@@ -70,14 +87,20 @@ def direction_degrees(batch: PackedGraphs) -> torch.Tensor:
 
 def apply_gossip_single(params, batch: PackedGraphs, x_col: torch.Tensor,
                         query_emb: torch.Tensor,
-                        deg: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        deg: Optional[torch.Tensor] = None,
+                        dropout: float = 0.0, train: bool = False,
+                        generator: Optional[torch.Generator] = None
+                        ) -> torch.Tensor:
     """Per-node residual [N] for ONE query. x_col: [N] stage-1 counts for
     this query; query_emb: [H_emb]; deg: ``direction_degrees(batch)``,
-    computed here when not given."""
+    computed here when not given. The input cat(query_emb, pre(x)) is
+    detached, as desco_tpu stops its gradient: ``pre`` gets no gradient.
+    Dropout (training, with a generator) follows the relu of each layer
+    and the first post linear."""
     nmask = batch.node_mask[:, None]
     x = params["pre"](x_col[:, None])
     qe = query_emb[None, :].expand(x.shape[0], query_emb.shape[0])
-    x = torch.cat([qe, x], dim=-1) * nmask
+    x = torch.cat([qe, x], dim=-1).detach() * nmask
     embs = [x]
     if deg is None:
         deg = direction_degrees(batch)
@@ -89,12 +112,13 @@ def apply_gossip_single(params, batch: PackedGraphs, x_col: torch.Tensor,
         wdeg = (g * deg[:, 0] + (1.0 - g) * deg[:, 1])[:, None]
         aggr = mixed @ conv["com"].w + conv["com"].b * wdeg
         x = conv["upd"](torch.cat([aggr, x], dim=-1))
-        x = torch.relu(x) * nmask
+        x = _dropout(torch.relu(x), dropout, train, generator) * nmask
         embs.append(x)
 
     # per-node post MLP (no pooling, no anchor)
     post = params["post"]
-    h = F.leaky_relu(post[0](torch.cat(embs, dim=-1)), negative_slope=0.1)
+    h = _dropout(post[0](torch.cat(embs, dim=-1)), dropout, train, generator)
+    h = F.leaky_relu(h, negative_slope=0.1)
     h = torch.relu(post[1](h))
     h = torch.relu(post[2](h))
     return post[3](h)[:, 0] * batch.node_mask
@@ -108,3 +132,32 @@ def gossip_predict(params, batch: PackedGraphs,
             + batch.x[:, q]
             for q, q_emb in enumerate(query_embs)]
     return torch.stack(cols, dim=1)
+
+
+def gossip_loss(params, batch: PackedGraphs, query_embs: torch.Tensor,
+                dropout: float = 0.0, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Sum over queries and valid nodes of log2(|gossip + neigh - truth|
+    + 1). batch.x: [N, Q] stage-1 counts; batch.node_y: [N, Q] truth."""
+    deg = direction_degrees(batch)
+    use_gen = generator if (train and dropout > 0.0) else None
+
+    def one_query(state, q_emb, x_col, y_col):
+        if use_gen is not None:
+            use_gen.set_state(state)  # a recomputation redraws its masks
+        res = apply_gossip_single(params, batch, x_col, q_emb, deg,
+                                  dropout, train, use_gen)
+        loss = torch.log2((res + x_col - y_col).abs() + 1.0)
+        return (loss * batch.node_mask).sum()
+
+    total = batch.x.new_zeros(())
+    for q, q_emb in enumerate(query_embs):
+        state = use_gen.get_state() if use_gen is not None else None
+        args = (state, q_emb, batch.x[:, q], batch.node_y[:, q])
+        if torch.is_grad_enabled():
+            total = total + checkpoint(one_query, *args,
+                                       use_reentrant=False,
+                                       preserve_rng_state=False)
+        else:
+            total = total + one_query(*args)
+    return total

@@ -1,5 +1,5 @@
 """SHMP GNN core + embedding head — the port of ``desco_tpu/models/shmp_gnn.py``
-(SAGE convolution, forward only).
+(SAGE convolution).
 
 SHMP is data, not module structure: edges carry a type id, and every
 layer is
@@ -19,8 +19,15 @@ service runs the query tower once, when it loads.
 
 Parameters are ``nn.Module`` trees in desco_tpu's pytree layout
 (models/init.py); the forward is a plain function of (params, config,
-batch), as in desco_tpu. Serving runs with dropout off. GIN, GCN, GAT and
-PNA convolutions are not ported yet (ROADMAP.md, Queue 1 M3).
+batch), as in desco_tpu. GIN, GCN, GAT and PNA convolutions are not
+ported yet (ROADMAP.md, Queue 1 M3).
+
+Dropout (``cfg.dropout``, training only) follows desco_tpu's places: after
+the relu of every layer and after the first post linear. desco_tpu folds
+and splits a JAX key per site; a ``torch.Generator`` has no fold, so the
+caller hands one generator (on the tensors' device) and the masks are
+drawn from it in the fixed order of the forward. The two packages draw
+different masks from the same seed; parity tests run with dropout 0.
 
 Padding invariant: node features of padding slots are forced to zero
 after every dense op, so padded edges (src = pad node) contribute nothing.
@@ -44,8 +51,8 @@ AGG_MODES = ("aggregate_first", "kernel")
 
 @dataclasses.dataclass(frozen=True)
 class SHMPConfig:
-    """Static model configuration (desco_tpu's SHMPConfig minus the dtype,
-    the dropout of training and the per-node output of the baselines)."""
+    """Static model configuration (desco_tpu's SHMPConfig minus the dtype
+    and the per-node output of the baselines)."""
 
     n_node_types: int = 2
     n_edge_types: int = 6
@@ -55,6 +62,7 @@ class SHMPConfig:
     output_dim: int = 64
     layer_num: int = 8
     conv_type: str = "SAGE"
+    dropout: float = 0.0
     use_anchor: bool = True        # anchor MLP on canonical nodes
     canonical_type: int = 1
     # 'aggregate_first': gather + K1 into [N, T, H], then one
@@ -108,6 +116,39 @@ def _per_type_linear(x, w, b, node_type, n_types):
     return out
 
 
+def dropout(x: torch.Tensor, rate: float, train: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout: keep each entry with probability 1 - rate and
+    rescale by 1 / (1 - rate). The mask is drawn from ``generator``, which
+    lies on x's device; without one nothing is dropped (desco_tpu's
+    ``rng=None``: the validation pass of the training loss)."""
+    if not train or rate <= 0.0 or generator is None:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device,
+                      dtype=x.dtype) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def batch_typed_streams(batch: PackedGraphs, n_edge_types: int):
+    """The batch's ``TypedStreams`` (keys, offsets and, when the batch
+    carries ``edge_bwd_perm``, the source-keyed backward streams),
+    derived at first use and kept on the batch object: every layer of
+    every step over a device-resident batch shares them. They are no
+    field of ``PackedGraphs``, so stacking and ``.to`` never see them."""
+    from ..ops.cuda_segment import typed_streams
+
+    cached = getattr(batch, "_typed_streams", None)
+    if cached is not None and cached.n_types == n_edge_types:
+        return cached
+    keys = batch.edge_dst.int() * n_edge_types + batch.edge_type.int()
+    perm = batch.edge_bwd_perm
+    st = typed_streams(batch.edge_src.int().contiguous(), keys.contiguous(),
+                       n_edge_types, batch.n_cap, batch.n_cap,
+                       None if perm is None else perm.int().contiguous())
+    batch._typed_streams = st
+    return st
+
+
 def packed_aggregator(cfg: SHMPConfig, batch: PackedGraphs):
     """fn(x, conv_w) -> x_neigh [N, K] for ``cfg.agg_mode`` (the port of
     desco_tpu's ``packed_aggregator``, shmp_gnn.py:144-177)."""
@@ -115,13 +156,12 @@ def packed_aggregator(cfg: SHMPConfig, batch: PackedGraphs):
     if cfg.agg_mode == "kernel":
         from ..ops.cuda_segment import fused_typed_transform_aggregate
 
-        # one key stream per batch, shared by all layers
-        keys = batch.edge_dst.int() * t_e + batch.edge_type.int()
-        src = batch.edge_src.int()
+        st = batch_typed_streams(batch, t_e)
 
         def agg_fn(x, conv_w):
             return fused_typed_transform_aggregate(
-                x, src, keys, conv_w, t_e, batch.n_cap)
+                x, st.edge_src, st.keys, conv_w, t_e, batch.n_cap,
+                streams=st)
     else:
         def agg_fn(x, conv_w):
             agg = typed_edge_aggregate(
@@ -133,7 +173,9 @@ def packed_aggregator(cfg: SHMPConfig, batch: PackedGraphs):
 
 
 def run_shmp_layers(params, cfg: SHMPConfig, x, ntype, nmask,
-                    aggregate_fn) -> torch.Tensor:
+                    aggregate_fn, train: bool = False,
+                    generator: Optional[torch.Generator] = None
+                    ) -> torch.Tensor:
     """The L conv layers with concat-skip. ``aggregate_fn(x, conv_w)``
     returns the type-transformed neighbor sum [N, K] (no bias)."""
     # per-dst-type conv bias: bias_by_ntype[t_n] = sum of the conv biases
@@ -154,13 +196,15 @@ def run_shmp_layers(params, cfg: SHMPConfig, x, ntype, nmask,
         upd_in = torch.cat([x_neigh, x], dim=-1)
         x = _per_type_linear(upd_in, upd.w[l], upd.b[l], ntype,
                              cfg.n_node_types)
-        x = torch.relu(x) * nmask
+        x = dropout(torch.relu(x), cfg.dropout, train, generator) * nmask
         embs.append(x)
     return torch.cat(embs, dim=-1)
 
 
-def apply_shmp_core(params, cfg: SHMPConfig,
-                    batch: PackedGraphs) -> torch.Tensor:
+def apply_shmp_core(params, cfg: SHMPConfig, batch: PackedGraphs,
+                    train: bool = False,
+                    generator: Optional[torch.Generator] = None
+                    ) -> torch.Tensor:
     """BaseGNNCore.forward: [N, post_input_dim] concat-skip embeddings
     with padded rows zeroed."""
     nmask = batch.node_mask[:, None]
@@ -169,26 +213,30 @@ def apply_shmp_core(params, cfg: SHMPConfig,
                          ntype, cfg.n_node_types)
     x = x * nmask
     return run_shmp_layers(params, cfg, x, ntype, nmask,
-                           packed_aggregator(cfg, batch))
+                           packed_aggregator(cfg, batch), train, generator)
 
 
-def apply_shmp(params, cfg: SHMPConfig, batch: PackedGraphs) -> torch.Tensor:
+def apply_shmp(params, cfg: SHMPConfig, batch: PackedGraphs,
+               train: bool = False,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """BaseGNN.forward: core -> anchor MLP on canonical nodes -> global
     add pool -> post MLP. Returns [G, out]."""
-    emb = apply_shmp_core(params, cfg, batch)
+    emb = apply_shmp_core(params, cfg, batch, train, generator)
     if cfg.use_anchor:
         anchored = F.leaky_relu(params["anchor"](emb), negative_slope=0.1)
         is_canon = (batch.node_type == cfg.canonical_type)[:, None]
         emb = torch.where(is_canon, anchored, emb)
     emb = emb * batch.node_mask[:, None]
     pooled = graph_pool_sum(emb, batch.node_graph, batch.g_cap)
-    return _apply_post(params["post"], pooled)
+    return _apply_post(params["post"], pooled, cfg.dropout, train, generator)
 
 
-def _apply_post(post, x):
-    """post_mp: Linear -> (Dropout) -> LeakyReLU(0.1) -> Linear -> ReLU ->
+def _apply_post(post, x, rate: float = 0.0, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+    """post_mp: Linear -> Dropout -> LeakyReLU(0.1) -> Linear -> ReLU ->
     Linear -> ReLU -> Linear."""
-    x = F.leaky_relu(post[0](x), negative_slope=0.1)
+    x = dropout(post[0](x), rate, train, generator)
+    x = F.leaky_relu(x, negative_slope=0.1)
     x = torch.relu(post[1](x))
     x = torch.relu(post[2](x))
     return post[3](x)

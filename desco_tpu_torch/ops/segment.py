@@ -36,12 +36,20 @@ def typed_edge_aggregate(
 
     Edges are (dst, type)-sorted on the host, so the combined key
     ``dst*T + t`` is sorted: one gather, then K1 over the keys (padding
-    keys fall past N*T and are dropped)."""
+    keys fall past N*T and are dropped).
+
+    The gather is ``index_select``, whose backward is an unsorted
+    ``index_add_`` with atomics (as XLA's scatter-add is in desco_tpu):
+    the one sum of the training path whose order changes from run to run.
+    ``x[edge_src]`` would compute the same forward, but its backward sorts
+    the indices and walks duplicates serially, and every padding edge
+    points at the one pad node (38 ms per call at the gossip batch of the
+    paper config on an H100, PERF.md)."""
     from .cuda_segment import sorted_segment_sum
 
     n = x.shape[0]
     seg = edge_dst.int() * n_types + edge_type.int()
-    msgs = x[edge_src.long()]
+    msgs = x.index_select(0, edge_src.long())
     agg = sorted_segment_sum(msgs.contiguous(), seg, n_types * n)
     return agg.reshape(n, n_types, x.shape[1])
 

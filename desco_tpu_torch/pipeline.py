@@ -1,41 +1,50 @@
-"""Serving pipeline — the inference subset of ``desco_tpu/pipeline.py``.
+"""End-to-end DeSCo pipeline — the port of ``desco_tpu/pipeline.py``, the
+library-level orchestration under serving (serving.py) and the training
+CLI (main.py).
 
 A request runs: canonical partition -> packed neighborhood batches ->
 SHMP neighborhood counts (clamped to the combinatorial bounds, the top
 tail recounted exactly by VF2) -> gossip refinement over the original
 graphs -> node clamp and exact-row overrides -> graph-level counts.
-``CountingService`` (serving.py) strings these together.
+Training adds exact ground truth (C++ VF2, cached on disk), the two
+training stages and the normed-MSE / MAE evaluation per query size.
 
-Left out of this slice, each raising where a config asks for it
-(ROADMAP.md, Queue 1): labeled mode (``use_node_feature``), bf16 serving
-(``serve_bf16``), order-4 typing, the homogeneous ablation and the other
-conv types; training and evaluation come with the training slice.
+Not ported yet, each raising where a config asks for it (ROADMAP.md,
+Queue 1): labeled mode (``use_node_feature``), bf16 serving and training
+(``serve_bf16``, ``train_bf16``), order-4 typing, the homogeneous
+ablation, the other conv types, checkpoint ensembles and data-parallel
+meshes.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+import os
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
+from .analysis import mae, norm_mse, round_relu
 from .batch.build import query_sample
 from .batch.packed import GraphSample, PackedGraphs, auto_capacities, pack_samples
 from .data.workload import NeighborhoodIndex, Workload
 from .graph.atlas import gen_queries, gen_query_ids
 from .graph.container import Graph
+from .models import gossip as gossip_mod
+from .models import neighborhood as neigh_mod
 from .models.shmp_gnn import neighborhood_target_config, query_config
 from .train import loop as train_loop
+from .utils.device import resolve_device
 
 
 @dataclasses.dataclass
 class PipelineConfig:
-    """The serving fields of desco_tpu's PipelineConfig, with its names and
-    defaults (the reference's paper config). Checkpoint config blobs
-    rehydrate into it; their training-only fields are dropped. Fields of
-    options this slice does not port are kept so that a checkpoint that
-    sets them raises (check_serving_config) instead of being served
-    wrong."""
+    """desco_tpu's PipelineConfig, with its names and defaults (the
+    paper config). Checkpoint config blobs rehydrate into it. Fields of
+    options the port does not have yet are kept so that a config that
+    sets them raises (check_serving_config, train_neighborhood_stage)
+    instead of being run wrong."""
 
     query_sizes: Sequence[int] = (3, 4, 5)
     depth: int = 4
@@ -47,17 +56,31 @@ class PipelineConfig:
     neigh_layer_num: int = 8
     neigh_hidden_dim: int = 64
     neigh_input_dim: int = 1
+    neigh_dropout: float = 0.0
+    neigh_epochs: int = 300
     neigh_batch_size: int = 512
+    neigh_lr: float = 1e-4
+    neigh_weight_decay: float = 0.0
     # gossip stage
     gossip_layer_num: int = 2
     gossip_hidden_dim: int = 64
+    gossip_dropout: float = 0.01
+    gossip_epochs: int = 30
     gossip_batch_size: int = 256
+    gossip_lr: float = 1e-3
+    gossip_weight_decay: float = 0.0
     # target-tower aggregation: 'auto' (and desco_tpu's 'pallas') pick
     # the fused CUDA kernel on a CUDA device and 'aggregate_first' on the
     # CPU; desco_tpu's XLA transform-then-reduce modes ('transform_first',
     # 'cumsum') compute what the kernel computes and map to it
     agg_mode: str = "auto"
     serve_bf16: bool = False
+    # bfloat16 target tower during training: not ported (M12), raises
+    train_bf16: bool = False
+    # run the val pass every k epochs instead of every epoch (the
+    # plateau scheduler and best-checkpoint selection then see one
+    # monitored value per k epochs). 1 = every epoch
+    val_every: int = 1
     # log2(1+degree) as the node input feature of both towers
     degree_feature: bool = False
     # clamp de-logged stage-1 counts to the combinatorial bound
@@ -69,6 +92,10 @@ class PipelineConfig:
     exact_size: int = 0
     use_node_feature: bool = False
     custom_query_ids: Optional[Sequence[int]] = None
+    # misc
+    seed: int = 0
+    data_root: str = "data"
+    output_dir: Optional[str] = None
     # host threads for sample prep and VF2 (None: all cores)
     num_workers: Optional[int] = None
 
@@ -105,6 +132,15 @@ def pipeline_queries(cfg: PipelineConfig) -> List[Graph]:
     return hit
 
 
+def pipeline_query_groups(cfg: PipelineConfig) -> List[List[int]]:
+    """Query indices grouped by query size, ascending (the per-size
+    normed-MSE grouping)."""
+    queries = pipeline_queries(cfg)
+    sizes = sorted({q.n_nodes for q in queries})
+    return [[i for i, q in enumerate(queries) if q.n_nodes == s]
+            for s in sizes]
+
+
 def model_configs(cfg: PipelineConfig, device):
     """(target, query) SHMP configs; the target tower's agg_mode resolves
     for ``device`` (ops/cuda_segment.default_agg_mode)."""
@@ -121,12 +157,12 @@ def model_configs(cfg: PipelineConfig, device):
         order=cfg.order,
         input_dim=cfg.neigh_input_dim, hidden_dim=cfg.neigh_hidden_dim,
         output_dim=cfg.neigh_hidden_dim, layer_num=cfg.neigh_layer_num,
-        conv_type=cfg.conv_type, agg_mode=agg)
+        conv_type=cfg.conv_type, dropout=cfg.neigh_dropout, agg_mode=agg)
     qry = query_config(
         use_tconv=cfg.use_tconv,
         input_dim=cfg.neigh_input_dim, hidden_dim=cfg.neigh_hidden_dim,
         output_dim=cfg.neigh_hidden_dim, layer_num=cfg.neigh_layer_num,
-        conv_type=cfg.conv_type)
+        conv_type=cfg.conv_type, dropout=cfg.neigh_dropout)
     return tgt, qry
 
 
@@ -157,23 +193,41 @@ def build_query_batch(cfg: PipelineConfig) -> PackedGraphs:
 
 @dataclasses.dataclass
 class StageData:
-    """One request's prepared data for the neighborhood stage."""
+    """One request's, or one dataset split's, prepared data for the
+    neighborhood stage."""
 
     workload: Workload
     samples: List[GraphSample]
     nindex: NeighborhoodIndex
-    truth: np.ndarray  # (total_nodes, Q) zeros: serving has no labels
+    truth: np.ndarray  # (total_nodes, Q) float64; zeros without labels
     batches: List[PackedGraphs]
 
 
 def prepare_stage_data(cfg: PipelineConfig, graphs: List[Graph],
-                       capacities=None) -> StageData:
-    """Host work of one request: canonical partition, sample typing and
-    packing. ``capacities`` is (n_cap, e_cap, g_cap) or a callable that
-    picks them from the samples (the serving buckets). No device work."""
+                       capacities=None, *, name: Optional[str] = None,
+                       need_truth: bool = False) -> StageData:
+    """Host work of one request or split: canonical partition, sample
+    typing and packing. ``capacities`` is (n_cap, e_cap, g_cap) or a
+    callable that picks them from the samples (the serving buckets). No
+    device work.
+
+    ``need_truth=True`` (training and evaluation) computes the exact VF2
+    ground truth, cached under ``cfg.data_root/name``, attaches it as
+    labels and packs the backward edge permutation; the default (pure
+    serving: no labels exist and none are needed) leaves the label
+    columns zero and skips the permutation's host lexsort."""
     check_serving_config(cfg)
-    wl = Workload(graphs)
-    truth = np.zeros((wl.total_nodes, len(cfg.query_ids)), np.float64)
+    if need_truth and name is None:
+        raise ValueError("need_truth=True wants the dataset's name (its "
+                         "truth cache lives under cfg.data_root/name)")
+    wl = Workload(graphs,
+                  root=os.path.join(cfg.data_root, name) if name else None,
+                  name=name or "request")
+    if need_truth:
+        truth = wl.compute_groundtruth(cfg.query_ids,
+                                       num_workers=cfg.num_workers)
+    else:
+        truth = np.zeros((wl.total_nodes, len(cfg.query_ids)), np.float64)
     samples, nindex = wl.neighborhood_samples(
         cfg.depth, use_tconv=cfg.use_tconv, truth=truth,
         num_workers=cfg.num_workers, order=cfg.order)
@@ -186,8 +240,44 @@ def prepare_stage_data(cfg: PipelineConfig, graphs: List[Graph],
     caps = capacities or auto_capacities(samples, g_cap=cfg.neigh_batch_size)
     # the backward edge permutation only matters for training
     batches = pack_samples(samples, *caps, n_queries=truth.shape[1],
-                           need_bwd_perm=False)
+                           need_bwd_perm=need_truth)
     return StageData(wl, samples, nindex, truth, batches)
+
+
+def _check_training_config(cfg: PipelineConfig, mesh) -> None:
+    if cfg.train_bf16:
+        raise NotImplementedError(
+            "train_bf16 (bfloat16 target tower during training) is not "
+            "ported yet (ROADMAP.md, Queue 1 M12)")
+    if mesh is not None:
+        raise NotImplementedError(
+            "data-parallel training over a mesh is not ported yet "
+            "(ROADMAP.md, Queue 1 M15)")
+
+
+def train_neighborhood_stage(
+    cfg: PipelineConfig, train: StageData, val: StageData,
+    query_batch: PackedGraphs, ckpt_path: Optional[str] = None,
+    log_fn=print, resume: bool = False, mesh=None, device=None, **kw,
+):
+    """Train the neighborhood model on ``train`` with ``val`` monitored.
+    Returns (TrainResult, tgt_cfg, qry_cfg). ``device``: None or "cuda"
+    train on the GPU (and raise when none is visible), "cpu" on the CPU.
+    Fresh weights come from ``cfg.seed``."""
+    _check_training_config(cfg, mesh)
+    device = resolve_device(device)
+    tgt_cfg, qry_cfg = model_configs(cfg, device)
+    params = neigh_mod.init_neighborhood_model(
+        tgt_cfg, qry_cfg, torch.Generator().manual_seed(cfg.seed))
+    result = train_loop.train_neighborhood(
+        params, tgt_cfg, qry_cfg, query_batch,
+        train.batches, val.batches,
+        epochs=cfg.neigh_epochs, lr=cfg.neigh_lr,
+        weight_decay=cfg.neigh_weight_decay,
+        ckpt_path=ckpt_path, ckpt_config=dataclasses.asdict(cfg),
+        seed=cfg.seed, log_fn=log_fn, resume=resume,
+        val_every=cfg.val_every, eval_tgt_cfg=tgt_cfg, device=device, **kw)
+    return result, tgt_cfg, qry_cfg
 
 
 def neighborhood_predictions(params, tgt_cfg, query_embs,
@@ -358,12 +448,66 @@ def apply_verified_override(gossip_node_counts: np.ndarray,
 
 def prepare_gossip_batches(
     cfg: PipelineConfig, stage: StageData, neigh_counts: np.ndarray,
-    capacities=None,
+    capacities=None, need_bwd_perm: bool = False,
 ) -> List[PackedGraphs]:
+    """Packed gossip batches over the original graphs. Serving leaves
+    ``need_bwd_perm`` off: the backward permutation is training-only and
+    costs a full-row host lexsort per batch."""
     samples = stage.workload.gossip_samples(neigh_counts, stage.nindex,
                                             stage.truth)
     if callable(capacities):  # serving bucket selection sees the samples
         capacities = capacities(samples)
     caps = capacities or auto_capacities(samples, g_cap=cfg.gossip_batch_size)
     return pack_samples(samples, *caps, n_queries=stage.truth.shape[1],
-                        need_bwd_perm=False)
+                        need_bwd_perm=need_bwd_perm)
+
+
+def train_gossip_stage(
+    cfg: PipelineConfig, params_neigh, tgt_cfg, qry_cfg,
+    query_batch: PackedGraphs, train_batches, val_batches,
+    ckpt_path: Optional[str] = None, log_fn=print, resume: bool = False,
+    mesh=None, device=None, **kw,
+):
+    """Train the gossip model against the (fixed) query embeddings of the
+    trained neighborhood model. Returns (TrainResult, query_embs on the
+    device). Fresh weights come from ``cfg.seed + 1``."""
+    _check_training_config(cfg, mesh)
+    device = resolve_device(device)
+    with torch.no_grad():
+        query_embs = neigh_mod.embed_queries(
+            params_neigh.to(device), qry_cfg, query_batch.to(device))
+    params = gossip_mod.init_gossip_model(
+        input_dim=1, hidden_dim=cfg.gossip_hidden_dim,
+        emb_channels=cfg.neigh_hidden_dim, layer_num=cfg.gossip_layer_num,
+        generator=torch.Generator().manual_seed(cfg.seed + 1))
+    result = train_loop.train_gossip(
+        params, query_embs, train_batches, val_batches,
+        epochs=cfg.gossip_epochs, lr=cfg.gossip_lr,
+        weight_decay=cfg.gossip_weight_decay, dropout=cfg.gossip_dropout,
+        ckpt_path=ckpt_path, ckpt_config=dataclasses.asdict(cfg),
+        seed=cfg.seed, log_fn=log_fn, resume=resume,
+        val_every=cfg.val_every, device=device, **kw)
+    return result, query_embs
+
+
+def evaluate_graphlet_counts(
+    cfg: PipelineConfig, stage: StageData, neigh_counts: np.ndarray,
+    gossip_node_counts: Optional[np.ndarray] = None,
+) -> Dict[str, List[float]]:
+    """Graph-level normed MSE / MAE per query-size group, of the stage-1
+    counts and, when given, of the gossip-refined counts."""
+    groups = pipeline_query_groups(cfg)
+    truth_graphlet = stage.workload.aggregate_node_counts(stage.truth)
+    out: Dict[str, List[float]] = {}
+    pred_neigh = round_relu(stage.workload.aggregate_neighborhood_counts(
+        neigh_counts, stage.nindex))
+    out["norm_mse_neighborhood"] = norm_mse(pred_neigh, truth_graphlet,
+                                            groups)
+    out["mae_neighborhood"] = mae(pred_neigh, truth_graphlet, groups)
+    if gossip_node_counts is not None:
+        pred_gossip = round_relu(
+            stage.workload.aggregate_node_counts(gossip_node_counts))
+        out["norm_mse_gossip"] = norm_mse(pred_gossip, truth_graphlet,
+                                          groups)
+        out["mae_gossip"] = mae(pred_gossip, truth_graphlet, groups)
+    return out

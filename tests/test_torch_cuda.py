@@ -8,7 +8,9 @@ without JAX:
 
 Tolerance rtol 1e-5, atol 1e-5 * max|ref|: float32 on both sides, only
 the summation order differs (the plain version's index_add_ uses
-atomics)."""
+atomics). Gradients through the kernels (K3 behind K2, K4 behind K1) are
+held against autograd of the plain forward, f32 against f32, at rtol 1e-4
+of each tensor's scale: two reductions and two matmuls deep."""
 
 import numpy as np
 import pytest
@@ -86,14 +88,94 @@ def test_k2_kernel_matches_plain_on_gpu(rng, cuda_device, t, k):
                                atol=1e-5 * float(ref.abs().max()))
 
 
+def bwd_perm_of(src, keys, t, n):
+    """Edge slots in (src, type) order, dead edges last."""
+    return np.lexsort((keys % t, src, keys >= n * t)).astype(np.int32)
+
+
 @pytest.mark.cuda
-def test_kernel_refuses_grad_inputs(rng, cuda_device):
+@pytest.mark.parametrize("k", [33, 64, 128])
+def test_k4_kernel_matches_plain_on_gpu(rng, cuda_device, k):
+    _, seg = sorted_stream(rng, 700, 5000, k, neg=3)
+    g = rng.standard_normal((700, k)).astype(np.float32)
+    gd, s = T(g).to(cuda_device), T(seg).to(cuda_device)
+    before = cs.segment_sum_vjp.launches
+    out = cs.segment_sum_vjp(gd, s, 700)
+    # a strided cotangent (autograd hands such over) is made contiguous
+    wide = torch.cat([gd, gd], dim=1)[:, :k]
+    out2 = cs.segment_sum_vjp(wide, s, 700)
+    torch.cuda.synchronize()
+    assert cs.segment_sum_vjp.launches == before + 2
+    ref = cs.segment_sum_vjp_plain(gd, s, 700)
+    assert torch.equal(out, ref) and torch.equal(out2, ref)  # a copy
+    assert float(out[-64:].abs().max()) == 0.0  # pad keys get zero
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,k", [(6, 64), (2, 128), (3, 33)])
+def test_k3_kernel_matches_plain_on_gpu(rng, cuda_device, t, k):
+    n = 1000
+    x, src, _, _, keys, w = typed_case(rng, n, t, 64, k, 6000)
+    perm = bwd_perm_of(src, keys, t, n)
+    st = cs.typed_streams(T(src).to(cuda_device), T(keys).to(cuda_device),
+                          t, n, n, T(perm).to(cuda_device))
+    g = T(rng.standard_normal((n, k)).astype(np.float32)).to(cuda_device)
+    before = cs.typed_cotangent_sums.launches
+    u = cs.typed_cotangent_sums(g, st)
+    torch.cuda.synchronize()
+    assert cs.typed_cotangent_sums.launches == before + 1
+    ref = cs.typed_cotangent_sums_plain(g, st)
+    torch.testing.assert_close(u, ref, rtol=1e-5,
+                               atol=1e-5 * float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_perm", [True, False])
+def test_kernel_gradients_match_plain_autograd(rng, cuda_device, with_perm):
+    """K2 under grad: backward through K3 (with a permutation) or the
+    legacy path (without) equals autograd of the plain forward."""
+    n, t, k = 500, 6, 64
+    x, src, _, _, keys, w = typed_case(rng, n, t, 64, k, 3000)
+    perm = T(bwd_perm_of(src, keys, t, n)).to(cuda_device)
+    sd, kd = T(src).to(cuda_device), T(keys).to(cuda_device)
+    grads = []
+    for fn in (cs.fused_typed_transform_aggregate,
+               cs.fused_typed_transform_aggregate_plain):
+        xs = T(x).to(cuda_device).requires_grad_()
+        ws = T(w).to(cuda_device).requires_grad_()
+        kw = ({"bwd_perm": perm} if with_perm and
+              fn is cs.fused_typed_transform_aggregate else {})
+        before = cs.typed_cotangent_sums.launches
+        (fn(xs, sd, kd, ws, t, n, **kw) ** 2).sum().backward()
+        if kw:
+            assert cs.typed_cotangent_sums.launches == before + 1
+        grads.append((xs.grad, ws.grad))
+    torch.cuda.synchronize()
+    for got, want in zip(*grads):
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+def test_k1_gradient_runs_k4_on_gpu(rng, cuda_device):
+    msgs, seg = sorted_stream(rng, 50, 300, 64)
+    m = T(msgs).to(cuda_device).requires_grad_()
+    s = T(seg).to(cuda_device)
+    wgt = torch.randn(50, 64, device=cuda_device)
+    before = cs.segment_sum_vjp.launches
+    (cs.sorted_segment_sum(m, s, 50) * wgt).sum().backward()
+    torch.cuda.synchronize()
+    assert cs.segment_sum_vjp.launches == before + 1
+    assert torch.equal(m.grad, cs.segment_sum_vjp_plain(wgt, s, 50))
+
+
+@pytest.mark.cuda
+def test_unsorted_bwd_perm_is_refused(rng, cuda_device):
     x, src, _, _, keys, w = typed_case(rng, 64, 2, 8, 8, 100)
-    xs = T(x).to(cuda_device).requires_grad_()
-    with pytest.raises(NotImplementedError, match="K3"):
-        cs.fused_typed_transform_aggregate(
-            xs, T(src).to(cuda_device), T(keys).to(cuda_device),
-            T(w).to(cuda_device), 2, 64)
+    ident = torch.arange(len(keys), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="order"):
+        cs.typed_streams(T(src).to(cuda_device), T(keys).to(cuda_device),
+                         2, 64, 64, ident)
 
 
 @pytest.mark.cuda
