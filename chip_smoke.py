@@ -9,16 +9,24 @@ It imports nothing of JAX or desco_tpu. Phases, each of which exits
 nonzero on a failed check (no phase catches its own failure):
 
   1. environment: the card's name and power limit, torch/CUDA versions;
-     build the CUDA kernels (nvcc, sm_90a) and the native host library.
+     build both CUDA libraries (one nvcc per source, started together,
+     sm_90a) and the native host library.
   2. kernels: K1 ``sorted_segment_sum``, K2
      ``fused_typed_transform_aggregate``, K3 ``typed_cotangent_sums`` (with
      the einsums of K2's backward) and K4 ``segment_sum_vjp`` against
-     their plain PyTorch versions on the card in f32 (rtol 1e-5, atol
-     1e-5 * max|ref|: only the summation order differs), on edge cases
-     and at the shapes of real packed batches of the phase-3 request and
-     of the phase-6 training set; kernel, plain and library times with
-     CUDA events, and the least time the card could take for the same
-     work.
+     their plain PyTorch versions on the card, on f32 and on bf16 rows
+     (rtol 1e-5, atol 1e-5 * max|ref|: both sides accumulate the same
+     rows in f32, only the summation order differs; K3's bf16 dx and dW
+     are f32 results rounded to bf16 and may differ by one bf16 step,
+     rtol 2^-7; K4's bf16 result must be equal), on edge cases and at the
+     shapes of real packed batches of the phase-3 request and of the
+     phase-6 training set; the four variants of the K5 probe against
+     their plain versions on the bench edge stream (``full`` bit-equal to
+     K1). Times: each function and each bare kernel in CUDA graphs (8
+     launches per graph, tools/segsum_inner_ablation.py) and the one
+     PyTorch call for the same function the same way, the wrapper and the
+     plain version with CUDA events over 50 eager calls, and the least
+     time the card could take for the same work.
   3. serving at full width: ``CountingService`` on release/r4 (SAGE SHMP,
      8 layers, hidden 64, 6 edge types, 29 queries; 2-layer gossip) over
      random graphs drawn like Syn_1827, made with numpy from ``--seed``
@@ -29,6 +37,12 @@ nonzero on a failed check (no phase catches its own failure):
      target batch. Counts must be finite and >= 0, verified rows must
      equal a VF2 recount, and CUDA must match the port on the CPU
      (verify_budget=0) within rtol 1e-3 of each count (floored at 1).
+     Then the same 256-graph request with ``serve_bf16``: K2 runs 8 times
+     per target batch on bf16 rows, counts finite and >= 0, verified rows
+     equal the recount, and the raw log2(count + 1) predictions (before
+     clamp and verification) stay within BF16_LOG2_ATOL of the f32
+     tower's, CUDA bf16 against CUDA f32 on every batch and CUDA bf16
+     against CPU bf16 on the first two.
   4. daemon: ``python -m desco_tpu_torch.serve`` answers two JSON lines.
   5. gradients: ``train_loss`` and ``gossip_loss`` gradients through the
      kernels against the same on the CPU through the plain versions, same
@@ -45,16 +59,26 @@ nonzero on a failed check (no phase catches its own failure):
      / ``train_gossip_stage``. Counters zeroed before, read after: K3 = 8 x
      neighborhood train steps, K2 = 8 x (train steps + val batches +
      predict batches), K4 > 0 in both stages; losses finite and falling.
+     Then the neighborhood stage again with ``train_bf16``: K3 = 8 x train
+     steps, all on bf16 rows; K2's bf16 launches = 8 x train steps and its
+     f32 launches = 8 x val batches (validation runs the f32 tower); the
+     saved checkpoint is f32; the loss is finite and has fallen.
   7. entry point: ``python -m desco_tpu_torch.main --train_neigh
      --train_gossip --test_gossip`` in a subprocess on a small SynNp set
      at paper width; then ``CountingService`` serves one request from the
      two checkpoints it wrote.
-  8. one JSON line of kernels, the card line, then the final ok line.
+  8. bench and probe: ``python -m desco_tpu_torch.bench`` for float32
+     and bfloat16 in subprocesses (one JSON line each, K2 = 8 launches
+     per forward, 0 < sol_fraction <= 1.05), and one series of the K5
+     probe (tools/segsum_inner_ablation.py) at K = 128 on the bench
+     stream, every variant launched through its wrapper.
+  9. one JSON line of kernels, the card line, then the final ok line.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -71,7 +95,14 @@ R4_GOSSIP = os.path.join(REPO, "release", "r4", "gossip.best")
 # cores (the port runs f32 with TF32 off)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12  # dense bf16 on the tensor cores (K2's transform)
 PAD_KEY = 2 ** 30  # the padding id of desco_tpu's segment-sum streams
+# bf16 target tower against the f32 one, in log2(count + 1) space at the
+# paper width (8 layers, hidden 64, release/r4's weights): 0.114 at most
+# over the 256-graph request of seed 0 on an H100 (mean 0.0095), 0.073
+# between the card and the CPU, so 0.25 leaves a factor of two. desco_tpu's
+# own test allows 0.05 at 4 layers, hidden 16 (tests/test_models.py:515).
+BF16_LOG2_ATOL = 0.25
 
 
 def fail(msg: str) -> None:
@@ -108,41 +139,63 @@ def cuda_ms(torch, fn, reps: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def max_err(torch, out, ref, what: str) -> float:
-    """Check out == ref within rtol 1e-5, atol 1e-5 * max|ref|."""
+def max_err(torch, out, ref, what: str, rtol: float = 1e-5) -> float:
+    """Check out == ref within ``rtol``, atol 1e-5 * max|ref|."""
     check(tuple(out.shape) == tuple(ref.shape),
           f"{what}: shape {tuple(out.shape)} != {tuple(ref.shape)}")
+    check(out.dtype == ref.dtype, f"{what}: {out.dtype} != {ref.dtype}")
+    out, ref = out.float(), ref.float()
     check(bool(torch.isfinite(out).all()), f"{what}: non-finite output")
     err = (out - ref).abs()
     if ref.numel() == 0:
         return 0.0
     atol = 1e-5 * float(ref.abs().max())
-    bad = err > atol + 1e-5 * ref.abs()
+    bad = err > atol + rtol * ref.abs()
     check(not bool(bad.any()),
           f"{what}: {int(bad.sum())} elements off, max err "
           f"{float(err.max()):.3g} (atol {atol:.3g})")
     return float(err.max())
 
 
-def bound(bytes_moved: float, ops: float) -> tuple:
+def bound(bytes_moved: float, ops: float,
+          ops_per_s: float = F32_OPS_PER_S) -> tuple:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def dname(dtype) -> str:
+    return str(dtype).replace("torch.", "").replace("bfloat16", "bf16") \
+        .replace("float32", "f32")
+
+
+def library_graph_ms(fn) -> float:
+    """One PyTorch call timed as the kernels are: 8 calls per CUDA graph."""
+    from desco_tpu_torch.tools.segsum_inner_ablation import graph_us
+
+    return graph_us(lambda i: fn()) / 1e3
+
+
+def graph_ms(graph_rows: dict, key: str, dtype) -> dict:
+    """The CUDA-graph times of one case of ``time_cases``, in ms."""
+    r = graph_rows[f"{key}_{dname(dtype)}"]
+    return {"ms": r["function_us"] / 1e3,
+            "kernel_only_ms": r["alone_us"] / 1e3}
+
+
 # ------------------------------------------------------------ phase 2: K1
-def k1_case(torch, cs, rng, dev, e_live, k, n_seg, pad=0, long_seg=0,
-            neg=0):
+def k1_case(torch, cs, rng, dev, dtype, e_live, k, n_seg, pad=0,
+            long_seg=0, neg=0):
     ids = np.sort(rng.integers(0, max(n_seg, 1), e_live))
     if long_seg:
         ids = np.sort(np.concatenate([ids, np.full(long_seg, n_seg // 2)]))
     ids = np.concatenate([np.full(neg, -1), ids, np.full(pad, PAD_KEY)])
     seg = torch.as_tensor(ids.astype(np.int32), device=dev)
-    msgs = torch.randn(len(ids), k, device=dev)
+    msgs = torch.randn(len(ids), k, device=dev).to(dtype)
     return msgs, seg, n_seg
 
 
-def k1_edge_cases(torch, cs, rng, dev) -> None:
+def k1_edge_cases(torch, cs, rng, dev, dtype) -> None:
     cases = {
         "gaps+negative+pad tail, K=64, E=1001":
             dict(e_live=1001 - 64 - 3, k=64, n_seg=700, pad=64, neg=3),
@@ -154,45 +207,54 @@ def k1_edge_cases(torch, cs, rng, dev) -> None:
         "pooling width K=576": dict(e_live=5000, k=576, n_seg=64, pad=7),
     }
     for name, kw in cases.items():
-        msgs, seg, n = k1_case(torch, cs, rng, dev, **kw)
+        msgs, seg, n = k1_case(torch, cs, rng, dev, dtype, **kw)
         out = cs.sorted_segment_sum(msgs, seg, n)
         torch.cuda.synchronize()
         err = max_err(torch, out, cs.sorted_segment_sum_plain(msgs, seg, n),
-                      f"K1 {name}")
-        print(f"K1 edge case ok: {name} (max err {err:.3g})", flush=True)
+                      f"K1 {dname(dtype)} {name}")
+        print(f"K1 {dname(dtype)} edge case ok: {name} (max err {err:.3g})",
+              flush=True)
 
 
-def k1_main(torch, cs, dev, msgs, seg, n, label) -> dict:
-    """Check K1 at one main-path shape; time kernel, plain, index_add_."""
+def k1_main(torch, cs, dev, msgs, seg, n, label, timed: dict) -> dict:
+    """Check K1 at one main-path shape on msgs' dtype; time the wrapper,
+    the plain version and, for f32 rows, ``index_add_`` (no one PyTorch
+    call sums bf16 rows into f32)."""
     out = cs.sorted_segment_sum(msgs, seg, n)
     torch.cuda.synchronize()
     err = max_err(torch, out, cs.sorted_segment_sum_plain(msgs, seg, n),
-                  f"K1 {label}")
-    ids = seg.long().masked_fill((seg < 0) | (seg >= n), n)
-    lib_out = torch.zeros(n + 1, msgs.shape[1], device=dev)
+                  f"K1 {dname(msgs.dtype)} {label}")
+    library_ms = None
+    if msgs.dtype == torch.float32:
+        ids = seg.long().masked_fill((seg < 0) | (seg >= n), n)
+        lib_out = torch.zeros(n + 1, msgs.shape[1], device=dev)
 
-    def library():
-        lib_out.zero_()
-        lib_out.index_add_(0, ids, msgs)
+        def library():
+            lib_out.zero_()
+            lib_out.index_add_(0, ids, msgs)
 
+        library_ms = library_graph_ms(library)
     e_live = int(((seg >= 0) & (seg < n)).sum())
     k = msgs.shape[1]
-    b_ms, b_by = bound(e_live * k * 4 + seg.numel() * 4 + n * k * 4,
-                       e_live * k)
+    b_ms, b_by = bound(e_live * k * msgs.element_size() + seg.numel() * 4
+                       + n * k * 4, e_live * k)
     row = {
-        "ms": cuda_ms(torch, lambda: cs.sorted_segment_sum(msgs, seg, n)),
+        **timed,
+        "wrapper_ms": cuda_ms(
+            torch, lambda: cs.sorted_segment_sum(msgs, seg, n)),
         "plain_ms": cuda_ms(
             torch, lambda: cs.sorted_segment_sum_plain(msgs, seg, n)),
-        "library_ms": cuda_ms(torch, library),
+        "library_ms": library_ms,
         "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
     }
-    print(f"K1 at {label}: msgs {tuple(msgs.shape)}, {n} segments, "
-          f"{e_live} live rows: {json.dumps(row)}", flush=True)
+    print(f"K1 {dname(msgs.dtype)} at {label}: msgs {tuple(msgs.shape)}, "
+          f"{n} segments, {e_live} live rows: {json.dumps(row)}", flush=True)
     return row
 
 
 # ------------------------------------------------------------ phase 2: K2
-def k2_case(torch, rng, dev, n, t, h, k, e_live, long_seg=0, pad=64):
+def k2_case(torch, rng, dev, dtype, n, t, h, k, e_live, long_seg=0,
+            pad=64):
     dst = rng.integers(0, n - 1, e_live)
     if long_seg:
         dst = np.concatenate([dst, np.full(long_seg, 7)])
@@ -205,11 +267,11 @@ def k2_case(torch, rng, dev, n, t, h, k, e_live, long_seg=0, pad=64):
     x = torch.randn(n, h, device=dev)
     x[n - 1] = 0.0  # the pad node
     w = torch.randn(t, h, k, device=dev) * 0.1
-    return (x, torch.as_tensor(src.astype(np.int32), device=dev),
-            torch.as_tensor(keys.astype(np.int32), device=dev), w)
+    return (x.to(dtype), torch.as_tensor(src.astype(np.int32), device=dev),
+            torch.as_tensor(keys.astype(np.int32), device=dev), w.to(dtype))
 
 
-def k2_edge_cases(torch, cs, rng, dev) -> None:
+def k2_edge_cases(torch, cs, rng, dev, dtype) -> None:
     cases = {
         "N=300 T=6 K=64, E=1001 with pad keys":
             dict(n=300, t=6, h=64, k=64, e_live=1001 - 64),
@@ -221,62 +283,53 @@ def k2_edge_cases(torch, cs, rng, dev) -> None:
         "odd K=33": dict(n=300, t=3, h=16, k=33, e_live=999),
     }
     for name, kw in cases.items():
-        x, src, keys, w = k2_case(torch, rng, dev, **kw)
+        x, src, keys, w = k2_case(torch, rng, dev, dtype, **kw)
         t, n = kw["t"], kw["n"]
         out = cs.fused_typed_transform_aggregate(x, src, keys, w, t, n)
         torch.cuda.synchronize()
         ref = cs.fused_typed_transform_aggregate_plain(x, src, keys, w, t, n)
-        err = max_err(torch, out, ref, f"K2 {name}")
-        print(f"K2 edge case ok: {name} (max err {err:.3g})", flush=True)
+        err = max_err(torch, out, ref, f"K2 {dname(dtype)} {name}")
+        print(f"K2 {dname(dtype)} edge case ok: {name} (max err {err:.3g})",
+              flush=True)
 
 
-def k2_main(torch, cs, dev, batch, conv_w) -> dict:
-    """Check K2 at a real packed target batch of the main request."""
-    t = conv_w.shape[0]
-    n, h = batch.n_cap, conv_w.shape[1]
-    k = conv_w.shape[2]
-    x = torch.randn(n, h, device=dev) * batch.node_mask[:, None]
-    keys = batch.edge_dst * t + batch.edge_type
-    src = batch.edge_src
+def k2_main(torch, cs, dev, case, dtype, timed: dict) -> dict:
+    """Check K2 at a real packed target batch of the main request (the
+    ``k2`` case of ``kernel_cases``), x and W in ``dtype``."""
+    x, conv_w, st = case["x"].to(dtype), case["w"].to(dtype), case["st"]
+    t, h, k = conv_w.shape
+    n, it = st.n_nodes, x.element_size()
+    keys, src = st.keys, st.edge_src
     args = (x, src, keys, conv_w, t, n)
-    out = cs.fused_typed_transform_aggregate(*args)
+    out = cs.fused_typed_transform_aggregate(*args, streams=st)
     torch.cuda.synchronize()
     err = max_err(torch, out, cs.fused_typed_transform_aggregate_plain(*args),
-                  "K2 main-path batch")
+                  f"K2 {dname(dtype)} main-path batch")
     live = keys < n * t
     e_live = int(live.sum())
     # the z rows this batch's live edges read (data-dependent work)
     rows = torch.unique((keys[live] % t).long() * n + src[live].long())
-    z = torch.matmul(x, conv_w).contiguous()
-    bounds_ = torch.arange(n + 1, dtype=torch.int32, device=dev) * t
-    offs = torch.searchsorted(keys, bounds_, out_int32=True)
-    kout = torch.empty(n, k, device=dev)
-    lib = cs.library()
-
-    def kernel_only():
-        cs._check(lib.desco_fused_typed_gather_segsum(
-            z.data_ptr(), src.data_ptr(), keys.data_ptr(), offs.data_ptr(),
-            n, n, t, k, kout.data_ptr(), cs._stream(dev)))
-
     b_ms, b_by = bound(
-        x.numel() * 4 + conv_w.numel() * 4 + src.numel() * 4
+        (x.numel() + conv_w.numel()) * it + src.numel() * 4
         + keys.numel() * 4 + n * k * 4,
-        2 * n * h * k * t + e_live * k)
+        2 * n * h * k * t + e_live * k,
+        F32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S)
     row = {
-        "ms": cuda_ms(torch, lambda: cs.fused_typed_transform_aggregate(
-            *args)),
+        **timed,
+        "wrapper_ms": cuda_ms(
+            torch, lambda: cs.fused_typed_transform_aggregate(
+                *args, streams=st)),
         "plain_ms": cuda_ms(
             torch, lambda: cs.fused_typed_transform_aggregate_plain(*args)),
         "library_ms": None,
         "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
-        "kernel_only_ms": cuda_ms(torch, kernel_only),
         "kernel_only_bound_ms": bound(
-            rows.numel() * k * 4 + e_live * 8 + (n + 1) * 4 + n * k * 4,
+            rows.numel() * k * it + e_live * 8 + (n + 1) * 4 + n * k * 4,
             e_live * k)[0],
     }
-    print(f"K2 at the main path: x {tuple(x.shape)}, {keys.numel()} edge "
-          f"slots ({e_live} live, {rows.numel()} distinct z rows), "
-          f"{t} types: {json.dumps(row)}", flush=True)
+    print(f"K2 {dname(dtype)} at the main path: x {tuple(x.shape)}, "
+          f"{keys.numel()} edge slots ({e_live} live, {rows.numel()} "
+          f"distinct z rows), {t} types: {json.dumps(row)}", flush=True)
     return row
 
 
@@ -293,20 +346,28 @@ def k3_streams(torch, cs, dev, src, keys, t, n):
 
 
 def k3_check(torch, cs, g, x, w, st, what) -> float:
-    """u, dx and dW through the kernel against the plain version."""
-    u = cs.typed_cotangent_sums(g, st)
+    """u, dx and dW through the kernel against the plain version; g is
+    the f32 cotangent, x and w carry the tower's dtype (a bf16 tower
+    reduces the cotangent rows rounded to bf16)."""
+    table = g.to(x.dtype)
+    u = cs.typed_cotangent_sums(table, st)
     dx, dw = cs.typed_aggregate_bwd(g, x, w, st)
     torch.cuda.synchronize()
     gc = g.contiguous()
     dx_ref, dw_ref = cs.typed_aggregate_bwd_plain(gc, x, w, st)
+    check(dx.dtype == x.dtype and dw.dtype == w.dtype,
+          f"K3 {what}: gradients not in the primals' dtypes")
+    # bf16 dx / dW are f32 results rounded: one bf16 step apart at most
+    rtol = 1e-5 if x.dtype == torch.float32 else 2.0 ** -7
+    what = f"{dname(x.dtype)} {what}"
     return max(
-        max_err(torch, u, cs.typed_cotangent_sums_plain(gc, st),
-                f"K3 u, {what}"),
-        max_err(torch, dx, dx_ref, f"K3 dx, {what}"),
-        max_err(torch, dw, dw_ref, f"K3 dW, {what}"))
+        max_err(torch, u, cs.typed_cotangent_sums_plain(
+            table.contiguous(), st), f"K3 u, {what}"),
+        max_err(torch, dx, dx_ref, f"K3 dx, {what}", rtol),
+        max_err(torch, dw, dw_ref, f"K3 dW, {what}", rtol))
 
 
-def k3_edge_cases(torch, cs, rng, dev) -> None:
+def k3_edge_cases(torch, cs, rng, dev, dtype) -> None:
     cases = {
         "N=300 T=6 K=64, pad edges last":
             dict(n=300, t=6, h=64, k=64, e_live=1001 - 64),
@@ -318,7 +379,7 @@ def k3_edge_cases(torch, cs, rng, dev) -> None:
         "odd K=33": dict(n=300, t=3, h=16, k=33, e_live=999),
     }
     for name, kw in cases.items():
-        x, src, keys, w = k2_case(torch, rng, dev, **kw)
+        x, src, keys, w = k2_case(torch, rng, dev, dtype, **kw)
         t, n, k = kw["t"], kw["n"], kw["k"]
         if kw.get("long_seg"):  # k2_case made one long destination row:
             # swap the roles so one source sends the long run instead
@@ -340,57 +401,49 @@ def k3_edge_cases(torch, cs, rng, dev) -> None:
         ones = torch.ones((), device=dev).expand(n, k)
         err = max(err, k3_check(torch, cs, ones, x, w, st,
                                 name + ", expanded g"))
-        print(f"K3 edge case ok: {name} (max err {err:.3g})", flush=True)
+        print(f"K3 {dname(dtype)} edge case ok: {name} (max err {err:.3g})",
+              flush=True)
 
 
-def k3_main(torch, cs, dev, batch, conv_w) -> dict:
-    """Check K3 at a real packed training batch; time the whole backward
-    (kernel + the two einsums), its plain version and the kernel alone."""
-    from desco_tpu_torch.models.shmp_gnn import batch_typed_streams
-
+def k3_main(torch, cs, dev, case, dtype, timed: dict) -> dict:
+    """Check K3 at a real packed training batch (the ``k3`` case of
+    ``kernel_cases``); time the whole backward (kernel + the two einsums)
+    and its plain version."""
+    g, st = case["g"], case["st"]
+    x, conv_w = case["x"].to(dtype), case["w"].to(dtype)
     t, h, k = conv_w.shape
-    n = batch.n_cap
-    st = batch_typed_streams(batch, t)
-    x = torch.randn(n, h, device=dev) * batch.node_mask[:, None]
-    g = torch.randn(n, k, device=dev)
+    n, it = st.n_nodes, x.element_size()
     err = k3_check(torch, cs, g, x, conv_w, st, "main-path training batch")
     e_live = int(st.bwd_offs[-1])
     n_seg = n * t
     filled = int((st.bwd_offs[1:] > st.bwd_offs[:-1]).sum())
     g_rows = int(torch.unique(st.bwd_rows[:e_live]).numel())
-    u = torch.empty(n_seg, k, device=dev)
-    lib = cs.library()
-
-    def kernel_only():
-        cs._check(lib.desco_gather_rows_segsum(
-            g.data_ptr(), st.bwd_rows.data_ptr(), st.bwd_offs.data_ptr(),
-            n_seg, n, k, u.data_ptr(), cs._stream(dev)))
-
     einsum_ops = 2 * (2 * n * t * k * h)
     b_ms, b_by = bound(
-        (g.numel() + x.numel() + conv_w.numel()) * 4 + e_live * 4
-        + (n_seg + 1) * 4 + (x.numel() + conv_w.numel()) * 4,
+        g.numel() * 4 + (x.numel() + conv_w.numel()) * it + e_live * 4
+        + (n_seg + 1) * 4 + (x.numel() + conv_w.numel()) * it,
         e_live * k + einsum_ops)
     row = {
-        "ms": cuda_ms(torch, lambda: cs.typed_aggregate_bwd(
+        **timed,
+        "wrapper_ms": cuda_ms(torch, lambda: cs.typed_aggregate_bwd(
             g, x, conv_w, st)),
         "plain_ms": cuda_ms(torch, lambda: cs.typed_aggregate_bwd_plain(
             g, x, conv_w, st)),
         "library_ms": None,
         "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
-        "kernel_only_ms": cuda_ms(torch, kernel_only),
         "kernel_only_bound_ms": bound(
-            g_rows * k * 4 + e_live * 4 + (n_seg + 1) * 4 + n_seg * k * 4,
+            g_rows * k * it + e_live * 4 + (n_seg + 1) * 4 + n_seg * k * 4,
             e_live * k)[0],
     }
-    print(f"K3 at the main path: g {tuple(g.shape)}, {st.keys.numel()} edge "
-          f"slots ({e_live} live), u [{n_seg}, {k}] with {filled} non-empty "
-          f"(source, type) rows, {t} types: {json.dumps(row)}", flush=True)
+    print(f"K3 {dname(dtype)} at the main path: g {tuple(g.shape)}, "
+          f"{st.keys.numel()} edge slots ({e_live} live), u [{n_seg}, {k}] "
+          f"with {filled} non-empty (source, type) rows, {t} types: "
+          f"{json.dumps(row)}", flush=True)
     return row
 
 
 # ------------------------------------------------------------ phase 2: K4
-def k4_edge_cases(torch, cs, rng, dev) -> None:
+def k4_edge_cases(torch, cs, rng, dev, dtype) -> None:
     cases = {
         "gaps+negative+pad tail, K=64, E=1001":
             dict(e_live=1001 - 64 - 3, k=64, n_seg=700, pad=64, neg=3),
@@ -403,42 +456,90 @@ def k4_edge_cases(torch, cs, rng, dev) -> None:
         "pooling width K=576": dict(e_live=5000, k=576, n_seg=64, pad=7),
     }
     for name, kw in cases.items():
-        _, seg, n = k1_case(torch, cs, rng, dev, **kw)
+        _, seg, n = k1_case(torch, cs, rng, dev, torch.float32, **kw)
         k = kw["k"]
         g = torch.randn(n, k, device=dev)
         wide = torch.randn(n, 2 * k, device=dev)[:, :k]  # strided
-        err = 0.0
         for gi, tag in ((g, ""), (wide, ", strided g")):
-            out = cs.segment_sum_vjp(gi, seg, n)
+            out = cs.segment_sum_vjp(gi, seg, n, dtype=dtype)
             torch.cuda.synchronize()
-            err = max(err, max_err(
-                torch, out, cs.segment_sum_vjp_plain(gi.contiguous(), seg, n),
-                f"K4 {name}{tag}"))
-        print(f"K4 edge case ok: {name} (max err {err:.3g})", flush=True)
+            ref = cs.segment_sum_vjp_plain(gi.contiguous(), seg, n, dtype)
+            check(out.dtype == dtype and torch.equal(out, ref),
+                  f"K4 {dname(dtype)} {name}{tag}: not equal to the plain "
+                  f"version")
+        print(f"K4 {dname(dtype)} edge case ok: {name} (equal)", flush=True)
 
 
-def k4_main(torch, cs, dev, g, seg, label) -> dict:
-    """Check K4 at one main-path shape; time kernel, plain, index_select."""
+def k4_main(torch, cs, dev, g, seg, dtype, label, timed: dict) -> dict:
+    """Check K4 at one main-path shape, the result in ``dtype``; time the
+    wrapper, the plain version and, for f32, ``index_select``."""
     n, k = g.shape
-    out = cs.segment_sum_vjp(g, seg, n)
+    out = cs.segment_sum_vjp(g, seg, n, dtype=dtype)
     torch.cuda.synchronize()
-    err = max_err(torch, out, cs.segment_sum_vjp_plain(g, seg, n),
-                  f"K4 {label}")
-    ids = seg.long().clamp(0, n - 1)
-    lib_out = torch.empty(seg.numel(), k, device=dev)
+    ref = cs.segment_sum_vjp_plain(g, seg, n, dtype)
+    check(torch.equal(out, ref), f"K4 {dname(dtype)} {label}: not equal")
+    library_ms = None
+    if dtype == torch.float32:
+        ids = seg.long().clamp(0, n - 1)
+        lib_out = torch.empty(seg.numel(), k, device=dev)
+        library_ms = library_graph_ms(
+            lambda: torch.index_select(g, 0, ids, out=lib_out))
     b_ms, b_by = bound(g.numel() * 4 + seg.numel() * 4
-                       + seg.numel() * k * 4, 0)
+                       + seg.numel() * k * out.element_size(), 0)
     row = {
-        "ms": cuda_ms(torch, lambda: cs.segment_sum_vjp(g, seg, n)),
+        **timed,
+        "wrapper_ms": cuda_ms(
+            torch, lambda: cs.segment_sum_vjp(g, seg, n, dtype=dtype)),
         "plain_ms": cuda_ms(
-            torch, lambda: cs.segment_sum_vjp_plain(g, seg, n)),
-        "library_ms": cuda_ms(
-            torch, lambda: torch.index_select(g, 0, ids, out=lib_out)),
-        "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+            torch, lambda: cs.segment_sum_vjp_plain(g, seg, n, dtype)),
+        "library_ms": library_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0.0,
     }
-    print(f"K4 at {label}: g {tuple(g.shape)} -> d [{seg.numel()}, {k}]: "
-          f"{json.dumps(row)}", flush=True)
+    print(f"K4 {dname(dtype)} at {label}: g {tuple(g.shape)} -> d "
+          f"[{seg.numel()}, {k}]: {json.dumps(row)}", flush=True)
     return row
+
+
+# ------------------------------------------------------------ phase 2: K5
+def k5_checks(torch, cs, probe, dev, seed: int) -> dict:
+    """The four variants of the K5 probe against their plain versions on
+    the bench edge stream at K = 128 and 64, and on a stream whose length
+    no run divides; ``full`` bit-equal to K1. Returns {variant: error and
+    plain-version ms at K = 128}."""
+    rows = {}
+    for k in (128, 64):
+        msgs, seg, n = probe.bench_stream(dev, k, seed)
+        streams = [(f"bench stream K={k}", msgs, seg, n),
+                   (f"ragged tail K={k}", msgs[:99992], seg[:99992], 777)]
+        for label, m, sg, ns in streams:
+            m, sg = m.contiguous(), sg.contiguous()
+            for name, fn in probe.VARIANTS.items():
+                out = fn(m, sg, ns)
+                torch.cuda.synchronize()
+                ref = probe.PLAIN[name](m, sg, ns)
+                if name == "stream":
+                    check(torch.equal(out[1], ref[1]),
+                          f"K5 stream {label}: check word {int(out[1])} != "
+                          f"{int(ref[1])}")
+                    out, ref = out[0], ref[0]
+                if name == "full":
+                    check(torch.equal(out, cs.sorted_segment_sum(m, sg, ns)),
+                          f"K5 full {label}: not bit-equal to K1")
+                if name in ("noacc", "stream"):  # bit patterns and zeros
+                    check(torch.equal(out, ref),
+                          f"K5 {name} {label}: not equal to the plain version")
+                    err = 0.0
+                else:
+                    err = max_err(torch, out, ref, f"K5 {name} {label}")
+                if k == 128 and label.startswith("bench"):
+                    rows[name] = {
+                        "max_abs_err": err,
+                        "plain_ms": cuda_ms(
+                            torch, lambda: probe.PLAIN[name](m, sg, ns),
+                            reps=10, warmup=2)}
+            print(f"K5 variants ok on the {label}: msgs {tuple(m.shape)}, "
+                  f"{ns} segments", flush=True)
+    return rows
 
 
 # ------------------------------------------------- phase 5: gradient check
@@ -508,12 +609,16 @@ def main() -> int:
     from desco_tpu_torch.graph.canonical import canonical_neighborhood
     from desco_tpu_torch.models import gossip as gossip_mod
     from desco_tpu_torch.models import neighborhood as neigh_mod
+    from desco_tpu_torch.ops import cuda_build
     from desco_tpu_torch.ops import cuda_segment as cs
     from desco_tpu_torch.pipeline import (
         PipelineConfig, build_query_batch, model_configs,
         neighborhood_predictions, pipeline_queries, prepare_gossip_batches,
         prepare_stage_data, train_gossip_stage, train_neighborhood_stage)
     from desco_tpu_torch.serving import CountingService
+    from desco_tpu_torch.tools import segsum_inner_ablation as probe
+    from desco_tpu_torch.train import loop as train_loop
+    from desco_tpu_torch.train.checkpoint import load_checkpoint
     from desco_tpu_torch.truth import native as truth_native
 
     # ---------------------------------------------------- 1. environment
@@ -524,10 +629,15 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}, count "
           f"{torch.cuda.device_count()}", flush=True)
     t0 = time.perf_counter()
+    cuda_build.build_all()  # one nvcc per source, started together
     cs.library()
-    print(f"kernels built from {os.path.relpath(cs.SOURCE, REPO)} with "
-          f"nvcc {' '.join(cs.NVCC_FLAGS)} in {cs.build_seconds:.2f} s "
-          f"(load {time.perf_counter() - t0:.2f} s)", flush=True)
+    probe.library()
+    print(f"kernels built from {os.path.relpath(cs.SOURCE, REPO)} and "
+          f"{os.path.relpath(probe.SOURCE, REPO)} with nvcc "
+          f"{' '.join(cuda_build.NVCC_FLAGS)} in "
+          f"{json.dumps({k: round(v, 2) for k, v in cuda_build.build_seconds.items()})} "
+          f"s, in parallel (build and load {time.perf_counter() - t0:.2f} "
+          f"s)", flush=True)
     t0 = time.perf_counter()
     engine = truth_native.engine()
     print(f"VF2 / sample-prep engine: {engine} "
@@ -595,43 +705,64 @@ def main() -> int:
 
     # -------------------------------------------------------- 2. kernels
     krng = np.random.default_rng(args.seed + 1)
+    f32, bf16 = torch.float32, torch.bfloat16
     with torch.inference_mode():
-        k1_edge_cases(torch, cs, krng, dev)
-        k2_edge_cases(torch, cs, krng, dev)
-        k3_edge_cases(torch, cs, krng, dev)
-        k4_edge_cases(torch, cs, krng, dev)
+        for dtype in (f32, bf16):
+            k1_edge_cases(torch, cs, krng, dev, dtype)
+            k2_edge_cases(torch, cs, krng, dev, dtype)
+            k3_edge_cases(torch, cs, krng, dev, dtype)
+            k4_edge_cases(torch, cs, krng, dev, dtype)
+        k5_rows = k5_checks(torch, cs, probe, dev, args.seed)
+        # the main-path shapes: K2 at a packed target batch of the
+        # 256-graph request; K1 in the gossip direction aggregation
+        # ([E, 128] messages in layer 0) and in the target tower's graph
+        # pooling; K3 behind every K2 of a training step; K4 behind the
+        # gossip direction aggregation (its largest use) and behind
+        # pooling
         tb = main_stage.batches[0].to(dev)
         conv_w = svc.neigh_params["target"]["conv"].w[3].contiguous()
-        k2_row = k2_main(torch, cs, dev, tb, conv_w)
-        # K1 runs in the gossip direction aggregation ([E, 128] messages
-        # in layer 0) and in the target tower's graph pooling
         gb = prepare_gossip_batches(
             svc.cfg, main_stage,
             np.zeros((len(main_stage.samples), 29)),
             capacities=lambda s: svc._pin_caps(
                 svc._gossip_buckets, s, svc.cfg.gossip_batch_size))[0].to(dev)
-        xg = torch.randn(gb.n_cap, 128, device=dev) * gb.node_mask[:, None]
-        k1_row = k1_main(torch, cs, dev,
-                         xg[gb.edge_src.long()].contiguous(),
-                         gb.edge_dst * 2 + gb.edge_type, 2 * gb.n_cap,
-                         "the gossip layer-0 aggregation")
-        emb = torch.randn(tb.n_cap, 576, device=dev) * tb.node_mask[:, None]
-        k1_main(torch, cs, dev, emb, tb.node_graph, tb.g_cap,
-                "the target-tower pooling")
-        # K3 behind every K2 of a training step; K4 behind the gossip
-        # direction aggregation (its largest use) and behind pooling
         trb = tb0.to(dev, training=True)
-        k3_row = k3_main(torch, cs, dev, trb, conv_w)
-        k4_row = k4_main(torch, cs, dev,
-                         torch.randn(2 * gb.n_cap, 128, device=dev),
-                         gb.edge_dst * 2 + gb.edge_type,
-                         "the gossip layer-0 aggregation's backward")
-        k4_main(torch, cs, dev, torch.randn(trb.g_cap, 576, device=dev),
-                trb.node_graph, "the target-tower pooling's backward")
+        cases = probe.kernel_cases(tb, gb, trb, conv_w)
+        t0 = time.perf_counter()
+        graph_rows = probe.time_cases(cases)
+        print(f"CUDA-graph timings of K1-K4 (8 launches per graph): "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        k_rows = {}
+        for dtype in (f32, bf16):
+            d = dname(dtype)
+            c = cases["k1_gossip"]
+            k_rows["k1", d] = k1_main(
+                torch, cs, dev, c["msgs"].to(dtype), c["seg"], c["n"],
+                "the gossip layer-0 aggregation",
+                graph_ms(graph_rows, "k1_gossip", dtype))
+            c = cases["k1_pool"]
+            k_rows["k1_pool", d] = k1_main(
+                torch, cs, dev, c["msgs"].to(dtype), c["seg"], c["n"],
+                "the target-tower pooling",
+                graph_ms(graph_rows, "k1_pool", dtype))
+            k_rows["k2", d] = k2_main(torch, cs, dev, cases["k2"], dtype,
+                                      graph_ms(graph_rows, "k2", dtype))
+            k_rows["k3", d] = k3_main(torch, cs, dev, cases["k3"], dtype,
+                                      graph_ms(graph_rows, "k3", dtype))
+            c = cases["k4_gossip"]
+            k_rows["k4", d] = k4_main(
+                torch, cs, dev, c["g"], c["seg"], dtype,
+                "the gossip layer-0 aggregation's backward",
+                graph_ms(graph_rows, "k4_gossip", dtype))
+            c = cases["k4_pool"]
+            k_rows["k4_pool", d] = k4_main(
+                torch, cs, dev, c["g"], c["seg"], dtype,
+                "the target-tower pooling's backward",
+                graph_ms(graph_rows, "k4_pool", dtype))
+        del cases, gb, trb
 
     # -------------------------------------------------------- 3. serving
-    for kern in cs.KERNELS:
-        kern.launches = 0
+    cs.reset_launches()
     torch.cuda.synchronize()
     timings = {}
     t0 = time.perf_counter()
@@ -646,9 +777,11 @@ def main() -> int:
     t0 = time.perf_counter()
     res_stream = list(svc.count_stream(stream))
     timings["count_stream 4x64 graphs"] = time.perf_counter() - t0
-    launches = {kern.__name__: kern.launches for kern in cs.KERNELS}
+    launches = cs.read_launches()
     print(f"serving-path launches: {json.dumps(launches)}; expected K2 = 8 "
           f"x {sum(n_batches)} target batches", flush=True)
+    check(all(launches[k.__name__ + "_bf16"] == 0 for k in cs.KERNELS),
+          "bf16 launches on the f32 serving path")
     check(launches["fused_typed_transform_aggregate"] == 8 * sum(n_batches),
           "K2 launches != 8 x packed target batches")
     for name in ("sorted_segment_sum", "fused_typed_transform_aggregate"):
@@ -669,18 +802,22 @@ def main() -> int:
                  "repeat vs first 256-graph request")
 
     # verified rows equal an independent VF2 recount
-    rows = res_main.verified_rows
-    check(len(rows) > 0, "no neighborhood was verified")
-    idx = main_stage.nindex.index[rows]
-    nbs = [canonical_neighborhood(main_req[int(g)], int(v), svc.cfg.depth)
-           for g, v in idx]
-    recount = truth_native.parallel_canonical_counts(
-        [nb.graph for nb in nbs], pipeline_queries(svc.cfg))
-    exact = np.stack([c[nb.canonical] for nb, c in zip(nbs, recount)])
-    got = res_main.neighborhood_counts[rows]
-    check(np.array_equal(got, exact.astype(got.dtype)),
-          "verified rows differ from the VF2 recount")
-    print(f"verified rows: {len(rows)} equal the VF2 recount", flush=True)
+    def check_verified(res, what: str) -> None:
+        rows = res.verified_rows
+        check(len(rows) > 0, f"{what}: no neighborhood was verified")
+        idx = main_stage.nindex.index[rows]
+        nbs = [canonical_neighborhood(main_req[int(g)], int(v),
+                                      svc.cfg.depth) for g, v in idx]
+        recount = truth_native.parallel_canonical_counts(
+            [nb.graph for nb in nbs], pipeline_queries(svc.cfg))
+        exact = np.stack([c[nb.canonical] for nb, c in zip(nbs, recount)])
+        got = res.neighborhood_counts[rows]
+        check(np.array_equal(got, exact.astype(got.dtype)),
+              f"{what}: verified rows differ from the VF2 recount")
+        print(f"{what}: {len(rows)} verified rows equal the VF2 recount",
+              flush=True)
+
+    check_verified(res_main, "256-graph request")
 
     for name, sec in timings.items():
         n_g = {"warm-up 16 graphs (first request)": 16}.get(name, 256)
@@ -704,6 +841,67 @@ def main() -> int:
     print(f"CUDA vs CPU (verify_budget=0): neighborhood counts max rel "
           f"{d_neigh:.3g}, node counts max rel {d_node:.3g} (CPU request "
           f"{cpu_s:.1f} s)", flush=True)
+
+    # the same request on the bf16 target tower
+    svc_bf = CountingService(R4_NEIGH, R4_GOSSIP, device="cuda",
+                             config_overrides={"serve_bf16": True})
+    svc_bf._neigh_buckets.update(svc._neigh_buckets)  # the same batches
+    svc_bf._gossip_buckets.update(svc._gossip_buckets)
+    cs.reset_launches()
+    t0 = time.perf_counter()
+    res_bf = svc_bf.count(main_req)
+    bf_s = time.perf_counter() - t0
+    launches_bf = cs.read_launches()
+    n_main = n_batches[1]
+    print(f"serve_bf16 launches: {json.dumps(launches_bf)}; expected K2 = 8 "
+          f"x {n_main} target batches, all on bf16 rows", flush=True)
+    check(launches_bf["fused_typed_transform_aggregate"] == 8 * n_main
+          and launches_bf["fused_typed_transform_aggregate_bf16"]
+          == 8 * n_main, "serve_bf16: K2 launches != 8 x target batches on "
+          "bf16 rows")
+    check(launches_bf["sorted_segment_sum_bf16"] == n_main,
+          "serve_bf16: the bf16 tower's pooling did not run K1 on bf16 rows "
+          "once per target batch")
+    check(launches_bf["sorted_segment_sum"] > n_main,
+          "serve_bf16: the f32 gossip stage did not run K1")
+    check(launches_bf["typed_cotangent_sums"] == 0
+          and launches_bf["segment_sum_vjp"] == 0,
+          "serve_bf16: a backward kernel launched while serving")
+    check_counts(res_bf, 256, "serve_bf16 request")
+    check_verified(res_bf, "serve_bf16 request")
+    print(f"serving 256 graphs with serve_bf16: {bf_s * 1e3:.1f} ms, "
+          f"{256 / bf_s:.1f} graphs/s", flush=True)
+    # raw predictions (before clamp and verification) in log2(count + 1)
+    # space: bf16 against f32 on the card, bf16 on the card against bf16
+    # on the CPU
+    tgt_bf = dataclasses.replace(svc.tgt_cfg, dtype=torch.bfloat16)
+
+    def log2_preds(service, tgt_cfg, batches):
+        counts = train_loop.predict_neighborhood_counts(
+            service.neigh_params, tgt_cfg, service.query_embs, batches,
+            service.device)
+        check(np.isfinite(counts).all() and (counts > -1).all(),
+              "raw predictions not finite")
+        return np.log2(counts + 1.0)
+
+    p32 = log2_preds(svc, svc.tgt_cfg, main_stage.batches)
+    pbf = log2_preds(svc, tgt_bf, main_stage.batches)
+    d_bf = float(np.abs(pbf - p32).max())
+    head = main_stage.batches[:2]
+    cpu_bf = dataclasses.replace(tgt_bf)  # K2's plain version on the CPU
+    t0 = time.perf_counter()
+    pbf_cpu = log2_preds(svc_cpu, cpu_bf, head)
+    d_cpu = float(np.abs(pbf[:len(pbf_cpu)] - pbf_cpu).max())
+    print(f"bf16 tower in log2(count + 1) space, {p32.shape[0]} "
+          f"neighborhoods x 29 queries: max |bf16 - f32| on the card "
+          f"{d_bf:.4f} (mean {float(np.abs(pbf - p32).mean()):.4f}); max "
+          f"|card bf16 - CPU bf16| {d_cpu:.4f} on the first "
+          f"{len(pbf_cpu)} (CPU {time.perf_counter() - t0:.1f} s); bound "
+          f"{BF16_LOG2_ATOL}", flush=True)
+    check(d_bf <= BF16_LOG2_ATOL and d_cpu <= BF16_LOG2_ATOL,
+          f"bf16 tower off by {max(d_bf, d_cpu):.3g} in log2 space "
+          f"(bound {BF16_LOG2_ATOL})")
+    del svc_bf, svc_gpu
 
     # --------------------------------------------------------- 4. daemon
     reqs = [
@@ -786,8 +984,7 @@ def main() -> int:
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
     # ------------------------------------------- 6. training, full width
-    for kern in cs.KERNELS:
-        kern.launches = 0
+    cs.reset_launches()
     n_b = len(train_stage.batches)
     logs = []
 
@@ -800,7 +997,7 @@ def main() -> int:
         tcfg, train_stage, train_stage, qb, log_fn=log, log_every=1,
         ckpt_path=os.path.join(workdir.name, "ck", "neigh"))
     neigh_s = time.perf_counter() - t0
-    after_neigh = {kern.__name__: kern.launches for kern in cs.KERNELS}
+    after_neigh = cs.read_launches()
     steps = tcfg.neigh_epochs * n_b
     check(np.isfinite(res.train_losses).all()
           and np.isfinite(res.val_losses).all(),
@@ -838,7 +1035,7 @@ def main() -> int:
           "stage-1 predictions of the training set malformed")
     print(f"stage-1 predictions of the training set (clamp + VF2 tail "
           f"verification): {time.perf_counter() - t0:.1f} s", flush=True)
-    after_pred = {kern.__name__: kern.launches for kern in cs.KERNELS}
+    after_pred = cs.read_launches()
     check(after_pred["fused_typed_transform_aggregate"]
           == 8 * (2 * steps + n_b),
           "K2 launches != 8 x (train steps + val batches + predict batches)")
@@ -850,7 +1047,7 @@ def main() -> int:
         tcfg, best, tgt_cfg, qry_cfg, qb, gbatches, gbatches, log_fn=log,
         log_every=5, ckpt_path=os.path.join(workdir.name, "ck", "gossip"))
     gossip_s = time.perf_counter() - t0
-    train_launches = {kern.__name__: kern.launches for kern in cs.KERNELS}
+    train_launches = cs.read_launches()
     check(np.isfinite(gres.train_losses).all()
           and np.isfinite(gres.val_losses).all(),
           f"gossip losses not finite: {gres.train_losses}")
@@ -877,8 +1074,58 @@ def main() -> int:
     print(f"training-path launches: {json.dumps(train_launches)}; K3 = 8 x "
           f"{steps} train steps, K2 = 8 x ({steps} train steps + {steps} "
           f"val batches + {n_b} predict batches)", flush=True)
-    for name, n in train_launches.items():
-        check(n > 0, f"kernel {name} never launched on the training path")
+    for kern in cs.KERNELS:
+        check(train_launches[kern.__name__] > 0,
+              f"kernel {kern.__name__} never launched on the training path")
+        check(train_launches[kern.__name__ + "_bf16"] == 0,
+              f"kernel {kern.__name__}: bf16 launches on the f32 training "
+              f"path")
+
+    # the neighborhood stage again, on the bf16 target tower
+    bcfg = dataclasses.replace(tcfg, train_bf16=True)
+    bf_ckpt = os.path.join(workdir.name, "ck", "neigh_bf16")
+    cs.reset_launches()
+    t0 = time.perf_counter()
+    bres, b_tgt_cfg, _ = train_neighborhood_stage(
+        bcfg, train_stage, train_stage, qb, log_fn=log, log_every=1,
+        ckpt_path=bf_ckpt)
+    bf_train_s = time.perf_counter() - t0
+    bf_launches = cs.read_launches()
+    steps_bf = bcfg.neigh_epochs * n_b
+    print(f"train_bf16 launches: {json.dumps(bf_launches)}; expected K3 = "
+          f"8 x {steps_bf} train steps on bf16 rows, K2 = 8 x ({steps_bf} "
+          f"bf16 train steps + {steps_bf} f32 val batches)", flush=True)
+    check(np.isfinite(bres.train_losses).all()
+          and np.isfinite(bres.val_losses).all(),
+          f"train_bf16 losses not finite: {bres.train_losses}")
+    check(bres.train_losses[-1] < bres.train_losses[0],
+          f"train_bf16 loss did not fall: {bres.train_losses}")
+    check(bf_launches["typed_cotangent_sums"] == 8 * steps_bf
+          and bf_launches["typed_cotangent_sums_bf16"] == 8 * steps_bf,
+          "train_bf16: K3 launches != 8 x train steps on bf16 rows")
+    check(bf_launches["fused_typed_transform_aggregate_bf16"] == 8 * steps_bf
+          and bf_launches["fused_typed_transform_aggregate"]
+          == 8 * 2 * steps_bf,
+          "train_bf16: K2 != 8 x train steps on bf16 rows + 8 x val batches "
+          "on f32 rows (validation runs the f32 tower)")
+    check(bf_launches["sorted_segment_sum_bf16"] == steps_bf
+          and bf_launches["segment_sum_vjp_bf16"] == steps_bf,
+          "train_bf16: the bf16 tower's pooling did not run K1 and K4 on "
+          "bf16 rows once per train step")
+    check(b_tgt_cfg.dtype == torch.float32,
+          "train_bf16: the returned target config is not f32")
+    check(all(p.dtype == torch.float32 for p in bres.best_params.parameters()),
+          "train_bf16: the master parameters are not f32")
+    saved = np.load(bf_ckpt + ".best.params.npz")
+    check(all(saved[k].dtype == np.float32 for k in saved.files),
+          "train_bf16: the saved checkpoint is not f32")
+    load_checkpoint(bf_ckpt + ".best")
+    bf_step_ms = 1e3 * float(np.mean(bres.train_times[1:])) / n_b
+    print(f"train_bf16 neighborhood stage: {bcfg.neigh_epochs} epochs x "
+          f"{n_b} steps in {bf_train_s:.1f} s; train loss "
+          f"{bres.train_losses[0]:.4f} -> {bres.train_losses[-1]:.4f}, best "
+          f"val (f32 tower) {bres.best_val:.4f}; {bf_step_ms:.2f} ms per "
+          f"train step (epochs after the first)", flush=True)
 
     # --------------------------------------------------- 7. entry point
     cli_dir = os.path.join(workdir.name, "cli")
@@ -921,30 +1168,86 @@ def main() -> int:
           "checkpoints the entry point wrote", flush=True)
     workdir.cleanup()
 
-    # ------------------------------------------------------ 8. the record
-    def both(name):
-        return dict(launches=launches[name] + train_launches[name],
-                    launches_serving=launches[name],
-                    launches_training=train_launches[name])
+    # ------------------------------------------------ 8. bench and probe
+    bench_keys = ("metric", "value", "unit", "vs_baseline", "graphs_per_s",
+                  "bytes_per_edge_layer", "sol_fraction", "hbm_gbps_assumed",
+                  "train_edges_per_s", "train_step_ms", "dtype", "device",
+                  "launches")
+    bench = {}
+    for dt_name in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "desco_tpu_torch.bench", "--dtype",
+             dt_name], capture_output=True, text=True, timeout=600, cwd=REPO)
+        check(proc.returncode == 0, f"python -m desco_tpu_torch.bench --dtype "
+              f"{dt_name} exited {proc.returncode}: {proc.stderr[-3000:]}")
+        lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+        check(len(lines) == 1, f"bench printed {len(lines)} lines, not one")
+        line = json.loads(lines[0])
+        check(all(k in line for k in bench_keys),
+              f"bench line lacks {[k for k in bench_keys if k not in line]}")
+        check(line["metric"] ==
+              "shmp_neighborhood_forward_edges_per_s_per_chip"
+              and line["dtype"] == dt_name and line["value"] > 0
+              and line["hbm_gbps_assumed"] == 3350.0
+              and line["device"] == card,
+              f"bench line malformed: {lines[0]}")
+        check(line["launches"]["fused_typed_transform_aggregate"] == 8,
+              f"bench: K2 launches per forward "
+              f"{line['launches']['fused_typed_transform_aggregate']} != 8")
+        check(0 < line["sol_fraction"] <= 1.05,
+              f"bench: sol_fraction {line['sol_fraction']} outside (0, 1.05]")
+        bench[dt_name] = line
+        print(f"bench --dtype {dt_name} ({time.perf_counter() - t0:.1f} s "
+              f"with process start): {lines[0]}", flush=True)
 
-    kernels = [
-        dict(name="sorted_segment_sum (K1)", route="cuda",
-             source="desco_tpu_torch/csrc/segment_sum.cu",
-             replaces="desco_tpu/ops/pallas_segment.py:310",
-             **both("sorted_segment_sum"), **k1_row),
-        dict(name="fused_typed_transform_aggregate (K2)", route="cuda",
-             source="desco_tpu_torch/csrc/segment_sum.cu",
-             replaces="desco_tpu/ops/pallas_segment.py:476",
-             **both("fused_typed_transform_aggregate"), **k2_row),
-        dict(name="typed_cotangent_sums (K3)", route="cuda",
-             source="desco_tpu_torch/csrc/segment_sum.cu",
-             replaces="desco_tpu/ops/pallas_segment.py:559",
-             **both("typed_cotangent_sums"), **k3_row),
-        dict(name="segment_sum_vjp (K4)", route="cuda",
-             source="desco_tpu_torch/csrc/segment_sum.cu",
-             replaces="desco_tpu/ops/pallas_segment.py:448",
-             **both("segment_sum_vjp"), **k4_row),
-    ]
+    for fn in probe.VARIANTS.values():
+        fn.launches = 0
+    probe_row = probe.probe_series(
+        dev, 128, args.seed, log=lambda line: print(f"  {line}", flush=True))
+    probe_launches = {name: fn.launches
+                      for name, fn in probe.VARIANTS.items()}
+    print(f"probe launches: {json.dumps(probe_launches)}", flush=True)
+    for name, n in probe_launches.items():
+        check(n > 0, f"probe variant {name} never launched in its series")
+
+    # ------------------------------------------------------ 9. the record
+    seg_src = "desco_tpu_torch/csrc/segment_sum.cu"
+    wrappers = {"k1": ("sorted_segment_sum", 310),
+                "k2": ("fused_typed_transform_aggregate", 476),
+                "k3": ("typed_cotangent_sums", 559),
+                "k4": ("segment_sum_vjp", 448)}
+    kernels = []
+    for key, (wrapper, line_no) in wrappers.items():
+        for d, suffix, paths in (
+                ("f32", "", (launches, train_launches, launches_bf,
+                             bf_launches)),
+                ("bf16", "_bf16", (launches_bf, bf_launches))):
+            # f32 rows: every launch of the four paths that was not on
+            # bf16 rows; bf16 rows: the bf16 launches of the bf16 paths
+            if d == "f32":
+                per_path = [p[wrapper] - p[wrapper + "_bf16"] for p in paths]
+            else:
+                per_path = [p[wrapper + "_bf16"] for p in paths]
+            kernels.append(dict(
+                name=f"{wrapper} (K{key[1]}, {d})", route="cuda",
+                source=seg_src,
+                replaces=f"desco_tpu/ops/pallas_segment.py:{line_no}",
+                launches=sum(per_path), launches_per_path=per_path,
+                **k_rows[key, d]))
+            check(sum(per_path) > 0,
+                  f"kernel {wrapper} ({d}) never launched on a main path")
+    for name, r in probe_row["variants"].items():
+        kernels.append(dict(
+            name=f"probe_{name} (K5)", route="cuda",
+            source="desco_tpu_torch/csrc/segment_sum_probe.cu",
+            replaces="analysis/segsum_inner_ablation.py:178",
+            launches=probe_launches[name],
+            max_abs_err=k5_rows[name]["max_abs_err"],
+            ms=r["cold_us"] / 1e3, hot_ms=r["hot_us"] / 1e3,
+            plain_ms=k5_rows[name]["plain_ms"],
+            bound_ms=r["bound_us"] / 1e3, bound_by="bytes",
+            library_ms=None))
     print(f"training summary: truth {truth_s:.2f} s "
           f"({truth_s / n_train_nodes * 1e3:.3f} s per 1000 nodes), "
           f"{neigh_step_ms:.2f} ms per neighborhood train step, "

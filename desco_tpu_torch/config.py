@@ -51,12 +51,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "desco_tpu's other names map to the kernel)")
     n.add_argument("--serve_bf16", action=argparse.BooleanOptionalAction,
                    default=False,
-                   help="bfloat16 target tower at serving time (not "
-                        "ported yet: ROADMAP.md M12)")
+                   help="bfloat16 target tower at serving time (the "
+                        "count head stays f32)")
     n.add_argument("--neigh_bf16_train",
                    action=argparse.BooleanOptionalAction, default=False,
-                   help="bfloat16 target tower during training (not "
-                        "ported yet: ROADMAP.md M12)")
+                   help="bfloat16 target tower in the train step: f32 "
+                        "master parameters and gradients; validation, "
+                        "checkpoints and serving stay f32 unless "
+                        "--serve_bf16")
     n.add_argument("--neigh_degree_feature",
                    action=argparse.BooleanOptionalAction, default=False,
                    help="log2(1+degree) node input feature for both "

@@ -8,8 +8,8 @@
 //
 // A sorted segment stream is CSR: the wrapper (ops/cuda_segment.py) finds
 // the row offsets with one torch.searchsorted and hands them in. One warp
-// owns one segment: its lanes stride the K feature columns with float2 or
-// float4 loads, the edges of the segment are read in order, the sum stays
+// owns one segment: its lanes stride the K feature columns with 2- to
+// 16-byte loads, the edges of the segment are read in order, the sum stays
 // in f32 registers and is written once. No atomics, no spill row, and the
 // result does not depend on the launch (deterministic). Segment ids past
 // the last offset (the padding keys) are never visited.
@@ -24,12 +24,22 @@
 //    table that stays in L2, is what the card has to move.
 // K4 desco_segment_sum_vjp_gather is the backward of K1, desco_tpu's
 //    _ssum_ad_bwd (desco_tpu/ops/pallas_segment.py:464): d[e, :] =
-//    g[seg[e], :] where 0 <= seg[e] < n_segments, else 0. One thread
-//    copies one 16-byte piece of one row; bound by the [E, K] write.
+//    g[seg[e], :] where 0 <= seg[e] < n_segments, else 0, in the dtype of
+//    K1's messages. One thread copies one piece (at most 16 bytes of
+//    output) of one row; bound by the [E, K] write.
+//
+// Row types: the rows a reduction reads (K1's messages, K2's z table,
+// K3's cotangent table) are float32 or bfloat16 (dtype code 0 or 1), as
+// the TPU kernels reduce bf16 rows; every sum is accumulated and written
+// in float32. K4 reads a float32 cotangent and writes float32 or
+// bfloat16 (round to nearest even). A lane's load is the widest of 16,
+// 8, 4 (and for bf16 2) bytes that the row width and the pointers allow
+// (pick_vec), so a 64-wide bf16 row is one 4-byte load per lane.
 //
 // Every function launches on the stream it is given, allocates nothing,
 // and returns cudaGetLastError() (0 on success).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -40,87 +50,210 @@ constexpr int kWarpsPerBlock = 8;
 constexpr int kThreads = kWarp * kWarpsPerBlock;
 constexpr unsigned kFullMask = 0xffffffffu;
 
-template <int VEC>
-struct Row {
-  float v[VEC];
+constexpr int kF32 = 0;   // dtype codes of the C interface
+constexpr int kBf16 = 1;
+
+// What K1's kernel does with a segment. kModeFull is the shipped kernel;
+// the other two exist for the probe library (segment_sum_probe.cu), which
+// strips the kernel in steps to see which part of it costs.
+constexpr int kModeFull = 0;    // offsets read, rows converted and summed
+constexpr int kModeNoOffs = 1;  // fixed run of rows per warp, no offsets
+constexpr int kModeNoAcc = 2;   // kModeNoOffs, rows OR-folded, no convert
+
+// The raw 32-bit words one lane loads from one row: VEC elements of T,
+// 2 to 16 bytes (a 2-byte load is widened into one word).
+template <typename T, int VEC>
+struct Lane {
+  static constexpr int kBytes = VEC * static_cast<int>(sizeof(T));
+  static constexpr int kWords = kBytes >= 4 ? kBytes / 4 : 1;
+  static_assert(kBytes == 2 || kBytes == 4 || kBytes == 8 || kBytes == 16,
+                "a lane loads 2, 4, 8 or 16 bytes");
 };
 
-template <int VEC>
-__device__ __forceinline__ Row<VEC> load_row(const float* __restrict__ p);
+template <int WORDS>
+struct Raw {
+  unsigned w[WORDS];
+};
 
-template <>
-__device__ __forceinline__ Row<1> load_row<1>(const float* __restrict__ p) {
-  Row<1> r;
-  r.v[0] = __ldg(p);
+template <typename T, int VEC>
+__device__ __forceinline__ Raw<Lane<T, VEC>::kWords> load_raw(
+    const T* __restrict__ p) {
+  constexpr int kBytes = Lane<T, VEC>::kBytes;
+  Raw<Lane<T, VEC>::kWords> r;
+  if constexpr (kBytes == 2) {
+    r.w[0] = __ldg(reinterpret_cast<const unsigned short*>(p));
+  } else if constexpr (kBytes == 4) {
+    r.w[0] = __ldg(reinterpret_cast<const unsigned*>(p));
+  } else if constexpr (kBytes == 8) {
+    const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
+    r.w[0] = t.x;
+    r.w[1] = t.y;
+  } else {
+    const uint4 t = __ldg(reinterpret_cast<const uint4*>(p));
+    r.w[0] = t.x;
+    r.w[1] = t.y;
+    r.w[2] = t.z;
+    r.w[3] = t.w;
+  }
   return r;
 }
 
-template <>
-__device__ __forceinline__ Row<2> load_row<2>(const float* __restrict__ p) {
-  const float2 t = __ldg(reinterpret_cast<const float2*>(p));
-  Row<2> r;
-  r.v[0] = t.x;
-  r.v[1] = t.y;
-  return r;
+__device__ __forceinline__ float bf16_bits_to_float(unsigned bits) {
+  return __bfloat162float(
+      __ushort_as_bfloat16(static_cast<unsigned short>(bits & 0xffffu)));
 }
 
-template <>
-__device__ __forceinline__ Row<4> load_row<4>(const float* __restrict__ p) {
-  const float4 t = __ldg(reinterpret_cast<const float4*>(p));
-  Row<4> r;
-  r.v[0] = t.x;
-  r.v[1] = t.y;
-  r.v[2] = t.z;
-  r.v[3] = t.w;
-  return r;
+__device__ __forceinline__ unsigned float_to_bf16_bits(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16(x));  // round to nearest even
 }
 
-template <int VEC>
-__device__ __forceinline__ void add_row(float (&acc)[VEC], const Row<VEC>& r) {
+// acc += the VEC elements of one raw row piece, converted to f32.
+template <typename T, int VEC>
+__device__ __forceinline__ void add_raw(
+    float (&acc)[VEC], const Raw<Lane<T, VEC>::kWords>& r) {
+  if constexpr (sizeof(T) == 4) {
 #pragma unroll
-  for (int i = 0; i < VEC; ++i) acc[i] += r.v[i];
+    for (int i = 0; i < VEC; ++i) acc[i] += __uint_as_float(r.w[i]);
+  } else if constexpr (VEC == 1) {
+    acc[0] += bf16_bits_to_float(r.w[0]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC / 2; ++i) {
+      acc[2 * i] += bf16_bits_to_float(r.w[i]);         // low half first
+      acc[2 * i + 1] += bf16_bits_to_float(r.w[i] >> 16);
+    }
+  }
 }
 
+// One raw row piece folded into the running state of K1's kernel: added
+// to ``acc`` after conversion, or (kModeNoAcc) OR-ed into ``bits``.
+template <typename T, int VEC, int MODE>
+__device__ __forceinline__ void fold_raw(
+    float (&acc)[VEC], unsigned (&bits)[Lane<T, VEC>::kWords],
+    const Raw<Lane<T, VEC>::kWords>& r) {
+  if constexpr (MODE == kModeNoAcc) {
+#pragma unroll
+    for (int i = 0; i < Lane<T, VEC>::kWords; ++i) bits[i] |= r.w[i];
+  } else {
+    add_raw<T, VEC>(acc, r);
+  }
+}
+
+// One row piece of f32 results: 16-byte stores where VEC allows (the
+// dispatch checks the output's alignment), else 8- or 4-byte ones.
 template <int VEC>
 __device__ __forceinline__ void store_row(float* __restrict__ p,
                                           const float (&acc)[VEC]) {
+  if constexpr (VEC % 4 == 0) {
 #pragma unroll
-  for (int i = 0; i < VEC; ++i) p[i] = acc[i];
+    for (int i = 0; i < VEC; i += 4)
+      *reinterpret_cast<float4*>(p + i) =
+          make_float4(acc[i], acc[i + 1], acc[i + 2], acc[i + 3]);
+  } else if constexpr (VEC == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(acc[0], acc[1]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) p[i] = acc[i];
+  }
 }
 
 // K1: out[s, :] = sum of msgs[e, :] for e in [offs[s], offs[s+1]).
 // The rows of one segment are contiguous, so each step of the warp reads
-// one whole message row (K*4 bytes) in one coalesced request; four rows
-// are in flight before the first add.
-template <int VEC>
+// one whole message row in one coalesced request; four rows are in flight
+// before the first add. MODE strips it for the probe: kModeNoOffs gives
+// warp s the fixed rows [s*run, min((s+1)*run, n_rows)) and reads no
+// offsets; kModeNoAcc also replaces convert-and-add by an OR of the raw
+// words and writes each OR-ed element's bit pattern as a number.
+template <typename T, int VEC, int MODE>
 __global__ void __launch_bounds__(kThreads)
-segsum_rows_kernel(const float* __restrict__ msgs, const int* __restrict__ offs,
-                   int n_segments, int k, float* __restrict__ out) {
+segsum_rows_kernel(const T* __restrict__ msgs, const int* __restrict__ offs,
+                   int n_segments, int k, int run, int n_rows,
+                   float* __restrict__ out) {
+  constexpr int kWords = Lane<T, VEC>::kWords;
   const int seg = blockIdx.x * kWarpsPerBlock + (threadIdx.x / kWarp);
   const int lane = threadIdx.x % kWarp;
   if (seg >= n_segments) return;
-  const int lo = offs[seg];
-  const int hi = offs[seg + 1];
+  int lo, hi;
+  if constexpr (MODE == kModeFull) {
+    lo = offs[seg];
+    hi = offs[seg + 1];
+  } else {
+    const long long b = (long long)seg * run;
+    lo = (int)min(b, (long long)n_rows);
+    hi = (int)min(b + run, (long long)n_rows);
+  }
   for (int c0 = 0; c0 < k; c0 += kWarp * VEC) {
     const int c = c0 + lane * VEC;
     if (c >= k) break;  // no warp-wide operation below: lanes may leave
-    const float* __restrict__ col = msgs + c;
+    const T* __restrict__ col = msgs + c;
     float acc[VEC];
+    unsigned bits[kWords];
 #pragma unroll
     for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kWords; ++i) bits[i] = 0u;
     int e = lo;
     for (; e + 4 <= hi; e += 4) {
-      const Row<VEC> r0 = load_row<VEC>(col + (int64_t)e * k);
-      const Row<VEC> r1 = load_row<VEC>(col + (int64_t)(e + 1) * k);
-      const Row<VEC> r2 = load_row<VEC>(col + (int64_t)(e + 2) * k);
-      const Row<VEC> r3 = load_row<VEC>(col + (int64_t)(e + 3) * k);
-      add_row(acc, r0);
-      add_row(acc, r1);
-      add_row(acc, r2);
-      add_row(acc, r3);
+      const Raw<kWords> r0 = load_raw<T, VEC>(col + (int64_t)e * k);
+      const Raw<kWords> r1 = load_raw<T, VEC>(col + (int64_t)(e + 1) * k);
+      const Raw<kWords> r2 = load_raw<T, VEC>(col + (int64_t)(e + 2) * k);
+      const Raw<kWords> r3 = load_raw<T, VEC>(col + (int64_t)(e + 3) * k);
+      fold_raw<T, VEC, MODE>(acc, bits, r0);
+      fold_raw<T, VEC, MODE>(acc, bits, r1);
+      fold_raw<T, VEC, MODE>(acc, bits, r2);
+      fold_raw<T, VEC, MODE>(acc, bits, r3);
     }
-    for (; e < hi; ++e) add_row(acc, load_row<VEC>(col + (int64_t)e * k));
+    for (; e < hi; ++e)
+      fold_raw<T, VEC, MODE>(acc, bits,
+                             load_raw<T, VEC>(col + (int64_t)e * k));
+    if constexpr (MODE == kModeNoAcc) {
+      // the OR-ed bit pattern of each element, as a number
+      if constexpr (sizeof(T) == 4 || VEC == 1) {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) acc[i] = (float)bits[i];
+      } else {
+#pragma unroll
+        for (int i = 0; i < VEC / 2; ++i) {
+          acc[2 * i] = (float)(bits[i] & 0xffffu);
+          acc[2 * i + 1] = (float)(bits[i] >> 16);
+        }
+      }
+    }
     store_row(out + (int64_t)seg * k + c, acc);
+  }
+}
+
+// The walk K2 and K3 share: the lanes hold up to 32 table-row indices
+// (``row``, one per lane, of the edges [base, base + cnt)); the warp takes
+// each by shuffle and adds that row's piece. Four rows are in flight
+// before the first add. Every lane takes part in every shuffle; only
+// lanes with a column in range load.
+template <typename T, int VEC>
+__device__ __forceinline__ void walk_rows(float (&acc)[VEC],
+                                          const T* __restrict__ tc,
+                                          long long row, int cnt, int k,
+                                          bool active) {
+  constexpr int kWords = Lane<T, VEC>::kWords;
+  int j = 0;
+  for (; j + 4 <= cnt; j += 4) {
+    const long long q0 = __shfl_sync(kFullMask, row, j);
+    const long long q1 = __shfl_sync(kFullMask, row, j + 1);
+    const long long q2 = __shfl_sync(kFullMask, row, j + 2);
+    const long long q3 = __shfl_sync(kFullMask, row, j + 3);
+    if (active) {
+      const Raw<kWords> r0 = load_raw<T, VEC>(tc + q0 * k);
+      const Raw<kWords> r1 = load_raw<T, VEC>(tc + q1 * k);
+      const Raw<kWords> r2 = load_raw<T, VEC>(tc + q2 * k);
+      const Raw<kWords> r3 = load_raw<T, VEC>(tc + q3 * k);
+      add_raw<T, VEC>(acc, r0);
+      add_raw<T, VEC>(acc, r1);
+      add_raw<T, VEC>(acc, r2);
+      add_raw<T, VEC>(acc, r3);
+    }
+  }
+  for (; j < cnt; ++j) {
+    const long long q = __shfl_sync(kFullMask, row, j);
+    if (active) add_raw<T, VEC>(acc, load_raw<T, VEC>(tc + q * k));
   }
 }
 
@@ -130,9 +263,9 @@ segsum_rows_kernel(const float* __restrict__ msgs, const int* __restrict__ offs,
 // edges at once (coalesced key/src loads), then the warp walks them,
 // taking each row index by shuffle, so the [E, K] message tensor of the
 // unfused path is never written.
-template <int VEC>
+template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
-fused_gather_segsum_kernel(const float* __restrict__ z,
+fused_gather_segsum_kernel(const T* __restrict__ z,
                            const int* __restrict__ src,
                            const int* __restrict__ keys,
                            const int* __restrict__ offs, int n_nodes,
@@ -149,7 +282,7 @@ fused_gather_segsum_kernel(const float* __restrict__ z,
   for (int c0 = 0; c0 < k; c0 += kWarp * VEC) {
     const int c = c0 + lane * VEC;
     const bool active = c < k;
-    const float* __restrict__ zc = z + (active ? c : 0);
+    const T* __restrict__ zc = z + (active ? c : 0);
     float acc[VEC];
 #pragma unroll
     for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
@@ -162,28 +295,7 @@ fused_gather_segsum_kernel(const float* __restrict__ z,
         const int s = min(max(src[e], 0), n_rows - 1);
         row = (long long)typ * n_rows + s;
       }
-      const int cnt = min(kWarp, hi - base);
-      int j = 0;
-      for (; j + 4 <= cnt; j += 4) {
-        const long long q0 = __shfl_sync(kFullMask, row, j);
-        const long long q1 = __shfl_sync(kFullMask, row, j + 1);
-        const long long q2 = __shfl_sync(kFullMask, row, j + 2);
-        const long long q3 = __shfl_sync(kFullMask, row, j + 3);
-        if (active) {
-          const Row<VEC> r0 = load_row<VEC>(zc + q0 * k);
-          const Row<VEC> r1 = load_row<VEC>(zc + q1 * k);
-          const Row<VEC> r2 = load_row<VEC>(zc + q2 * k);
-          const Row<VEC> r3 = load_row<VEC>(zc + q3 * k);
-          add_row(acc, r0);
-          add_row(acc, r1);
-          add_row(acc, r2);
-          add_row(acc, r3);
-        }
-      }
-      for (; j < cnt; ++j) {
-        const long long q = __shfl_sync(kFullMask, row, j);
-        if (active) add_row(acc, load_row<VEC>(zc + q * k));
-      }
+      walk_rows<T, VEC>(acc, zc, row, min(kWarp, hi - base), k, active);
     }
     if (active) store_row(out + (int64_t)node * k + c, acc);
   }
@@ -194,9 +306,9 @@ fused_gather_segsum_kernel(const float* __restrict__ z,
 // array instead of decoded from a key: the lanes load 32 row indices at
 // once (coalesced), then the warp walks them by shuffle. An empty segment
 // writes its zero row.
-template <int VEC>
+template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
-gather_rows_segsum_kernel(const float* __restrict__ table,
+gather_rows_segsum_kernel(const T* __restrict__ table,
                           const int* __restrict__ rows,
                           const int* __restrict__ offs, int n_segments,
                           int n_rows, int k, float* __restrict__ out) {
@@ -208,7 +320,7 @@ gather_rows_segsum_kernel(const float* __restrict__ table,
   for (int c0 = 0; c0 < k; c0 += kWarp * VEC) {
     const int c = c0 + lane * VEC;
     const bool active = c < k;
-    const float* __restrict__ tc = table + (active ? c : 0);
+    const T* __restrict__ tc = table + (active ? c : 0);
     float acc[VEC];
 #pragma unroll
     for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
@@ -216,56 +328,71 @@ gather_rows_segsum_kernel(const float* __restrict__ table,
       const int e = base + lane;
       long long row = 0;
       if (e < hi) row = min(max(rows[e], 0), n_rows - 1);
-      const int cnt = min(kWarp, hi - base);
-      int j = 0;
-      for (; j + 4 <= cnt; j += 4) {
-        const long long q0 = __shfl_sync(kFullMask, row, j);
-        const long long q1 = __shfl_sync(kFullMask, row, j + 1);
-        const long long q2 = __shfl_sync(kFullMask, row, j + 2);
-        const long long q3 = __shfl_sync(kFullMask, row, j + 3);
-        if (active) {
-          const Row<VEC> r0 = load_row<VEC>(tc + q0 * k);
-          const Row<VEC> r1 = load_row<VEC>(tc + q1 * k);
-          const Row<VEC> r2 = load_row<VEC>(tc + q2 * k);
-          const Row<VEC> r3 = load_row<VEC>(tc + q3 * k);
-          add_row(acc, r0);
-          add_row(acc, r1);
-          add_row(acc, r2);
-          add_row(acc, r3);
-        }
-      }
-      for (; j < cnt; ++j) {
-        const long long q = __shfl_sync(kFullMask, row, j);
-        if (active) add_row(acc, load_row<VEC>(tc + q * k));
-      }
+      walk_rows<T, VEC>(acc, tc, row, min(kWarp, hi - base), k, active);
     }
     if (active) store_row(out + (int64_t)seg * k + c, acc);
   }
 }
 
-// One aligned 4-, 8- or 16-byte store of a row piece.
-__device__ __forceinline__ void store_piece(float* __restrict__ p,
-                                            const float (&a)[1]) {
-  p[0] = a[0];
+// VEC f32 values as one aligned store of VEC elements of T (at most 16
+// bytes), bf16 rounded to nearest even.
+template <typename T, int VEC>
+__device__ __forceinline__ void store_piece(T* __restrict__ p,
+                                            const float (&a)[VEC]) {
+  if constexpr (sizeof(T) == 4) {
+    store_row(reinterpret_cast<float*>(p), a);
+  } else if constexpr (VEC == 1) {
+    *reinterpret_cast<unsigned short*>(p) =
+        static_cast<unsigned short>(float_to_bf16_bits(a[0]));
+  } else {
+    unsigned w[VEC / 2];
+#pragma unroll
+    for (int i = 0; i < VEC / 2; ++i)
+      w[i] = float_to_bf16_bits(a[2 * i]) |
+             (float_to_bf16_bits(a[2 * i + 1]) << 16);
+    if constexpr (VEC == 2) {
+      *reinterpret_cast<unsigned*>(p) = w[0];
+    } else if constexpr (VEC == 4) {
+      *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+    } else {
+      static_assert(VEC == 8, "a bf16 piece has 1, 2, 4 or 8 elements");
+      *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
 }
-__device__ __forceinline__ void store_piece(float* __restrict__ p,
-                                            const float (&a)[2]) {
-  *reinterpret_cast<float2*>(p) = make_float2(a[0], a[1]);
-}
-__device__ __forceinline__ void store_piece(float* __restrict__ p,
-                                            const float (&a)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(a[0], a[1], a[2], a[3]);
+
+// VEC consecutive f32 values: 16-byte loads where VEC allows.
+template <int VEC>
+__device__ __forceinline__ void load_f32(float (&a)[VEC],
+                                         const float* __restrict__ p) {
+  if constexpr (VEC % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < VEC; i += 4) {
+      const float4 t = __ldg(reinterpret_cast<const float4*>(p + i));
+      a[i] = t.x;
+      a[i + 1] = t.y;
+      a[i + 2] = t.z;
+      a[i + 3] = t.w;
+    }
+  } else if constexpr (VEC == 2) {
+    const float2 t = __ldg(reinterpret_cast<const float2*>(p));
+    a[0] = t.x;
+    a[1] = t.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) a[i] = __ldg(p + i);
+  }
 }
 
 // K4: out[e, c..c+VEC) = live(e) ? g[seg[e], c..c+VEC) : 0 with
-// live(e) = 0 <= seg[e] < n_segments. Thread i owns piece i of the
-// [E, K / VEC] grid of row pieces, so a warp writes consecutive bytes.
-template <int VEC>
+// live(e) = 0 <= seg[e] < n_segments; g is f32, out is T. Thread i owns
+// piece i of the [E, K / VEC] grid of row pieces, so a warp writes
+// consecutive bytes.
+template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
-segsum_vjp_gather_kernel(const float* __restrict__ g,
+segsum_vjp_gather_kernel(T* __restrict__ out, const float* __restrict__ g,
                          const int* __restrict__ seg, long long n_pieces,
-                         int pieces_per_row, int n_segments, int k,
-                         float* __restrict__ out) {
+                         int pieces_per_row, int n_segments, int k) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (i >= n_pieces) return;
   const long long e = i / pieces_per_row;
@@ -273,136 +400,190 @@ segsum_vjp_gather_kernel(const float* __restrict__ g,
   const int s = seg[e];
   float acc[VEC];
   if (s >= 0 && s < n_segments) {
-    const Row<VEC> r = load_row<VEC>(g + (int64_t)s * k + c);
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) acc[j] = r.v[j];
+    load_f32(acc, g + (int64_t)s * k + c);
   } else {
 #pragma unroll
     for (int j = 0; j < VEC; ++j) acc[j] = 0.f;
   }
-  store_piece(out + e * k + c, acc);
+  store_piece<T, VEC>(out + e * k + c, acc);
 }
 
 bool aligned(const void* p, uintptr_t bytes) {
   return (reinterpret_cast<uintptr_t>(p) % bytes) == 0;
 }
 
-// Lanes per row: float4 when a warp's 128 columns tile K, float2 for 64,
-// else the widest vector K and the pointers allow.
-int pick_vec(int k, const void* a, const void* b) {
-  const bool a16 = aligned(a, 16) && aligned(b, 16);
-  const bool a8 = aligned(a, 8) && aligned(b, 8);
-  if (k % 128 == 0 && a16) return 4;
-  if (k % 64 == 0 && a8) return 2;
-  if (k % 4 == 0 && k > 64 && a16) return 4;
-  if (k % 2 == 0 && k > 32 && a8) return 2;
+// Elements per lane for rows of K elements of ``elem_bytes`` bytes read
+// from ``in`` and summed into the f32 rows of ``out``: the widest load
+// (16 bytes down to one element) whose warp of 32 lanes tiles K; else the
+// widest that divides K and leaves at most half the lanes idle; else one
+// element. Rows start every K elements, so a load of v elements is
+// aligned when K % v == 0 and the base pointer is.
+int pick_vec(int k, int elem_bytes, const void* in, const void* out) {
+  const int vmax = 16 / elem_bytes;
+  auto fits = [&](int v) {
+    return k % v == 0 && aligned(in, (uintptr_t)v * elem_bytes) &&
+           aligned(out, v >= 4 ? 16 : v * 4);
+  };
+  for (int v = vmax; v > 1; v >>= 1)
+    if (k % (kWarp * v) == 0 && fits(v)) return v;
+  for (int v = vmax; v > 1; v >>= 1)
+    if (k > 16 * v && fits(v)) return v;
   return 1;
 }
+
+// Elements per piece for K4: the widest piece of at most 16 output bytes
+// that divides K and that both pointers are aligned to.
+int pick_piece(int k, int out_elem_bytes, const void* g, const void* out) {
+  for (int v = 16 / out_elem_bytes; v > 1; v >>= 1)
+    if (k % v == 0 && aligned(g, v >= 4 ? 16 : v * 4) &&
+        aligned(out, (uintptr_t)v * out_elem_bytes))
+      return v;
+  return 1;
+}
+
+// Launch ``Launcher::run<T, VEC>`` for a dtype code and an element count
+// per lane; ``ptr`` is the typed pointer, the kernel's first argument.
+template <typename Launcher, typename... Args>
+void dispatch(int dtype, int vec, dim3 grid, cudaStream_t s, void* ptr,
+              Args... args) {
+  if (dtype == kBf16) {
+    __nv_bfloat16* p = static_cast<__nv_bfloat16*>(ptr);
+    switch (vec) {
+      case 8:
+        Launcher::template run<__nv_bfloat16, 8>(grid, s, p, args...);
+        break;
+      case 4:
+        Launcher::template run<__nv_bfloat16, 4>(grid, s, p, args...);
+        break;
+      case 2:
+        Launcher::template run<__nv_bfloat16, 2>(grid, s, p, args...);
+        break;
+      default:
+        Launcher::template run<__nv_bfloat16, 1>(grid, s, p, args...);
+    }
+  } else {
+    float* p = static_cast<float*>(ptr);
+    switch (vec) {
+      case 4:
+        Launcher::template run<float, 4>(grid, s, p, args...);
+        break;
+      case 2:
+        Launcher::template run<float, 2>(grid, s, p, args...);
+        break;
+      default:
+        Launcher::template run<float, 1>(grid, s, p, args...);
+    }
+  }
+}
+
+template <int MODE>
+struct LaunchSegsumRows {
+  template <typename T, int VEC>
+  static void run(dim3 grid, cudaStream_t s, T* msgs, const int* offs,
+                  int n_segments, int k, int run_rows, int n_rows,
+                  float* out) {
+    segsum_rows_kernel<T, VEC, MODE><<<grid, kThreads, 0, s>>>(
+        msgs, offs, n_segments, k, run_rows, n_rows, out);
+  }
+};
+
+struct LaunchFusedGather {
+  template <typename T, int VEC>
+  static void run(dim3 grid, cudaStream_t s, T* z, const int* src,
+                  const int* keys, const int* offs, int n_nodes, int n_rows,
+                  int n_types, int k, float* out) {
+    fused_gather_segsum_kernel<T, VEC><<<grid, kThreads, 0, s>>>(
+        z, src, keys, offs, n_nodes, n_rows, n_types, k, out);
+  }
+};
+
+struct LaunchGatherRows {
+  template <typename T, int VEC>
+  static void run(dim3 grid, cudaStream_t s, T* table, const int* rows,
+                  const int* offs, int n_segments, int n_rows, int k,
+                  float* out) {
+    gather_rows_segsum_kernel<T, VEC><<<grid, kThreads, 0, s>>>(
+        table, rows, offs, n_segments, n_rows, k, out);
+  }
+};
+
+struct LaunchVjpGather {
+  template <typename T, int VEC>
+  static void run(dim3 grid, cudaStream_t s, T* out, const float* g,
+                  const int* seg, long long n_pieces, int pieces_per_row,
+                  int n_segments, int k) {
+    segsum_vjp_gather_kernel<T, VEC><<<grid, kThreads, 0, s>>>(
+        out, g, seg, n_pieces, pieces_per_row, n_segments, k);
+  }
+};
+
+bool known_dtype(int dtype) { return dtype == kF32 || dtype == kBf16; }
 
 }  // namespace
 
 extern "C" {
 
-int desco_segment_sum_abi_version() { return 2; }
+int desco_segment_sum_abi_version() { return 3; }
 
 const char* desco_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-int desco_sorted_segment_sum(const float* msgs, const int* offs,
+int desco_sorted_segment_sum(void* msgs, int dtype, const int* offs,
                              int n_segments, int k, float* out,
                              void* stream) {
   if (n_segments <= 0 || k <= 0) return 0;
+  if (!known_dtype(dtype)) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((n_segments + kWarpsPerBlock - 1) / kWarpsPerBlock);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (pick_vec(k, msgs, out)) {
-    case 4:
-      segsum_rows_kernel<4><<<grid, kThreads, 0, s>>>(msgs, offs, n_segments,
-                                                      k, out);
-      break;
-    case 2:
-      segsum_rows_kernel<2><<<grid, kThreads, 0, s>>>(msgs, offs, n_segments,
-                                                      k, out);
-      break;
-    default:
-      segsum_rows_kernel<1><<<grid, kThreads, 0, s>>>(msgs, offs, n_segments,
-                                                      k, out);
-  }
+  const int vec = pick_vec(k, dtype == kBf16 ? 2 : 4, msgs, out);
+  dispatch<LaunchSegsumRows<kModeFull>>(dtype, vec, grid, s, msgs, offs,
+                                        n_segments, k, 0, 0, out);
   return static_cast<int>(cudaGetLastError());
 }
 
-int desco_fused_typed_gather_segsum(const float* z, const int* src,
+int desco_fused_typed_gather_segsum(void* z, int dtype, const int* src,
                                     const int* keys, const int* offs,
                                     int n_nodes, int n_rows, int n_types,
                                     int k, float* out, void* stream) {
   if (n_nodes <= 0 || k <= 0) return 0;
+  if (!known_dtype(dtype)) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((n_nodes + kWarpsPerBlock - 1) / kWarpsPerBlock);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (pick_vec(k, z, out)) {
-    case 4:
-      fused_gather_segsum_kernel<4><<<grid, kThreads, 0, s>>>(
-          z, src, keys, offs, n_nodes, n_rows, n_types, k, out);
-      break;
-    case 2:
-      fused_gather_segsum_kernel<2><<<grid, kThreads, 0, s>>>(
-          z, src, keys, offs, n_nodes, n_rows, n_types, k, out);
-      break;
-    default:
-      fused_gather_segsum_kernel<1><<<grid, kThreads, 0, s>>>(
-          z, src, keys, offs, n_nodes, n_rows, n_types, k, out);
-  }
+  const int vec = pick_vec(k, dtype == kBf16 ? 2 : 4, z, out);
+  dispatch<LaunchFusedGather>(dtype, vec, grid, s, z, src, keys, offs,
+                              n_nodes, n_rows, n_types, k, out);
   return static_cast<int>(cudaGetLastError());
 }
 
-int desco_gather_rows_segsum(const float* table, const int* rows,
+int desco_gather_rows_segsum(void* table, int dtype, const int* rows,
                              const int* offs, int n_segments, int n_rows,
                              int k, float* out, void* stream) {
   if (n_segments <= 0 || k <= 0 || n_rows <= 0) return 0;
+  if (!known_dtype(dtype)) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((n_segments + kWarpsPerBlock - 1) / kWarpsPerBlock);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (pick_vec(k, table, out)) {
-    case 4:
-      gather_rows_segsum_kernel<4><<<grid, kThreads, 0, s>>>(
-          table, rows, offs, n_segments, n_rows, k, out);
-      break;
-    case 2:
-      gather_rows_segsum_kernel<2><<<grid, kThreads, 0, s>>>(
-          table, rows, offs, n_segments, n_rows, k, out);
-      break;
-    default:
-      gather_rows_segsum_kernel<1><<<grid, kThreads, 0, s>>>(
-          table, rows, offs, n_segments, n_rows, k, out);
-  }
+  const int vec = pick_vec(k, dtype == kBf16 ? 2 : 4, table, out);
+  dispatch<LaunchGatherRows>(dtype, vec, grid, s, table, rows, offs,
+                             n_segments, n_rows, k, out);
   return static_cast<int>(cudaGetLastError());
 }
 
+// ``dtype`` is the output's (the dtype of K1's messages); g is f32.
 int desco_segment_sum_vjp_gather(const float* g, const int* seg, int n_edges,
-                                 int n_segments, int k, float* out,
+                                 int n_segments, int k, void* out, int dtype,
                                  void* stream) {
   if (n_edges <= 0 || k <= 0) return 0;
-  // the widest piece that divides K and that both pointers are aligned to
-  int vec = 1;
-  if (k % 4 == 0 && aligned(g, 16) && aligned(out, 16)) vec = 4;
-  else if (k % 2 == 0 && aligned(g, 8) && aligned(out, 8)) vec = 2;
+  if (!known_dtype(dtype)) return static_cast<int>(cudaErrorInvalidValue);
+  const int vec = pick_piece(k, dtype == kBf16 ? 2 : 4, g, out);
   const int ppr = k / vec;
   const long long n_pieces = (long long)n_edges * ppr;
   const long long blocks = (n_pieces + kThreads - 1) / kThreads;
   if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((unsigned)blocks);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (vec) {
-    case 4:
-      segsum_vjp_gather_kernel<4><<<grid, kThreads, 0, s>>>(
-          g, seg, n_pieces, ppr, n_segments, k, out);
-      break;
-    case 2:
-      segsum_vjp_gather_kernel<2><<<grid, kThreads, 0, s>>>(
-          g, seg, n_pieces, ppr, n_segments, k, out);
-      break;
-    default:
-      segsum_vjp_gather_kernel<1><<<grid, kThreads, 0, s>>>(
-          g, seg, n_pieces, ppr, n_segments, k, out);
-  }
+  dispatch<LaunchVjpGather>(dtype, vec, grid, s, out, g, seg, n_pieces, ppr,
+                            n_segments, k);
   return static_cast<int>(cudaGetLastError());
 }
 

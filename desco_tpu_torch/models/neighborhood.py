@@ -54,9 +54,14 @@ def count_head(params, emb_targets: torch.Tensor,
                emb_queries: torch.Tensor) -> torch.Tensor:
     """pred[g, q] for all (target graph, query) pairs:
     Linear(2H -> 4H) . LeakyReLU(0.01) . Linear(4H -> 1) on
-    cat(target, query), with W1 split into its target and query halves."""
+    cat(target, query), with W1 split into its target and query halves.
+    The head is f32: a bf16 target tower's embedding is cast up here, and
+    nowhere earlier (JAX promotes bf16 @ f32 silently at this matmul,
+    desco_tpu/models/neighborhood.py:71; torch.matmul raises on mixed
+    types)."""
     w1, b1 = params["count1"].w, params["count1"].b
     w2, b2 = params["count2"].w, params["count2"].b
+    emb_targets = emb_targets.to(w1.dtype)
     h = emb_queries.shape[-1]
     wt, wq = w1[:h], w1[h:]
     # [G, 4H] + [Q, 1, 4H] -> [Q, G, 4H]

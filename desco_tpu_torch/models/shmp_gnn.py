@@ -29,14 +29,23 @@ caller hands one generator (on the tensors' device) and the masks are
 drawn from it in the fixed order of the forward. The two packages draw
 different masks from the same seed; parity tests run with dropout 0.
 
+``cfg.dtype=torch.bfloat16`` runs a whole tower in bf16 (desco_tpu's
+``SHMPConfig.dtype``): the parameters stay f32 ``nn.Parameter``s, the
+masters, and are cast inside the forward (``cast_params``), so autograd
+returns f32 gradients; activations, the transform z = x @ W and the
+update linears run in bf16; every segment reduction accumulates in f32
+(K1, K2 and their plain versions) and is folded back to bf16. The count
+head lives outside this module and stays f32.
+
 Padding invariant: node features of padding slots are forced to zero
-after every dense op, so padded edges (src = pad node) contribute nothing.
+after every dense op, so padded edges (src = pad node) contribute nothing;
+it survives the bf16 casts (the mask is 0 or 1 in either type).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -44,15 +53,15 @@ from torch import nn
 
 from ..batch.packed import PackedGraphs
 from ..ops.segment import graph_pool_sum, typed_edge_aggregate
-from .init import linear_params, mlp_params
+from .init import Linear, linear_params, mlp_params
 
 AGG_MODES = ("aggregate_first", "kernel")
 
 
 @dataclasses.dataclass(frozen=True)
 class SHMPConfig:
-    """Static model configuration (desco_tpu's SHMPConfig minus the dtype
-    and the per-node output of the baselines)."""
+    """Static model configuration (desco_tpu's SHMPConfig minus the
+    per-node output of the baselines)."""
 
     n_node_types: int = 2
     n_edge_types: int = 6
@@ -65,6 +74,9 @@ class SHMPConfig:
     dropout: float = 0.0
     use_anchor: bool = True        # anchor MLP on canonical nodes
     canonical_type: int = 1
+    # the tower's working type: float32, or bfloat16 with f32 master
+    # parameters and f32 accumulation in every segment reduction
+    dtype: torch.dtype = torch.float32
     # 'aggregate_first': gather + K1 into [N, T, H], then one
     # [N, T*H] @ [T*H, K] matmul (desco_tpu's CPU default);
     # 'kernel': K2, z = x @ W[t] then the fused gather-reduce
@@ -76,6 +88,9 @@ class SHMPConfig:
             raise NotImplementedError(
                 f"conv_type={self.conv_type!r}: the port has SAGE only so "
                 f"far (GIN, GCN, GAT, PNA: ROADMAP.md, Queue 1 M3)")
+        if self.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"dtype={self.dtype}: a tower runs in "
+                             f"torch.float32 or torch.bfloat16")
         if self.agg_mode not in AGG_MODES:
             raise ValueError(f"agg_mode={self.agg_mode!r}: the port has "
                              f"{', '.join(AGG_MODES)}")
@@ -104,6 +119,30 @@ def init_shmp(cfg: SHMPConfig,
     if cfg.use_anchor:
         params["anchor"] = linear_params(p, p, generator=g)
     return params
+
+
+class _CastLinear(NamedTuple):
+    """A ``Linear``'s (w, b) cast to a tower's working type."""
+
+    w: torch.Tensor
+    b: torch.Tensor
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return x @ self.w + self.b
+
+
+def cast_params(params, dtype: torch.dtype):
+    """The tower's parameter tree with every f32 leaf cast to ``dtype``
+    (the tree itself for f32): desco_tpu's ``cast_params``. The stored
+    parameters stay the f32 masters; the casts are part of the forward's
+    graph, so their gradients arrive in f32."""
+    if dtype == torch.float32:
+        return params
+    if isinstance(params, Linear):
+        return _CastLinear(params.w.to(dtype), params.b.to(dtype))
+    if isinstance(params, nn.ModuleList):
+        return [cast_params(m, dtype) for m in params]
+    return {name: cast_params(m, dtype) for name, m in params.items()}
 
 
 def _per_type_linear(x, w, b, node_type, n_types):
@@ -184,7 +223,10 @@ def run_shmp_layers(params, cfg: SHMPConfig, x, ntype, nmask,
     conv, upd = params["conv"], params["upd"]
     embs = [x]
     for l in range(cfg.layer_num):
-        x_neigh = aggregate_fn(x, conv.w[l])
+        # the aggregation accumulates and returns f32 (K2 does, and its
+        # plain version): fold back to the tower's type so a bf16 tower
+        # stays bf16 through the concat / update chain
+        x_neigh = aggregate_fn(x, conv.w[l]).to(cfg.dtype)
         bias_by_ntype = x.new_zeros(
             (cfg.n_node_types, conv.b.shape[-1])).index_add_(
                 0, dst_t, conv.b[l])
@@ -206,11 +248,18 @@ def apply_shmp_core(params, cfg: SHMPConfig, batch: PackedGraphs,
                     generator: Optional[torch.Generator] = None
                     ) -> torch.Tensor:
     """BaseGNNCore.forward: [N, post_input_dim] concat-skip embeddings
-    with padded rows zeroed."""
-    nmask = batch.node_mask[:, None]
+    with padded rows zeroed, in ``cfg.dtype``."""
+    return _shmp_core(cast_params(params, cfg.dtype), cfg, batch, train,
+                      generator)
+
+
+def _shmp_core(params, cfg: SHMPConfig, batch: PackedGraphs, train,
+               generator) -> torch.Tensor:
+    """``apply_shmp_core`` on parameters already cast to ``cfg.dtype``."""
+    nmask = batch.node_mask[:, None].to(cfg.dtype)
     ntype = batch.node_type
-    x = _per_type_linear(batch.x, params["pre"].w, params["pre"].b,
-                         ntype, cfg.n_node_types)
+    x = _per_type_linear(batch.x.to(cfg.dtype), params["pre"].w,
+                         params["pre"].b, ntype, cfg.n_node_types)
     x = x * nmask
     return run_shmp_layers(params, cfg, x, ntype, nmask,
                            packed_aggregator(cfg, batch), train, generator)
@@ -220,13 +269,14 @@ def apply_shmp(params, cfg: SHMPConfig, batch: PackedGraphs,
                train: bool = False,
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """BaseGNN.forward: core -> anchor MLP on canonical nodes -> global
-    add pool -> post MLP. Returns [G, out]."""
-    emb = apply_shmp_core(params, cfg, batch, train, generator)
+    add pool -> post MLP. Returns [G, out] in ``cfg.dtype``."""
+    params = cast_params(params, cfg.dtype)
+    emb = _shmp_core(params, cfg, batch, train, generator)
     if cfg.use_anchor:
         anchored = F.leaky_relu(params["anchor"](emb), negative_slope=0.1)
         is_canon = (batch.node_type == cfg.canonical_type)[:, None]
         emb = torch.where(is_canon, anchored, emb)
-    emb = emb * batch.node_mask[:, None]
+    emb = emb * batch.node_mask[:, None].to(cfg.dtype)
     pooled = graph_pool_sum(emb, batch.node_graph, batch.g_cap)
     return _apply_post(params["post"], pooled, cfg.dropout, train, generator)
 

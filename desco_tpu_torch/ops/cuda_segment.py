@@ -42,8 +42,17 @@ never exists; K3 gathers the cotangent row g[dst] the same way, so
 and offsets of a batch (``TypedStreams``) are derived once per batch,
 not in every layer of every step as desco_tpu's jitted step re-derives
 them. None of the TPU kernel's structure (one-hot MXU matmuls, 128-lane
-padding, SEG_TILE/CE/GSZ tiles, VMEM guard, the bf16 cast of cotangents)
-is carried over: inputs are f32 and accumulate in f32.
+padding, SEG_TILE/CE/GSZ tiles, VMEM guard) is carried over.
+
+Types: the rows a reduction reads are float32 or bfloat16, as the TPU
+kernels reduce bf16 rows with f32 accumulation (pallas_segment.py:322,
+:503-508, :582-586). K1 takes bf16 messages, K2 a bf16 x and W (z = x @ W
+stays bf16, as ``_fused_legacy``'s ``zp``), K3 a bf16 cotangent table;
+all three accumulate and return f32, and the caller folds back to its
+working type. K4 reads the f32 cotangent of K1's output and writes the
+dtype of K1's messages (``_ssum_ad_bwd``, :464-469). Nothing up-casts an
+[E, K] tensor on the card: the kernels convert in registers. Mixed types
+(a bf16 x with an f32 W) raise.
 
 Gradients: ``sorted_segment_sum`` and ``fused_typed_transform_aggregate``
 are ``torch.autograd.Function``s on every device. Their backward is K4
@@ -55,7 +64,7 @@ Each wrapper takes its plain version only for CPU tensors; a CUDA tensor
 launches the kernel or raises. Each counts its launches in a plain int
 attribute (``sorted_segment_sum.launches``) so a run can show that the
 main path went through the kernel. The library is built from
-``csrc/segment_sum.cu`` with nvcc at first use, into
+``csrc/segment_sum.cu`` with nvcc at first use (ops/cuda_build.py), into
 ``desco_tpu_torch/build/kernels/`` (listed in .gitignore); nothing here
 touches CUDA when the module is imported.
 """
@@ -64,68 +73,21 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 import threading
-import time
 from typing import Optional
 
 import torch
 
+from . import cuda_build
 from .segment import segment_sum, typed_transform_aggregate
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "segment_sum.cu")
-_BUILD_DIR = os.path.join(_PKG_DIR, "build", "kernels")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+STEM = "desco_segment"
+SOURCE = cuda_build.source_path(STEM)
+ROW_DTYPES = (torch.float32, torch.bfloat16)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _lib = None
 _lock = threading.Lock()
-build_seconds = 0.0  # time the last build in this process took (0: cached)
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    for cand in ((os.path.join(home, "bin", "nvcc") if home else None),
-                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError(
-        "nvcc not found (set CUDA_HOME): the CUDA kernels of "
-        "desco_tpu_torch are built from csrc/segment_sum.cu at first use")
-
-
-def build() -> str:
-    """Compile the kernel library if this source and these flags have no
-    build yet; return its path. The file name carries a digest of both,
-    and the rename is atomic, so concurrent processes share one build."""
-    global build_seconds
-    with open(SOURCE, "rb") as f:
-        src = f.read()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    so_path = os.path.join(_BUILD_DIR, f"libdesco_segment-{tag}.so")
-    if os.path.exists(so_path) and os.path.getsize(so_path) > 0:
-        return so_path
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    t0 = time.perf_counter()
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed to build {SOURCE}:\n{proc.stderr[-4000:]}")
-        os.replace(tmp, so_path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    build_seconds = time.perf_counter() - t0
-    return so_path
 
 
 def library() -> ctypes.CDLL:
@@ -133,23 +95,24 @@ def library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
+            lib = ctypes.CDLL(cuda_build.build(STEM))
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.desco_segment_sum_abi_version.restype = i
-            if lib.desco_segment_sum_abi_version() != 2:
+            if lib.desco_segment_sum_abi_version() != 3:
                 raise RuntimeError("segment_sum kernel ABI mismatch")
             lib.desco_cuda_error_string.restype = ctypes.c_char_p
             lib.desco_cuda_error_string.argtypes = [i]
             lib.desco_sorted_segment_sum.restype = i
-            lib.desco_sorted_segment_sum.argtypes = [p, p, i, i, p, p]
+            lib.desco_sorted_segment_sum.argtypes = [p, i, p, i, i, p, p]
             lib.desco_fused_typed_gather_segsum.restype = i
             lib.desco_fused_typed_gather_segsum.argtypes = [
-                p, p, p, p, i, i, i, i, p, p]
+                p, i, p, p, p, i, i, i, i, p, p]
             lib.desco_gather_rows_segsum.restype = i
-            lib.desco_gather_rows_segsum.argtypes = [p, p, p, i, i, i, p, p]
+            lib.desco_gather_rows_segsum.argtypes = [
+                p, i, p, p, i, i, i, p, p]
             lib.desco_segment_sum_vjp_gather.restype = i
             lib.desco_segment_sum_vjp_gather.argtypes = [
-                p, p, i, i, i, p, p]
+                p, p, i, i, i, p, i, p]
             _lib = lib
         return _lib
 
@@ -175,10 +138,14 @@ def _require_cuda(*ts) -> None:
             f"{[str(t.device) for t in ts]}")
 
 
-def _require(t: torch.Tensor, name: str, dtype, ndim: int) -> None:
-    if t.dtype != dtype or t.dim() != ndim or not t.is_contiguous():
+def _require(t: torch.Tensor, name: str, dtypes, ndim: int) -> None:
+    """``dtypes``: the dtype, or the tuple of dtypes, the kernel takes."""
+    if isinstance(dtypes, torch.dtype):
+        dtypes = (dtypes,)
+    if t.dtype not in dtypes or t.dim() != ndim or not t.is_contiguous():
+        want = " or ".join(str(d) for d in dtypes)
         raise ValueError(
-            f"{name} must be a contiguous {ndim}-d {dtype} tensor, got "
+            f"{name} must be a contiguous {ndim}-d {want} tensor, got "
             f"{t.dtype} of shape {tuple(t.shape)}"
             f"{'' if t.is_contiguous() else ' (not contiguous)'}")
 
@@ -193,11 +160,57 @@ def _stream(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+def _count(wrapper, dtype) -> None:
+    """One launch of ``wrapper``'s kernel: ``launches`` counts them all,
+    ``launches_bf16`` those on bf16 rows (K4: a bf16 result)."""
+    wrapper.launches += 1
+    if dtype == torch.bfloat16:
+        wrapper.launches_bf16 += 1
+
+
+# -------------------------------------------------------------- launches
+# One function per kernel: the bare launch on the current stream, on
+# tensors the wrapper has checked. The wrappers call them and count; the
+# timing tools call them to time a kernel without its wrapper.
+def launch_k1(msgs, offs, n_segments: int, out) -> None:
+    with torch.cuda.device(msgs.device):
+        _check(library().desco_sorted_segment_sum(
+            msgs.data_ptr(), _DTYPE_CODE[msgs.dtype], offs.data_ptr(),
+            n_segments, msgs.shape[1], out.data_ptr(),
+            _stream(msgs.device)))
+
+
+def launch_k2(z, st: "TypedStreams", out) -> None:
+    with torch.cuda.device(z.device):
+        _check(library().desco_fused_typed_gather_segsum(
+            z.data_ptr(), _DTYPE_CODE[z.dtype], st.edge_src.data_ptr(),
+            st.keys.data_ptr(), st.fwd_offs.data_ptr(), st.n_nodes,
+            st.n_rows, st.n_types, z.shape[-1], out.data_ptr(),
+            _stream(z.device)))
+
+
+def launch_k3(g, st: "TypedStreams", out) -> None:
+    with torch.cuda.device(g.device):
+        _check(library().desco_gather_rows_segsum(
+            g.data_ptr(), _DTYPE_CODE[g.dtype], st.bwd_rows.data_ptr(),
+            st.bwd_offs.data_ptr(), st.n_rows * st.n_types, st.n_nodes,
+            g.shape[1], out.data_ptr(), _stream(g.device)))
+
+
+def launch_k4(g, seg, n_segments: int, out) -> None:
+    with torch.cuda.device(g.device):
+        _check(library().desco_segment_sum_vjp_gather(
+            g.data_ptr(), seg.data_ptr(), seg.shape[0], n_segments,
+            g.shape[1], out.data_ptr(), _DTYPE_CODE[out.dtype],
+            _stream(g.device)))
+
+
 # ------------------------------------------------------------------- K1
 def sorted_segment_sum_plain(msgs: torch.Tensor, seg: torch.Tensor,
                              n_segments: int) -> torch.Tensor:
-    """K1's plain version: ``index_add_`` of the rows into their segment,
-    ids outside [0, n_segments) dropped. [n_segments, K] f32."""
+    """K1's plain version: ``index_add_`` of the rows (f32 or bf16,
+    up-cast to f32) into their segment, ids outside [0, n_segments)
+    dropped. [n_segments, K] f32."""
     return segment_sum(msgs.float(), seg, n_segments)
 
 
@@ -205,7 +218,7 @@ def _sorted_segment_sum_forward(msgs, seg, n_segments):
     if _on_cpu(msgs, seg):
         return sorted_segment_sum_plain(msgs, seg, n_segments)
     _require_cuda(msgs, seg)
-    _require(msgs, "msgs", torch.float32, 2)
+    _require(msgs, "msgs", ROW_DTYPES, 2)
     _require(seg, "seg", torch.int32, 1)
     if seg.shape[0] != msgs.shape[0]:
         raise ValueError(f"seg has {seg.shape[0]} ids for "
@@ -220,12 +233,8 @@ def _sorted_segment_sum_forward(msgs, seg, n_segments):
     bounds = torch.arange(n_segments + 1, dtype=torch.int32,
                           device=msgs.device)
     offs = torch.searchsorted(seg, bounds, out_int32=True)
-    with torch.cuda.device(msgs.device):
-        rc = library().desco_sorted_segment_sum(
-            msgs.data_ptr(), offs.data_ptr(), n_segments, k,
-            out.data_ptr(), _stream(msgs.device))
-    _check(rc)
-    sorted_segment_sum.launches += 1
+    launch_k1(msgs, offs, n_segments, out)
+    _count(sorted_segment_sum, msgs.dtype)
     return out
 
 
@@ -236,47 +245,60 @@ class _SortedSegmentSum(torch.autograd.Function):
     def forward(ctx, msgs, seg, n_segments):
         ctx.save_for_backward(seg)
         ctx.n_segments = n_segments
+        ctx.msgs_dtype = msgs.dtype  # the cotangent follows the primal
         return _sorted_segment_sum_forward(msgs, seg, n_segments)
 
     @staticmethod
     def backward(ctx, g):
         (seg,) = ctx.saved_tensors
-        return segment_sum_vjp(g, seg, ctx.n_segments), None, None
+        return segment_sum_vjp(g, seg, ctx.n_segments,
+                               dtype=ctx.msgs_dtype), None, None
 
 
 def sorted_segment_sum(msgs: torch.Tensor, seg: torch.Tensor,
                        n_segments: int) -> torch.Tensor:
     """Segment-sum of a sorted stream: out[s] = sum of msgs[e] over the
-    edges with seg[e] == s. msgs [E, K] f32; seg [E] int32, ascending;
-    ids >= n_segments (padding keys) and < 0 are dropped. Returns
-    [n_segments, K] f32. Differentiable in msgs (backward: K4)."""
+    edges with seg[e] == s. msgs [E, K] f32 or bf16; seg [E] int32,
+    ascending; ids >= n_segments (padding keys) and < 0 are dropped.
+    Accumulates in f32 and returns [n_segments, K] f32 for either type.
+    Differentiable in msgs (backward: K4, in msgs' dtype)."""
     return _SortedSegmentSum.apply(msgs, seg, n_segments)
 
 
 sorted_segment_sum.launches = 0
+sorted_segment_sum.launches_bf16 = 0
 
 
 # ------------------------------------------------------------------- K4
 def segment_sum_vjp_plain(g: torch.Tensor, seg: torch.Tensor,
-                          n_segments: int) -> torch.Tensor:
+                          n_segments: int,
+                          dtype: Optional[torch.dtype] = None
+                          ) -> torch.Tensor:
     """K4's plain version: ``index_select`` of the cotangent rows by
-    segment id, times the mask of ids inside [0, n_segments)."""
+    segment id, times the mask of ids inside [0, n_segments), cast to
+    ``dtype`` (default: g's)."""
+    dtype = dtype or g.dtype
     ids = seg.long()
     live = (ids >= 0) & (ids < n_segments)
     if n_segments == 0:
-        return g.new_zeros((seg.shape[0], g.shape[1]))
+        return g.new_zeros((seg.shape[0], g.shape[1]), dtype=dtype)
     rows = g.index_select(0, ids.clamp(0, n_segments - 1))
-    return rows * live[:, None].to(g.dtype)
+    return (rows * live[:, None].to(g.dtype)).to(dtype)
 
 
-def segment_sum_vjp(g: torch.Tensor, seg: torch.Tensor,
-                    n_segments: int) -> torch.Tensor:
+def segment_sum_vjp(g: torch.Tensor, seg: torch.Tensor, n_segments: int,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The cotangent of K1's messages: d[e] = g[seg[e]] where
-    0 <= seg[e] < n_segments, else 0. g [n_segments, K] f32 (made
-    contiguous here: autograd hands over expanded or strided cotangents);
-    seg [E] int32. Returns [E, K] f32."""
+    0 <= seg[e] < n_segments, else 0. g [n_segments, K] f32, the
+    cotangent of K1's f32 output (made contiguous here: autograd hands
+    over expanded or strided cotangents); seg [E] int32. Returns [E, K]
+    in ``dtype``, the dtype of K1's messages (f32 or bf16, rounded to
+    nearest even)."""
+    if dtype not in ROW_DTYPES:
+        raise ValueError(f"the cotangent of K1's messages is f32 or bf16, "
+                         f"not {dtype}")
     if _on_cpu(g, seg):
-        return segment_sum_vjp_plain(g, seg, n_segments)
+        return segment_sum_vjp_plain(g, seg, n_segments, dtype)
     _require_cuda(g, seg)
     g = g.contiguous()
     _require(g, "g", torch.float32, 2)
@@ -287,21 +309,18 @@ def segment_sum_vjp(g: torch.Tensor, seg: torch.Tensor,
     e, k = seg.shape[0], g.shape[1]
     if e >= 2 ** 31 - 1:
         raise ValueError(f"{e} rows do not fit the kernel's int32 count")
-    out = torch.empty((e, k), dtype=torch.float32, device=g.device)
+    out = torch.empty((e, k), dtype=dtype, device=g.device)
     if e == 0 or k == 0:
         return out
     if n_segments == 0:
         return out.zero_()
-    with torch.cuda.device(g.device):
-        rc = library().desco_segment_sum_vjp_gather(
-            g.data_ptr(), seg.data_ptr(), e, n_segments, k,
-            out.data_ptr(), _stream(g.device))
-    _check(rc)
-    segment_sum_vjp.launches += 1
+    launch_k4(g, seg, n_segments, out)
+    _count(segment_sum_vjp, dtype)
     return out
 
 
 segment_sum_vjp.launches = 0
+segment_sum_vjp.launches_bf16 = 0
 
 
 # ------------------------------------------------------- K2 and K3 streams
@@ -380,9 +399,10 @@ def typed_streams(edge_src: torch.Tensor, keys: torch.Tensor, n_types: int,
 def fused_typed_transform_aggregate_plain(
         x: torch.Tensor, edge_src: torch.Tensor, keys: torch.Tensor,
         conv_w: torch.Tensor, n_types: int, n_nodes: int) -> torch.Tensor:
-    """K2's plain version, ``_fused_legacy`` in f32: decode dst = key // T
-    and type = key mod T, then ``typed_transform_aggregate`` (transform,
-    gather into edge order, ``index_add_`` over dst)."""
+    """K2's plain version, ``_fused_legacy``: decode dst = key // T and
+    type = key mod T, then ``typed_transform_aggregate`` (transform in
+    x's dtype, gather into edge order, ``index_add_`` over dst in f32).
+    [n_nodes, K] f32."""
     keys = keys.long()
     dst = torch.div(keys, n_types, rounding_mode="floor")
     out = typed_transform_aggregate(x, conv_w, edge_src, dst,
@@ -394,12 +414,15 @@ def fused_typed_transform_aggregate_plain(
 
 
 def _fused_forward(x, conv_w, st: TypedStreams):
+    if x.dtype != conv_w.dtype:
+        raise ValueError(f"x is {x.dtype} and conv_w {conv_w.dtype}: K2 "
+                         f"takes both in one type (f32 or bf16)")
     if _on_cpu(x, st.edge_src, st.keys, conv_w):
         return fused_typed_transform_aggregate_plain(
             x, st.edge_src, st.keys, conv_w, st.n_types, st.n_nodes)
     _require_cuda(x, st.edge_src, st.keys, conv_w, st.fwd_offs)
-    _require(x, "x", torch.float32, 2)
-    _require(conv_w, "conv_w", torch.float32, 3)
+    _require(x, "x", ROW_DTYPES, 2)
+    _require(conv_w, "conv_w", x.dtype, 3)
     n, h = x.shape
     if n != st.n_rows:
         raise ValueError(f"x has {n} rows, the streams were derived for "
@@ -408,17 +431,14 @@ def _fused_forward(x, conv_w, st: TypedStreams):
         raise ValueError(f"conv_w {tuple(conv_w.shape)} does not match "
                          f"{st.n_types} types of width {h}")
     k = conv_w.shape[2]
-    z = torch.matmul(x, conv_w).contiguous()  # [T, N, K], f32 (TF32 off)
+    # [T, N, K] in x's dtype: f32 (TF32 off) or bf16, as _fused_legacy's
+    # bf16 zp; the kernel gathers its rows and accumulates f32
+    z = torch.matmul(x, conv_w).contiguous()
     out = torch.empty((st.n_nodes, k), dtype=torch.float32, device=x.device)
     if st.n_nodes == 0 or k == 0:
         return out
-    with torch.cuda.device(x.device):
-        rc = library().desco_fused_typed_gather_segsum(
-            z.data_ptr(), st.edge_src.data_ptr(), st.keys.data_ptr(),
-            st.fwd_offs.data_ptr(), st.n_nodes, n, st.n_types, k,
-            out.data_ptr(), _stream(x.device))
-    _check(rc)
-    fused_typed_transform_aggregate.launches += 1
+    launch_k2(z, st, out)
+    _count(fused_typed_transform_aggregate, z.dtype)
     return out
 
 
@@ -451,9 +471,11 @@ def fused_typed_transform_aggregate(
     """x_neigh [n_nodes, K]: sum over (dst,type)-sorted edges of
     x[src] @ W[type]. keys [E] int32 = dst*T + type, ascending; padding
     keys >= n_nodes*T decode past the last node and are dropped. x
-    [N, H] f32 with x[pad node] == 0; conv_w [T, H, K] f32.
+    [N, H] with x[pad node] == 0 and conv_w [T, H, K], both f32 or both
+    bf16; the sum is accumulated and returned in f32 for either.
 
-    Differentiable in x and conv_w. ``bwd_perm`` ([E] int32, the edge
+    Differentiable in x and conv_w, the gradients in their dtypes.
+    ``bwd_perm`` ([E] int32, the edge
     slots in (src, type) order with dead edges last, ``edge_bwd_perm`` of
     ``pack_samples``) selects the source-keyed backward K3; without it
     the backward is the legacy one. ``streams`` (``typed_streams`` of
@@ -466,29 +488,31 @@ def fused_typed_transform_aggregate(
 
 
 fused_typed_transform_aggregate.launches = 0
+fused_typed_transform_aggregate.launches_bf16 = 0
 
 
 # ------------------------------------------------------------------- K3
 def typed_cotangent_sums_plain(g: torch.Tensor,
                                st: TypedStreams) -> torch.Tensor:
-    """K3's plain version: ``index_select`` of the cotangent rows of the
-    permuted edges, ``index_add_`` over their source keys."""
+    """K3's plain version: ``index_select`` of the cotangent rows (f32 or
+    bf16, up-cast to f32) of the permuted edges, ``index_add_`` over
+    their source keys. [n_rows*T, K] f32."""
     rows = g.float().index_select(0, st.bwd_rows.long())
     return segment_sum(rows, st.bwd_skey, st.n_rows * st.n_types)
 
 
 def typed_cotangent_sums(g: torch.Tensor, st: TypedStreams) -> torch.Tensor:
     """u [n_rows*T, K]: u[s*T + t] = sum over the live type-t edges
-    s -> d of g[d]. g [n_nodes, K] f32 (made contiguous here: autograd
-    hands over expanded or strided cotangents); ``st`` carries a
-    backward permutation."""
+    s -> d of g[d]. g [n_nodes, K] f32 or bf16 (made contiguous here:
+    autograd hands over expanded or strided cotangents), accumulated and
+    returned in f32; ``st`` carries a backward permutation."""
     if st.bwd_rows is None:
         raise ValueError("the streams carry no backward permutation")
     if _on_cpu(g, st.bwd_rows):
         return typed_cotangent_sums_plain(g, st)
     _require_cuda(g, st.bwd_rows, st.bwd_offs)
     g = g.contiguous()
-    _require(g, "g", torch.float32, 2)
+    _require(g, "g", ROW_DTYPES, 2)
     if g.shape[0] != st.n_nodes:
         raise ValueError(f"g has {g.shape[0]} rows for {st.n_nodes} nodes")
     n_seg, k = st.n_rows * st.n_types, g.shape[1]
@@ -497,41 +521,54 @@ def typed_cotangent_sums(g: torch.Tensor, st: TypedStreams) -> torch.Tensor:
         return out
     if st.n_nodes == 0:
         return out.zero_()
-    with torch.cuda.device(g.device):
-        rc = library().desco_gather_rows_segsum(
-            g.data_ptr(), st.bwd_rows.data_ptr(), st.bwd_offs.data_ptr(),
-            n_seg, st.n_nodes, k, out.data_ptr(), _stream(g.device))
-    _check(rc)
-    typed_cotangent_sums.launches += 1
+    launch_k3(g, st, out)
+    _count(typed_cotangent_sums, g.dtype)
     return out
 
 
 typed_cotangent_sums.launches = 0
+typed_cotangent_sums.launches_bf16 = 0
 
 
 def _bwd_einsums(u, x, conv_w, st: TypedStreams):
+    """dx and dW from the f32 sums u, computed in f32 (JAX promotes a
+    bf16 x or W against the f32 u, pallas_segment.py:587-588; torch
+    raises on mixed types, so the cast is written out) and returned in
+    the primals' dtypes (:589-591)."""
     u = u.view(st.n_rows, st.n_types, u.shape[1])
-    dx = torch.einsum("ntk,thk->nh", u, conv_w)
-    dw = torch.einsum("nh,ntk->thk", x, u)
-    return dx, dw
+    dx = torch.einsum("ntk,thk->nh", u, conv_w.float())
+    dw = torch.einsum("nh,ntk->thk", x.float(), u)
+    return dx.to(x.dtype), dw.to(conv_w.dtype)
+
+
+def _cotangent_table(g, x):
+    """The cotangent table K3 gathers from: for a bf16 tower the rows are
+    rounded to bf16 first, as ``_bwd_perm`` reduces bf16 cotangent rows
+    (an [N, K] cast, not an [E, K] one)."""
+    return g.to(torch.bfloat16) if x.dtype == torch.bfloat16 else g
 
 
 def typed_aggregate_bwd(g, x, conv_w, st: TypedStreams):
     """(dx, dW) of K2 from ONE source-keyed reduction of the output
     cotangent (desco_tpu's ``_bwd_perm``): u by K3, then
-    dx = einsum(u, W) and dW = einsum(x, u)."""
-    return _bwd_einsums(typed_cotangent_sums(g, st), x, conv_w, st)
+    dx = einsum(u, W) and dW = einsum(x, u), in the primals' dtypes."""
+    u = typed_cotangent_sums(_cotangent_table(g, x), st)
+    return _bwd_einsums(u, x, conv_w, st)
 
 
 def typed_aggregate_bwd_plain(g, x, conv_w, st: TypedStreams):
     """``typed_aggregate_bwd`` with K3's plain version."""
-    return _bwd_einsums(typed_cotangent_sums_plain(g, st), x, conv_w, st)
+    u = typed_cotangent_sums_plain(_cotangent_table(g, x), st)
+    return _bwd_einsums(u, x, conv_w, st)
 
 
 def typed_aggregate_bwd_legacy(g, x, conv_w, st: TypedStreams):
     """(dx, dW) of K2 without a backward permutation: desco_tpu's legacy
     ``_bwd`` (pallas_segment.py:524) — per-type masked matmuls and an
-    unsorted ``index_add_`` over the sources, plain torch on any device."""
+    unsorted ``index_add_`` over the sources, plain torch on any device,
+    computed in f32 and returned in the primals' dtypes."""
+    x_dtype, w_dtype = x.dtype, conv_w.dtype
+    x, conv_w = x.float(), conv_w.float()
     keys = st.keys.long()
     dst = torch.div(keys, st.n_types, rounding_mode="floor")
     etype = keys - dst * st.n_types
@@ -548,9 +585,24 @@ def typed_aggregate_bwd_legacy(g, x, conv_w, st: TypedStreams):
         dmsgs = dmsgs + (g_rows @ conv_w[t].T) * m
         dw.append((msgs * m).T @ g_rows)
     dx = segment_sum(dmsgs, st.edge_src, st.n_rows)
-    return dx, torch.stack(dw)
+    return dx.to(x_dtype), torch.stack(dw).to(w_dtype)
 
 
 # every kernel wrapper of this module, for launch accounting
 KERNELS = (sorted_segment_sum, fused_typed_transform_aggregate,
            typed_cotangent_sums, segment_sum_vjp)
+
+
+def reset_launches() -> None:
+    for kern in KERNELS:
+        kern.launches = 0
+        kern.launches_bf16 = 0
+
+
+def read_launches() -> dict:
+    """{wrapper name: launches} and {wrapper name + '_bf16': those on
+    bf16 rows} since the last ``reset_launches``."""
+    out = {kern.__name__: kern.launches for kern in KERNELS}
+    out.update({kern.__name__ + "_bf16": kern.launches_bf16
+                for kern in KERNELS})
+    return out

@@ -5,6 +5,14 @@ The sorted reductions of the serving path (SHMP typed aggregation, the
 gossip direction aggregation, graph pooling) go through the K1 wrapper
 ``ops.cuda_segment.sorted_segment_sum``: its CUDA kernel on the card, its
 plain ``index_add_`` version on the CPU.
+
+bf16 rows (the bf16 target tower) are summed in f32 everywhere, as the
+TPU kernels accumulate them: ``segment_sum`` and
+``typed_transform_aggregate`` return the f32 sums (what K1 and K2
+return), while ``typed_edge_aggregate`` and ``graph_pool_sum`` fold the
+f32 sums back to the rows' dtype, as desco_tpu's return the tower's
+dtype. desco_tpu's XLA path on the CPU accumulates a bf16 scatter in
+bf16, so the two packages agree there to bf16 rounding only.
 """
 
 from __future__ import annotations
@@ -16,7 +24,10 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
     """out[s] = sum of data[i] with segment_ids[i] == s. Ids outside
     [0, num_segments) are dropped, as jax.ops.segment_sum drops them:
-    they land in one spill row that is sliced off (no host sync)."""
+    they land in one spill row that is sliced off (no host sync). bf16
+    data is up-cast and the f32 sums are returned."""
+    if data.dtype == torch.bfloat16:
+        data = data.float()
     ids = segment_ids.long()
     ids = ids.masked_fill((ids < 0) | (ids >= num_segments), num_segments)
     out = data.new_zeros((num_segments + 1,) + tuple(data.shape[1:]))
@@ -32,7 +43,8 @@ def typed_edge_aggregate(
     n_types: int,
 ) -> torch.Tensor:
     """SHMP aggregation: out[i, t] = sum over edges e of type t with
-    dst(e)==i of x[src(e)]. Returns [N, T, H].
+    dst(e)==i of x[src(e)]. Returns [N, T, H] in x's dtype (f32 sums of
+    bf16 rows are rounded back to bf16).
 
     Edges are (dst, type)-sorted on the host, so the combined key
     ``dst*T + t`` is sorted: one gather, then K1 over the keys (padding
@@ -51,7 +63,7 @@ def typed_edge_aggregate(
     seg = edge_dst.int() * n_types + edge_type.int()
     msgs = x.index_select(0, edge_src.long())
     agg = sorted_segment_sum(msgs.contiguous(), seg, n_types * n)
-    return agg.reshape(n, n_types, x.shape[1])
+    return agg.to(x.dtype).reshape(n, n_types, x.shape[1])
 
 
 def typed_transform_aggregate(
@@ -63,14 +75,15 @@ def typed_transform_aggregate(
     n_types: int,
 ) -> torch.Tensor:
     """Transform-first SHMP aggregation: out[i] = sum over edges into i of
-    (x[src] @ W[type]). Returns [N, K] (no bias). Edges whose type or dst
-    is out of range (the padding edges) add nothing. This is K2's plain
-    version (ops/cuda_segment.py)."""
+    (x[src] @ W[type]). Returns [N, K] f32 (no bias): the transform runs
+    in x's dtype (f32 or bf16) and its rows are summed in f32. Edges whose
+    type or dst is out of range (the padding edges) add nothing. This is
+    K2's plain version (ops/cuda_segment.py)."""
     n = x.shape[0]
     flat = torch.matmul(x, conv_w).reshape(n_types * n, conv_w.shape[2])
     idx = edge_type.long() * n + edge_src.long()
     live = (idx >= 0) & (idx < n_types * n)
-    msgs = flat[idx.clamp(0, n_types * n - 1)] * live[:, None]
+    msgs = flat[idx.clamp(0, n_types * n - 1)].float() * live[:, None]
     return segment_sum(msgs, edge_dst, n)
 
 
@@ -79,9 +92,10 @@ def graph_pool_sum(
     node_graph: torch.Tensor,  # [N] i32, sorted; pad nodes -> n_graphs
     n_graphs: int,
 ) -> torch.Tensor:
-    """global_add_pool: [G, H]. Nodes are packed graph by graph, so
-    ``node_graph`` is sorted and K1 applies; pad nodes (id G) drop."""
+    """global_add_pool: [G, H] in node_emb's dtype. Nodes are packed graph
+    by graph, so ``node_graph`` is sorted and K1 applies; pad nodes (id G)
+    drop."""
     from .cuda_segment import sorted_segment_sum
 
     return sorted_segment_sum(node_emb.contiguous(), node_graph.int(),
-                              n_graphs)
+                              n_graphs).to(node_emb.dtype)

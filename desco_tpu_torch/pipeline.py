@@ -9,11 +9,14 @@ graphs -> node clamp and exact-row overrides -> graph-level counts.
 Training adds exact ground truth (C++ VF2, cached on disk), the two
 training stages and the normed-MSE / MAE evaluation per query size.
 
+``serve_bf16`` and ``train_bf16`` run the target tower in bfloat16
+(f32 master parameters, f32 count head, f32 accumulation in every
+segment reduction); everything past the count head stays f32.
+
 Not ported yet, each raising where a config asks for it (ROADMAP.md,
-Queue 1): labeled mode (``use_node_feature``), bf16 serving and training
-(``serve_bf16``, ``train_bf16``), order-4 typing, the homogeneous
-ablation, the other conv types, checkpoint ensembles and data-parallel
-meshes.
+Queue 1): labeled mode (``use_node_feature``), order-4 typing, the
+homogeneous ablation, the other conv types, checkpoint ensembles and
+data-parallel meshes.
 """
 
 from __future__ import annotations
@@ -74,8 +77,10 @@ class PipelineConfig:
     # CPU; desco_tpu's XLA transform-then-reduce modes ('transform_first',
     # 'cumsum') compute what the kernel computes and map to it
     agg_mode: str = "auto"
+    # bfloat16 target tower at serving time (the count head stays f32)
     serve_bf16: bool = False
-    # bfloat16 target tower during training: not ported (M12), raises
+    # bfloat16 target tower in the train step: f32 master parameters,
+    # f32 gradients, validation and checkpoints on the f32 tower
     train_bf16: bool = False
     # run the val pass every k epochs instead of every epoch (the
     # plateau scheduler and best-checkpoint selection then see one
@@ -110,7 +115,6 @@ def check_serving_config(cfg: PipelineConfig) -> None:
     """Raise for the options this slice has not ported."""
     missing = [name for name, on in (
         ("use_node_feature (labeled mode)", cfg.use_node_feature),
-        ("serve_bf16", cfg.serve_bf16),
         ("degree_feature with use_hetero=False",
          cfg.degree_feature and not cfg.use_hetero),
     ) if on]
@@ -245,10 +249,6 @@ def prepare_stage_data(cfg: PipelineConfig, graphs: List[Graph],
 
 
 def _check_training_config(cfg: PipelineConfig, mesh) -> None:
-    if cfg.train_bf16:
-        raise NotImplementedError(
-            "train_bf16 (bfloat16 target tower during training) is not "
-            "ported yet (ROADMAP.md, Queue 1 M12)")
     if mesh is not None:
         raise NotImplementedError(
             "data-parallel training over a mesh is not ported yet "
@@ -263,14 +263,22 @@ def train_neighborhood_stage(
     """Train the neighborhood model on ``train`` with ``val`` monitored.
     Returns (TrainResult, tgt_cfg, qry_cfg). ``device``: None or "cuda"
     train on the GPU (and raise when none is visible), "cpu" on the CPU.
-    Fresh weights come from ``cfg.seed``."""
+    Fresh weights come from ``cfg.seed``.
+
+    ``cfg.train_bf16`` puts the bf16 cast into the tower config of the
+    train step only: the parameters are the f32 masters throughout, the
+    val passes run the f32 tower (so plateau and best-checkpoint decisions
+    match the serving forward), checkpoints are f32, and the returned
+    ``tgt_cfg`` is f32."""
     _check_training_config(cfg, mesh)
     device = resolve_device(device)
     tgt_cfg, qry_cfg = model_configs(cfg, device)
     params = neigh_mod.init_neighborhood_model(
         tgt_cfg, qry_cfg, torch.Generator().manual_seed(cfg.seed))
+    tgt_train = (dataclasses.replace(tgt_cfg, dtype=torch.bfloat16)
+                 if cfg.train_bf16 else tgt_cfg)
     result = train_loop.train_neighborhood(
-        params, tgt_cfg, qry_cfg, query_batch,
+        params, tgt_train, qry_cfg, query_batch,
         train.batches, val.batches,
         epochs=cfg.neigh_epochs, lr=cfg.neigh_lr,
         weight_decay=cfg.neigh_weight_decay,
@@ -285,7 +293,11 @@ def neighborhood_predictions(params, tgt_cfg, query_embs,
     """(counts, verified): (#neighborhoods, Q) de-logged stage-1 counts,
     clamped to the combinatorial neighborhood bound when cfg.clamp_counts
     and exact-recounted on the top tail when cfg.verify_budget > 0, and
-    the neighborhood row indices whose counts are now EXACT."""
+    the neighborhood row indices whose counts are now EXACT. With
+    ``cfg.serve_bf16`` the target tower runs in bfloat16; the count head
+    and everything after it stay f32."""
+    if cfg.serve_bf16:
+        tgt_cfg = dataclasses.replace(tgt_cfg, dtype=torch.bfloat16)
     counts = train_loop.predict_neighborhood_counts(
         params, tgt_cfg, query_embs, stage.batches, device)
     verified = np.zeros(0, np.int64)

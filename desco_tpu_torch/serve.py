@@ -13,7 +13,7 @@ One response line per request, in order:
 
 Errors come back as {"id": ..., "error": "..."} without killing the
 daemon; a line ``quit`` ends it. The service runs on CUDA unless
-``--device cpu`` is given.
+``--device cpu`` is given; ``--bf16`` runs the target tower in bfloat16.
 
 Usage:
   python -m desco_tpu_torch.serve --neigh_ckpt release/r4/neigh.best \\
@@ -35,6 +35,8 @@ def build_service(args):
         overrides["verify_budget"] = args.verify_budget
     if args.exact_size:
         overrides["exact_size"] = args.exact_size
+    if args.bf16:
+        overrides["serve_bf16"] = True
     return CountingService(
         args.neigh_ckpt, args.gossip_ckpt,
         config_overrides=overrides or None, device=args.device)
@@ -86,6 +88,8 @@ def main(argv=None) -> int:
     ap.add_argument("--verify_budget", type=float, default=None)
     ap.add_argument("--exact_size", type=int, default=0,
                     help="serve queries with <= N nodes exactly")
+    ap.add_argument("--bf16", action="store_true",
+                    help="bfloat16 target tower (config serve_bf16)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without "
                          "a GPU unless 'cpu' is given)")

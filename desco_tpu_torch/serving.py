@@ -11,7 +11,9 @@ desco_tpu, so both packages cut a request into the same batches.
 
 The service runs on CUDA unless the caller passes ``device="cpu"``; with
 no GPU visible it raises rather than fall back. Float32 throughout, with
-TF32 off (utils/device.py). Not in this slice (ROADMAP.md, Queue 1):
+TF32 off (utils/device.py), unless ``config_overrides={"serve_bf16":
+True}`` asks for the bfloat16 target tower (f32 parameters cast in the
+forward, f32 count head, f32 gossip). Not in this slice (ROADMAP.md, Queue 1):
 ``count_large_graph`` (halo-sharded gossip, M16) and ``n_devices > 1``
 (data-parallel serving, M15).
 

@@ -86,6 +86,7 @@ class Adam:
         self.nu = torch.zeros_like(self.flat)
         self.count = torch.zeros((), dtype=torch.float32, device=dev)
         self._slices: Dict[str, tuple] = {}
+        self._params = [p for _, p in named]
         off = 0
         for name, p in named:
             n = p.numel()
@@ -97,8 +98,24 @@ class Adam:
     def zero_grad(self) -> None:
         self.grad.zero_()
 
+    def _check_grads(self) -> None:
+        """Every parameter's gradient must still be its f32 view of the
+        flat gradient buffer: a tower that runs in bf16 casts inside its
+        forward, so autograd hands the f32 masters f32 gradients; a
+        gradient that was replaced, or that came in another type, would
+        leave the flat buffer stale."""
+        base = self.grad.data_ptr()
+        for p, (lo, _, _) in zip(self._params, self._slices.values()):
+            g = p.grad
+            if (g is None or g.dtype != torch.float32
+                    or g.data_ptr() != base + 4 * lo):
+                raise RuntimeError(
+                    "Adam: a parameter's gradient is no longer the float32 "
+                    "view of the flat gradient buffer")
+
     @torch.no_grad()
     def step(self, lr: float, ok: Optional[torch.Tensor] = None) -> None:
+        self._check_grads()
         g = self.grad
         if self.weight_decay:
             g = g + self.weight_decay * self.flat

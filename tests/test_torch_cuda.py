@@ -10,7 +10,9 @@ Tolerance rtol 1e-5, atol 1e-5 * max|ref|: float32 on both sides, only
 the summation order differs (the plain version's index_add_ uses
 atomics). Gradients through the kernels (K3 behind K2, K4 behind K1) are
 held against autograd of the plain forward, f32 against f32, at rtol 1e-4
-of each tensor's scale: two reductions and two matmuls deep."""
+of each tensor's scale: two reductions and two matmuls deep. On bf16 rows
+both sides accumulate the same bf16 values in f32, so the same tolerance
+holds; K4's bf16 result and the K5 probe's bit patterns must be equal."""
 
 import numpy as np
 import pytest
@@ -192,3 +194,91 @@ def test_wrapper_counts_launches_and_checks_inputs(rng, cuda_device):
             cs.sorted_segment_sum(m.t().contiguous().t(), s, 50)
         with pytest.raises(ValueError, match="CUDA"):
             cs.sorted_segment_sum(m, T(seg), 50)
+
+
+# ------------------------------------------------------------- bf16 rows
+BF = torch.bfloat16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [33, 64, 128, 576])
+def test_k1_bf16_kernel_matches_plain_on_gpu(rng, cuda_device, k):
+    msgs, seg = sorted_stream(rng, 700, 5000, k, neg=3)
+    m, s = T(msgs).to(cuda_device).to(BF), T(seg).to(cuda_device)
+    before = cs.sorted_segment_sum.launches_bf16
+    with torch.inference_mode():
+        out = cs.sorted_segment_sum(m, s, 700)
+        ref = cs.sorted_segment_sum_plain(m, s, 700)
+    torch.cuda.synchronize()
+    assert cs.sorted_segment_sum.launches_bf16 == before + 1
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(out, ref, rtol=1e-5,
+                               atol=1e-5 * float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,k", [(6, 64), (2, 128), (3, 33)])
+def test_k2_k3_bf16_kernels_match_plain_on_gpu(rng, cuda_device, t, k):
+    n = 1000
+    x, src, _, _, keys, w = typed_case(rng, n, t, 64, k, 6000)
+    xd, wd = (T(a).to(cuda_device).to(BF) for a in (x, w))
+    sd, kd = T(src).to(cuda_device), T(keys).to(cuda_device)
+    st = cs.typed_streams(sd, kd, t, n, n,
+                          T(bwd_perm_of(src, keys, t, n)).to(cuda_device))
+    with torch.inference_mode():
+        out = cs.fused_typed_transform_aggregate(xd, sd, kd, wd, t, n)
+        ref = cs.fused_typed_transform_aggregate_plain(xd, sd, kd, wd, t, n)
+        g = T(rng.standard_normal((n, k)).astype(np.float32)).to(cuda_device)
+        u = cs.typed_cotangent_sums(g.to(BF), st)
+        u_ref = cs.typed_cotangent_sums_plain(g.to(BF), st)
+        dx, dw = cs.typed_aggregate_bwd(g, xd, wd, st)
+    torch.cuda.synchronize()
+    assert out.dtype == u.dtype == torch.float32
+    assert dx.dtype == dw.dtype == BF  # the primals' dtype
+    torch.testing.assert_close(out, ref, rtol=1e-5,
+                               atol=1e-5 * float(ref.abs().max()))
+    torch.testing.assert_close(u, u_ref, rtol=1e-5,
+                               atol=1e-5 * float(u_ref.abs().max()))
+    with pytest.raises(ValueError, match="one type"):
+        cs.fused_typed_transform_aggregate(xd, sd, kd, wd.float(), t, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [33, 64, 66, 128, 576])
+def test_k4_bf16_kernel_equals_plain_on_gpu(rng, cuda_device, k):
+    _, seg = sorted_stream(rng, 700, 5000, k, neg=3)
+    g = T(rng.standard_normal((700, k)).astype(np.float32)).to(cuda_device)
+    s = T(seg).to(cuda_device)
+    out = cs.segment_sum_vjp(g, s, 700, dtype=BF)
+    torch.cuda.synchronize()
+    assert out.dtype == BF
+    assert torch.equal(out, cs.segment_sum_vjp_plain(g, s, 700, BF))
+    # behind K1 under grad: the cotangent takes the messages' dtype
+    m = torch.randn(len(seg), k, device=cuda_device).to(BF).requires_grad_()
+    (cs.sorted_segment_sum(m, s, 700) * g).sum().backward()
+    assert m.grad.dtype == BF and torch.equal(m.grad, out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [64, 128])
+def test_probe_variants_match_plain_on_gpu(rng, cuda_device, k):
+    from desco_tpu_torch.tools import segsum_inner_ablation as probe
+
+    msgs, seg = sorted_stream(rng, 700, 5000 - 64, k)  # 5000 rows
+    m, s = T(msgs).to(cuda_device).to(BF), T(seg).to(cuda_device)
+    for name, fn in probe.VARIANTS.items():
+        before = fn.launches
+        out = fn(m, s, 333)  # run = 16: the last warps run dry
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        ref = probe.PLAIN[name](m, s, 333)
+        if name == "stream":
+            assert torch.equal(out[1], ref[1])
+            out, ref = out[0], ref[0]
+        if name == "full":
+            assert torch.equal(out, cs.sorted_segment_sum(m, s, 333))
+        if name in ("noacc", "stream"):
+            assert torch.equal(out, ref)
+        else:
+            torch.testing.assert_close(out, ref, rtol=1e-5,
+                                       atol=1e-5 * float(ref.abs().max()))

@@ -48,5 +48,9 @@ def test_every_module_is_checked():
     names = {p.relative_to(ROOT).as_posix() for p in SOURCES}
     for must in ("desco_tpu_torch/serving.py",
                  "desco_tpu_torch/ops/cuda_segment.py",
+                 "desco_tpu_torch/ops/cuda_build.py",
+                 "desco_tpu_torch/bench.py",
+                 "desco_tpu_torch/tools/segsum_inner_ablation.py",
+                 "desco_tpu_torch/tools/serving_profile.py",
                  "desco_tpu_torch/graph/atlas.py", "chip_smoke.py"):
         assert must in names

@@ -174,7 +174,8 @@ def test_device_functions_take_no_default_device(fn):
 
 
 @pytest.mark.parametrize("override", [
-    {"serve_bf16": True}, {"use_node_feature": True}, {"order": 4},
+    {"serve_bf16": True, "conv_type": "GIN"}, {"use_node_feature": True},
+    {"order": 4},
     {"conv_type": "GAT"}, {"use_hetero": False}])
 def test_unported_options_raise(override):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

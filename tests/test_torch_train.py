@@ -374,10 +374,10 @@ def test_dropout_keeps_one_minus_rate_and_rescales():
 def test_unported_training_options_raise(tiny_cfg, tiny_data):
     train, val, _ = tiny_data
     qb = build_query_batch(tiny_cfg)
-    with pytest.raises(NotImplementedError, match="M12"):
+    with pytest.raises(NotImplementedError, match="M15"):
         train_neighborhood_stage(
             dataclasses.replace(tiny_cfg, train_bf16=True), train, val, qb,
-            **QUIET)
+            mesh=object(), **QUIET)
     with pytest.raises(NotImplementedError, match="M15"):
         train_neighborhood_stage(tiny_cfg, train, val, qb, mesh=object(),
                                  **QUIET)
