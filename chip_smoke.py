@@ -9,24 +9,29 @@ It imports nothing of JAX or desco_tpu. Phases, each of which exits
 nonzero on a failed check (no phase catches its own failure):
 
   1. environment: the card's name and power limit, torch/CUDA versions;
-     build both CUDA libraries (one nvcc per source, started together,
-     sm_90a) and the native host library.
+     build the three CUDA libraries (one nvcc per source, started
+     together, sm_90a) and the native host library.
   2. kernels: K1 ``sorted_segment_sum``, K2
-     ``fused_typed_transform_aggregate``, K3 ``typed_cotangent_sums`` (with
-     the einsums of K2's backward) and K4 ``segment_sum_vjp`` against
-     their plain PyTorch versions on the card, on f32 and on bf16 rows
-     (rtol 1e-5, atol 1e-5 * max|ref|: both sides accumulate the same
-     rows in f32, only the summation order differs; K3's bf16 dx and dW
-     are f32 results rounded to bf16 and may differ by one bf16 step,
-     rtol 2^-7; K4's bf16 result must be equal), on edge cases and at the
-     shapes of real packed batches of the phase-3 request and of the
-     phase-6 training set; the four variants of the K5 probe against
-     their plain versions on the bench edge stream (``full`` bit-equal to
-     K1). Times: each function and each bare kernel in CUDA graphs (8
-     launches per graph, tools/segsum_inner_ablation.py) and the one
-     PyTorch call for the same function the same way, the wrapper and the
+     ``fused_typed_transform_aggregate``, K3 ``typed_aggregate_bwd`` (dx
+     and dW of K2) and K4 ``segment_sum_vjp`` against their plain PyTorch
+     versions on the card, on f32 and on bf16 rows (rtol 1e-5, atol
+     1e-5 * max|ref|: both sides accumulate the same rows in f32, only
+     the summation order differs, and K2 / K3 multiply on the tensor
+     cores in split TF32, which keeps f32 accuracy, with bf16 operands
+     exact in TF32; K3's bf16 dx and dW are f32 results rounded to bf16
+     and may differ by one bf16 step, rtol 2^-7; K4's bf16 result must be
+     equal), on edge cases (odd widths, tiles that N does not fill, tiles
+     without a live edge, long runs, all padding) and at the shapes of
+     real packed batches of the phase-3 request and of the phase-6
+     training set; the four variants of the K5 probe against their plain
+     versions on the bench edge stream (``full`` bit-equal to K1). Times:
+     each function and each bare kernel in CUDA graphs (8 launches per
+     graph, tools/segsum_inner_ablation.py) and the PyTorch yardstick for
+     the same function the same way (one call for K1 and K4; two for K2,
+     ``sparse.mm`` + ``matmul``, and three for K3), the wrapper and the
      plain version with CUDA events over 50 eager calls, and the least
-     time the card could take for the same work.
+     time the card could take for the same work (products counted at the
+     rate of the unit that runs them).
   3. serving at full width: ``CountingService`` on release/r4 (SAGE SHMP,
      8 layers, hidden 64, 6 edge types, 29 queries; 2-layer gossip) over
      random graphs drawn like Syn_1827, made with numpy from ``--seed``
@@ -95,7 +100,7 @@ R4_GOSSIP = os.path.join(REPO, "release", "r4", "gossip.best")
 # cores (the port runs f32 with TF32 off)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-BF16_OPS_PER_S = 989e12  # dense bf16 on the tensor cores (K2's transform)
+TF32_OPS_PER_S = 495e12  # dense TF32 on the tensor cores (K2 and K3)
 PAD_KEY = 2 ** 30  # the padding id of desco_tpu's segment-sum streams
 # bf16 target tower against the f32 one, in log2(count + 1) space at the
 # paper width (8 layers, hidden 64, release/r4's weights): 0.114 at most
@@ -158,10 +163,31 @@ def max_err(torch, out, ref, what: str, rtol: float = 1e-5) -> float:
 
 
 def bound(bytes_moved: float, ops: float,
-          ops_per_s: float = F32_OPS_PER_S) -> tuple:
+          ops_per_s: float = F32_OPS_PER_S, tensor_ops: float = 0.0) -> tuple:
+    """(ms, what bounds it): the larger of the bytes over the memory rate
+    and the operations over their unit's rate (``ops`` on the f32 units,
+    ``tensor_ops`` on the tensor cores in TF32; the two units run side by
+    side, so the slower one counts)."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / ops_per_s * 1e3
+    t_ops = max(ops / ops_per_s, tensor_ops / TF32_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def split_passes(dtype) -> int:
+    """Tensor-core passes of a split-TF32 product in K2 / K3: 3 for f32
+    operands, 2 where one operand is bf16 and so exact in TF32."""
+    return 3 if dname(dtype) == "f32" else 2
+
+
+def library_yardstick(fn, what: str):
+    """The graph time of a library yardstick, or None (with the reason
+    printed) where PyTorch refuses it, as cuSPARSE may refuse bf16."""
+    try:
+        return library_graph_ms(fn)
+    except RuntimeError as exc:
+        print(f"{what}: no library time ({str(exc).splitlines()[0]})",
+              flush=True)
+        return None
 
 
 def dname(dtype) -> str:
@@ -254,12 +280,19 @@ def k1_main(torch, cs, dev, msgs, seg, n, label, timed: dict) -> dict:
 
 # ------------------------------------------------------------ phase 2: K2
 def k2_case(torch, rng, dev, dtype, n, t, h, k, e_live, long_seg=0,
-            pad=64):
+            pad=64, hole=None):
+    """A (dst,type)-sorted stream; ``hole`` = (lo, hi) moves every live
+    destination and source out of rows [lo, hi), so the tiles there have
+    no live edge in either direction."""
     dst = rng.integers(0, n - 1, e_live)
     if long_seg:
         dst = np.concatenate([dst, np.full(long_seg, 7)])
     typ = rng.integers(0, t, len(dst))
     src = rng.integers(0, n - 1, len(dst))
+    if hole:
+        lo, hi = hole
+        dst = np.where((dst >= lo) & (dst < hi), dst + hi - lo, dst)
+        src = np.where((src >= lo) & (src < hi), src + hi - lo, src)
     keys = dst * t + typ
     order = np.argsort(keys, kind="stable")
     keys = np.concatenate([keys[order], np.full(pad, (n - 1) * t + 63)])
@@ -271,31 +304,43 @@ def k2_case(torch, rng, dev, dtype, n, t, h, k, e_live, long_seg=0,
             torch.as_tensor(keys.astype(np.int32), device=dev), w.to(dtype))
 
 
+# the widths and streams of every K2 / K3 edge case; N = 300, 2000, 500,
+# 129 and 333 are no multiple of the 32-row tile
+TYPED_EDGE_CASES = {
+    "N=300 T=6 K=64, E=1001 with pad keys":
+        dict(n=300, t=6, h=64, k=64, e_live=1001 - 64),
+    "K=128 (H=64), empty nodes": dict(n=2000, t=6, h=64, k=128,
+                                      e_live=700),
+    "long segment (5000 edges), T=2": dict(n=500, t=2, h=64, k=64,
+                                           e_live=900, long_seg=5000),
+    "all padding": dict(n=129, t=6, h=64, k=64, e_live=0, pad=512),
+    "odd K=33": dict(n=300, t=3, h=16, k=33, e_live=999),
+    "tiles 1-2 without a live edge, N=333":
+        dict(n=333, t=6, h=64, k=64, e_live=1500, hole=(32, 96)),
+}
+
+
 def k2_edge_cases(torch, cs, rng, dev, dtype) -> None:
-    cases = {
-        "N=300 T=6 K=64, E=1001 with pad keys":
-            dict(n=300, t=6, h=64, k=64, e_live=1001 - 64),
-        "K=128 (H=64), empty nodes": dict(n=2000, t=6, h=64, k=128,
-                                          e_live=700),
-        "long segment (5000 edges), T=2": dict(n=500, t=2, h=64, k=64,
-                                               e_live=900, long_seg=5000),
-        "all padding": dict(n=129, t=6, h=64, k=64, e_live=0, pad=512),
-        "odd K=33": dict(n=300, t=3, h=16, k=33, e_live=999),
-    }
-    for name, kw in cases.items():
+    for name, kw in TYPED_EDGE_CASES.items():
         x, src, keys, w = k2_case(torch, rng, dev, dtype, **kw)
         t, n = kw["t"], kw["n"]
         out = cs.fused_typed_transform_aggregate(x, src, keys, w, t, n)
         torch.cuda.synchronize()
         ref = cs.fused_typed_transform_aggregate_plain(x, src, keys, w, t, n)
         err = max_err(torch, out, ref, f"K2 {dname(dtype)} {name}")
+        if kw.get("hole"):
+            check(float(out[32:96].abs().max()) == 0.0,
+                  f"K2 {dname(dtype)} {name}: rows without edges not zero")
         print(f"K2 {dname(dtype)} edge case ok: {name} (max err {err:.3g})",
               flush=True)
 
 
 def k2_main(torch, cs, dev, case, dtype, timed: dict) -> dict:
     """Check K2 at a real packed target batch of the main request (the
-    ``k2`` case of ``kernel_cases``), x and W in ``dtype``."""
+    ``k2`` case of ``kernel_cases``), x and W in ``dtype``; time its plain
+    version and the library yardstick (two calls: ``torch.sparse.mm`` of
+    the [N*T, N] CSR of the batch's (dst, type) runs with x, then
+    ``torch.matmul`` with W)."""
     x, conv_w, st = case["x"].to(dtype), case["w"].to(dtype), case["st"]
     t, h, k = conv_w.shape
     n, it = st.n_nodes, x.element_size()
@@ -305,15 +350,38 @@ def k2_main(torch, cs, dev, case, dtype, timed: dict) -> dict:
     torch.cuda.synchronize()
     err = max_err(torch, out, cs.fused_typed_transform_aggregate_plain(*args),
                   f"K2 {dname(dtype)} main-path batch")
-    live = keys < n * t
-    e_live = int(live.sum())
-    # the z rows this batch's live edges read (data-dependent work)
-    rows = torch.unique((keys[live] % t).long() * n + src[live].long())
+    offs = st.fwd_toffs
+    e_live = int(offs[-1])
+    runs = int((offs[1:] > offs[:-1]).sum())  # non-empty (dst, type) runs
+    tiles = cs.tile_edge_ranges(offs, n, t)
+    dead = int((tiles[:, 0] == tiles[:, 1]).sum())
+    if dtype == torch.bfloat16:
+        # desco_tpu's _fused_legacy transforms first and rounds z to bf16;
+        # K2 rounds nothing: the size of that difference at this batch
+        kl = keys.long()
+        d, ty = torch.div(kl, t, rounding_mode="floor"), kl % t
+        z = (x.float() @ conv_w.float()).to(dtype).float()  # [T, N, K]
+        rows = z[ty[:e_live], src[:e_live].long()]
+        zr = torch.zeros(n, z.shape[2], device=dev).index_add_(
+            0, d[:e_live], rows)
+        print(f"K2 bf16: against z rounded to bf16 (desco_tpu's order), max "
+              f"|diff| / max|ref| = "
+              f"{float((out - zr).abs().max() / zr.abs().max()):.3e}",
+              flush=True)
+    csr = torch.sparse_csr_tensor(offs, src[:e_live].contiguous(),
+                                  torch.ones(e_live, dtype=dtype, device=dev),
+                                  (n * t, x.shape[0]))
+    w2 = conv_w.reshape(t * h, k)
+    library_ms = library_yardstick(
+        lambda: torch.matmul(torch.sparse.mm(csr, x).view(n, t * h), w2),
+        f"K2 {dname(dtype)} sparse.mm + matmul")
+    # bytes: x, W, the live edges' sources, the run offsets, the f32
+    # output; operations: the gather's adds on the f32 units, the
+    # non-empty runs' products on the tensor cores in split TF32
     b_ms, b_by = bound(
-        (x.numel() + conv_w.numel()) * it + src.numel() * 4
-        + keys.numel() * 4 + n * k * 4,
-        2 * n * h * k * t + e_live * k,
-        F32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S)
+        (x.numel() + conv_w.numel()) * it + e_live * 4 + offs.numel() * 4
+        + n * k * 4, e_live * h,
+        tensor_ops=split_passes(dtype) * 2 * runs * h * k)
     row = {
         **timed,
         "wrapper_ms": cuda_ms(
@@ -321,15 +389,15 @@ def k2_main(torch, cs, dev, case, dtype, timed: dict) -> dict:
                 *args, streams=st)),
         "plain_ms": cuda_ms(
             torch, lambda: cs.fused_typed_transform_aggregate_plain(*args)),
-        "library_ms": None,
+        "library_ms": library_ms,
+        "library": "torch.sparse.mm + torch.matmul (two calls)",
         "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
-        "kernel_only_bound_ms": bound(
-            rows.numel() * k * it + e_live * 8 + (n + 1) * 4 + n * k * 4,
-            e_live * k)[0],
     }
     print(f"K2 {dname(dtype)} at the main path: x {tuple(x.shape)}, "
-          f"{keys.numel()} edge slots ({e_live} live, {rows.numel()} "
-          f"distinct z rows), {t} types: {json.dumps(row)}", flush=True)
+          f"{keys.numel()} edge slots ({e_live} live, {runs} non-empty "
+          f"(dst, type) runs), {t} types, {tiles.shape[0]} tiles of "
+          f"{cs.TILE_ROWS} rows ({dead} without a live edge): "
+          f"{json.dumps(row)}", flush=True)
     return row
 
 
@@ -346,39 +414,26 @@ def k3_streams(torch, cs, dev, src, keys, t, n):
 
 
 def k3_check(torch, cs, g, x, w, st, what) -> float:
-    """u, dx and dW through the kernel against the plain version; g is
-    the f32 cotangent, x and w carry the tower's dtype (a bf16 tower
-    reduces the cotangent rows rounded to bf16)."""
-    table = g.to(x.dtype)
-    u = cs.typed_cotangent_sums(table, st)
+    """dx and dW through the kernels against the plain version; g is the
+    f32 cotangent, x and w carry the tower's dtype (a bf16 tower reduces
+    the cotangent rows rounded to bf16)."""
+    before = cs.typed_aggregate_bwd.launches
     dx, dw = cs.typed_aggregate_bwd(g, x, w, st)
     torch.cuda.synchronize()
-    gc = g.contiguous()
-    dx_ref, dw_ref = cs.typed_aggregate_bwd_plain(gc, x, w, st)
+    check(cs.typed_aggregate_bwd.launches == before + 1,
+          f"K3 {what}: the kernel did not launch")
+    dx_ref, dw_ref = cs.typed_aggregate_bwd_plain(g.contiguous(), x, w, st)
     check(dx.dtype == x.dtype and dw.dtype == w.dtype,
           f"K3 {what}: gradients not in the primals' dtypes")
     # bf16 dx / dW are f32 results rounded: one bf16 step apart at most
     rtol = 1e-5 if x.dtype == torch.float32 else 2.0 ** -7
     what = f"{dname(x.dtype)} {what}"
-    return max(
-        max_err(torch, u, cs.typed_cotangent_sums_plain(
-            table.contiguous(), st), f"K3 u, {what}"),
-        max_err(torch, dx, dx_ref, f"K3 dx, {what}", rtol),
-        max_err(torch, dw, dw_ref, f"K3 dW, {what}", rtol))
+    return max(max_err(torch, dx, dx_ref, f"K3 dx, {what}", rtol),
+               max_err(torch, dw, dw_ref, f"K3 dW, {what}", rtol))
 
 
 def k3_edge_cases(torch, cs, rng, dev, dtype) -> None:
-    cases = {
-        "N=300 T=6 K=64, pad edges last":
-            dict(n=300, t=6, h=64, k=64, e_live=1001 - 64),
-        "K=128 (H=64), mostly empty segments":
-            dict(n=2000, t=6, h=64, k=128, e_live=700),
-        "one long (source, type) segment (5000 edges), T=2":
-            dict(n=500, t=2, h=64, k=64, e_live=900, long_seg=5000),
-        "all-pad stream": dict(n=129, t=6, h=64, k=64, e_live=0, pad=512),
-        "odd K=33": dict(n=300, t=3, h=16, k=33, e_live=999),
-    }
-    for name, kw in cases.items():
+    for name, kw in TYPED_EDGE_CASES.items():
         x, src, keys, w = k2_case(torch, rng, dev, dtype, **kw)
         t, n, k = kw["t"], kw["n"], kw["k"]
         if kw.get("long_seg"):  # k2_case made one long destination row:
@@ -407,38 +462,54 @@ def k3_edge_cases(torch, cs, rng, dev, dtype) -> None:
 
 def k3_main(torch, cs, dev, case, dtype, timed: dict) -> dict:
     """Check K3 at a real packed training batch (the ``k3`` case of
-    ``kernel_cases``); time the whole backward (kernel + the two einsums)
-    and its plain version."""
+    ``kernel_cases``); time its plain version and the library yardstick
+    (``torch.sparse.mm`` of the source-keyed [N*T, N] CSR with g, then
+    the two einsums)."""
     g, st = case["g"], case["st"]
     x, conv_w = case["x"].to(dtype), case["w"].to(dtype)
     t, h, k = conv_w.shape
     n, it = st.n_nodes, x.element_size()
     err = k3_check(torch, cs, g, x, conv_w, st, "main-path training batch")
-    e_live = int(st.bwd_offs[-1])
-    n_seg = n * t
-    filled = int((st.bwd_offs[1:] > st.bwd_offs[:-1]).sum())
-    g_rows = int(torch.unique(st.bwd_rows[:e_live]).numel())
-    einsum_ops = 2 * (2 * n * t * k * h)
+    offs = st.bwd_offs
+    e_live = int(offs[-1])
+    n_seg = st.n_rows * t
+    filled = int((offs[1:] > offs[:-1]).sum())  # non-empty (src, type) runs
+    table = g.to(dtype)
+    csr = torch.sparse_csr_tensor(
+        offs, st.bwd_rows[:e_live].contiguous(),
+        torch.ones(e_live, dtype=dtype, device=dev), (n_seg, n))
+    w32 = conv_w
+
+    def library():
+        u = torch.sparse.mm(csr, table).view(st.n_rows, t, k)
+        torch.einsum("ntk,thk->nh", u, w32)
+        torch.einsum("nh,ntk->thk", x, u)
+
+    library_ms = library_yardstick(
+        library, f"K3 {dname(dtype)} sparse.mm + two einsums")
+    # bytes: the cotangent table, x, W, the live edges' rows, the run
+    # offsets, dx and dW written once (no u); operations: the gather's
+    # adds, and dx and dW over the non-empty runs in split TF32
     b_ms, b_by = bound(
-        g.numel() * 4 + (x.numel() + conv_w.numel()) * it + e_live * 4
-        + (n_seg + 1) * 4 + (x.numel() + conv_w.numel()) * it,
-        e_live * k + einsum_ops)
+        (table.numel() + x.numel() + conv_w.numel()) * it + e_live * 4
+        + offs.numel() * 4 + (x.numel() + conv_w.numel()) * it,
+        e_live * k, tensor_ops=split_passes(dtype) * 2 * 2 * filled * h * k)
     row = {
         **timed,
         "wrapper_ms": cuda_ms(torch, lambda: cs.typed_aggregate_bwd(
             g, x, conv_w, st)),
         "plain_ms": cuda_ms(torch, lambda: cs.typed_aggregate_bwd_plain(
             g, x, conv_w, st)),
-        "library_ms": None,
+        "library_ms": library_ms,
+        "library": "torch.sparse.mm + two torch.einsum",
         "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
-        "kernel_only_bound_ms": bound(
-            g_rows * k * it + e_live * 4 + (n_seg + 1) * 4 + n_seg * k * 4,
-            e_live * k)[0],
     }
     print(f"K3 {dname(dtype)} at the main path: g {tuple(g.shape)}, "
-          f"{st.keys.numel()} edge slots ({e_live} live), u [{n_seg}, {k}] "
-          f"with {filled} non-empty (source, type) rows, {t} types: "
-          f"{json.dumps(row)}", flush=True)
+          f"{st.keys.numel()} edge slots ({e_live} live), {filled} of "
+          f"{n_seg} (source, type) runs non-empty, {t} types, "
+          f"{cs.k3_blocks(*cs.pad_operands(x, conv_w), st)} blocks "
+          f"(alone = without the dW reduction launch): {json.dumps(row)}",
+          flush=True)
     return row
 
 
@@ -632,7 +703,9 @@ def main() -> int:
     cuda_build.build_all()  # one nvcc per source, started together
     cs.library()
     probe.library()
-    print(f"kernels built from {os.path.relpath(cs.SOURCE, REPO)} and "
+    cs.typed_library()
+    print(f"kernels built from {os.path.relpath(cs.SOURCE, REPO)}, "
+          f"{os.path.relpath(cs.TYPED_SOURCE, REPO)} and "
           f"{os.path.relpath(probe.SOURCE, REPO)} with nvcc "
           f"{' '.join(cuda_build.NVCC_FLAGS)} in "
           f"{json.dumps({k: round(v, 2) for k, v in cuda_build.build_seconds.items()})} "
@@ -730,7 +803,8 @@ def main() -> int:
         cases = probe.kernel_cases(tb, gb, trb, conv_w)
         t0 = time.perf_counter()
         graph_rows = probe.time_cases(cases)
-        print(f"CUDA-graph timings of K1-K4 (8 launches per graph): "
+        print(f"CUDA-graph timings of K1-K4 (8 launches per graph; K2 alone "
+          f"= its function, K3 alone = without its dW reduction launch): "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         k_rows = {}
         for dtype in (f32, bf16):
@@ -787,7 +861,7 @@ def main() -> int:
     for name in ("sorted_segment_sum", "fused_typed_transform_aggregate"):
         check(launches[name] > 0,
               f"kernel {name} never launched on the serving path")
-    for name in ("typed_cotangent_sums", "segment_sum_vjp"):
+    for name in ("typed_aggregate_bwd", "segment_sum_vjp"):
         check(launches[name] == 0,
               f"backward kernel {name} launched while serving")
 
@@ -864,7 +938,7 @@ def main() -> int:
           "once per target batch")
     check(launches_bf["sorted_segment_sum"] > n_main,
           "serve_bf16: the f32 gossip stage did not run K1")
-    check(launches_bf["typed_cotangent_sums"] == 0
+    check(launches_bf["typed_aggregate_bwd"] == 0
           and launches_bf["segment_sum_vjp"] == 0,
           "serve_bf16: a backward kernel launched while serving")
     check_counts(res_bf, 256, "serve_bf16 request")
@@ -947,13 +1021,13 @@ def main() -> int:
     qb = build_query_batch(tcfg)
     gen = torch.Generator().manual_seed(args.seed)
     neigh_params = neigh_mod.init_neighborhood_model(tgt_cfg, qry_cfg, gen)
-    before = cs.typed_cotangent_sums.launches
+    before = cs.typed_aggregate_bwd.launches
     t0 = time.perf_counter()
     worst = grad_errors(
         torch, lambda p, d: neigh_mod.train_loss(
             p, tgt_cfg, qry_cfg, tb0.to(d, training=True), qb.to(d)),
         neigh_params, "train_loss")
-    check(cs.typed_cotangent_sums.launches == before + 8,
+    check(cs.typed_aggregate_bwd.launches == before + 8,
           "train_loss's backward did not launch K3 once per layer")
     print(f"gradients: train_loss through K1-K4 on CUDA vs the plain "
           f"versions on the CPU, {sum(p.numel() for p in neigh_params.parameters())} "
@@ -1004,8 +1078,8 @@ def main() -> int:
           f"neighborhood losses not finite: {res.train_losses}")
     check(res.train_losses[-1] < res.train_losses[0],
           f"neighborhood train loss did not fall: {res.train_losses}")
-    check(after_neigh["typed_cotangent_sums"] == 8 * steps,
-          f"K3 launches {after_neigh['typed_cotangent_sums']} != 8 x "
+    check(after_neigh["typed_aggregate_bwd"] == 8 * steps,
+          f"K3 launches {after_neigh['typed_aggregate_bwd']} != 8 x "
           f"{steps} neighborhood train steps")
     check(after_neigh["fused_typed_transform_aggregate"] == 8 * 2 * steps,
           f"K2 launches {after_neigh['fused_typed_transform_aggregate']} "
@@ -1058,7 +1132,7 @@ def main() -> int:
     check(train_launches["sorted_segment_sum"]
           > after_pred["sorted_segment_sum"],
           "K1 never launched in the gossip stage")
-    check(train_launches["typed_cotangent_sums"] == 8 * steps and
+    check(train_launches["typed_aggregate_bwd"] == 8 * steps and
           train_launches["fused_typed_transform_aggregate"]
           == 8 * (2 * steps + n_b),
           "the gossip stage launched K2 or K3")
@@ -1100,8 +1174,8 @@ def main() -> int:
           f"train_bf16 losses not finite: {bres.train_losses}")
     check(bres.train_losses[-1] < bres.train_losses[0],
           f"train_bf16 loss did not fall: {bres.train_losses}")
-    check(bf_launches["typed_cotangent_sums"] == 8 * steps_bf
-          and bf_launches["typed_cotangent_sums_bf16"] == 8 * steps_bf,
+    check(bf_launches["typed_aggregate_bwd"] == 8 * steps_bf
+          and bf_launches["typed_aggregate_bwd_bf16"] == 8 * steps_bf,
           "train_bf16: K3 launches != 8 x train steps on bf16 rows")
     check(bf_launches["fused_typed_transform_aggregate_bf16"] == 8 * steps_bf
           and bf_launches["fused_typed_transform_aggregate"]
@@ -1213,12 +1287,13 @@ def main() -> int:
 
     # ------------------------------------------------------ 9. the record
     seg_src = "desco_tpu_torch/csrc/segment_sum.cu"
-    wrappers = {"k1": ("sorted_segment_sum", 310),
-                "k2": ("fused_typed_transform_aggregate", 476),
-                "k3": ("typed_cotangent_sums", 559),
-                "k4": ("segment_sum_vjp", 448)}
+    typed_src = "desco_tpu_torch/csrc/typed_aggregate.cu"
+    wrappers = {"k1": ("sorted_segment_sum", 310, seg_src),
+                "k2": ("fused_typed_transform_aggregate", 476, typed_src),
+                "k3": ("typed_aggregate_bwd", 559, typed_src),
+                "k4": ("segment_sum_vjp", 448, seg_src)}
     kernels = []
-    for key, (wrapper, line_no) in wrappers.items():
+    for key, (wrapper, line_no, src_file) in wrappers.items():
         for d, suffix, paths in (
                 ("f32", "", (launches, train_launches, launches_bf,
                              bf_launches)),
@@ -1231,7 +1306,7 @@ def main() -> int:
                 per_path = [p[wrapper + "_bf16"] for p in paths]
             kernels.append(dict(
                 name=f"{wrapper} (K{key[1]}, {d})", route="cuda",
-                source=seg_src,
+                source=src_file,
                 replaces=f"desco_tpu/ops/pallas_segment.py:{line_no}",
                 launches=sum(per_path), launches_per_path=per_path,
                 **k_rows[key, d]))

@@ -114,21 +114,20 @@ def _roofline_bytes(n_cap: int, e_cap: int, e_live: int, n_types: int,
     element size (4 for f32, 2 for bf16); K = h.
 
     per layer
-      edge terms: keys + sources, 4 + 4 bytes per edge SLOT (the streams
-        are ``e_cap`` long), and one z row of K * itemsize bytes per LIVE
-        edge, gathered inside the reduction. No [E, K] message tensor is
-        written or read back: K2 has none.
-      node terms: x read (h * itemsize) and z write (n_types * K *
-        itemsize) for the transform, the f32 output write (K * 4), and
-        the update linear's reads (the f32 sums K * 4, x h * itemsize)
-        and write (h * itemsize).
+      edge terms: the source of each LIVE edge (4 bytes; the kernel walks
+        only the live runs) and the x row it gathers (h * itemsize). K2
+        aggregates first and transforms in shared memory: no z and no
+        [E, K] message tensor is written or read back.
+      node terms: the (node, type) run offsets (4 * n_types), the f32
+        output write (K * 4), and the update linear's reads (the f32 sums
+        K * 4, x h * itemsize) and write (h * itemsize).
 
     Leaves out the query tower (a service runs it once per query set),
-    the count head, the pre / post MLPs, the CSR offsets and the weights:
-    a lower bound, so ``sol_fraction`` is conservative."""
-    edge = e_cap * (4 + 4) + e_live * h * itemsize
-    node = n_cap * (h * itemsize               # x read (transform)
-                    + n_types * h * itemsize   # z write
+    the count head, the pre / post MLPs and the weights: a lower bound,
+    so ``sol_fraction`` is conservative. ``e_cap`` (the slots, padding
+    included) no longer enters it."""
+    edge = e_live * (4 + h * itemsize)
+    node = n_cap * (n_types * 4                # run offsets
                     + h * 4                    # K2's f32 output write
                     + h * 4 + h * itemsize     # update linear reads
                     + h * itemsize)            # update linear write

@@ -2,9 +2,6 @@
 //
 // K1 desco_sorted_segment_sum replaces desco_tpu's Pallas
 //    pallas_sorted_segment_sum (desco_tpu/ops/pallas_segment.py:310).
-// K2 desco_fused_typed_gather_segsum is the reduction of desco_tpu's
-//    fused_typed_transform_aggregate -> _fused_legacy
-//    (desco_tpu/ops/pallas_segment.py:476, :500), with the gather fused in.
 //
 // A sorted segment stream is CSR: the wrapper (ops/cuda_segment.py) finds
 // the row offsets with one torch.searchsorted and hands them in. One warp
@@ -14,24 +11,18 @@
 // result does not depend on the launch (deterministic). Segment ids past
 // the last offset (the padding keys) are never visited.
 //
-// K3 desco_gather_rows_segsum is the reduction of desco_tpu's _bwd_perm
-//    (desco_tpu/ops/pallas_segment.py:559), the backward of K2: the edge
-//    stream re-ordered by (src, type) is CSR over N*T source-keyed
-//    segments, and the cotangent row g[dst] of each edge is gathered
-//    inside the reduction, so the [E, K] tensor of gathered cotangents is
-//    never written. Most of the N*T segments are empty and are still
-//    written (as zeros): that write, not the gather from a cotangent
-//    table that stays in L2, is what the card has to move.
 // K4 desco_segment_sum_vjp_gather is the backward of K1, desco_tpu's
 //    _ssum_ad_bwd (desco_tpu/ops/pallas_segment.py:464): d[e, :] =
 //    g[seg[e], :] where 0 <= seg[e] < n_segments, else 0, in the dtype of
 //    K1's messages. One thread copies one piece (at most 16 bytes of
 //    output) of one row; bound by the [E, K] write.
 //
-// Row types: the rows a reduction reads (K1's messages, K2's z table,
-// K3's cotangent table) are float32 or bfloat16 (dtype code 0 or 1), as
-// the TPU kernels reduce bf16 rows; every sum is accumulated and written
-// in float32. K4 reads a float32 cotangent and writes float32 or
+// The typed transform-aggregate (K2, K3) has kernels of its own, in
+// typed_aggregate.cu.
+//
+// Row types: K1's messages are float32 or bfloat16 (dtype code 0 or 1),
+// as the TPU kernels reduce bf16 rows; every sum is accumulated and
+// written in float32. K4 reads a float32 cotangent and writes float32 or
 // bfloat16 (round to nearest even). A lane's load is the widest of 16,
 // 8, 4 (and for bf16 2) bytes that the row width and the pointers allow
 // (pick_vec), so a 64-wide bf16 row is one 4-byte load per lane.
@@ -223,117 +214,6 @@ segsum_rows_kernel(const T* __restrict__ msgs, const int* __restrict__ offs,
   }
 }
 
-// The walk K2 and K3 share: the lanes hold up to 32 table-row indices
-// (``row``, one per lane, of the edges [base, base + cnt)); the warp takes
-// each by shuffle and adds that row's piece. Four rows are in flight
-// before the first add. Every lane takes part in every shuffle; only
-// lanes with a column in range load.
-template <typename T, int VEC>
-__device__ __forceinline__ void walk_rows(float (&acc)[VEC],
-                                          const T* __restrict__ tc,
-                                          long long row, int cnt, int k,
-                                          bool active) {
-  constexpr int kWords = Lane<T, VEC>::kWords;
-  int j = 0;
-  for (; j + 4 <= cnt; j += 4) {
-    const long long q0 = __shfl_sync(kFullMask, row, j);
-    const long long q1 = __shfl_sync(kFullMask, row, j + 1);
-    const long long q2 = __shfl_sync(kFullMask, row, j + 2);
-    const long long q3 = __shfl_sync(kFullMask, row, j + 3);
-    if (active) {
-      const Raw<kWords> r0 = load_raw<T, VEC>(tc + q0 * k);
-      const Raw<kWords> r1 = load_raw<T, VEC>(tc + q1 * k);
-      const Raw<kWords> r2 = load_raw<T, VEC>(tc + q2 * k);
-      const Raw<kWords> r3 = load_raw<T, VEC>(tc + q3 * k);
-      add_raw<T, VEC>(acc, r0);
-      add_raw<T, VEC>(acc, r1);
-      add_raw<T, VEC>(acc, r2);
-      add_raw<T, VEC>(acc, r3);
-    }
-  }
-  for (; j < cnt; ++j) {
-    const long long q = __shfl_sync(kFullMask, row, j);
-    if (active) add_raw<T, VEC>(acc, load_raw<T, VEC>(tc + q * k));
-  }
-}
-
-// K2: out[d, :] = sum over e in [offs[d], offs[d+1]) of z[typ(e)*N + src(e), :]
-// with typ(e) = keys[e] - d*T (= keys[e] mod T inside row d), clipped to
-// [0, T) like the JAX gather's mode='clip'. The lanes first decode 32
-// edges at once (coalesced key/src loads), then the warp walks them,
-// taking each row index by shuffle, so the [E, K] message tensor of the
-// unfused path is never written.
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
-fused_gather_segsum_kernel(const T* __restrict__ z,
-                           const int* __restrict__ src,
-                           const int* __restrict__ keys,
-                           const int* __restrict__ offs, int n_nodes,
-                           int n_rows, int n_types, int k,
-                           float* __restrict__ out) {
-  const int node = blockIdx.x * kWarpsPerBlock + (threadIdx.x / kWarp);
-  const int lane = threadIdx.x % kWarp;
-  if (node >= n_nodes) return;  // uniform across the warp
-  const int lo = offs[node];
-  const int hi = offs[node + 1];
-  const int key_base = node * n_types;
-  // the column loop is warp-uniform: every lane takes part in every
-  // shuffle, and only lanes with a column in range load and store
-  for (int c0 = 0; c0 < k; c0 += kWarp * VEC) {
-    const int c = c0 + lane * VEC;
-    const bool active = c < k;
-    const T* __restrict__ zc = z + (active ? c : 0);
-    float acc[VEC];
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
-    for (int base = lo; base < hi; base += kWarp) {
-      const int e = base + lane;
-      long long row = 0;
-      if (e < hi) {
-        int typ = keys[e] - key_base;
-        typ = min(max(typ, 0), n_types - 1);
-        const int s = min(max(src[e], 0), n_rows - 1);
-        row = (long long)typ * n_rows + s;
-      }
-      walk_rows<T, VEC>(acc, zc, row, min(kWarp, hi - base), k, active);
-    }
-    if (active) store_row(out + (int64_t)node * k + c, acc);
-  }
-}
-
-// K3: out[s, :] = sum over e in [offs[s], offs[s+1]) of table[rows[e], :],
-// rows clipped to [0, n_rows). K2's walk with the row index read from an
-// array instead of decoded from a key: the lanes load 32 row indices at
-// once (coalesced), then the warp walks them by shuffle. An empty segment
-// writes its zero row.
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
-gather_rows_segsum_kernel(const T* __restrict__ table,
-                          const int* __restrict__ rows,
-                          const int* __restrict__ offs, int n_segments,
-                          int n_rows, int k, float* __restrict__ out) {
-  const int seg = blockIdx.x * kWarpsPerBlock + (threadIdx.x / kWarp);
-  const int lane = threadIdx.x % kWarp;
-  if (seg >= n_segments) return;  // uniform across the warp
-  const int lo = offs[seg];
-  const int hi = offs[seg + 1];
-  for (int c0 = 0; c0 < k; c0 += kWarp * VEC) {
-    const int c = c0 + lane * VEC;
-    const bool active = c < k;
-    const T* __restrict__ tc = table + (active ? c : 0);
-    float acc[VEC];
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
-    for (int base = lo; base < hi; base += kWarp) {
-      const int e = base + lane;
-      long long row = 0;
-      if (e < hi) row = min(max(rows[e], 0), n_rows - 1);
-      walk_rows<T, VEC>(acc, tc, row, min(kWarp, hi - base), k, active);
-    }
-    if (active) store_row(out + (int64_t)seg * k + c, acc);
-  }
-}
-
 // VEC f32 values as one aligned store of VEC elements of T (at most 16
 // bytes), bf16 rounded to nearest even.
 template <typename T, int VEC>
@@ -487,26 +367,6 @@ struct LaunchSegsumRows {
   }
 };
 
-struct LaunchFusedGather {
-  template <typename T, int VEC>
-  static void run(dim3 grid, cudaStream_t s, T* z, const int* src,
-                  const int* keys, const int* offs, int n_nodes, int n_rows,
-                  int n_types, int k, float* out) {
-    fused_gather_segsum_kernel<T, VEC><<<grid, kThreads, 0, s>>>(
-        z, src, keys, offs, n_nodes, n_rows, n_types, k, out);
-  }
-};
-
-struct LaunchGatherRows {
-  template <typename T, int VEC>
-  static void run(dim3 grid, cudaStream_t s, T* table, const int* rows,
-                  const int* offs, int n_segments, int n_rows, int k,
-                  float* out) {
-    gather_rows_segsum_kernel<T, VEC><<<grid, kThreads, 0, s>>>(
-        table, rows, offs, n_segments, n_rows, k, out);
-  }
-};
-
 struct LaunchVjpGather {
   template <typename T, int VEC>
   static void run(dim3 grid, cudaStream_t s, T* out, const float* g,
@@ -523,7 +383,7 @@ bool known_dtype(int dtype) { return dtype == kF32 || dtype == kBf16; }
 
 extern "C" {
 
-int desco_segment_sum_abi_version() { return 3; }
+int desco_segment_sum_abi_version() { return 4; }
 
 const char* desco_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
@@ -539,33 +399,6 @@ int desco_sorted_segment_sum(void* msgs, int dtype, const int* offs,
   const int vec = pick_vec(k, dtype == kBf16 ? 2 : 4, msgs, out);
   dispatch<LaunchSegsumRows<kModeFull>>(dtype, vec, grid, s, msgs, offs,
                                         n_segments, k, 0, 0, out);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int desco_fused_typed_gather_segsum(void* z, int dtype, const int* src,
-                                    const int* keys, const int* offs,
-                                    int n_nodes, int n_rows, int n_types,
-                                    int k, float* out, void* stream) {
-  if (n_nodes <= 0 || k <= 0) return 0;
-  if (!known_dtype(dtype)) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((n_nodes + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int vec = pick_vec(k, dtype == kBf16 ? 2 : 4, z, out);
-  dispatch<LaunchFusedGather>(dtype, vec, grid, s, z, src, keys, offs,
-                              n_nodes, n_rows, n_types, k, out);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int desco_gather_rows_segsum(void* table, int dtype, const int* rows,
-                             const int* offs, int n_segments, int n_rows,
-                             int k, float* out, void* stream) {
-  if (n_segments <= 0 || k <= 0 || n_rows <= 0) return 0;
-  if (!known_dtype(dtype)) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((n_segments + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int vec = pick_vec(k, dtype == kBf16 ? 2 : 4, table, out);
-  dispatch<LaunchGatherRows>(dtype, vec, grid, s, table, rows, offs,
-                             n_segments, n_rows, k, out);
   return static_cast<int>(cudaGetLastError());
 }
 

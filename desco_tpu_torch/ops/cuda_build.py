@@ -29,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # stem -> (source, the sources it #includes), relative to csrc/
 LIBRARIES: Dict[str, Tuple[str, Sequence[str]]] = {
     "desco_segment": ("segment_sum.cu", ()),
+    "desco_typed": ("typed_aggregate.cu", ()),
     "desco_segment_probe": ("segment_sum_probe.cu", ("segment_sum.cu",)),
 }
 

@@ -6,53 +6,52 @@ K1 ``sorted_segment_sum`` replaces desco_tpu's Pallas
 ``fused_typed_transform_aggregate`` replaces desco_tpu's
 ``fused_typed_transform_aggregate`` -> ``_fused_legacy`` (:476, :500), the
 SHMP target tower's typed aggregation, run 8 times per packed batch. K3
-``typed_cotangent_sums`` is the reduction of K2's backward, desco_tpu's
-``_bwd_perm`` (:559, the VJP of ``_fused_perm`` :548). K4
-``segment_sum_vjp`` is K1's backward, the gather of desco_tpu's
-``sorted_segment_sum_ad`` (:448, ``_ssum_ad_bwd`` :464).
+``typed_aggregate_bwd`` is K2's backward, desco_tpu's ``_bwd_perm`` (:559,
+the VJP of ``_fused_perm`` :548). K4 ``segment_sum_vjp`` is K1's
+backward, the gather of desco_tpu's ``sorted_segment_sum_ad`` (:448,
+``_ssum_ad_bwd`` :464).
 
-What bounds them on an H100: the reductions are bound by bytes. Each
-edge adds one K-float row, a quarter of an f32 operation per byte moved,
-far below the card's f32 ridge (67 TFLOP/s over 3.35 TB/s, 20 operations
-per byte). K1 moves the message rows (E*K*4 B), the segment ids
-(4 B/edge) and the output. K2's reduction moves 8 B/edge of keys and
-sources, one z row (K*4 B) per edge gathered from a z table of
-T*N*K*4 B — 6*N*256 B at the paper width, about the card's 50 MB L2 at
-N = 30k — and the output. K2 as a whole is bound by operations: its
-transform ``z = x @ W`` (2*N*H*K*T f32 operations, TF32 off; left to
-``torch.matmul`` as desco_tpu left it to XLA) outweighs its bytes at the
-paper width. K3's reduction writes u [N*T, K] f32, most of whose
-(source, type) rows are empty and are zeros all the same: that write,
-not the gather from a cotangent table g [N, K] that stays in L2, is what
-the card must move; K3 as a whole (with the two einsums that turn u into
-dx and dW, left to ``torch.einsum`` as desco_tpu left them to XLA) is
-bound by the einsums' operations. K4 is one [E, K] write and as many
-bytes read (PERF.md has the measured times beside the bounds).
+K1 and K4 (``csrc/segment_sum.cu``) are bound by bytes: each edge adds or
+copies one K-float row, a quarter of an f32 operation per byte moved, far
+below the card's f32 ridge (67 TFLOP/s over 3.35 TB/s). A sorted stream is
+CSR, so one ``torch.searchsorted`` gives the row offsets (as the JAX
+wrapper does at pallas_segment.py:345) and padding keys sort past the last
+offset, dropped without a pass. One warp owns one segment and reads its
+rows in order, summing in f32 registers: every output row is written once,
+with no atomics and a deterministic order. K4: one thread per 16-byte
+output piece.
 
-What the design does about it: a sorted stream is CSR, so one
-``torch.searchsorted`` gives the row offsets (as the JAX wrapper does at
-pallas_segment.py:345) and padding keys sort past the last offset, dropped
-without a pass. One warp owns one segment and reads its rows in order
-with float2/float4 loads, summing in f32 registers: every output row is
-written once, with no atomics and a deterministic order. K2 decodes each
-edge's type from its key and gathers its z row inside the reduction, so
-the [E, K] message tensor that ``_fused_legacy`` writes and reads back
-never exists; K3 gathers the cotangent row g[dst] the same way, so
-``_bwd_perm``'s [E, K] ``g_rows`` never exists either. The index streams
-and offsets of a batch (``TypedStreams``) are derived once per batch,
-not in every layer of every step as desco_tpu's jitted step re-derives
-them. None of the TPU kernel's structure (one-hot MXU matmuls, 128-lane
-padding, SEG_TILE/CE/GSZ tiles, VMEM guard) is carried over.
+K2 and K3 (``csrc/typed_aggregate.cu``, redesigned for Hopper) aggregate
+first and transform after: x_neigh = sum_t A_t @ W_t with A[d, t] the sum
+of x[src] over the type-t edges into d (desco_tpu's ``aggregate_first``
+order), and for the backward U[s, t] = sum over the type-t edges s -> d of
+g[d], dx = sum_t U_t @ W_t^T, dW_t = x^T U_t. A block takes tiles of 32
+rows; lane groups gather the tile's rows with 16-byte loads into a
+shared-memory tile in f32 (one owner per (row, type) run, fixed order, no
+atomics), and ``mma.sync`` multiplies the tile on the tensor cores in
+split TF32 (f32 operands as hi + lo, three passes; bf16 operands are exact
+in TF32, two passes), with W copied into shared memory by ``cp.async``.
+So neither desco_tpu's transform z = x @ W [T*N, K] nor the cotangent sums
+u [N*T, K] are ever written to device memory. dW crosses blocks: each
+block writes one f32 partial and a second small kernel sums them in
+block order. What bounds them at the paper width (H = K = 64, T = 6) is
+the split-TF32 products on the tensor cores and the gather of one
+128-256 B row per live edge from L2. The widths are at most 128 (odd widths are padded with zeros here).
+The index streams of a batch (``TypedStreams``) are derived once per
+batch, not in every layer of every step as desco_tpu's jitted step
+re-derives them. None of the TPU kernels' structure (one-hot MXU matmuls,
+128-lane padding, SEG_TILE/CE/GSZ tiles, VMEM guard) is carried over.
 
-Types: the rows a reduction reads are float32 or bfloat16, as the TPU
-kernels reduce bf16 rows with f32 accumulation (pallas_segment.py:322,
-:503-508, :582-586). K1 takes bf16 messages, K2 a bf16 x and W (z = x @ W
-stays bf16, as ``_fused_legacy``'s ``zp``), K3 a bf16 cotangent table;
-all three accumulate and return f32, and the caller folds back to its
-working type. K4 reads the f32 cotangent of K1's output and writes the
-dtype of K1's messages (``_ssum_ad_bwd``, :464-469). Nothing up-casts an
-[E, K] tensor on the card: the kernels convert in registers. Mixed types
-(a bf16 x with an f32 W) raise.
+Types: rows are float32 or bfloat16, as the TPU kernels reduce bf16 rows
+with f32 accumulation (pallas_segment.py:322, :503-508, :582-586). K1
+takes bf16 messages, K2 a bf16 x and W, K3 a bf16 cotangent table (for a
+bf16 tower, as ``_bwd_perm`` reduces bf16 cotangent rows); they
+accumulate in f32, K1 and K2 return f32 and K3 returns dx and dW in the
+primals' dtypes; the caller folds back to its working type. K2 rounds no
+product to bf16 where ``_fused_legacy`` rounds z (ROADMAP Queue 3). K4
+reads the f32 cotangent of K1's output and writes the dtype of K1's
+messages (``_ssum_ad_bwd``, :464-469). Nothing up-casts an [E, K] tensor
+on the card: the kernels convert in registers. Mixed types raise.
 
 Gradients: ``sorted_segment_sum`` and ``fused_typed_transform_aggregate``
 are ``torch.autograd.Function``s on every device. Their backward is K4
@@ -61,10 +60,10 @@ backward permutation K2's backward is desco_tpu's legacy ``_bwd`` (:524)
 in plain torch, as it is plain XLA there.
 
 Each wrapper takes its plain version only for CPU tensors; a CUDA tensor
-launches the kernel or raises. Each counts its launches in a plain int
-attribute (``sorted_segment_sum.launches``) so a run can show that the
-main path went through the kernel. The library is built from
-``csrc/segment_sum.cu`` with nvcc at first use (ops/cuda_build.py), into
+launches the kernel or raises. Each counts its calls that launch a kernel
+in a plain int attribute (``sorted_segment_sum.launches``) so a run can
+show that the main path went through the kernel. The libraries are built
+from ``csrc/*.cu`` with nvcc at first use (ops/cuda_build.py), into
 ``desco_tpu_torch/build/kernels/`` (listed in .gitignore); nothing here
 touches CUDA when the module is imported.
 """
@@ -79,42 +78,53 @@ from typing import Optional
 import torch
 
 from . import cuda_build
-from .segment import segment_sum, typed_transform_aggregate
+from .segment import segment_sum
 
 STEM = "desco_segment"
 SOURCE = cuda_build.source_path(STEM)
+TYPED_STEM = "desco_typed"
+TYPED_SOURCE = cuda_build.source_path(TYPED_STEM)
 ROW_DTYPES = (torch.float32, torch.bfloat16)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+TILE_ROWS = 32    # rows of a K2 / K3 tile (kBM in typed_aggregate.cu)
+MAX_WIDTH = 128   # the widest H and K the K2 / K3 kernels take
 
-_lib = None
+_libs: dict = {}
 _lock = threading.Lock()
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first use)."""
-    global _lib
+def _load(stem: str, abi_fn: str, abi: int, sigs: dict) -> ctypes.CDLL:
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(cuda_build.build(STEM))
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.desco_segment_sum_abi_version.restype = i
-            if lib.desco_segment_sum_abi_version() != 3:
-                raise RuntimeError("segment_sum kernel ABI mismatch")
-            lib.desco_cuda_error_string.restype = ctypes.c_char_p
-            lib.desco_cuda_error_string.argtypes = [i]
-            lib.desco_sorted_segment_sum.restype = i
-            lib.desco_sorted_segment_sum.argtypes = [p, i, p, i, i, p, p]
-            lib.desco_fused_typed_gather_segsum.restype = i
-            lib.desco_fused_typed_gather_segsum.argtypes = [
-                p, i, p, p, p, i, i, i, i, p, p]
-            lib.desco_gather_rows_segsum.restype = i
-            lib.desco_gather_rows_segsum.argtypes = [
-                p, i, p, p, i, i, i, p, p]
-            lib.desco_segment_sum_vjp_gather.restype = i
-            lib.desco_segment_sum_vjp_gather.argtypes = [
-                p, p, i, i, i, p, i, p]
-            _lib = lib
-        return _lib
+        if stem not in _libs:
+            lib = ctypes.CDLL(cuda_build.build(stem))
+            getattr(lib, abi_fn).restype = ctypes.c_int
+            if getattr(lib, abi_fn)() != abi:
+                raise RuntimeError(f"{stem} kernel ABI mismatch")
+            for name, argtypes in sigs.items():
+                fn = getattr(lib, name)
+                fn.restype = ctypes.c_int
+                fn.argtypes = argtypes
+            _libs[stem] = lib
+        return _libs[stem]
+
+
+def library() -> ctypes.CDLL:
+    """The loaded K1 / K4 library (built on first use)."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return _load(STEM, "desco_segment_sum_abi_version", 4, {
+        "desco_sorted_segment_sum": [p, i, p, i, i, p, p],
+        "desco_segment_sum_vjp_gather": [p, p, i, i, i, p, i, p]})
+
+
+def typed_library() -> ctypes.CDLL:
+    """The loaded K2 / K3 library (built on first use)."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return _load(TYPED_STEM, "desco_typed_aggregate_abi_version", 1, {
+        "desco_typed_aggregate_fwd": [p, i, i, i, p, p, i, i, p, i, p, i, p],
+        "desco_typed_aggregate_bwd_blocks": [i, i, i, i, i],
+        "desco_typed_aggregate_bwd": [p, i, i, i, p, p, p, i, i, p, i, p, i,
+                                      p, i, p],
+        "desco_typed_aggregate_dw_reduce": [p, i, i, i, i, i, i, p, i, p]})
 
 
 def default_agg_mode(device) -> str:
@@ -150,10 +160,15 @@ def _require(t: torch.Tensor, name: str, dtypes, ndim: int) -> None:
             f"{'' if t.is_contiguous() else ' (not contiguous)'}")
 
 
-def _check(rc: int) -> None:
+def _check(rc: int, lib: Optional[ctypes.CDLL] = None) -> None:
+    """Raise on a nonzero return code of ``lib``'s C function (default:
+    the K1 / K4 library), naming the CUDA error."""
     if rc != 0:
-        msg = library().desco_cuda_error_string(rc).decode()
-        raise RuntimeError(f"CUDA kernel launch failed: {msg} ({rc})")
+        err = (lib or library()).desco_cuda_error_string
+        err.restype = ctypes.c_char_p
+        err.argtypes = [ctypes.c_int]
+        raise RuntimeError(
+            f"CUDA kernel launch failed: {err(rc).decode()} ({rc})")
 
 
 def _stream(device) -> ctypes.c_void_p:
@@ -180,21 +195,54 @@ def launch_k1(msgs, offs, n_segments: int, out) -> None:
             _stream(msgs.device)))
 
 
-def launch_k2(z, st: "TypedStreams", out) -> None:
-    with torch.cuda.device(z.device):
-        _check(library().desco_fused_typed_gather_segsum(
-            z.data_ptr(), _DTYPE_CODE[z.dtype], st.edge_src.data_ptr(),
-            st.keys.data_ptr(), st.fwd_offs.data_ptr(), st.n_nodes,
-            st.n_rows, st.n_types, z.shape[-1], out.data_ptr(),
-            _stream(z.device)))
+def launch_k2(x, conv_w, st: "TypedStreams", out) -> None:
+    """K2': x [n_rows, h8] and conv_w [T, h8, k8] as ``pad_operands``
+    leaves them; out [n_nodes, K] f32 with K <= k8."""
+    with torch.cuda.device(x.device):
+        lib = typed_library()
+        _check(lib.desco_typed_aggregate_fwd(
+            x.data_ptr(), _DTYPE_CODE[x.dtype], x.shape[0], x.shape[1],
+            st.edge_src.data_ptr(), st.fwd_toffs.data_ptr(), st.n_nodes,
+            st.n_types, conv_w.data_ptr(), conv_w.shape[2], out.data_ptr(),
+            out.shape[1], _stream(x.device)), lib)
 
 
-def launch_k3(g, st: "TypedStreams", out) -> None:
+def k3_blocks(x, conv_w, st: "TypedStreams") -> int:
+    """The blocks (so the dW partials) K3' runs on this card for these
+    padded operands."""
+    with torch.cuda.device(x.device):
+        lib = typed_library()
+        nb = lib.desco_typed_aggregate_bwd_blocks(
+            _DTYPE_CODE[x.dtype], x.shape[1], conv_w.shape[2], st.n_types,
+            st.n_rows)
+        if nb <= 0:
+            _check(-nb or 1, lib)
+        return nb
+
+
+def launch_k3(g, x, conv_w, st: "TypedStreams", dx, partial) -> None:
+    """K3': g [n_nodes, k8], x [n_rows, h8], conv_w [T, h8, k8] (padded,
+    one dtype); dx [n_rows, H] in x's dtype; partial [blocks, T, HP, KP]
+    f32 (``k3_blocks``, ``_tile_width``)."""
     with torch.cuda.device(g.device):
-        _check(library().desco_gather_rows_segsum(
-            g.data_ptr(), _DTYPE_CODE[g.dtype], st.bwd_rows.data_ptr(),
-            st.bwd_offs.data_ptr(), st.n_rows * st.n_types, st.n_nodes,
-            g.shape[1], out.data_ptr(), _stream(g.device)))
+        lib = typed_library()
+        _check(lib.desco_typed_aggregate_bwd(
+            g.data_ptr(), _DTYPE_CODE[g.dtype], g.shape[0], g.shape[1],
+            st.bwd_rows.data_ptr(), st.bwd_offs.data_ptr(), x.data_ptr(),
+            x.shape[0], x.shape[1], conv_w.data_ptr(), st.n_types,
+            dx.data_ptr(), dx.shape[1], partial.data_ptr(), partial.shape[0],
+            _stream(g.device)), lib)
+
+
+def launch_k3_reduce(partial, dw) -> None:
+    """K3's second launch: dw [T, H, K] (W's dtype) = the sum of the
+    per-block partials [blocks, T, HP, KP] in block order."""
+    nb, t, hp, kp = partial.shape
+    with torch.cuda.device(partial.device):
+        lib = typed_library()
+        _check(lib.desco_typed_aggregate_dw_reduce(
+            partial.data_ptr(), nb, t, hp, kp, dw.shape[1], dw.shape[2],
+            dw.data_ptr(), _DTYPE_CODE[dw.dtype], _stream(dw.device)), lib)
 
 
 def launch_k4(g, seg, n_segments: int, out) -> None:
@@ -332,20 +380,23 @@ class TypedStreams:
     """The index streams of one (dst,type)-sorted edge set, derived once
     per batch and shared by every layer and step that aggregates over it.
 
-    ``fwd_offs`` are K2's CSR offsets over the destination nodes. With a
-    backward permutation (``edge_bwd_perm`` of ``pack_samples``: the edge
-    slots in (src, type) order, dead edges last) the stream is CSR again
-    over the n_rows*T (source, type) segments: ``bwd_rows`` is the
-    destination of each permuted edge (the cotangent row K3 gathers),
-    ``bwd_skey`` its source key src*T + type (``PAD_SKEY`` for dead
-    edges) and ``bwd_offs`` the offsets of the segments in it."""
+    ``fwd_toffs`` are K2's CSR offsets over the n_nodes*T (destination,
+    type) runs of the stream: run d*T + t is [fwd_toffs[d*T + t],
+    fwd_toffs[d*T + t + 1]), and the T runs of one destination are one
+    contiguous range. With a backward permutation (``edge_bwd_perm`` of
+    ``pack_samples``: the edge slots in (src, type) order, dead edges last)
+    the stream is CSR again over the n_rows*T (source, type) runs:
+    ``bwd_rows`` is the destination of each permuted edge (the cotangent
+    row K3 gathers), ``bwd_skey`` its source key src*T + type
+    (``PAD_SKEY`` for dead edges) and ``bwd_offs`` the offsets of the
+    runs in it."""
 
     edge_src: torch.Tensor   # [E] i32
     keys: torch.Tensor       # [E] i32, dst*T + type, ascending
     n_types: int
     n_nodes: int             # output rows (destinations)
     n_rows: int              # rows of x (sources)
-    fwd_offs: torch.Tensor   # [n_nodes + 1] i32
+    fwd_toffs: torch.Tensor  # [n_nodes*T + 1] i32
     bwd_rows: Optional[torch.Tensor] = None  # [E] i32
     bwd_skey: Optional[torch.Tensor] = None  # [E] i32, ascending
     bwd_offs: Optional[torch.Tensor] = None  # [n_rows*T + 1] i32
@@ -366,8 +417,8 @@ def typed_streams(edge_src: torch.Tensor, keys: torch.Tensor, n_types: int,
         raise ValueError(f"{n_rows} rows / {n_nodes} nodes x {n_types} "
                          f"types do not fit the kernel's int32 keys")
     dev = keys.device
-    bounds = torch.arange(n_nodes + 1, dtype=torch.int32,
-                          device=dev) * n_types
+    bounds = torch.arange(n_nodes * n_types + 1, dtype=torch.int32,
+                          device=dev)
     st = TypedStreams(edge_src, keys, n_types, n_nodes, n_rows,
                       torch.searchsorted(keys, bounds, out_int32=True))
     if bwd_perm is None:
@@ -395,22 +446,76 @@ def typed_streams(edge_src: torch.Tensor, keys: torch.Tensor, n_types: int,
     return st
 
 
+def tile_edge_ranges(offs: torch.Tensor, n_out: int,
+                     n_types: int) -> torch.Tensor:
+    """[n_tiles, 2] int64: the edge range [lo, hi) each K2 / K3 tile of
+    ``TILE_ROWS`` output rows walks, from the per-(row, type) offsets
+    ``offs`` [n_out*T + 1] (``fwd_toffs`` or ``bwd_offs``), as the kernels
+    compute it. The ranges tile [0, offs[-1]), the live edges."""
+    starts = torch.arange(0, n_out, TILE_ROWS, device=offs.device)
+    lo = offs.long()[starts * n_types]
+    hi = offs.long()[torch.clamp(starts + TILE_ROWS, max=n_out) * n_types]
+    return torch.stack([lo, hi], dim=1)
+
+
+def _round8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def _tile_width(n: int) -> int:
+    """The padded width a K2 / K3 kernel instantiates for n columns."""
+    return 32 if n <= 32 else (64 if n <= 64 else 128)
+
+
+def _padded(t: torch.Tensor, shape) -> torch.Tensor:
+    """``t`` itself where it already has ``shape`` and a 16-byte aligned
+    start, else a zero tensor of ``shape`` with ``t`` in its leading
+    corner."""
+    shape = tuple(shape)
+    if tuple(t.shape) == shape and t.data_ptr() % 16 == 0:
+        return t
+    out = t.new_zeros(shape)
+    out[tuple(slice(0, n) for n in t.shape)] = t
+    return out
+
+
+def pad_operands(x: torch.Tensor, conv_w: torch.Tensor):
+    """(x [N, h8], conv_w [T, h8, k8]): H and K rounded up to multiples
+    of 8 with zero columns and rows, which add nothing to any product.
+    The K2 / K3 wrappers hand these to the kernels (at the paper width,
+    64, they are the tensors themselves) and write outputs of the real
+    widths."""
+    t, h, k = conv_w.shape
+    h8, k8 = _round8(h), _round8(k)
+    return (_padded(x, (x.shape[0], h8)), _padded(conv_w, (t, h8, k8)))
+
+
+def _check_widths(h: int, k: int) -> None:
+    if not 0 < h <= MAX_WIDTH or not 0 < k <= MAX_WIDTH:
+        raise ValueError(f"the typed-aggregate kernels take widths 1..."
+                         f"{MAX_WIDTH}, got H={h}, K={k}")
+
+
 # ------------------------------------------------------------------- K2
 def fused_typed_transform_aggregate_plain(
         x: torch.Tensor, edge_src: torch.Tensor, keys: torch.Tensor,
         conv_w: torch.Tensor, n_types: int, n_nodes: int) -> torch.Tensor:
-    """K2's plain version, ``_fused_legacy``: decode dst = key // T and
-    type = key mod T, then ``typed_transform_aggregate`` (transform in
-    x's dtype, gather into edge order, ``index_add_`` over dst in f32).
-    [n_nodes, K] f32."""
+    """K2's plain version: the f32 maths of the function, in K2's
+    aggregate-first order. Decode dst = key // T and type = key mod T;
+    A [n_nodes*T, H] = ``index_add_`` of the rows x[src] (up-cast to f32)
+    over the live keys (padding keys >= n_nodes*T drop); then
+    out = A.view(n_nodes, T*H) @ W.view(T*H, K) in f32. desco_tpu's
+    ``_fused_legacy`` transforms first (z = x @ W) and, on bf16 rows,
+    rounds z to bf16; this rounds nothing. [n_nodes, K] f32."""
+    t, h, k = conv_w.shape
     keys = keys.long()
-    dst = torch.div(keys, n_types, rounding_mode="floor")
-    out = typed_transform_aggregate(x, conv_w, edge_src, dst,
-                                    keys - dst * n_types, n_types)
-    n = x.shape[0]
-    if n_nodes <= n:  # rows of dst in [n_nodes, n) are dropped
-        return out[:n_nodes]
-    return torch.cat([out, out.new_zeros((n_nodes - n, out.shape[1]))])
+    live = (keys >= 0) & (keys < n_nodes * n_types)
+    src = edge_src.long().clamp(0, x.shape[0] - 1)
+    rows = x.float().index_select(0, src) * live[:, None]
+    agg = segment_sum(rows, torch.where(live, keys, n_nodes * n_types),
+                      n_nodes * n_types)
+    return agg.view(n_nodes, n_types * h) @ conv_w.float().reshape(
+        n_types * h, k)
 
 
 def _fused_forward(x, conv_w, st: TypedStreams):
@@ -420,7 +525,7 @@ def _fused_forward(x, conv_w, st: TypedStreams):
     if _on_cpu(x, st.edge_src, st.keys, conv_w):
         return fused_typed_transform_aggregate_plain(
             x, st.edge_src, st.keys, conv_w, st.n_types, st.n_nodes)
-    _require_cuda(x, st.edge_src, st.keys, conv_w, st.fwd_offs)
+    _require_cuda(x, st.edge_src, st.keys, conv_w, st.fwd_toffs)
     _require(x, "x", ROW_DTYPES, 2)
     _require(conv_w, "conv_w", x.dtype, 3)
     n, h = x.shape
@@ -431,14 +536,14 @@ def _fused_forward(x, conv_w, st: TypedStreams):
         raise ValueError(f"conv_w {tuple(conv_w.shape)} does not match "
                          f"{st.n_types} types of width {h}")
     k = conv_w.shape[2]
-    # [T, N, K] in x's dtype: f32 (TF32 off) or bf16, as _fused_legacy's
-    # bf16 zp; the kernel gathers its rows and accumulates f32
-    z = torch.matmul(x, conv_w).contiguous()
     out = torch.empty((st.n_nodes, k), dtype=torch.float32, device=x.device)
     if st.n_nodes == 0 or k == 0:
         return out
-    launch_k2(z, st, out)
-    _count(fused_typed_transform_aggregate, z.dtype)
+    if h == 0:
+        return out.zero_()
+    _check_widths(h, k)
+    launch_k2(*pad_operands(x, conv_w), st, out)
+    _count(fused_typed_transform_aggregate, x.dtype)
     return out
 
 
@@ -471,8 +576,9 @@ def fused_typed_transform_aggregate(
     """x_neigh [n_nodes, K]: sum over (dst,type)-sorted edges of
     x[src] @ W[type]. keys [E] int32 = dst*T + type, ascending; padding
     keys >= n_nodes*T decode past the last node and are dropped. x
-    [N, H] with x[pad node] == 0 and conv_w [T, H, K], both f32 or both
-    bf16; the sum is accumulated and returned in f32 for either.
+    [N, H] and conv_w [T, H, K], both f32 or both bf16, H and K at most
+    ``MAX_WIDTH`` on the card; the sum is accumulated and returned in f32
+    for either.
 
     Differentiable in x and conv_w, the gradients in their dtypes.
     ``bwd_perm`` ([E] int32, the edge
@@ -494,40 +600,13 @@ fused_typed_transform_aggregate.launches_bf16 = 0
 # ------------------------------------------------------------------- K3
 def typed_cotangent_sums_plain(g: torch.Tensor,
                                st: TypedStreams) -> torch.Tensor:
-    """K3's plain version: ``index_select`` of the cotangent rows (f32 or
-    bf16, up-cast to f32) of the permuted edges, ``index_add_`` over
-    their source keys. [n_rows*T, K] f32."""
+    """u [n_rows*T, K] f32, u[s*T + t] = the sum of g[d] (f32 or bf16,
+    up-cast) over the live type-t edges s -> d: ``index_select`` of the
+    cotangent rows of the permuted edges, ``index_add_`` over their
+    source keys. K3's plain version computes dx and dW from it; the
+    kernel never writes it."""
     rows = g.float().index_select(0, st.bwd_rows.long())
     return segment_sum(rows, st.bwd_skey, st.n_rows * st.n_types)
-
-
-def typed_cotangent_sums(g: torch.Tensor, st: TypedStreams) -> torch.Tensor:
-    """u [n_rows*T, K]: u[s*T + t] = sum over the live type-t edges
-    s -> d of g[d]. g [n_nodes, K] f32 or bf16 (made contiguous here:
-    autograd hands over expanded or strided cotangents), accumulated and
-    returned in f32; ``st`` carries a backward permutation."""
-    if st.bwd_rows is None:
-        raise ValueError("the streams carry no backward permutation")
-    if _on_cpu(g, st.bwd_rows):
-        return typed_cotangent_sums_plain(g, st)
-    _require_cuda(g, st.bwd_rows, st.bwd_offs)
-    g = g.contiguous()
-    _require(g, "g", ROW_DTYPES, 2)
-    if g.shape[0] != st.n_nodes:
-        raise ValueError(f"g has {g.shape[0]} rows for {st.n_nodes} nodes")
-    n_seg, k = st.n_rows * st.n_types, g.shape[1]
-    out = torch.empty((n_seg, k), dtype=torch.float32, device=g.device)
-    if k == 0:
-        return out
-    if st.n_nodes == 0:
-        return out.zero_()
-    launch_k3(g, st, out)
-    _count(typed_cotangent_sums, g.dtype)
-    return out
-
-
-typed_cotangent_sums.launches = 0
-typed_cotangent_sums.launches_bf16 = 0
 
 
 def _bwd_einsums(u, x, conv_w, st: TypedStreams):
@@ -549,15 +628,59 @@ def _cotangent_table(g, x):
 
 
 def typed_aggregate_bwd(g, x, conv_w, st: TypedStreams):
-    """(dx, dW) of K2 from ONE source-keyed reduction of the output
-    cotangent (desco_tpu's ``_bwd_perm``): u by K3, then
-    dx = einsum(u, W) and dW = einsum(x, u), in the primals' dtypes."""
-    u = typed_cotangent_sums(_cotangent_table(g, x), st)
-    return _bwd_einsums(u, x, conv_w, st)
+    """(dx, dW) of K2 from the source-keyed sums of the output cotangent
+    (desco_tpu's ``_bwd_perm``): U[s, t] = sum over the type-t edges
+    s -> d of g[d], dx = sum_t U_t @ W_t^T, dW_t = x^T U_t, in the
+    primals' dtypes. g [n_nodes, K] f32 (made contiguous here: autograd
+    hands over expanded or strided cotangents), rounded to bf16 first for
+    a bf16 tower; ``st`` carries a backward permutation. On the card: K3'
+    (dx and the per-block dW partials) and the partials' reduction, two
+    launches, counted as one call."""
+    if st.bwd_rows is None:
+        raise ValueError("the streams carry no backward permutation")
+    if x.dtype != conv_w.dtype:
+        raise ValueError(f"x is {x.dtype} and conv_w {conv_w.dtype}: K3 "
+                         f"takes both in one type (f32 or bf16)")
+    table = _cotangent_table(g, x)
+    if _on_cpu(table, x, conv_w, st.bwd_rows):
+        return typed_aggregate_bwd_plain(g, x, conv_w, st)
+    _require_cuda(table, x, conv_w, st.bwd_rows, st.bwd_offs)
+    table = table.contiguous()
+    _require(table, "g", ROW_DTYPES, 2)
+    _require(x, "x", ROW_DTYPES, 2)
+    _require(conv_w, "conv_w", x.dtype, 3)
+    t, h, k = conv_w.shape
+    if (table.shape != (st.n_nodes, k) or x.shape != (st.n_rows, h)
+            or t != st.n_types):
+        raise ValueError(
+            f"g {tuple(table.shape)}, x {tuple(x.shape)} and conv_w "
+            f"{tuple(conv_w.shape)} do not match the streams' {st.n_nodes} "
+            f"nodes, {st.n_rows} rows and {st.n_types} types")
+    dx = torch.empty((st.n_rows, h), dtype=x.dtype, device=x.device)
+    dw = torch.empty((t, h, k), dtype=conv_w.dtype, device=x.device)
+    if h == 0 or k == 0 or st.n_nodes == 0:
+        return dx.zero_(), dw.zero_()
+    _check_widths(h, k)
+    xp, wp = pad_operands(x, conv_w)
+    gp = _padded(table, (st.n_nodes, wp.shape[2]))
+    nb = k3_blocks(xp, wp, st)
+    partial = torch.empty((nb, t, _tile_width(wp.shape[1]),
+                           _tile_width(wp.shape[2])), dtype=torch.float32,
+                          device=x.device)
+    launch_k3(gp, xp, wp, st, dx, partial)
+    launch_k3_reduce(partial, dw)
+    _count(typed_aggregate_bwd, x.dtype)
+    return dx, dw
+
+
+typed_aggregate_bwd.launches = 0
+typed_aggregate_bwd.launches_bf16 = 0
 
 
 def typed_aggregate_bwd_plain(g, x, conv_w, st: TypedStreams):
-    """``typed_aggregate_bwd`` with K3's plain version."""
+    """K3's plain version, the f32 maths of ``_bwd_perm``: u by
+    ``typed_cotangent_sums_plain`` of the cotangent table, then the two
+    einsums in f32, returned in the primals' dtypes."""
     u = typed_cotangent_sums_plain(_cotangent_table(g, x), st)
     return _bwd_einsums(u, x, conv_w, st)
 
@@ -590,7 +713,7 @@ def typed_aggregate_bwd_legacy(g, x, conv_w, st: TypedStreams):
 
 # every kernel wrapper of this module, for launch accounting
 KERNELS = (sorted_segment_sum, fused_typed_transform_aggregate,
-           typed_cotangent_sums, segment_sum_vjp)
+           typed_aggregate_bwd, segment_sum_vjp)
 
 
 def reset_launches() -> None:

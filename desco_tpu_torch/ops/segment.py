@@ -77,8 +77,9 @@ def typed_transform_aggregate(
     """Transform-first SHMP aggregation: out[i] = sum over edges into i of
     (x[src] @ W[type]). Returns [N, K] f32 (no bias): the transform runs
     in x's dtype (f32 or bf16) and its rows are summed in f32. Edges whose
-    type or dst is out of range (the padding edges) add nothing. This is
-    K2's plain version (ops/cuda_segment.py)."""
+    type or dst is out of range (the padding edges) add nothing: the
+    order of desco_tpu's ``_fused_legacy``. K2 (ops/cuda_segment.py)
+    aggregates first instead."""
     n = x.shape[0]
     flat = torch.matmul(x, conv_w).reshape(n_types * n, conv_w.shape[2])
     idx = edge_type.long() * n + edge_src.long()

@@ -43,7 +43,9 @@ output over the card's memory rate.
 The shipped kernels: ``kernel_cases`` builds K1-K4's inputs in f32 and
 bf16 at the shapes of real packed batches (a serving target batch, its
 gossip batch, a training batch) and ``time_cases`` times each bare kernel
-launch, and each whole function as the model calls it, in CUDA graphs.
+launch, and each whole function as the model calls it, in CUDA graphs
+(K2 is one launch, so its two times are one; K3's function adds the
+launch that sums its per-block dW partials).
 chip_smoke.py uses both on its own batches. Needs a CUDA device.
 """
 
@@ -377,8 +379,9 @@ def kernel_cases(tb, gb, trb, conv_w) -> dict:
 def time_cases(cases: dict) -> dict:
     """CUDA-graph µs per call of K1-K4 in f32 and bf16: ``alone_us`` is
     the bare kernel launch on prepared inputs, ``function_us`` the whole
-    function as the model calls it (K1: offsets + kernel; K2: transform
-    matmul + kernel; K3: kernel + the two einsums; K4: the kernel)."""
+    function as the model calls it (K1: offsets + kernel; K2: the kernel,
+    so alone = function; K3: the kernel and its dW reduction launch, alone
+    = the kernel without the reduction; K4: the kernel)."""
     out = {}
     bf = torch.bfloat16
     for dname, dtype in (("f32", torch.float32), ("bf16", bf)):
@@ -395,22 +398,21 @@ def time_cases(cases: dict) -> dict:
             }
         c = cases["k2"]
         x, w, st = c["x"].to(dtype), c["w"].to(dtype), c["st"]
-        z = torch.matmul(x, w).contiguous()
-        res = torch.empty((st.n_nodes, w.shape[2]), device=x.device)
-        out[f"k2_{dname}"] = {
-            "alone_us": graph_us(lambda i: cs.launch_k2(z, st, res)),
-            "function_us": graph_us(
-                lambda i: cs.fused_typed_transform_aggregate(
-                    x, st.edge_src, st.keys, w, st.n_types, st.n_nodes,
-                    streams=st)),
-        }
+        us = graph_us(lambda i: cs.fused_typed_transform_aggregate(
+            x, st.edge_src, st.keys, w, st.n_types, st.n_nodes, streams=st))
+        out[f"k2_{dname}"] = {"alone_us": us, "function_us": us}
         c = cases["k3"]
         g, x, w, st = c["g"], c["x"].to(dtype), c["w"].to(dtype), c["st"]
+        xp, wp = cs.pad_operands(x, w)
         gt = g.to(dtype)
-        res = torch.empty((st.n_rows * st.n_types, g.shape[1]),
-                          device=g.device)
+        dx = torch.empty_like(x)
+        partial = torch.empty(
+            (cs.k3_blocks(xp, wp, st), st.n_types, cs._tile_width(
+                wp.shape[1]), cs._tile_width(wp.shape[2])),
+            device=g.device)
         out[f"k3_{dname}"] = {
-            "alone_us": graph_us(lambda i: cs.launch_k3(gt, st, res)),
+            "alone_us": graph_us(
+                lambda i: cs.launch_k3(gt, xp, wp, st, dx, partial)),
             "function_us": graph_us(
                 lambda i: cs.typed_aggregate_bwd(g, x, w, st)),
         }

@@ -100,10 +100,9 @@ def test_roofline_bytes_matches_a_hand_count(itemsize):
     """3 nodes, 8 edge slots of which 5 live, 2 types, width 4, 1 layer."""
     n, e_cap, e_live, t, h = 3, 8, 5, 2, 4
     by_hand = (
-        e_cap * 8                      # keys + sources per slot
-        + e_live * h * itemsize        # one z row per live edge
-        + n * h * itemsize             # x read for the transform
-        + n * t * h * itemsize         # z write
+        e_live * 4                     # the live edges' sources
+        + e_live * h * itemsize        # one x row per live edge
+        + n * t * 4                    # the (node, type) run offsets
         + n * h * 4                    # K2's f32 output write
         + n * h * 4 + n * h * itemsize  # update linear reads
         + n * h * itemsize)            # update linear write
@@ -111,8 +110,8 @@ def test_roofline_bytes_matches_a_hand_count(itemsize):
                                   itemsize) == by_hand
     assert tbench._roofline_bytes(n, e_cap, e_live, t, h, 8,
                                   itemsize) == 8 * by_hand
-    assert by_hand == {4: 64 + 80 + 48 + 96 + 48 + 96 + 48,
-                       2: 64 + 40 + 24 + 48 + 48 + 72 + 24}[itemsize]
+    assert by_hand == {4: 20 + 80 + 24 + 48 + 96 + 48,
+                       2: 20 + 40 + 24 + 48 + 72 + 24}[itemsize]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
