@@ -11,24 +11,32 @@ nonzero on a failed check (no phase catches its own failure):
   1. environment: the card's name and power limit, torch/CUDA versions;
      build the three CUDA libraries (one nvcc per source, started
      together, sm_90a) and the native host library.
-  2. kernels: K1 ``sorted_segment_sum``, K2
-     ``fused_typed_transform_aggregate``, K3 ``typed_aggregate_bwd`` (dx
-     and dW of K2) and K4 ``segment_sum_vjp`` against their plain PyTorch
-     versions on the card, on f32 and on bf16 rows (rtol 1e-5, atol
+  2. kernels: K1 ``sorted_segment_sum`` (graph pooling), the
+     gather-fused K1 ``gather_segment_sum`` and its backward
+     ``gather_segment_sum_bwd`` (the gossip and query-tower aggregation),
+     K2 ``fused_typed_transform_aggregate``, K3 ``typed_aggregate_bwd``
+     (dx and dW of K2) and K4 ``segment_sum_vjp`` against their plain
+     PyTorch versions on the card, on f32 and on bf16 rows (rtol 1e-5, atol
      1e-5 * max|ref|: both sides accumulate the same rows in f32, only
      the summation order differs, and K2 / K3 multiply on the tensor
      cores in split TF32, which keeps f32 accuracy, with bf16 operands
-     exact in TF32; K3's bf16 dx and dW are f32 results rounded to bf16
-     and may differ by one bf16 step, rtol 2^-7; K4's bf16 result must be
-     equal), on edge cases (odd widths, tiles that N does not fill, tiles
-     without a live edge, long runs, all padding) and at the shapes of
-     real packed batches of the phase-3 request and of the phase-6
-     training set; the four variants of the K5 probe against their plain
-     versions on the bench edge stream (``full`` bit-equal to K1). Times:
-     each function and each bare kernel in CUDA graphs (8 launches per
-     graph, tools/segsum_inner_ablation.py) and the PyTorch yardstick for
-     the same function the same way (one call for K1 and K4; two for K2,
-     ``sparse.mm`` + ``matmul``, and three for K3), the wrapper and the
+     exact in TF32; K3's and the gather-fused backward's bf16 dx are f32
+     results rounded to bf16 and may differ by one bf16 step, rtol 2^-7;
+     K4's bf16 result must be equal; two gather-fused backward runs must
+     be bit-equal), on edge cases (odd widths, K = 1, tiles that N does
+     not fill, tiles without a live edge, long runs, all padding, an
+     empty stream) and at the shapes of real packed batches of the
+     phase-3 request and of the phase-6 training set (whose permutation
+     derived on the card must equal ``pack_samples``' one); the four
+     variants of the K5 probe against their plain versions on the bench
+     edge stream (``full`` bit-equal to K1). Times: each function and
+     each bare kernel in CUDA graphs (8 launches per graph,
+     tools/segsum_inner_ablation.py), the gather-fused K1 also beside the
+     ``index_select`` + K1 and K4 + ``index_add_`` composition it
+     replaced, and the PyTorch yardstick for the same function the same
+     way (one call for K1, K4 and the gather-fused K1, ``sparse.mm`` of
+     the unit CSR adjacency or its transpose; two for K2, ``sparse.mm``
+     + ``matmul``, and three for K3), the wrapper and the
      plain version with CUDA events over 50 eager calls, and the least
      time the card could take for the same work (products counted at the
      rate of the unit that runs them).
@@ -39,7 +47,10 @@ nonzero on a failed check (no phase catches its own failure):
      warm-up, a 256-graph request (twice) and ``count_stream`` over 4x64
      graphs. Every launch counter is zeroed just before these requests
      and read just after: K2 must have run exactly 8 times per packed
-     target batch. Counts must be finite and >= 0, verified rows must
+     target batch, K1 once per target batch (the pooling), the
+     gather-fused K1 1 + 2 x 29
+     times per gossip batch and no backward kernel. Counts must be
+     finite and >= 0, verified rows must
      equal a VF2 recount, and CUDA must match the port on the CPU
      (verify_budget=0) within rtol 1e-3 of each count (floored at 1).
      Then the same 256-graph request with ``serve_bf16``: K2 runs 8 times
@@ -52,7 +63,13 @@ nonzero on a failed check (no phase catches its own failure):
   5. gradients: ``train_loss`` and ``gossip_loss`` gradients through the
      kernels against the same on the CPU through the plain versions, same
      weights and batch, dropout 0: max error <= 1e-4 of each tensor's
-     scale.
+     scale; the query tower runs the gather-fused K1 8 times forward and
+     backward (its batch has no permutation: derived on the card), the
+     gossip loss 1 + 4 x 29 times forward (the checkpoint recomputes
+     each query) and 29 backward, K1 and K4 never. Same-seed
+     reproducibility: whether two gossip train steps from the same
+     weights and dropout seed give bit-equal gradients is printed; the
+     gather-fused backward's own dx must be bit-equal over two runs.
   6. training at full width: a ``SynNp_320`` train set (= valid set) with
      exact VF2 ground truth, ten epochs of the neighborhood stage (paper
      config: batch 512, lr 1e-4; its epoch loss spikes now and then in
@@ -63,7 +80,11 @@ nonzero on a failed check (no phase catches its own failure):
      much only over tens of epochs) through ``train_neighborhood_stage``
      / ``train_gossip_stage``. Counters zeroed before, read after: K3 = 8 x
      neighborhood train steps, K2 = 8 x (train steps + val batches +
-     predict batches), K4 > 0 in both stages; losses finite and falling.
+     predict batches), K1 and K4 > 0 in the neighborhood stage, the
+     gather-fused K1 at its count in both stages (the query tower; in the
+     gossip stage 1 + 4 x 29 per train step and 1 + 2 x 29 per val batch,
+     29 backward per train step), K1 once and K4 never in the gossip
+     stage; losses finite and falling.
      Then the neighborhood stage again with ``train_bf16``: K3 = 8 x train
      steps, all on bf16 rows; K2's bf16 launches = 8 x train steps and its
      f32 launches = 8 x val batches (validation runs the f32 tower); the
@@ -83,6 +104,7 @@ nonzero on a failed check (no phase catches its own failure):
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import json
 import os
@@ -108,6 +130,13 @@ PAD_KEY = 2 ** 30  # the padding id of desco_tpu's segment-sum streams
 # between the card and the CPU, so 0.25 leaves a factor of two. desco_tpu's
 # own test allows 0.05 at 4 layers, hidden 16 (tests/test_models.py:515).
 BF16_LOG2_ATOL = 0.25
+# gather-fused K1 launches of one gossip train step (29 queries, 2
+# layers): the degrees, two per query forward and two in the checkpoint's
+# recomputation; backward behind layer 1 only (layer 0's input is
+# detached). A gossip forward without grad: 1 + 2 x 29.
+GOSSIP_FWD_PER_STEP = 1 + 4 * 29
+GOSSIP_BWD_PER_STEP = 29
+GOSSIP_FWD_PER_EVAL = 1 + 2 * 29
 
 
 def fail(msg: str) -> None:
@@ -276,6 +305,157 @@ def k1_main(torch, cs, dev, msgs, seg, n, label, timed: dict) -> dict:
     print(f"K1 {dname(msgs.dtype)} at {label}: msgs {tuple(msgs.shape)}, "
           f"{n} segments, {e_live} live rows: {json.dumps(row)}", flush=True)
     return row
+
+
+# ------------------------------------------------ phase 2: gather-fused K1
+def gather_case(torch, cs, rng, dev, dtype, n, t, k, e_live, pad=64,
+                long_dst=0, long_src=0):
+    """x [n, k] in ``dtype`` and the ``TypedStreams`` of a
+    (dst,type)-sorted stream with desco_tpu's padding (keys (n-1)*T + 63
+    from the zero pad node n - 1), the backward streams derived on the
+    card; ``long_dst`` / ``long_src`` more edges into / out of node 7."""
+    dst = rng.integers(0, n - 1, e_live)
+    src = rng.integers(0, n - 1, e_live)
+    if long_dst:
+        dst = np.concatenate([dst, np.full(long_dst, 7)])
+        src = np.concatenate([src, rng.integers(0, n - 1, long_dst)])
+    if long_src:
+        src = np.concatenate([src, np.full(long_src, 7)])
+        dst = np.concatenate([dst, rng.integers(0, n - 1, long_src)])
+    keys = dst * t + rng.integers(0, t, len(dst))
+    order = np.argsort(keys, kind="stable")
+    keys = np.concatenate([keys[order], np.full(pad, (n - 1) * t + 63)])
+    src = np.concatenate([src[order], np.full(pad, n - 1)])
+    x = torch.randn(n, k, device=dev)
+    x[n - 1] = 0.0  # the pad node
+    st = cs.typed_streams(torch.as_tensor(src.astype(np.int32), device=dev),
+                          torch.as_tensor(keys.astype(np.int32), device=dev),
+                          t, n, n)
+    return x.to(dtype), cs.ensure_backward_streams(st)
+
+
+# odd K, K = 1 (the direction degrees), rows of 16 (two lane groups),
+# K = 576 over few segments, long segments both ways, all padding, and an
+# empty stream
+GATHER_EDGE_CASES = {
+    "gossip width K=128, T=2": dict(n=700, t=2, k=128, e_live=4000),
+    "query tower K=64, T=6": dict(n=300, t=6, k=64, e_live=2000),
+    "odd K=33, T=3": dict(n=300, t=3, k=33, e_live=999),
+    "K=1 (direction degrees)": dict(n=500, t=2, k=1, e_live=3000),
+    "K=16 (two lane groups)": dict(n=200, t=2, k=16, e_live=1500),
+    "K=576, 4 nodes": dict(n=5, t=2, k=576, e_live=3000),
+    "long segments (5000 edges into and out of one node)":
+        dict(n=500, t=2, k=128, e_live=900, long_dst=5000, long_src=5000),
+    "all padding": dict(n=129, t=2, k=64, e_live=0, pad=512),
+    "empty stream": dict(n=40, t=2, k=128, e_live=0, pad=0),
+}
+
+
+def gather_check(torch, cs, x, g, st, what) -> float:
+    """The gather-fused K1 forward and backward on the card against their
+    plain versions: the forward against ``index_select`` + ``segment_sum``
+    (rtol 1e-5), dx against autograd's backward of that (``index_select``
+    of g by key, ``index_add_`` by source; f32 rtol 1e-5, bf16 dx one
+    bf16 step, 2^-7) and against K1's plain version over the
+    source-sorted stream; a second backward must be bit-equal."""
+    n_seg, k = st.n_nodes * st.n_types, x.shape[1]
+    before = (cs.gather_segment_sum.launches,
+              cs.gather_segment_sum_bwd.launches)
+    out = cs.gather_segment_sum(x, st)
+    dx = cs.gather_segment_sum_bwd(g, st, x.dtype)
+    dx2 = cs.gather_segment_sum_bwd(g, st, x.dtype)
+    torch.cuda.synchronize()
+    want = (before[0] + (n_seg > 0 and k > 0), before[1] + 2 * (k > 0))
+    check((cs.gather_segment_sum.launches,
+           cs.gather_segment_sum_bwd.launches) == want,
+          f"K1' {what}: the kernels did not launch once per call")
+    check(dx.dtype == x.dtype, f"K1' {what}: dx not in x's dtype")
+    check(torch.equal(dx, dx2), f"K1' {what}: two backward runs differ")
+    check(int(st.bwd_soffs[-1]) == int(st.fwd_toffs[-1]),
+          f"K1' {what}: the backward stream has another edge count")
+    rtol = 1e-5 if x.dtype == torch.float32 else 2.0 ** -7
+    what = f"{dname(x.dtype)} {what}"
+    return max(
+        max_err(torch, out, cs.gather_segment_sum_plain(x, st),
+                f"K1' forward, {what}"),
+        max_err(torch, dx, cs.gather_segment_sum_bwd_plain(g, st, x.dtype),
+                f"K1' dx, {what}", rtol),
+        max_err(torch, dx, cs.gather_rows_segment_sum_plain(
+            g, st.bwd_keys, st.bwd_soffs, st.n_rows).to(x.dtype),
+                f"K1' dx over the source-sorted stream, {what}", rtol))
+
+
+def gather_edge_cases(torch, cs, rng, dev, dtype) -> None:
+    for name, kw in GATHER_EDGE_CASES.items():
+        x, st = gather_case(torch, cs, rng, dev, dtype, **kw)
+        g = torch.randn(st.n_nodes * st.n_types, kw["k"], device=dev)
+        err = gather_check(torch, cs, x, g, st, name)
+        # a strided cotangent, as autograd may hand one over
+        wide = torch.randn(g.shape[0], 2 * g.shape[1], device=dev)
+        err = max(err, gather_check(torch, cs, x, wide[:, :g.shape[1]], st,
+                                    name + ", strided g"))
+        print(f"K1' {dname(dtype)} edge case ok: {name} (max err "
+              f"{err:.3g}; backward bit-equal over two runs)", flush=True)
+
+
+def gather_main(torch, cs, dev, case, dtype, graph_rows: dict) -> tuple:
+    """Check the gather-fused K1 and its backward at the gossip layer-0
+    aggregation (the ``gossip`` case of ``kernel_cases``) on x in
+    ``dtype``; time the wrappers and plain versions eagerly and take the
+    CUDA-graph times (function, bare kernel, the composition it replaced)
+    from ``graph_rows``; the yardstick is ``torch.sparse.mm`` of the
+    batch's unit CSR adjacency [N*T, N] with x, and of its transpose with
+    g; bounds in HBM bytes, and the L2 volume the gather re-reads."""
+    x, g, st = case["x"].to(dtype), case["g"], case["st"]
+    err = gather_check(torch, cs, x, g, st, "gossip layer-0 batch")
+    n_seg, k, n = st.n_nodes * st.n_types, x.shape[1], st.n_rows
+    e_live = int(st.fwd_toffs[-1])
+    it = x.element_size()
+    ones = torch.ones(e_live, dtype=dtype, device=dev)
+    csr = torch.sparse_csr_tensor(st.fwd_toffs,
+                                  st.edge_src[:e_live].contiguous(), ones,
+                                  (n_seg, n))
+    csr_t = torch.sparse_csr_tensor(st.bwd_soffs,
+                                    st.bwd_keys[:e_live].contiguous(),
+                                    ones.float(), (n, n_seg))
+    rows = {}
+    for way in ("fwd", "bwd"):
+        r = graph_rows[f"gather_{way}_{dname(dtype)}"]
+        if way == "fwd":
+            moved = (x.numel() * it + e_live * 4 + st.fwd_toffs.numel() * 4
+                     + n_seg * k * 4)
+            wrapper = lambda: cs.gather_segment_sum(x, st)  # noqa: E731
+            plain = lambda: cs.gather_segment_sum_plain(x, st)  # noqa: E731
+            library = lambda: torch.sparse.mm(csr, x)  # noqa: E731
+        else:
+            moved = (g.numel() * 4 + e_live * 4 + st.bwd_soffs.numel() * 4
+                     + n * k * it)
+            wrapper = lambda: cs.gather_segment_sum_bwd(  # noqa: E731
+                g, st, dtype)
+            plain = lambda: cs.gather_segment_sum_bwd_plain(  # noqa: E731
+                g, st, dtype)
+            library = lambda: torch.sparse.mm(csr_t, g)  # noqa: E731
+        b_ms, b_by = bound(moved, e_live * k)
+        rows[way] = {
+            "ms": r["function_us"] / 1e3,
+            "kernel_only_ms": r["alone_us"] / 1e3,
+            "replaced_ms": r["old_us"] / 1e3,
+            "wrapper_ms": cuda_ms(torch, wrapper),
+            "plain_ms": cuda_ms(torch, plain),
+            "library_ms": library_yardstick(
+                library, f"K1' {way} {dname(dtype)} sparse.mm"),
+            "library": "torch.sparse.mm of the unit CSR adjacency"
+                       + (" (transposed) with g" if way == "bwd" else
+                          " with x"),
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": moved,
+            "l2_gather_bytes": e_live * k * (it if way == "fwd" else 4),
+            "max_abs_err": err,
+        }
+        print(f"K1' {way} {dname(dtype)} at the gossip layer-0 aggregation: "
+              f"x {tuple(x.shape)}, {st.keys.numel()} edge slots ({e_live} "
+              f"live), {n_seg} (node, direction) segments: "
+              f"{json.dumps(rows[way])}", flush=True)
+    return rows["fwd"], rows["bwd"]
 
 
 # ------------------------------------------------------------ phase 2: K2
@@ -618,8 +798,6 @@ def grad_errors(torch, loss_on, params, what: str) -> float:
     """Gradients of ``loss_on(params, device)`` on CUDA (kernels) against
     the CPU (plain versions): the largest error relative to its tensor's
     scale, which must stay within 1e-4."""
-    import copy
-
     grads = {}
     for dev in ("cuda", "cpu"):
         p = copy.deepcopy(params).to(dev).requires_grad_(True)
@@ -680,6 +858,7 @@ def main() -> int:
     from desco_tpu_torch.graph.canonical import canonical_neighborhood
     from desco_tpu_torch.models import gossip as gossip_mod
     from desco_tpu_torch.models import neighborhood as neigh_mod
+    from desco_tpu_torch.models.shmp_gnn import batch_typed_streams
     from desco_tpu_torch.ops import cuda_build
     from desco_tpu_torch.ops import cuda_segment as cs
     from desco_tpu_torch.pipeline import (
@@ -782,16 +961,16 @@ def main() -> int:
     with torch.inference_mode():
         for dtype in (f32, bf16):
             k1_edge_cases(torch, cs, krng, dev, dtype)
+            gather_edge_cases(torch, cs, krng, dev, dtype)
             k2_edge_cases(torch, cs, krng, dev, dtype)
             k3_edge_cases(torch, cs, krng, dev, dtype)
             k4_edge_cases(torch, cs, krng, dev, dtype)
         k5_rows = k5_checks(torch, cs, probe, dev, args.seed)
         # the main-path shapes: K2 at a packed target batch of the
-        # 256-graph request; K1 in the gossip direction aggregation
-        # ([E, 128] messages in layer 0) and in the target tower's graph
-        # pooling; K3 behind every K2 of a training step; K4 behind the
-        # gossip direction aggregation (its largest use) and behind
-        # pooling
+        # 256-graph request; the gather-fused K1 and its backward in the
+        # gossip direction aggregation (x [n_cap, 128] in layer 0); K1 in
+        # the target tower's graph pooling; K3 behind every K2 of a
+        # training step; K4 behind pooling
         tb = main_stage.batches[0].to(dev)
         conv_w = svc.neigh_params["target"]["conv"].w[3].contiguous()
         gb = prepare_gossip_batches(
@@ -800,22 +979,38 @@ def main() -> int:
             capacities=lambda s: svc._pin_caps(
                 svc._gossip_buckets, s, svc.cfg.gossip_batch_size))[0].to(dev)
         trb = tb0.to(dev, training=True)
+        # the gossip batch of the phase-6 training set: the permutation
+        # derived on the card equals the one pack_samples wrote
+        tgb = prepare_gossip_batches(
+            tcfg, train_stage, np.zeros((len(train_stage.samples), 29)),
+            need_bwd_perm=True)[0].to(dev, training=True)
+        tgst = batch_typed_streams(tgb, 2)
+        check(torch.equal(cs.derive_bwd_perm(tgst), tgb.edge_bwd_perm),
+              "the permutation derived on the card differs from "
+              "pack_samples' edge_bwd_perm")
+        for dtype in (f32, bf16):
+            tx = (torch.randn(tgb.n_cap, 128, device=dev)
+                  * tgb.node_mask[:, None]).to(dtype)
+            err = gather_check(
+                torch, cs, tx, torch.randn(2 * tgb.n_cap, 128, device=dev),
+                tgst, "training gossip batch")
+            print(f"K1' {dname(dtype)} at the training gossip batch (n_cap "
+                  f"{tgb.n_cap}, e_cap {tgb.e_cap}; derived permutation == "
+                  f"edge_bwd_perm): max err {err:.3g}", flush=True)
+        del tgb, tgst
         cases = probe.kernel_cases(tb, gb, trb, conv_w)
         t0 = time.perf_counter()
         graph_rows = probe.time_cases(cases)
         print(f"CUDA-graph timings of K1-K4 (8 launches per graph; K2 alone "
-          f"= its function, K3 alone = without its dW reduction launch): "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
+              f"= its function, K3 alone = without its dW reduction "
+              f"launch): {time.perf_counter() - t0:.1f} s", flush=True)
         k_rows = {}
         for dtype in (f32, bf16):
             d = dname(dtype)
-            c = cases["k1_gossip"]
-            k_rows["k1", d] = k1_main(
-                torch, cs, dev, c["msgs"].to(dtype), c["seg"], c["n"],
-                "the gossip layer-0 aggregation",
-                graph_ms(graph_rows, "k1_gossip", dtype))
+            k_rows["k1g", d], k_rows["k1g_bwd", d] = gather_main(
+                torch, cs, dev, cases["gossip"], dtype, graph_rows)
             c = cases["k1_pool"]
-            k_rows["k1_pool", d] = k1_main(
+            k_rows["k1", d] = k1_main(
                 torch, cs, dev, c["msgs"].to(dtype), c["seg"], c["n"],
                 "the target-tower pooling",
                 graph_ms(graph_rows, "k1_pool", dtype))
@@ -823,13 +1018,8 @@ def main() -> int:
                                       graph_ms(graph_rows, "k2", dtype))
             k_rows["k3", d] = k3_main(torch, cs, dev, cases["k3"], dtype,
                                       graph_ms(graph_rows, "k3", dtype))
-            c = cases["k4_gossip"]
-            k_rows["k4", d] = k4_main(
-                torch, cs, dev, c["g"], c["seg"], dtype,
-                "the gossip layer-0 aggregation's backward",
-                graph_ms(graph_rows, "k4_gossip", dtype))
             c = cases["k4_pool"]
-            k_rows["k4_pool", d] = k4_main(
+            k_rows["k4", d] = k4_main(
                 torch, cs, dev, c["g"], c["seg"], dtype,
                 "the target-tower pooling's backward",
                 graph_ms(graph_rows, "k4_pool", dtype))
@@ -853,15 +1043,22 @@ def main() -> int:
     timings["count_stream 4x64 graphs"] = time.perf_counter() - t0
     launches = cs.read_launches()
     print(f"serving-path launches: {json.dumps(launches)}; expected K2 = 8 "
-          f"x {sum(n_batches)} target batches", flush=True)
+          f"x {sum(n_batches)} target batches, K1 = one pooling per target "
+          f"batch, the gather-fused K1 = 1 + 2 x 29 per gossip batch",
+          flush=True)
     check(all(launches[k.__name__ + "_bf16"] == 0 for k in cs.KERNELS),
           "bf16 launches on the f32 serving path")
     check(launches["fused_typed_transform_aggregate"] == 8 * sum(n_batches),
           "K2 launches != 8 x packed target batches")
-    for name in ("sorted_segment_sum", "fused_typed_transform_aggregate"):
-        check(launches[name] > 0,
-              f"kernel {name} never launched on the serving path")
-    for name in ("typed_aggregate_bwd", "segment_sum_vjp"):
+    check(launches["sorted_segment_sum"] == sum(n_batches),
+          "K1 launches != one pooling per target batch (the gossip path "
+          "must run the gather-fused K1 only)")
+    check(launches["gather_segment_sum"] > 0
+          and launches["gather_segment_sum"] % (1 + 2 * 29) == 0,
+          "the gather-fused K1 did not run 1 + 2 x 29 times per gossip "
+          "batch")
+    for name in ("typed_aggregate_bwd", "segment_sum_vjp",
+                 "gather_segment_sum_bwd"):
         check(launches[name] == 0,
               f"backward kernel {name} launched while serving")
 
@@ -933,13 +1130,17 @@ def main() -> int:
           and launches_bf["fused_typed_transform_aggregate_bf16"]
           == 8 * n_main, "serve_bf16: K2 launches != 8 x target batches on "
           "bf16 rows")
-    check(launches_bf["sorted_segment_sum_bf16"] == n_main,
-          "serve_bf16: the bf16 tower's pooling did not run K1 on bf16 rows "
-          "once per target batch")
-    check(launches_bf["sorted_segment_sum"] > n_main,
-          "serve_bf16: the f32 gossip stage did not run K1")
+    check(launches_bf["sorted_segment_sum_bf16"] == n_main
+          and launches_bf["sorted_segment_sum"] == n_main,
+          "serve_bf16: K1 did not run once per target batch (the bf16 "
+          "tower's pooling), on bf16 rows")
+    check(launches_bf["gather_segment_sum"] > 0
+          and launches_bf["gather_segment_sum_bf16"] == 0,
+          "serve_bf16: the f32 gossip stage did not run the gather-fused "
+          "K1 on f32 rows")
     check(launches_bf["typed_aggregate_bwd"] == 0
-          and launches_bf["segment_sum_vjp"] == 0,
+          and launches_bf["segment_sum_vjp"] == 0
+          and launches_bf["gather_segment_sum_bwd"] == 0,
           "serve_bf16: a backward kernel launched while serving")
     check_counts(res_bf, 256, "serve_bf16 request")
     check_verified(res_bf, "serve_bf16 request")
@@ -1021,14 +1222,21 @@ def main() -> int:
     qb = build_query_batch(tcfg)
     gen = torch.Generator().manual_seed(args.seed)
     neigh_params = neigh_mod.init_neighborhood_model(tgt_cfg, qry_cfg, gen)
-    before = cs.typed_aggregate_bwd.launches
+    cs.reset_launches()
     t0 = time.perf_counter()
     worst = grad_errors(
         torch, lambda p, d: neigh_mod.train_loss(
             p, tgt_cfg, qry_cfg, tb0.to(d, training=True), qb.to(d)),
         neigh_params, "train_loss")
-    check(cs.typed_aggregate_bwd.launches == before + 8,
+    grad_launches = cs.read_launches()
+    check(grad_launches["typed_aggregate_bwd"] == 8,
           "train_loss's backward did not launch K3 once per layer")
+    # the query batch is packed without a permutation: its backward
+    # streams are derived on the card
+    check(grad_launches["gather_segment_sum"] == 8
+          and grad_launches["gather_segment_sum_bwd"] == 8,
+          "the query tower did not run the gather-fused K1 forward and "
+          "backward once per layer")
     print(f"gradients: train_loss through K1-K4 on CUDA vs the plain "
           f"versions on the CPU, {sum(p.numel() for p in neigh_params.parameters())} "
           f"parameters: max error {worst:.3g} of a tensor's scale "
@@ -1045,17 +1253,56 @@ def main() -> int:
     gossip_params = gossip_mod.init_gossip_model(
         hidden_dim=tcfg.gossip_hidden_dim,
         emb_channels=tcfg.neigh_hidden_dim, generator=gen)
-    before = cs.segment_sum_vjp.launches
+    cs.reset_launches()
     t0 = time.perf_counter()
     worst = grad_errors(
         torch, lambda p, d: gossip_mod.gossip_loss(
             p, ggb.to(d, training=True), fresh_embs.to(d)),
         gossip_params, "gossip_loss")
-    check(cs.segment_sum_vjp.launches > before,
-          "gossip_loss's backward did not launch K4")
+    grad_launches = cs.read_launches()
     print(f"gradients: gossip_loss (29 checkpointed queries) on CUDA vs "
           f"the CPU: max error {worst:.3g} of a tensor's scale "
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+          f"({time.perf_counter() - t0:.1f} s); launches "
+          f"{json.dumps(grad_launches)}", flush=True)
+    # per gossip loss: the degrees, then per query two layers forward and
+    # again in the checkpoint's recomputation; the backward only behind
+    # layer 1 (layer 0's input is detached); no K1 or K4 on this path
+    check(grad_launches["gather_segment_sum"] == GOSSIP_FWD_PER_STEP
+          and grad_launches["gather_segment_sum_bwd"] == GOSSIP_BWD_PER_STEP
+          and grad_launches["sorted_segment_sum"] == 0
+          and grad_launches["segment_sum_vjp"] == 0,
+          f"gossip_loss launches {grad_launches}: expected the gather-fused "
+          f"K1 {GOSSIP_FWD_PER_STEP} times forward and "
+          f"{GOSSIP_BWD_PER_STEP} backward, K1 and K4 never")
+
+    # same-seed reproducibility: two gossip train steps from the same
+    # weights, batch and dropout seed
+    ggb_dev, embs_dev = ggb.to(dev, training=True), fresh_embs.to(dev)
+    step_grads = []
+    for _ in range(2):
+        p = copy.deepcopy(gossip_params).to(dev).requires_grad_(True)
+        gossip_mod.gossip_loss(
+            p, ggb_dev, embs_dev, dropout=0.01, train=True,
+            generator=torch.Generator(device=dev).manual_seed(args.seed)
+        ).backward()
+        step_grads.append({n: q.grad for n, q in p.named_parameters()
+                           if q.grad is not None})
+    differ = [n for n, gr in step_grads[0].items()
+              if not torch.equal(gr, step_grads[1][n])]
+    gst = batch_typed_streams(ggb_dev, 2)
+    gcot = torch.randn(2 * ggb_dev.n_cap, tcfg.gossip_hidden_dim,
+                       device=dev)
+    agg_equal = torch.equal(cs.gather_segment_sum_bwd(gcot, gst),
+                            cs.gather_segment_sum_bwd(gcot, gst))
+    n_equal = len(step_grads[0]) - len(differ)
+    print(f"same-seed reproducibility: two gossip train steps give "
+          f"bit-equal gradients: {not differ} ({n_equal} of "
+          f"{len(step_grads[0])} tensors equal"
+          f"{'; differ: ' + ', '.join(differ) if differ else ''}); the "
+          f"aggregate's own dx over two runs bit-equal: {agg_equal}",
+          flush=True)
+    check(agg_equal, "the gather-fused backward gave two different dx")
+    del ggb_dev, step_grads
 
     # ------------------------------------------- 6. training, full width
     cs.reset_launches()
@@ -1087,6 +1334,12 @@ def main() -> int:
     check(after_neigh["segment_sum_vjp"] > 0 and
           after_neigh["sorted_segment_sum"] > 0,
           "K1 / K4 never launched in the neighborhood stage")
+    # the query tower (8 layers) runs in every train step and val batch
+    check(after_neigh["gather_segment_sum"] == 8 * 2 * steps
+          and after_neigh["gather_segment_sum_bwd"] == 8 * steps,
+          f"gather-fused K1 launches {after_neigh['gather_segment_sum']} / "
+          f"{after_neigh['gather_segment_sum_bwd']} != 8 x (train steps + "
+          f"val batches) / 8 x train steps")
     live_edges = int(sum((b.edge_type != 63).sum()
                          for b in train_stage.batches))
     neigh_step_ms = 1e3 * float(np.mean(res.train_times[1:])) / n_b
@@ -1127,11 +1380,25 @@ def main() -> int:
           f"gossip losses not finite: {gres.train_losses}")
     check(gres.train_losses[-1] < gres.train_losses[0],
           f"gossip train loss did not fall: {gres.train_losses}")
-    check(train_launches["segment_sum_vjp"] > after_pred["segment_sum_vjp"],
-          "K4 never launched in the gossip stage")
-    check(train_launches["sorted_segment_sum"]
-          > after_pred["sorted_segment_sum"],
-          "K1 never launched in the gossip stage")
+    # the gossip stage: the query tower once (no grad: its pooling is the
+    # one K1), then per train step and val batch the gather-fused K1 only
+    n_gval = int(np.isfinite(gres.val_losses).sum())
+    g_steps = tcfg.gossip_epochs * n_gb
+    want_fwd = 8 + g_steps * GOSSIP_FWD_PER_STEP \
+        + n_gval * n_gb * GOSSIP_FWD_PER_EVAL
+    stage = {name: train_launches[name] - after_pred[name]
+             for name in train_launches}
+    print(f"gossip-stage launches: {json.dumps(stage)}; expected the "
+          f"gather-fused K1 8 + {g_steps} x {GOSSIP_FWD_PER_STEP} + "
+          f"{n_gval * n_gb} x {GOSSIP_FWD_PER_EVAL} = {want_fwd} forward, "
+          f"{g_steps} x {GOSSIP_BWD_PER_STEP} backward", flush=True)
+    check(stage["segment_sum_vjp"] == 0 and stage["sorted_segment_sum"] == 1,
+          "the gossip path launched K1 or K4 (only the query tower's "
+          "pooling may)")
+    check(stage["gather_segment_sum"] == want_fwd
+          and stage["gather_segment_sum_bwd"]
+          == g_steps * GOSSIP_BWD_PER_STEP,
+          "gather-fused K1 launches in the gossip stage off their count")
     check(train_launches["typed_aggregate_bwd"] == 8 * steps and
           train_launches["fused_typed_transform_aggregate"]
           == 8 * (2 * steps + n_b),
@@ -1312,6 +1579,26 @@ def main() -> int:
                 **k_rows[key, d]))
             check(sum(per_path) > 0,
                   f"kernel {wrapper} ({d}) never launched on a main path")
+    # the gather-fused K1 and its backward: every main path runs them on
+    # f32 rows (the query tower and the gossip model are f32; the bf16
+    # tower aggregates through K2); the bf16 instantiation is checked and
+    # timed in phase 2 and reported beside the f32 one
+    paths = (launches, train_launches, launches_bf, bf_launches)
+    for key, wrapper, line_no in (("k1g", "gather_segment_sum", 310),
+                                  ("k1g_bwd", "gather_segment_sum_bwd", 464)):
+        per_path = [p[wrapper] - p[wrapper + "_bf16"] for p in paths]
+        check(sum(per_path) > 0 and all(p[wrapper + "_bf16"] == 0
+                                        for p in paths),
+              f"kernel {wrapper} did not run on f32 rows only on the main "
+              f"paths")
+        kernels.append(dict(
+            name=f"{wrapper} (K1', gather-fused "
+                 f"{'backward' if key.endswith('bwd') else 'forward'}, f32)",
+            route="cuda", source=seg_src,
+            replaces=f"desco_tpu/ops/pallas_segment.py:{line_no}",
+            launches=sum(per_path), launches_per_path=per_path,
+            **k_rows[key, "f32"],
+            bf16_rows={"launches": 0, **k_rows[key, "bf16"]}))
     for name, r in probe_row["variants"].items():
         kernels.append(dict(
             name=f"probe_{name} (K5)", route="cuda",

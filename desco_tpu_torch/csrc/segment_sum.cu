@@ -3,13 +3,20 @@
 // K1 desco_sorted_segment_sum replaces desco_tpu's Pallas
 //    pallas_sorted_segment_sum (desco_tpu/ops/pallas_segment.py:310).
 //
-// A sorted segment stream is CSR: the wrapper (ops/cuda_segment.py) finds
-// the row offsets with one torch.searchsorted and hands them in. One warp
-// owns one segment: its lanes stride the K feature columns with 2- to
-// 16-byte loads, the edges of the segment are read in order, the sum stays
-// in f32 registers and is written once. No atomics, no spill row, and the
-// result does not depend on the launch (deterministic). Segment ids past
-// the last offset (the padding keys) are never visited.
+// A sorted segment stream is CSR: the wrapper (ops/cuda_segment.py) hands
+// in the row offsets, and optionally the row index of every edge, so one
+// kernel computes out[r] = sum of x[rows[e]] over the edges of segment r:
+// the gather is folded into the sum and the [E, K] messages never exist
+// (desco_tpu's typed_edge_aggregate is "one fused gather + segment-sum").
+// The same kernel is the backward of the gather-fused sum, run over the
+// batch's source-sorted stream. One warp owns one segment and one chunk of
+// 32 x (2- to 16-byte lane loads) columns, so wide rows are split over
+// warps; the edges are read in order, the sum stays in f32 registers and
+// is written once. No atomics, no spill row, and the result does not
+// depend on the launch (deterministic). Edges past the last offset (the
+// padding keys) are never visited. What bounds it: the bytes of the x
+// rows (re-read from L2 once per edge when gathered), the index stream
+// and the f32 output; a quarter of an f32 operation per byte.
 //
 // K4 desco_segment_sum_vjp_gather is the backward of K1, desco_tpu's
 //    _ssum_ad_bwd (desco_tpu/ops/pallas_segment.py:464): d[e, :] =
@@ -40,6 +47,7 @@ constexpr int kWarp = 32;
 constexpr int kWarpsPerBlock = 8;
 constexpr int kThreads = kWarp * kWarpsPerBlock;
 constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kUnroll = 8;  // rows one lane has in flight in K1's kernel
 
 constexpr int kF32 = 0;   // dtype codes of the C interface
 constexpr int kBf16 = 1;
@@ -148,22 +156,58 @@ __device__ __forceinline__ void store_row(float* __restrict__ p,
   }
 }
 
-// K1: out[s, :] = sum of msgs[e, :] for e in [offs[s], offs[s+1]).
-// The rows of one segment are contiguous, so each step of the warp reads
-// one whole message row in one coalesced request; four rows are in flight
-// before the first add. MODE strips it for the probe: kModeNoOffs gives
-// warp s the fixed rows [s*run, min((s+1)*run, n_rows)) and reads no
-// offsets; kModeNoAcc also replaces convert-and-add by an OR of the raw
-// words and writes each OR-ed element's bit pattern as a number.
+// The running state of K1's kernel folded across the lane groups of a
+// warp in the narrow layout: lane l adds lane l ^ off for off = 16, 8, ...
+// down to ``lanes``, a fixed order, so every lane of group 0 ends with the
+// sum over all groups (OR-ed bits in kModeNoAcc).
 template <typename T, int VEC, int MODE>
+__device__ __forceinline__ void fold_groups(
+    float (&acc)[VEC], unsigned (&bits)[Lane<T, VEC>::kWords], int lanes) {
+  for (int off = kWarp / 2; off >= lanes; off >>= 1) {
+    if constexpr (MODE == kModeNoAcc) {
+#pragma unroll
+      for (int i = 0; i < Lane<T, VEC>::kWords; ++i)
+        bits[i] |= __shfl_xor_sync(kFullMask, bits[i], off);
+    } else {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i)
+        acc[i] += __shfl_xor_sync(kFullMask, acc[i], off);
+    }
+  }
+}
+
+// K1: out[r, c] = sum of x[rows[e], c] for e in [offs[r], offs[r+1]), in
+// edge order (GATHER = false: rows is the identity, x[e, c]).
+//
+// Grid: blockIdx.x * 8 + warp is the segment r, blockIdx.y the column
+// chunk of 32 * VEC columns, so a wide row is split over several warps
+// (512 pooling segments of 576 columns are 512 x 9 warps, not 512 warps
+// walking the columns in turn). Wide layout (``lanes`` == 32): lane l
+// owns columns chunk + l*VEC .. +VEC and adds every edge of the segment
+// in order, so each output element is summed by one lane in a fixed order
+// and the result does not depend on the layout. Narrow layout (``lanes``
+// < 32, rows of at most 16 elements): the warp splits into 32 / lanes
+// groups of ``lanes`` lanes; group g adds edges g, g + groups, ... in
+// order and the groups are folded in a fixed shuffle order
+// (fold_groups): deterministic, but not the edge-order sum.
+//
+// Gather: per 32 edges the warp reads the 32 row indices in one load and
+// broadcasts them with __shfl_sync; x rows are then read with 2- to
+// 16-byte lane loads, kUnroll rows in flight before the first add. No
+// [E, K] message tensor exists. MODE strips the kernel for the probe:
+// kModeNoOffs gives warp r the fixed rows [r*run, min((r+1)*run,
+// n_rows)) and reads no offsets; kModeNoAcc also replaces convert-and-add
+// by an OR of the raw words and writes each OR-ed element's bit pattern
+// as a number.
+template <typename T, int VEC, int MODE, bool GATHER, bool NARROW>
 __global__ void __launch_bounds__(kThreads)
-segsum_rows_kernel(const T* __restrict__ msgs, const int* __restrict__ offs,
-                   int n_segments, int k, int run, int n_rows,
-                   float* __restrict__ out) {
+segsum_rows_kernel(const T* __restrict__ x, const int* __restrict__ rows,
+                   const int* __restrict__ offs, int n_segments, int k,
+                   int lanes, int run, int n_rows, float* __restrict__ out) {
   constexpr int kWords = Lane<T, VEC>::kWords;
   const int seg = blockIdx.x * kWarpsPerBlock + (threadIdx.x / kWarp);
   const int lane = threadIdx.x % kWarp;
-  if (seg >= n_segments) return;
+  if (seg >= n_segments) return;  // the whole warp: seg is warp-uniform
   int lo, hi;
   if constexpr (MODE == kModeFull) {
     lo = offs[seg];
@@ -173,45 +217,64 @@ segsum_rows_kernel(const T* __restrict__ msgs, const int* __restrict__ offs,
     lo = (int)min(b, (long long)n_rows);
     hi = (int)min(b + run, (long long)n_rows);
   }
-  for (int c0 = 0; c0 < k; c0 += kWarp * VEC) {
-    const int c = c0 + lane * VEC;
-    if (c >= k) break;  // no warp-wide operation below: lanes may leave
-    const T* __restrict__ col = msgs + c;
-    float acc[VEC];
-    unsigned bits[kWords];
+  const int groups = NARROW ? kWarp / lanes : 1;
+  const int g = NARROW ? lane / lanes : 0;
+  const int c = (int)blockIdx.y * kWarp * VEC + (NARROW ? lane % lanes : lane)
+                * VEC;
+  const bool active = c < k;  // idle lanes still take part in shuffles
+  const T* __restrict__ col = x + c;
+  float acc[VEC];
+  unsigned bits[kWords];
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
+  for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < kWords; ++i) bits[i] = 0u;
-    int e = lo;
-    for (; e + 4 <= hi; e += 4) {
-      const Raw<kWords> r0 = load_raw<T, VEC>(col + (int64_t)e * k);
-      const Raw<kWords> r1 = load_raw<T, VEC>(col + (int64_t)(e + 1) * k);
-      const Raw<kWords> r2 = load_raw<T, VEC>(col + (int64_t)(e + 2) * k);
-      const Raw<kWords> r3 = load_raw<T, VEC>(col + (int64_t)(e + 3) * k);
-      fold_raw<T, VEC, MODE>(acc, bits, r0);
-      fold_raw<T, VEC, MODE>(acc, bits, r1);
-      fold_raw<T, VEC, MODE>(acc, bits, r2);
-      fold_raw<T, VEC, MODE>(acc, bits, r3);
+  for (int i = 0; i < kWords; ++i) bits[i] = 0u;
+  for (int e0 = lo; e0 < hi; e0 += kWarp) {
+    const int n = min(kWarp, hi - e0);  // warp-uniform
+    int idx = 0;
+    if constexpr (GATHER) {
+      if (lane < n) idx = __ldg(rows + e0 + lane);
     }
-    for (; e < hi; ++e)
-      fold_raw<T, VEC, MODE>(acc, bits,
-                             load_raw<T, VEC>(col + (int64_t)e * k));
-    if constexpr (MODE == kModeNoAcc) {
-      // the OR-ed bit pattern of each element, as a number
-      if constexpr (sizeof(T) == 4 || VEC == 1) {
+    for (int j = 0; j < n; j += groups * kUnroll) {
+      Raw<kWords> r[kUnroll];
 #pragma unroll
-        for (int i = 0; i < VEC; ++i) acc[i] = (float)bits[i];
-      } else {
+      for (int i = 0; i < kUnroll; ++i) {
+        const int t = j + g + i * groups;  // edge e0 + t of the segment
+        int src;
+        if constexpr (GATHER) {
+          src = __shfl_sync(kFullMask, idx, t & (kWarp - 1));
+        } else {
+          src = e0 + t;
+        }
+        if (active && t < n) {
+          r[i] = load_raw<T, VEC>(col + (int64_t)src * k);
+        } else {
 #pragma unroll
-        for (int i = 0; i < VEC / 2; ++i) {
-          acc[2 * i] = (float)(bits[i] & 0xffffu);
-          acc[2 * i + 1] = (float)(bits[i] >> 16);
+          for (int w = 0; w < kWords; ++w) r[i].w[w] = 0u;
         }
       }
+#pragma unroll
+      for (int i = 0; i < kUnroll; ++i)
+        if (active && j + g + i * groups < n)
+          fold_raw<T, VEC, MODE>(acc, bits, r[i]);
     }
-    store_row(out + (int64_t)seg * k + c, acc);
   }
+  if constexpr (NARROW) fold_groups<T, VEC, MODE>(acc, bits, lanes);
+  if (!active || g != 0) return;
+  if constexpr (MODE == kModeNoAcc) {
+    // the OR-ed bit pattern of each element, as a number
+    if constexpr (sizeof(T) == 4 || VEC == 1) {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) acc[i] = (float)bits[i];
+    } else {
+#pragma unroll
+      for (int i = 0; i < VEC / 2; ++i) {
+        acc[2 * i] = (float)(bits[i] & 0xffffu);
+        acc[2 * i + 1] = (float)(bits[i] >> 16);
+      }
+    }
+  }
+  store_row(out + (int64_t)seg * k + c, acc);
 }
 
 // VEC f32 values as one aligned store of VEC elements of T (at most 16
@@ -356,16 +419,46 @@ void dispatch(int dtype, int vec, dim3 grid, cudaStream_t s, void* ptr,
   }
 }
 
-template <int MODE>
+// K1's kernel for one mode and gather flag; the layout (wide or narrow,
+// the ``lanes`` of lanes_per_row) is picked at run time. Only one-element
+// lanes can be narrow (pick_vec gives v > 1 only where K / v > 16).
+template <int MODE, bool GATHER>
 struct LaunchSegsumRows {
   template <typename T, int VEC>
-  static void run(dim3 grid, cudaStream_t s, T* msgs, const int* offs,
-                  int n_segments, int k, int run_rows, int n_rows,
-                  float* out) {
-    segsum_rows_kernel<T, VEC, MODE><<<grid, kThreads, 0, s>>>(
-        msgs, offs, n_segments, k, run_rows, n_rows, out);
+  static void run(dim3 grid, cudaStream_t s, T* x, const int* rows,
+                  const int* offs, int n_segments, int k, int lanes,
+                  int run_rows, int n_rows, float* out) {
+    if constexpr (VEC == 1) {
+      if (lanes < kWarp) {
+        segsum_rows_kernel<T, VEC, MODE, GATHER, true>
+            <<<grid, kThreads, 0, s>>>(x, rows, offs, n_segments, k, lanes,
+                                       run_rows, n_rows, out);
+        return;
+      }
+    }
+    segsum_rows_kernel<T, VEC, MODE, GATHER, false><<<grid, kThreads, 0, s>>>(
+        x, rows, offs, n_segments, k, kWarp, run_rows, n_rows, out);
   }
 };
+
+// Lanes that one row of K elements takes at VEC elements per lane: the
+// power of two >= ceil(K / VEC), at most a warp (32: the wide layout).
+int lanes_per_row(int k, int vec) {
+  const int need = (k + vec - 1) / vec;
+  int lanes = 1;
+  while (lanes < need && lanes < kWarp) lanes <<= 1;
+  return lanes;
+}
+
+// K1's grid: 8 segments per block in x, the column chunks of 32 * VEC
+// in y (one chunk in the narrow layout). (0, 0, 0) if it does not fit.
+dim3 segsum_grid(int n_segments, int k, int vec) {
+  const long long chunks = ((long long)k + kWarp * vec - 1) / (kWarp * vec);
+  if (chunks > 65535) return dim3(0, 0, 0);
+  return dim3((unsigned)(((long long)n_segments + kWarpsPerBlock - 1) /
+                         kWarpsPerBlock),
+              (unsigned)chunks);
+}
 
 struct LaunchVjpGather {
   template <typename T, int VEC>
@@ -383,22 +476,32 @@ bool known_dtype(int dtype) { return dtype == kF32 || dtype == kBf16; }
 
 extern "C" {
 
-int desco_segment_sum_abi_version() { return 4; }
+int desco_segment_sum_abi_version() { return 5; }
 
 const char* desco_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-int desco_sorted_segment_sum(void* msgs, int dtype, const int* offs,
-                             int n_segments, int k, float* out,
-                             void* stream) {
+// out [n_segments, k] f32: out[r] = sum of x[rows[e]] over e in
+// [offs[r], offs[r+1]); x [*, k] of ``dtype``; rows int32 (nullptr: the
+// identity, x[e]); offs int32 [n_segments + 1].
+int desco_sorted_segment_sum(void* x, int dtype, const int* rows,
+                             const int* offs, int n_segments, int k,
+                             float* out, void* stream) {
   if (n_segments <= 0 || k <= 0) return 0;
   if (!known_dtype(dtype)) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((n_segments + kWarpsPerBlock - 1) / kWarpsPerBlock);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int vec = pick_vec(k, dtype == kBf16 ? 2 : 4, msgs, out);
-  dispatch<LaunchSegsumRows<kModeFull>>(dtype, vec, grid, s, msgs, offs,
-                                        n_segments, k, 0, 0, out);
+  const int vec = pick_vec(k, dtype == kBf16 ? 2 : 4, x, out);
+  const dim3 grid = segsum_grid(n_segments, k, vec);
+  if (grid.x == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int lanes = lanes_per_row(k, vec);
+  if (rows != nullptr) {
+    dispatch<LaunchSegsumRows<kModeFull, true>>(
+        dtype, vec, grid, s, x, rows, offs, n_segments, k, lanes, 0, 0, out);
+  } else {
+    dispatch<LaunchSegsumRows<kModeFull, false>>(
+        dtype, vec, grid, s, x, rows, offs, n_segments, k, lanes, 0, 0, out);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

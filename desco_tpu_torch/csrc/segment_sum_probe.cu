@@ -24,7 +24,8 @@
 //
 // This file includes segment_sum.cu, so the first three variants are
 // instantiations of K1's own kernel template (segsum_rows_kernel<T, VEC,
-// MODE>) with K1's own choice of load width. It is built into a library
+// MODE, GATHER = false, NARROW>) with K1's own load width, grid and
+// column split. It is built into a library
 // of its own; the copies of K1-K4's C functions it carries are not used.
 
 #include "segment_sum.cu"
@@ -93,22 +94,27 @@ int desco_probe_abi_version() { return 1; }
 int desco_probe_segsum(void* msgs, const int* offs, int mode, int n_segments,
                        int k, int run, int n_rows, float* out, void* stream) {
   if (n_segments <= 0 || k <= 0) return 0;
-  const dim3 grid((n_segments + kWarpsPerBlock - 1) / kWarpsPerBlock);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int vec = pick_vec(k, 2, msgs, out);
+  const dim3 grid = segsum_grid(n_segments, k, vec);
+  if (grid.x == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int lanes = lanes_per_row(k, vec);
+  const int* no_rows = nullptr;
   switch (mode) {
     case kModeFull:
-      dispatch<LaunchSegsumRows<kModeFull>>(kBf16, vec, grid, s, msgs, offs,
-                                            n_segments, k, 0, 0, out);
+      dispatch<LaunchSegsumRows<kModeFull, false>>(
+          kBf16, vec, grid, s, msgs, no_rows, offs, n_segments, k, lanes, 0,
+          0, out);
       break;
     case kModeNoOffs:
-      dispatch<LaunchSegsumRows<kModeNoOffs>>(kBf16, vec, grid, s, msgs,
-                                              offs, n_segments, k, run,
-                                              n_rows, out);
+      dispatch<LaunchSegsumRows<kModeNoOffs, false>>(
+          kBf16, vec, grid, s, msgs, no_rows, offs, n_segments, k, lanes, run,
+          n_rows, out);
       break;
     case kModeNoAcc:
-      dispatch<LaunchSegsumRows<kModeNoAcc>>(kBf16, vec, grid, s, msgs, offs,
-                                             n_segments, k, run, n_rows, out);
+      dispatch<LaunchSegsumRows<kModeNoAcc, false>>(
+          kBf16, vec, grid, s, msgs, no_rows, offs, n_segments, k, lanes, run,
+          n_rows, out);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

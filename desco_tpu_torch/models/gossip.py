@@ -36,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 from ..batch.packed import PackedGraphs
 from ..ops.segment import typed_edge_aggregate
 from .init import linear_params, mlp_params
+from .shmp_gnn import batch_typed_streams
 from .shmp_gnn import dropout as _dropout
 
 
@@ -82,7 +83,7 @@ def direction_degrees(batch: PackedGraphs) -> torch.Tensor:
     """[N, 2] in-degrees per direction bit (pad edges drop)."""
     return typed_edge_aggregate(
         batch.node_mask[:, None], batch.edge_src, batch.edge_dst,
-        batch.edge_type, 2)[..., 0]
+        batch.edge_type, 2, streams=batch_typed_streams(batch, 2))[..., 0]
 
 
 def apply_gossip_single(params, batch: PackedGraphs, x_col: torch.Tensor,
@@ -107,7 +108,8 @@ def apply_gossip_single(params, batch: PackedGraphs, x_col: torch.Tensor,
     for conv in params["convs"]:
         g = _gate(conv, query_emb)
         agg = typed_edge_aggregate(
-            x, batch.edge_src, batch.edge_dst, batch.edge_type, 2)
+            x, batch.edge_src, batch.edge_dst, batch.edge_type, 2,
+            streams=batch_typed_streams(batch, 2))
         mixed = g * agg[:, 0] + (1.0 - g) * agg[:, 1]
         wdeg = (g * deg[:, 0] + (1.0 - g) * deg[:, 1])[:, None]
         aggr = mixed @ conv["com"].w + conv["com"].b * wdeg

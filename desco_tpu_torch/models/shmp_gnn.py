@@ -14,7 +14,8 @@ The target tower's typed aggregation is the fused kernel K2 on the card
 (``agg_mode='kernel'``, ops/cuda_segment.py). The query tower keeps
 desco_tpu's default mode (``aggregate_first``), since desco_tpu's
 ``query_config`` sets no agg_mode either; on the card that mode is the
-sorted segment-sum kernel K1 over (dst, type) keys, then one matmul. A
+gather-fused sorted segment-sum K1 over (dst, type) keys (forward and
+backward), then one matmul. A
 service runs the query tower once, when it loads.
 
 Parameters are ``nn.Module`` trees in desco_tpu's pytree layout
@@ -77,7 +78,7 @@ class SHMPConfig:
     # the tower's working type: float32, or bfloat16 with f32 master
     # parameters and f32 accumulation in every segment reduction
     dtype: torch.dtype = torch.float32
-    # 'aggregate_first': gather + K1 into [N, T, H], then one
+    # 'aggregate_first': gather-fused K1 into [N, T, H], then one
     # [N, T*H] @ [T*H, K] matmul (desco_tpu's CPU default);
     # 'kernel': K2, z = x @ W[t] then the fused gather-reduce
     # (ops/cuda_segment.py) — its plain version for CPU tensors
@@ -169,22 +170,26 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
 
 
 def batch_typed_streams(batch: PackedGraphs, n_edge_types: int):
-    """The batch's ``TypedStreams`` (keys, offsets and, when the batch
-    carries ``edge_bwd_perm``, the source-keyed backward streams),
-    derived at first use and kept on the batch object: every layer of
-    every step over a device-resident batch shares them. They are no
+    """The batch's ``TypedStreams`` (keys, offsets and the source-keyed
+    backward streams), derived at first use and kept on the batch
+    object: every layer of every step over a device-resident batch shares
+    them. The backward streams come from the batch's ``edge_bwd_perm``;
+    a batch packed without it gets the permutation derived on its device
+    once gradients are wanted (``ensure_backward_streams``). They are no
     field of ``PackedGraphs``, so stacking and ``.to`` never see them."""
-    from ..ops.cuda_segment import typed_streams
+    from ..ops.cuda_segment import ensure_backward_streams, typed_streams
 
-    cached = getattr(batch, "_typed_streams", None)
-    if cached is not None and cached.n_types == n_edge_types:
-        return cached
-    keys = batch.edge_dst.int() * n_edge_types + batch.edge_type.int()
-    perm = batch.edge_bwd_perm
-    st = typed_streams(batch.edge_src.int().contiguous(), keys.contiguous(),
-                       n_edge_types, batch.n_cap, batch.n_cap,
-                       None if perm is None else perm.int().contiguous())
-    batch._typed_streams = st
+    st = getattr(batch, "_typed_streams", None)
+    if st is None or st.n_types != n_edge_types:
+        keys = batch.edge_dst.int() * n_edge_types + batch.edge_type.int()
+        perm = batch.edge_bwd_perm
+        st = typed_streams(batch.edge_src.int().contiguous(),
+                           keys.contiguous(), n_edge_types, batch.n_cap,
+                           batch.n_cap,
+                           None if perm is None else perm.int().contiguous())
+        batch._typed_streams = st
+    if torch.is_grad_enabled():
+        ensure_backward_streams(st)
     return st
 
 
@@ -202,10 +207,12 @@ def packed_aggregator(cfg: SHMPConfig, batch: PackedGraphs):
                 x, st.edge_src, st.keys, conv_w, t_e, batch.n_cap,
                 streams=st)
     else:
+        st = batch_typed_streams(batch, t_e)
+
         def agg_fn(x, conv_w):
             agg = typed_edge_aggregate(
                 x, batch.edge_src, batch.edge_dst, batch.edge_type,
-                t_e)  # [N, T_e, H]
+                t_e, streams=st)  # [N, T_e, H]
             return agg.reshape(x.shape[0], -1) @ conv_w.reshape(
                 -1, conv_w.shape[2])
     return agg_fn

@@ -2,24 +2,34 @@
 
 K1 ``sorted_segment_sum`` replaces desco_tpu's Pallas
 ``pallas_sorted_segment_sum`` (desco_tpu/ops/pallas_segment.py:310, bodies
-``_segsum_kernel_v2`` :201 and ``_segsum_kernel`` :72). K2
+``_segsum_kernel_v2`` :201 and ``_segsum_kernel`` :72). Its kernel also
+carries the gather in front of it: ``gather_segment_sum`` is desco_tpu's
+``typed_edge_aggregate`` ("one fused gather + segment-sum",
+desco_tpu/ops/segment.py:29), and its backward ``gather_segment_sum_bwd``
+is the same kernel over the source-sorted stream. K2
 ``fused_typed_transform_aggregate`` replaces desco_tpu's
 ``fused_typed_transform_aggregate`` -> ``_fused_legacy`` (:476, :500), the
 SHMP target tower's typed aggregation, run 8 times per packed batch. K3
 ``typed_aggregate_bwd`` is K2's backward, desco_tpu's ``_bwd_perm`` (:559,
 the VJP of ``_fused_perm`` :548). K4 ``segment_sum_vjp`` is K1's
-backward, the gather of desco_tpu's ``sorted_segment_sum_ad`` (:448,
-``_ssum_ad_bwd`` :464).
+backward behind graph pooling, the gather of desco_tpu's
+``sorted_segment_sum_ad`` (:448, ``_ssum_ad_bwd`` :464).
 
 K1 and K4 (``csrc/segment_sum.cu``) are bound by bytes: each edge adds or
 copies one K-float row, a quarter of an f32 operation per byte moved, far
 below the card's f32 ridge (67 TFLOP/s over 3.35 TB/s). A sorted stream is
-CSR, so one ``torch.searchsorted`` gives the row offsets (as the JAX
-wrapper does at pallas_segment.py:345) and padding keys sort past the last
-offset, dropped without a pass. One warp owns one segment and reads its
-rows in order, summing in f32 registers: every output row is written once,
-with no atomics and a deterministic order. K4: one thread per 16-byte
-output piece.
+CSR: K1 takes its row offsets (one ``torch.searchsorted`` for pooling, as
+the JAX wrapper does at pallas_segment.py:345; the (dst, type) and
+(src, type) offsets of ``TypedStreams`` for the typed aggregation, derived
+once per batch) and, optionally, the row of x each edge reads. Padding
+keys sort past the last offset and are never visited. One warp owns one
+segment and one chunk of columns (wide rows are split over warps), reads
+its edges in order and sums in f32 registers: every output row is written
+once, with no atomics and a deterministic order. So the typed aggregation
+writes no [E, K] messages, and its backward is neither K4 nor the atomic
+``index_add_`` behind ``index_select``: dx[s] = the sum of the cotangent
+rows g[dst*T + type] over the edges out of s, read in (src, type) order.
+K4: one thread per 16-byte output piece.
 
 K2 and K3 (``csrc/typed_aggregate.cu``, redesigned for Hopper) aggregate
 first and transform after: x_neigh = sum_t A_t @ W_t with A[d, t] the sum
@@ -53,11 +63,14 @@ reads the f32 cotangent of K1's output and writes the dtype of K1's
 messages (``_ssum_ad_bwd``, :464-469). Nothing up-casts an [E, K] tensor
 on the card: the kernels convert in registers. Mixed types raise.
 
-Gradients: ``sorted_segment_sum`` and ``fused_typed_transform_aggregate``
-are ``torch.autograd.Function``s on every device. Their backward is K4
-and K3 (kernels on the card, plain versions on the CPU); without a
-backward permutation K2's backward is desco_tpu's legacy ``_bwd`` (:524)
-in plain torch, as it is plain XLA there.
+Gradients: ``sorted_segment_sum``, ``gather_segment_sum`` and
+``fused_typed_transform_aggregate`` are ``torch.autograd.Function``s on
+the card (``gather_segment_sum`` takes its plain twin and autograd on the
+CPU). Their backward is K4, K1 over the source-sorted stream and K3
+(kernels on the card, plain versions on the CPU); the gather-fused
+backward derives a missing permutation on the device, while without one
+K2's backward is desco_tpu's legacy ``_bwd`` (:524) in plain torch, as it
+is plain XLA there.
 
 Each wrapper takes its plain version only for CPU tensors; a CUDA tensor
 launches the kernel or raises. Each counts its calls that launch a kernel
@@ -111,8 +124,8 @@ def _load(stem: str, abi_fn: str, abi: int, sigs: dict) -> ctypes.CDLL:
 def library() -> ctypes.CDLL:
     """The loaded K1 / K4 library (built on first use)."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    return _load(STEM, "desco_segment_sum_abi_version", 4, {
-        "desco_sorted_segment_sum": [p, i, p, i, i, p, p],
+    return _load(STEM, "desco_segment_sum_abi_version", 5, {
+        "desco_sorted_segment_sum": [p, i, p, p, i, i, p, p],
         "desco_segment_sum_vjp_gather": [p, p, i, i, i, p, i, p]})
 
 
@@ -187,12 +200,14 @@ def _count(wrapper, dtype) -> None:
 # One function per kernel: the bare launch on the current stream, on
 # tensors the wrapper has checked. The wrappers call them and count; the
 # timing tools call them to time a kernel without its wrapper.
-def launch_k1(msgs, offs, n_segments: int, out) -> None:
-    with torch.cuda.device(msgs.device):
+def launch_k1(x, offs, n_segments: int, out, rows=None) -> None:
+    """K1: out[r] = sum of x[rows[e]] over e in [offs[r], offs[r+1]);
+    ``rows`` None is the identity (x holds the sorted messages)."""
+    with torch.cuda.device(x.device):
         _check(library().desco_sorted_segment_sum(
-            msgs.data_ptr(), _DTYPE_CODE[msgs.dtype], offs.data_ptr(),
-            n_segments, msgs.shape[1], out.data_ptr(),
-            _stream(msgs.device)))
+            x.data_ptr(), _DTYPE_CODE[x.dtype],
+            None if rows is None else rows.data_ptr(), offs.data_ptr(),
+            n_segments, x.shape[1], out.data_ptr(), _stream(x.device)))
 
 
 def launch_k2(x, conv_w, st: "TypedStreams", out) -> None:
@@ -380,16 +395,20 @@ class TypedStreams:
     """The index streams of one (dst,type)-sorted edge set, derived once
     per batch and shared by every layer and step that aggregates over it.
 
-    ``fwd_toffs`` are K2's CSR offsets over the n_nodes*T (destination,
+    ``fwd_toffs`` are the CSR offsets over the n_nodes*T (destination,
     type) runs of the stream: run d*T + t is [fwd_toffs[d*T + t],
     fwd_toffs[d*T + t + 1]), and the T runs of one destination are one
-    contiguous range. With a backward permutation (``edge_bwd_perm`` of
-    ``pack_samples``: the edge slots in (src, type) order, dead edges last)
-    the stream is CSR again over the n_rows*T (source, type) runs:
+    contiguous range (K2 and the gather-fused K1 walk them). With a
+    backward permutation (``edge_bwd_perm`` of ``pack_samples``, or one
+    derived on the device: the edge slots in (src, type) order, dead edges
+    last) the stream is CSR again over the n_rows*T (source, type) runs:
     ``bwd_rows`` is the destination of each permuted edge (the cotangent
     row K3 gathers), ``bwd_skey`` its source key src*T + type
-    (``PAD_SKEY`` for dead edges) and ``bwd_offs`` the offsets of the
-    runs in it."""
+    (``PAD_SKEY`` for dead edges), ``bwd_offs`` the offsets of the runs in
+    it; ``bwd_keys`` = dst*T + type of each permuted edge (0 for dead
+    edges: the cotangent row of [n_nodes*T, K] that the gather-fused
+    backward reads) and ``bwd_soffs`` = bwd_offs[::T], one range per
+    source, since a source's T runs are contiguous."""
 
     edge_src: torch.Tensor   # [E] i32
     keys: torch.Tensor       # [E] i32, dst*T + type, ascending
@@ -397,9 +416,11 @@ class TypedStreams:
     n_nodes: int             # output rows (destinations)
     n_rows: int              # rows of x (sources)
     fwd_toffs: torch.Tensor  # [n_nodes*T + 1] i32
-    bwd_rows: Optional[torch.Tensor] = None  # [E] i32
-    bwd_skey: Optional[torch.Tensor] = None  # [E] i32, ascending
-    bwd_offs: Optional[torch.Tensor] = None  # [n_rows*T + 1] i32
+    bwd_rows: Optional[torch.Tensor] = None   # [E] i32
+    bwd_skey: Optional[torch.Tensor] = None   # [E] i32, ascending
+    bwd_offs: Optional[torch.Tensor] = None   # [n_rows*T + 1] i32
+    bwd_keys: Optional[torch.Tensor] = None   # [E] i32
+    bwd_soffs: Optional[torch.Tensor] = None  # [n_rows + 1] i32
 
 
 def typed_streams(edge_src: torch.Tensor, keys: torch.Tensor, n_types: int,
@@ -408,7 +429,8 @@ def typed_streams(edge_src: torch.Tensor, keys: torch.Tensor, n_types: int,
     """Derive a batch's ``TypedStreams``. With ``bwd_perm`` it checks, at
     the cost of one read-back per batch, that the permuted source keys
     ascend: a permutation that is not the (src, type) order with dead
-    edges last would make K3 sum wrong rows silently."""
+    edges last would make K3 and the gather-fused backward sum wrong rows
+    silently."""
     _require(edge_src, "edge_src", torch.int32, 1)
     _require(keys, "keys", torch.int32, 1)
     if edge_src.shape != keys.shape:
@@ -421,28 +443,62 @@ def typed_streams(edge_src: torch.Tensor, keys: torch.Tensor, n_types: int,
                           device=dev)
     st = TypedStreams(edge_src, keys, n_types, n_nodes, n_rows,
                       torch.searchsorted(keys, bounds, out_int32=True))
-    if bwd_perm is None:
-        return st
-    _require(bwd_perm, "bwd_perm", torch.int32, 1)
-    if bwd_perm.shape != keys.shape:
-        raise ValueError("bwd_perm and keys differ in length")
-    perm = bwd_perm.long()
-    keys_p, src_p = keys[perm], edge_src[perm]
-    dst_p = torch.div(keys_p, n_types, rounding_mode="floor")
-    typ_p = keys_p - dst_p * n_types
-    live = ((keys_p >= 0) & (keys_p < n_nodes * n_types)
-            & (src_p >= 0) & (src_p < n_rows))
-    skey = torch.where(live, src_p * n_types + typ_p,
-                       torch.full_like(keys_p, PAD_SKEY))
-    if skey.numel() > 1 and not bool((skey[1:] >= skey[:-1]).all()):
+    if bwd_perm is not None:
+        _require(bwd_perm, "bwd_perm", torch.int32, 1)
+        if bwd_perm.shape != keys.shape:
+            raise ValueError("bwd_perm and keys differ in length")
+        _add_backward_streams(st, bwd_perm.long(), check=True)
+    return st
+
+
+def _live_source_keys(src, keys, st: TypedStreams):
+    """(src*T + type where the edge is live, else ``PAD_SKEY``; dst;
+    type) of edges with sources ``src`` and keys ``keys`` (int64)."""
+    t = st.n_types
+    dst = torch.div(keys, t, rounding_mode="floor")
+    typ = keys - dst * t
+    live = ((keys >= 0) & (keys < st.n_nodes * t)
+            & (src >= 0) & (src < st.n_rows))
+    skey = torch.where(live, src * t + typ, torch.full_like(keys, PAD_SKEY))
+    return skey, dst, typ
+
+
+def derive_bwd_perm(st: TypedStreams) -> torch.Tensor:
+    """[E] int32: the edge slots in (src, type) order with dead edges
+    last, by a stable sort of src*T + type on the streams' device — the
+    permutation ``pack_samples`` writes as ``edge_bwd_perm``, for batches
+    packed without it."""
+    skey, _, _ = _live_source_keys(st.edge_src.long(), st.keys.long(), st)
+    return torch.sort(skey, stable=True).indices.int()
+
+
+def _add_backward_streams(st: TypedStreams, perm: torch.Tensor,
+                          check: bool) -> None:
+    keys_p, src_p = st.keys.long()[perm], st.edge_src.long()[perm]
+    skey, dst_p, typ_p = _live_source_keys(src_p, keys_p, st)
+    if check and skey.numel() > 1 and not bool(
+            (skey[1:] >= skey[:-1]).all()):
         raise ValueError(
             "bwd_perm does not put the edges in (src, type) order with "
             "dead edges last (pack_samples' edge_bwd_perm does)")
-    seg_bounds = torch.arange(n_rows * n_types + 1, dtype=torch.int32,
-                              device=dev)
-    st.bwd_rows = dst_p.clamp(0, max(n_nodes - 1, 0)).contiguous()
-    st.bwd_skey = skey.contiguous()
+    t = st.n_types
+    seg_bounds = torch.arange(st.n_rows * t + 1, dtype=torch.int32,
+                              device=st.keys.device)
+    rows = dst_p.clamp(0, max(st.n_nodes - 1, 0))
+    st.bwd_rows = rows.int().contiguous()
+    st.bwd_skey = skey.int().contiguous()
     st.bwd_offs = torch.searchsorted(st.bwd_skey, seg_bounds, out_int32=True)
+    st.bwd_keys = torch.where(skey < PAD_SKEY, rows * t + typ_p,
+                              torch.zeros_like(rows)).int().contiguous()
+    st.bwd_soffs = st.bwd_offs[::t].contiguous()
+
+
+def ensure_backward_streams(st: TypedStreams) -> TypedStreams:
+    """``st`` with its source-sorted streams: a batch packed without
+    ``edge_bwd_perm`` gets the permutation derived on its device
+    (``derive_bwd_perm``), once, kept in ``st``."""
+    if st.bwd_rows is None:
+        _add_backward_streams(st, derive_bwd_perm(st).long(), check=False)
     return st
 
 
@@ -711,9 +767,141 @@ def typed_aggregate_bwd_legacy(g, x, conv_w, st: TypedStreams):
     return dx.to(x_dtype), torch.stack(dw).to(w_dtype)
 
 
+# ------------------------------------------------- K1 with the gather fused
+def gather_rows_segment_sum_plain(x: torch.Tensor,
+                                  rows: Optional[torch.Tensor],
+                                  offs: torch.Tensor,
+                                  n_segments: int) -> torch.Tensor:
+    """K1's plain version in its general form: out[r] = the sum of
+    x[rows[e]] (up-cast to f32) over e in [offs[r], offs[r+1]), rows None
+    the identity; ``index_select`` of the rows, ``index_add_`` by the
+    segment each edge's position falls in (edges outside [offs[0],
+    offs[-1]) drop). [n_segments, K] f32."""
+    if x.shape[0] == 0:
+        return x.new_zeros((n_segments, x.shape[1]), dtype=torch.float32)
+    n_edges = x.shape[0] if rows is None else rows.shape[0]
+    pos = torch.arange(n_edges, device=x.device)
+    seg = torch.searchsorted(offs.long(), pos, right=True) - 1
+    src = pos if rows is None else rows.long().clamp(0, x.shape[0] - 1)
+    return segment_sum(x.float().index_select(0, src), seg, n_segments)
+
+
+def gather_segment_sum_plain(x: torch.Tensor,
+                             st: "TypedStreams") -> torch.Tensor:
+    """The gather-fused K1's plain twin: ``index_select`` of the x rows
+    by edge source, then ``segment_sum`` by key dst*T + type (padding keys
+    drop), with autograd's backward (an ``index_add_``). [n_nodes*T, K]
+    f32."""
+    msgs = x.index_select(0, st.edge_src.long())
+    return segment_sum(msgs, st.keys, st.n_nodes * st.n_types)
+
+
+def gather_segment_sum_bwd_plain(g: torch.Tensor, st: "TypedStreams",
+                                 dtype: torch.dtype = torch.float32
+                                 ) -> torch.Tensor:
+    """dx of ``gather_segment_sum_plain`` as autograd computes it, read
+    off the (dst, type) stream and not the source-sorted one: the
+    cotangent rows g[key] of the live edges (``index_select``), summed
+    into their sources by ``index_add_``. [n_rows, K] in ``dtype``."""
+    n_seg = st.n_nodes * st.n_types
+    keys = st.keys.long()
+    live = (keys >= 0) & (keys < n_seg)
+    dx = g.new_zeros((st.n_rows, g.shape[1]), dtype=torch.float32)
+    if n_seg:
+        rows = g.float().index_select(0, keys.clamp(0, n_seg - 1))
+        dx.index_add_(0, st.edge_src.long(), rows * live[:, None])
+    return dx.to(dtype)
+
+
+def _gather_forward(x, st: "TypedStreams"):
+    _require_cuda(x, st.edge_src, st.fwd_toffs)
+    _require(x, "x", ROW_DTYPES, 2)
+    if x.shape[0] != st.n_rows:
+        raise ValueError(f"x has {x.shape[0]} rows, the streams were "
+                         f"derived for {st.n_rows}")
+    n_seg, k = st.n_nodes * st.n_types, x.shape[1]
+    out = torch.empty((n_seg, k), dtype=torch.float32, device=x.device)
+    if n_seg == 0 or k == 0:
+        return out
+    launch_k1(x, st.fwd_toffs, n_seg, out, rows=st.edge_src)
+    _count(gather_segment_sum, x.dtype)
+    return out
+
+
+class _GatherSegmentSum(torch.autograd.Function):
+    """The gather-fused K1 forward over the (dst, type) stream; backward:
+    the same kernel over the source-sorted stream."""
+
+    @staticmethod
+    def forward(ctx, x, st):
+        ctx.streams = st
+        ctx.x_dtype = x.dtype
+        return _gather_forward(x, st)
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_segment_sum_bwd(g, ctx.streams, ctx.x_dtype), None
+
+
+def gather_segment_sum(x: torch.Tensor, st: "TypedStreams") -> torch.Tensor:
+    """out [n_nodes*T, K] f32, out[d*T + t] = the sum of x[src] over the
+    type-t edges src -> d of the streams (desco_tpu's "one fused gather +
+    segment-sum", ``typed_edge_aggregate``). x [n_rows, K] f32 or bf16,
+    summed in f32. On the card one launch of K1 with the edge sources as
+    its rows and ``fwd_toffs`` as its offsets: no [E, K] messages.
+    Differentiable in x: the backward (``gather_segment_sum_bwd``) is the
+    same kernel over the source-sorted stream, deterministic, dx in x's
+    dtype. CPU tensors take the plain twin and autograd."""
+    if _on_cpu(x, st.edge_src):
+        return gather_segment_sum_plain(x, st)
+    return _GatherSegmentSum.apply(x.contiguous(), st)
+
+
+gather_segment_sum.launches = 0
+gather_segment_sum.launches_bf16 = 0
+
+
+def gather_segment_sum_bwd(g: torch.Tensor, st: "TypedStreams",
+                           dtype: torch.dtype = torch.float32
+                           ) -> torch.Tensor:
+    """dx [n_rows, K] of ``gather_segment_sum``: dx[s] = the sum over t
+    and over the type-t edges s -> d of g[d*T + t], in ``dtype`` (x's).
+    g [n_nodes*T, K] f32 (made contiguous here: autograd hands over
+    strided cotangents). On the card: K1 with ``bwd_keys`` as its rows and
+    ``bwd_soffs`` as its offsets (derived first where the batch carries no
+    permutation), one write of dx, no atomics; dead edges sort last and
+    are never read. CPU tensors take K1's plain version over the same
+    stream."""
+    if dtype not in ROW_DTYPES:
+        raise ValueError(f"dx of the gather-fused K1 is f32 or bf16, not "
+                         f"{dtype}")
+    ensure_backward_streams(st)
+    if _on_cpu(g, st.bwd_keys):
+        return gather_rows_segment_sum_plain(
+            g, st.bwd_keys, st.bwd_soffs, st.n_rows).to(dtype)
+    _require_cuda(g, st.bwd_keys, st.bwd_soffs)
+    g = g.contiguous()
+    _require(g, "g", torch.float32, 2)
+    if g.shape[0] != st.n_nodes * st.n_types:
+        raise ValueError(f"g has {g.shape[0]} rows for {st.n_nodes} nodes "
+                         f"x {st.n_types} types")
+    dx = torch.empty((st.n_rows, g.shape[1]), dtype=torch.float32,
+                     device=g.device)
+    if g.shape[1] == 0:
+        return dx.to(dtype)
+    launch_k1(g, st.bwd_soffs, st.n_rows, dx, rows=st.bwd_keys)
+    _count(gather_segment_sum_bwd, dtype)
+    return dx.to(dtype)
+
+
+gather_segment_sum_bwd.launches = 0
+gather_segment_sum_bwd.launches_bf16 = 0
+
+
 # every kernel wrapper of this module, for launch accounting
 KERNELS = (sorted_segment_sum, fused_typed_transform_aggregate,
-           typed_aggregate_bwd, segment_sum_vjp)
+           typed_aggregate_bwd, segment_sum_vjp, gather_segment_sum,
+           gather_segment_sum_bwd)
 
 
 def reset_launches() -> None:

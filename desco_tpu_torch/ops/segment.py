@@ -1,10 +1,12 @@
 """Segment reductions in PyTorch — the port of ``desco_tpu/ops/segment.py``.
 
 ``segment_sum`` is ``jax.ops.segment_sum`` written with ``index_add_``.
-The sorted reductions of the serving path (SHMP typed aggregation, the
-gossip direction aggregation, graph pooling) go through the K1 wrapper
-``ops.cuda_segment.sorted_segment_sum``: its CUDA kernel on the card, its
-plain ``index_add_`` version on the CPU.
+The sorted reductions (the query tower's typed aggregation and the gossip
+direction aggregation through ``typed_edge_aggregate``, graph pooling
+through ``graph_pool_sum``) go through K1 (ops/cuda_segment.py): its
+CUDA kernel on the card, with the edge gather folded in for the typed
+aggregation, its plain ``index_select`` / ``index_add_`` version on the
+CPU.
 
 bf16 rows (the bf16 target tower) are summed in f32 everywhere, as the
 TPU kernels accumulate them: ``segment_sum`` and
@@ -41,28 +43,27 @@ def typed_edge_aggregate(
     edge_dst: torch.Tensor,   # [E] i32
     edge_type: torch.Tensor,  # [E] i32, values in [0, T); pad edges 63
     n_types: int,
+    streams=None,             # the batch's TypedStreams for n_types
 ) -> torch.Tensor:
     """SHMP aggregation: out[i, t] = sum over edges e of type t with
     dst(e)==i of x[src(e)]. Returns [N, T, H] in x's dtype (f32 sums of
     bf16 rows are rounded back to bf16).
 
     Edges are (dst, type)-sorted on the host, so the combined key
-    ``dst*T + t`` is sorted: one gather, then K1 over the keys (padding
-    keys fall past N*T and are dropped).
-
-    The gather is ``index_select``, whose backward is an unsorted
-    ``index_add_`` with atomics (as XLA's scatter-add is in desco_tpu):
-    the one sum of the training path whose order changes from run to run.
-    ``x[edge_src]`` would compute the same forward, but its backward sorts
-    the indices and walks duplicates serially, and every padding edge
-    points at the one pad node (38 ms per call at the gossip batch of the
-    paper config on an H100, PERF.md)."""
-    from .cuda_segment import sorted_segment_sum
+    ``dst*T + t`` is sorted: one fused gather + segment-sum over it
+    (``ops.cuda_segment.gather_segment_sum``; padding keys fall past N*T
+    and are dropped), whose backward is the same kernel over the
+    source-sorted stream. ``streams`` (``models.shmp_gnn
+    .batch_typed_streams`` of the batch) carries the offsets derived once
+    per batch; without it they are derived here, from the edge arrays."""
+    from .cuda_segment import gather_segment_sum, typed_streams
 
     n = x.shape[0]
-    seg = edge_dst.int() * n_types + edge_type.int()
-    msgs = x.index_select(0, edge_src.long())
-    agg = sorted_segment_sum(msgs.contiguous(), seg, n_types * n)
+    if streams is None:
+        keys = edge_dst.int() * n_types + edge_type.int()
+        streams = typed_streams(edge_src.int().contiguous(),
+                                keys.contiguous(), n_types, n, n)
+    agg = gather_segment_sum(x, streams)
     return agg.to(x.dtype).reshape(n, n_types, x.shape[1])
 
 

@@ -45,7 +45,9 @@ bf16 at the shapes of real packed batches (a serving target batch, its
 gossip batch, a training batch) and ``time_cases`` times each bare kernel
 launch, and each whole function as the model calls it, in CUDA graphs
 (K2 is one launch, so its two times are one; K3's function adds the
-launch that sums its per-block dW partials).
+launch that sums its per-block dW partials; the gather-fused K1, forward
+and backward, beside the ``index_select`` + K1 and K4 + ``index_add_``
+composition it replaced).
 chip_smoke.py uses both on its own batches. Needs a CUDA device.
 """
 
@@ -346,9 +348,11 @@ def kernel_cases(tb, gb, trb, conv_w) -> dict:
     """K1-K4's inputs at the shapes of real packed batches, f32: ``tb`` a
     serving target batch, ``gb`` a gossip batch, ``trb`` a training batch
     (with ``edge_bwd_perm``), all on the card; ``conv_w`` [T, H, K] f32.
-    K1 and K4 at the gossip layer-0 aggregation ([E, 128] messages over
-    2 * n_cap (node, direction) segments) and at the target tower's
-    pooling (K = 576)."""
+    The gather-fused K1 at the gossip layer-0 aggregation (x [n_cap, 128]
+    over 2 * n_cap (node, direction) segments, and its backward from a
+    cotangent [2 * n_cap, 128]; the gossip batch's permutation is derived
+    on the card when it was packed without one); K1 and K4 at the target
+    tower's pooling (K = 576)."""
     from ..models.shmp_gnn import batch_typed_streams
 
     dev = conv_w.device
@@ -358,11 +362,11 @@ def kernel_cases(tb, gb, trb, conv_w) -> dict:
     def randn(*shape):
         return torch.randn(*shape, device=dev, generator=gen)
 
-    xg = randn(gb.n_cap, 128) * gb.node_mask[:, None]
-    gseg = (gb.edge_dst * 2 + gb.edge_type).int().contiguous()
     return {
-        "k1_gossip": dict(msgs=xg[gb.edge_src.long()].contiguous(),
-                          seg=gseg, n=2 * gb.n_cap),
+        "gossip": dict(x=randn(gb.n_cap, 128) * gb.node_mask[:, None],
+                       g=randn(2 * gb.n_cap, 128),
+                       st=cs.ensure_backward_streams(
+                           batch_typed_streams(gb, 2))),
         "k1_pool": dict(msgs=randn(tb.n_cap, 576) * tb.node_mask[:, None],
                         seg=tb.node_graph.int().contiguous(), n=tb.g_cap),
         "k2": dict(x=randn(tb.n_cap, h) * tb.node_mask[:, None], w=conv_w,
@@ -370,32 +374,66 @@ def kernel_cases(tb, gb, trb, conv_w) -> dict:
         "k3": dict(g=randn(trb.n_cap, k),
                    x=randn(trb.n_cap, h) * trb.node_mask[:, None], w=conv_w,
                    st=batch_typed_streams(trb, t)),
-        "k4_gossip": dict(g=randn(2 * gb.n_cap, 128), seg=gseg),
         "k4_pool": dict(g=randn(trb.g_cap, 576),
                         seg=trb.node_graph.int().contiguous()),
     }
 
 
+def gather_old_forward(x, st):
+    """What the gossip aggregation ran before K1 took the gather: the
+    [E, K] messages by ``index_select``, then K1 over the keys."""
+    return cs.sorted_segment_sum(x.index_select(0, st.edge_src.long()),
+                                 st.keys, st.n_nodes * st.n_types)
+
+
+def gather_old_backward(g, st, dtype):
+    """... and its backward: K4 writes the [E, K] message cotangents,
+    ``index_add_`` (atomic, in ``dtype``) scatters them into dx."""
+    d = cs.segment_sum_vjp(g, st.keys, st.n_nodes * st.n_types, dtype=dtype)
+    dx = torch.zeros((st.n_rows, g.shape[1]), dtype=dtype, device=g.device)
+    return dx.index_add_(0, st.edge_src.long(), d)
+
+
 def time_cases(cases: dict) -> dict:
     """CUDA-graph µs per call of K1-K4 in f32 and bf16: ``alone_us`` is
     the bare kernel launch on prepared inputs, ``function_us`` the whole
-    function as the model calls it (K1: offsets + kernel; K2: the kernel,
-    so alone = function; K3: the kernel and its dW reduction launch, alone
-    = the kernel without the reduction; K4: the kernel)."""
+    function as the model calls it (K1 at the pooling: offsets + kernel;
+    the gather-fused K1 and its backward: the wrapper, which reads
+    offsets derived once per batch, and ``old_us`` the composition it
+    replaced, ``index_select`` + K1 and K4 + ``index_add_``; K2: the
+    kernel, so alone = function; K3: the kernel and its dW reduction
+    launch, alone = the kernel without the reduction; K4: the kernel)."""
     out = {}
     bf = torch.bfloat16
     for dname, dtype in (("f32", torch.float32), ("bf16", bf)):
-        for key in ("k1_gossip", "k1_pool"):
-            c = cases[key]
-            msgs, seg, n = c["msgs"].to(dtype), c["seg"], c["n"]
-            offs = _offsets(seg, n)
-            res = torch.empty((n, msgs.shape[1]), device=msgs.device)
-            out[f"{key}_{dname}"] = {
-                "alone_us": graph_us(
-                    lambda i: cs.launch_k1(msgs, offs, n, res)),
-                "function_us": graph_us(
-                    lambda i: cs.sorted_segment_sum(msgs, seg, n)),
-            }
+        c = cases["k1_pool"]
+        msgs, seg, n = c["msgs"].to(dtype), c["seg"], c["n"]
+        offs = _offsets(seg, n)
+        res = torch.empty((n, msgs.shape[1]), device=msgs.device)
+        out[f"k1_pool_{dname}"] = {
+            "alone_us": graph_us(lambda i: cs.launch_k1(msgs, offs, n, res)),
+            "function_us": graph_us(
+                lambda i: cs.sorted_segment_sum(msgs, seg, n)),
+        }
+        c = cases["gossip"]
+        x, g, st = c["x"].to(dtype), c["g"], c["st"]
+        n_seg = st.n_nodes * st.n_types
+        fwd = torch.empty((n_seg, x.shape[1]), device=x.device)
+        dx = torch.empty((st.n_rows, g.shape[1]), device=x.device)
+        out[f"gather_fwd_{dname}"] = {
+            "alone_us": graph_us(lambda i: cs.launch_k1(
+                x, st.fwd_toffs, n_seg, fwd, rows=st.edge_src)),
+            "function_us": graph_us(
+                lambda i: cs.gather_segment_sum(x, st)),
+            "old_us": graph_us(lambda i: gather_old_forward(x, st)),
+        }
+        out[f"gather_bwd_{dname}"] = {
+            "alone_us": graph_us(lambda i: cs.launch_k1(
+                g, st.bwd_soffs, st.n_rows, dx, rows=st.bwd_keys)),
+            "function_us": graph_us(
+                lambda i: cs.gather_segment_sum_bwd(g, st, dtype)),
+            "old_us": graph_us(lambda i: gather_old_backward(g, st, dtype)),
+        }
         c = cases["k2"]
         x, w, st = c["x"].to(dtype), c["w"].to(dtype), c["st"]
         us = graph_us(lambda i: cs.fused_typed_transform_aggregate(
@@ -416,13 +454,12 @@ def time_cases(cases: dict) -> dict:
             "function_us": graph_us(
                 lambda i: cs.typed_aggregate_bwd(g, x, w, st)),
         }
-        for key in ("k4_gossip", "k4_pool"):
-            c = cases[key]
-            g, seg = c["g"], c["seg"]
-            res = torch.empty((seg.shape[0], g.shape[1]), dtype=dtype,
-                              device=g.device)
-            us = graph_us(lambda i: cs.launch_k4(g, seg, g.shape[0], res))
-            out[f"{key}_{dname}"] = {"alone_us": us, "function_us": us}
+        c = cases["k4_pool"]
+        g, seg = c["g"], c["seg"]
+        res = torch.empty((seg.shape[0], g.shape[1]), dtype=dtype,
+                          device=g.device)
+        us = graph_us(lambda i: cs.launch_k4(g, seg, g.shape[0], res))
+        out[f"k4_pool_{dname}"] = {"alone_us": us, "function_us": us}
     return out
 
 
@@ -477,8 +514,9 @@ def main(argv=None) -> int:
     with torch.inference_mode():
         report["shipped"] = time_cases(_own_cases(device, args.seed))
     for name, r in report["shipped"].items():
-        print(f"{name:>14}: alone {r['alone_us']:8.2f} us  function "
-              f"{r['function_us']:8.2f} us", flush=True)
+        old = f"  replaced {r['old_us']:8.2f} us" if "old_us" in r else ""
+        print(f"{name:>15}: alone {r['alone_us']:8.2f} us  function "
+              f"{r['function_us']:8.2f} us{old}", flush=True)
     print(card, flush=True)
     print(json.dumps(report), flush=True)
     if args.out:

@@ -339,3 +339,150 @@ def test_probe_variants_match_plain_on_gpu(rng, cuda_device, k):
         else:
             torch.testing.assert_close(out, ref, rtol=1e-5,
                                        atol=1e-5 * float(ref.abs().max()))
+
+
+# ------------------------------------------------- the gather-fused K1
+def gossip_samples(rng, n_graphs=6, n_queries=29):
+    """Samples shaped like the gossip stage's: both directions of every
+    edge, type 0 where src < dst and 1 where src > dst, x and node_y
+    [k, n_queries] counts; some nodes have no edge at all."""
+    from desco_tpu_torch.batch.packed import GraphSample
+
+    out = []
+    for _ in range(n_graphs):
+        k = int(rng.integers(8, 30))
+        m = int(rng.integers(k // 2, 2 * k))
+        u, v = rng.integers(0, k, m), rng.integers(0, k, m)
+        u, v = u[u != v], v[u != v]
+        src = np.concatenate([u, v]).astype(np.int32)
+        dst = np.concatenate([v, u]).astype(np.int32)
+        out.append(GraphSample(
+            node_type=np.zeros(k, np.int32),
+            x=rng.uniform(0, 5, (k, n_queries)).astype(np.float32),
+            edge_src=src, edge_dst=dst,
+            edge_type=(src > dst).astype(np.int32),
+            node_y=rng.uniform(0, 5, (k, n_queries)).astype(np.float32)))
+    return out
+
+
+def gather_streams(rng, dev, n, t, k, e, pad=64, long_dst=0, long_src=0):
+    """x [n, k] and the ``TypedStreams`` (backward streams derived on the
+    card) of a (dst,type)-sorted stream in desco_tpu's padding layout;
+    ``long_dst`` / ``long_src`` more edges into / out of node 7."""
+    x, src, dst, typ, _, _ = typed_case(rng, n, t, k, 1, e, pad=0)
+    extra_d = np.concatenate([np.full(long_dst, 7),
+                              rng.integers(0, n - 1, long_src)])
+    extra_s = np.concatenate([rng.integers(0, n - 1, long_dst),
+                              np.full(long_src, 7)])
+    dst = np.concatenate([dst, extra_d])
+    src = np.concatenate([src, extra_s])
+    keys = dst * t + np.concatenate([typ, rng.integers(0, t, len(extra_d))])
+    order = np.argsort(keys, kind="stable")
+    keys = np.concatenate([keys[order], np.full(pad, (n - 1) * t + 63)])
+    src = np.concatenate([src[order], np.full(pad, n - 1)])
+    st = cs.typed_streams(T(src.astype(np.int32)).to(dev),
+                          T(keys.astype(np.int32)).to(dev), t, n, n)
+    return T(x).to(dev), cs.ensure_backward_streams(st)
+
+
+# (n, t, k, live edges, extra): odd K, K = 1 (the direction degrees), two
+# lane groups (K = 16), K = 576 over few segments, long segments both
+# ways, all padding, an empty stream
+GATHER_CASES = [
+    (700, 2, 128, 4000, {}), (300, 6, 64, 2000, {}), (300, 3, 33, 999, {}),
+    (500, 2, 1, 3000, {}), (200, 2, 16, 1500, {}), (5, 2, 576, 3000, {}),
+    (500, 2, 128, 900, {"long_dst": 5000, "long_src": 5000}),
+    (129, 2, 64, 0, {"pad": 512}), (40, 2, 128, 0, {"pad": 0}),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, BF], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n,t,k,e,extra", GATHER_CASES)
+def test_gather_segsum_matches_plain_on_gpu(rng, cuda_device, n, t, k, e,
+                                            extra, dtype):
+    """Forward against ``index_select`` + ``segment_sum`` (rtol 1e-5), dx
+    against autograd of it (f32 rtol 1e-5; bf16 dx is an f32 sum rounded
+    to bf16: one step, 2^-7); two backward runs bit-equal."""
+    x, st = gather_streams(rng, cuda_device, n, t, k, e, **extra)
+    x = x.to(dtype)
+    g = T(rng.standard_normal((n * t, k)).astype(np.float32)).to(cuda_device)
+    before = (cs.gather_segment_sum.launches,
+              cs.gather_segment_sum_bwd.launches)
+    with torch.inference_mode():
+        out = cs.gather_segment_sum(x, st)
+        dx = cs.gather_segment_sum_bwd(g, st, dtype)
+        dx2 = cs.gather_segment_sum_bwd(g, st, dtype)
+    torch.cuda.synchronize()
+    assert (cs.gather_segment_sum.launches,
+            cs.gather_segment_sum_bwd.launches) == (before[0] + 1,
+                                                    before[1] + 2)
+    assert out.dtype == torch.float32 and dx.dtype == dtype
+    assert torch.equal(dx, dx2)
+    close(out, cs.gather_segment_sum_plain(x, st))
+    rtol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    close(dx, cs.gather_segment_sum_bwd_plain(g, st, dtype), rtol)
+    # under autograd: the backward is the kernel, never index_add_
+    xg = x.detach().clone().requires_grad_()
+    (cs.gather_segment_sum(xg, st) * g).sum().backward()
+    assert cs.gather_segment_sum_bwd.launches == before[1] + 3
+    assert torch.equal(xg.grad, dx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 16, 33, 64, 128, 576])
+def test_k1_identity_equals_probe_full_and_edge_order(rng, cuda_device, k):
+    """K1 on the identity stream (graph pooling) is the probe's ``full``
+    variant bit for bit, and for rows of more than 16 elements it is the
+    edge-order f32 sum of each element (the order before the column
+    split), so f32 rows give exactly the cumulative sum's differences."""
+    from desco_tpu_torch.tools import segsum_inner_ablation as probe
+
+    msgs, seg = sorted_stream(rng, 300, 3000, k)
+    m, s = T(msgs).to(cuda_device).to(BF), T(seg).to(cuda_device)
+    with torch.inference_mode():
+        assert torch.equal(cs.sorted_segment_sum(m, s, 300),
+                           probe.probe_full(m, s, 300))
+        if k > 16:  # one lane per element: edge order, bit for bit
+            mf = T(msgs).to(cuda_device)
+            out = cs.sorted_segment_sum(mf, s, 300)
+            offs = probe._offsets(s, 300).cpu().numpy()
+            ref = np.zeros((300, k), np.float32)
+            for r in range(300):
+                acc = np.zeros(k, np.float32)
+                for e in range(offs[r], offs[r + 1]):
+                    acc = acc + msgs[e]
+                ref[r] = acc
+            assert torch.equal(out.cpu(), T(ref))
+
+
+@pytest.mark.cuda
+def test_gossip_loss_runs_the_gather_fused_kernel(cuda_device):
+    """On the card the gossip loss runs the gather-fused K1 (1 + 4 x 29
+    forward with the checkpoint's recomputation, 29 backward), never K1 on
+    [E, K] messages or K4; a batch without a permutation gets it derived
+    on the card, equal to pack_samples'."""
+    from desco_tpu_torch.batch.packed import pack_samples
+    from desco_tpu_torch.models import gossip as gm
+    from desco_tpu_torch.models.shmp_gnn import batch_typed_streams
+
+    samples = gossip_samples(np.random.default_rng(0))
+    b = pack_samples(samples, 256, 2048, 8, n_queries=29)[0]
+    with_perm = b.to(cuda_device, training=True)
+    without = b.to(cuda_device)
+    without.node_y = with_perm.node_y
+    st = batch_typed_streams(without, 2)  # grad enabled: derived here
+    assert torch.equal(st.bwd_rows, batch_typed_streams(
+        with_perm, 2).bwd_rows)
+    assert torch.equal(cs.derive_bwd_perm(st), with_perm.edge_bwd_perm)
+    params = gm.init_gossip_model(hidden_dim=64, emb_channels=64,
+                                  generator=torch.Generator().manual_seed(0))
+    params = params.to(cuda_device)
+    embs = torch.randn(29, 64, device=cuda_device)
+    cs.reset_launches()
+    gm.gossip_loss(params, without, embs).backward()
+    torch.cuda.synchronize()
+    got = cs.read_launches()
+    assert (got["gather_segment_sum"], got["gather_segment_sum_bwd"]) == (
+        1 + 4 * 29, 29)
+    assert got["sorted_segment_sum"] == got["segment_sum_vjp"] == 0
