@@ -68,8 +68,9 @@ nonzero on a failed check (no phase catches its own failure):
      gossip loss 1 + 4 x 29 times forward (the checkpoint recomputes
      each query) and 29 backward, K1 and K4 never. Same-seed
      reproducibility: whether two gossip train steps from the same
-     weights and dropout seed give bit-equal gradients is printed; the
-     gather-fused backward's own dx must be bit-equal over two runs.
+     weights and dropout seed give bit-equal gradients is printed, and
+     the same for two neighborhood train steps; the gather-fused
+     backward's own dx must be bit-equal over two runs.
   6. training at full width: a ``SynNp_320`` train set (= valid set) with
      exact VF2 ground truth, ten epochs of the neighborhood stage (paper
      config: batch 512, lr 1e-4; its epoch loss spikes now and then in
@@ -93,19 +94,39 @@ nonzero on a failed check (no phase catches its own failure):
      --train_gossip --test_gossip`` in a subprocess on a small SynNp set
      at paper width; then ``CountingService`` serves one request from the
      two checkpoints it wrote.
-  8. bench and probe: ``python -m desco_tpu_torch.bench`` for float32
+  8. datasets and the release/r4 replay: ``load_data`` makes Syn_1827,
+     Syn_1827_test and the five TU proxies without networkx, each equal
+     to desco_tpu's (graph, node and edge counts and the fingerprint of
+     ``data.datasets.fingerprint``, committed below), seconds printed;
+     then in a fresh data root ``gen_dataset.main`` (truth and sample
+     cache of Syn_1827_test_max40) and ``main.main --test_gossip`` with
+     release/r4, both in this process: its six graphlet normed MSE
+     figures (neighborhood and gossip, query sizes 3-5) within rtol 1e-2
+     of desco_tpu's root main.py on the CPU for the same graphs, its
+     per-graph truth equal to that run's and its per-graph counts (the
+     neighborhood, gossip and final CSVs) within rtol 1e-3 of that run's
+     plus one for the rounding of each graph's sum
+     (tests/data/replay_r4_Syn_1827_test_max40.npz), and the counters,
+     zeroed before the replay and read
+     after it, at serving's counts for the same batches (K2 8 x target
+     batches, K1 once per target batch, the gather-fused K1 1 + 2 x 29
+     per gossip batch, no backward kernel) plus main's one query-tower
+     embedding (8 gather-fused K1, one pooling K1).
+  9. bench and probe: ``python -m desco_tpu_torch.bench`` for float32
      and bfloat16 in subprocesses (one JSON line each, K2 = 8 launches
      per forward, 0 < sol_fraction <= 1.05), and one series of the K5
      probe (tools/segsum_inner_ablation.py) at K = 128 on the bench
      stream, every variant launched through its wrapper.
-  9. one JSON line of kernels, the card line, then the final ok line.
+ 10. one JSON line of kernels, the card line, then the final ok line.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
+import io
 import json
 import os
 import subprocess
@@ -137,6 +158,36 @@ BF16_LOG2_ATOL = 0.25
 GOSSIP_FWD_PER_STEP = 1 + 4 * 29
 GOSSIP_BWD_PER_STEP = 29
 GOSSIP_FWD_PER_EVAL = 1 + 2 * 29
+# desco_tpu's datasets as desco_tpu makes them (networkx 3.6.1, numpy
+# 2.0.2, CPU): graphs, nodes, edges and ``data.datasets.fingerprint``
+DATASETS = {
+    "Syn_1827": (1827, 246542, 661491, "be4812bf6c8a03a8"),
+    "Syn_1827_test": (915, 127309, 348718, "4ec80206fa8ffa4d"),
+    "ChemProxy": (188, 3541, 3653, "69ed3dc0de93263b"),
+    "ChemBigProxy": (467, 19066, 20077, "7df0d3fe435c1d55"),
+    "GeoProxy": (600, 19804, 37277, "c0e744f2a4003d0b"),
+    "EgoProxy": (1000, 19990, 100020, "069f99523c2c5da3"),
+    "SuperpixelProxy": (563, 47864, 122034, "8571e4d3bef36880"),
+}
+# release/r4 replayed on Syn_1827_test_max40 (354 graphs, 8,798 nodes) by
+# desco_tpu's root main.py on the CPU in f32 (JAX_PLATFORMS=cpu, a fresh
+# --data_root): graphlet normed MSE for query sizes 3, 4, 5
+REPLAY_SET = "Syn_1827_test_max40"
+REPLAY_CPU_MSE = {
+    "neighborhood": (0.0052897493740783385, 0.004320016442726204,
+                     0.005589552031913191),
+    "gossip": (0.0052423874108605195, 0.004299120551611978,
+               0.00557261373626193),
+}
+REPLAY_RTOL = 1e-2
+# the same run's per-graph counts (graphlet_truth, neighborhood_graphlet
+# and gossip_graphlet CSVs; its graphlet_count CSV equals the gossip one)
+REPLAY_CPU_COUNTS = os.path.join(
+    REPO, "tests", "data", "replay_r4_Syn_1827_test_max40.npz")
+# per-graph counts are round(relu(sum over the graph)): a sum that lies
+# within float error of a half flips by one, as it does in 9 of 10,266
+# entries between the port and desco_tpu, both on the CPU
+REPLAY_COUNT_RTOL = 1e-3
 
 
 def fail(msg: str) -> None:
@@ -158,6 +209,29 @@ def card_line() -> str:
 
 
 # ---------------------------------------------------------------- helpers
+def run_teed(fn, argv) -> tuple:
+    """(return code, printed text) of ``fn(argv)``, its output shown as it
+    runs."""
+    class Tee(io.StringIO):
+        def write(self, text):
+            sys.__stdout__.write(text)
+            return super().write(text)
+
+    buf = Tee()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(argv)
+    sys.stdout.flush()
+    return rc, buf.getvalue()
+
+
+def timing_of(text: str, name: str) -> float:
+    """The seconds of main.py's ``[timing] <name>: <s>s`` line."""
+    for line in text.splitlines():
+        if line.startswith(f"[timing] {name}"):
+            return float(line.rsplit(" ", 1)[1].rstrip("s"))
+    fail(f"no [timing] line for {name!r}")
+
+
 def cuda_ms(torch, fn, reps: int = 50, warmup: int = 5) -> float:
     """Mean time of one call, CUDA events around ``reps`` calls."""
     for _ in range(warmup):
@@ -1304,6 +1378,26 @@ def main() -> int:
     check(agg_equal, "the gather-fused backward gave two different dx")
     del ggb_dev, step_grads
 
+    # the same for two neighborhood train steps (paper config: dropout 0)
+    tb0_dev, qb_dev = tb0.to(dev, training=True), qb.to(dev)
+    step_grads = []
+    for _ in range(2):
+        p = copy.deepcopy(neigh_params).to(dev).requires_grad_(True)
+        neigh_mod.train_loss(
+            p, tgt_cfg, qry_cfg, tb0_dev, qb_dev,
+            generator=torch.Generator(device=dev).manual_seed(args.seed)
+        ).backward()
+        step_grads.append({n: q.grad for n, q in p.named_parameters()
+                           if q.grad is not None})
+    differ = [n for n, gr in step_grads[0].items()
+              if not torch.equal(gr, step_grads[1][n])]
+    print(f"same-seed reproducibility: two neighborhood train steps give "
+          f"bit-equal gradients: {not differ} "
+          f"({len(step_grads[0]) - len(differ)} of {len(step_grads[0])} "
+          f"tensors equal{'; differ: ' + ', '.join(differ) if differ else ''})",
+          flush=True)
+    del tb0_dev, qb_dev, step_grads
+
     # ------------------------------------------- 6. training, full width
     cs.reset_launches()
     n_b = len(train_stage.batches)
@@ -1509,7 +1603,129 @@ def main() -> int:
           "checkpoints the entry point wrote", flush=True)
     workdir.cleanup()
 
-    # ------------------------------------------------ 8. bench and probe
+    # ------------------------------------- 8. datasets and the r4 replay
+    from desco_tpu_torch import gen_dataset as gen_mod
+    from desco_tpu_torch import main as main_mod
+    from desco_tpu_torch.data.datasets import fingerprint
+
+    data_dir = tempfile.TemporaryDirectory(prefix="desco_smoke_data_")
+    gen_root = os.path.join(data_dir.name, "data")
+    gen_s = {}
+    for name, want in DATASETS.items():
+        t0 = time.perf_counter()
+        graphs = load_data(name, gen_root)
+        gen_s[name] = time.perf_counter() - t0
+        got = (len(graphs), sum(g.n_nodes for g in graphs),
+               sum(g.n_edges for g in graphs), fingerprint(graphs))
+        check(got == want, f"dataset {name}: (graphs, nodes, edges, "
+              f"fingerprint) {got} != desco_tpu's {want}")
+    print(f"datasets without networkx: {len(DATASETS)} equal desco_tpu's "
+          f"(counts and fingerprints); seconds to make "
+          f"{json.dumps({k: round(v, 2) for k, v in gen_s.items()})} "
+          f"(Syn_1827_test reads the Syn_1827 cache)", flush=True)
+
+    # a fresh data root: truth and sample cache by gen_dataset, then the
+    # replay of release/r4 through main(), both in this process
+    replay_root = os.path.join(data_dir.name, "replay")
+    t0 = time.perf_counter()
+    rc, gen_out = run_teed(gen_mod.main, [
+        "--dataset", REPLAY_SET, "--depth", "4", "--data_root", replay_root])
+    replay_gen_s = time.perf_counter() - t0
+    check(rc == 0, f"gen_dataset {REPLAY_SET} returned {rc}")
+    truth_line = [ln for ln in gen_out.splitlines()
+                  if ln.startswith("ground truth")]
+    check(len(truth_line) == 1, "gen_dataset printed no truth line")
+    replay_out_dir = os.path.join(data_dir.name, "replay_out")
+    cs.reset_launches()
+    t0 = time.perf_counter()
+    rc, replay_out = run_teed(main_mod.main, [
+        "--test_gossip", "--neigh_checkpoint", R4_NEIGH,
+        "--gossip_checkpoint", R4_GOSSIP, "--test_dataset", REPLAY_SET,
+        "--data_root", replay_root, "--output_dir", replay_out_dir])
+    replay_s = time.perf_counter() - t0
+    replay_launches = cs.read_launches()
+    check(rc == 0, f"the replay's main() returned {rc}")
+    check("(device cuda)" in replay_out, "the replay did not run on CUDA")
+    n_tb = n_gb_r = None
+    for line in replay_out.splitlines():
+        if line.startswith(f"{REPLAY_SET}: ") and "target batches" in line:
+            n_tb = int(line.split(" in ")[-1].split()[0])
+        if line.startswith(f"{REPLAY_SET}: ") and "gossip batches" in line:
+            n_gb_r = int(line.split(": ")[1].split()[0])
+    check(n_tb and n_gb_r, "the replay printed no batch counts")
+    metrics = {}
+    with open(os.path.join(replay_out_dir,
+                           f"analyze_results_{REPLAY_SET}.txt")) as f:
+        for line in f:
+            key, val = line.split(": ", 1)
+            metrics[key] = json.loads(val)
+    worst_rel = 0.0
+    for stage_name, want in REPLAY_CPU_MSE.items():
+        got = metrics[f"graphlet_norm_mse_{stage_name}"]
+        check(len(got) == 3 and all(np.isfinite(got)),
+              f"replay {stage_name} normed MSE malformed: {got}")
+        rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+        worst_rel = max(worst_rel, *rel)
+        check(max(rel) <= REPLAY_RTOL,
+              f"replay {stage_name} normed MSE {got} differs from "
+              f"desco_tpu's CPU figures {want} by {max(rel):.3g} (rtol "
+              f"{REPLAY_RTOL})")
+    ref = np.load(REPLAY_CPU_COUNTS)
+    worst_count = {}
+    for stem, key in (("graphlet_truth", "truth"),
+                      ("neighborhood_graphlet", "neighborhood"),
+                      ("gossip_graphlet", "gossip"),
+                      ("graphlet_count", "gossip")):
+        got = np.loadtxt(os.path.join(
+            replay_out_dir, f"{stem}_{REPLAY_SET}.csv"), delimiter=",",
+            skiprows=1, ndmin=2)[:, 1:]
+        want = ref[key]
+        check(got.shape == want.shape == (354, 29)
+              and np.isfinite(got).all() and (got >= 0).all(),
+              f"replay {stem} malformed: {got.shape}")
+        diff = np.abs(got - want)
+        if key == "truth":
+            check(not diff.any(), f"replay truth differs from desco_tpu's "
+                  f"in {int((diff > 0).sum())} entries")
+            continue
+        excess = diff - (1 + REPLAY_COUNT_RTOL * np.abs(want))
+        worst_count[stem] = [int(diff.max()), int((diff > 0).sum())]
+        check((excess <= 0).all(),
+              f"replay {stem}: {int((excess > 0).sum())} per-graph counts "
+              f"differ from desco_tpu's CPU counts by more than 1 + "
+              f"{REPLAY_COUNT_RTOL} x count (worst {diff.max():.0f} at "
+              f"{want.flat[int(np.argmax(excess))]:.0f})")
+    # what serving launches for the same batches, plus the query tower
+    # that main() embeds once (8 gather-fused K1 and one pooling K1)
+    want_l = {"fused_typed_transform_aggregate": 8 * n_tb,
+              "sorted_segment_sum": n_tb + 1,
+              "gather_segment_sum": 8 + GOSSIP_FWD_PER_EVAL * n_gb_r,
+              "typed_aggregate_bwd": 0, "segment_sum_vjp": 0,
+              "gather_segment_sum_bwd": 0}
+    print(f"replay launches: {json.dumps(replay_launches)}; expected "
+          f"{json.dumps(want_l)} ({n_tb} target batches, {n_gb_r} gossip "
+          f"batches), no bf16", flush=True)
+    for name, n in want_l.items():
+        check(replay_launches[name] == n,
+              f"replay: {name} launched {replay_launches[name]} times, "
+              f"serving's count for these batches is {n}")
+    check(all(replay_launches[k.__name__ + "_bf16"] == 0
+              for k in cs.KERNELS), "bf16 launches in the f32 replay")
+    print(f"replay of release/r4 on {REPLAY_SET}: normed MSE neighborhood "
+          f"{metrics['graphlet_norm_mse_neighborhood']}, gossip "
+          f"{metrics['graphlet_norm_mse_gossip']}: within "
+          f"{worst_rel:.3g} of desco_tpu's CPU figures (rtol "
+          f"{REPLAY_RTOL}); per-graph truth equal, counts within 1 + "
+          f"{REPLAY_COUNT_RTOL} x count (largest difference, entries "
+          f"that differ: {json.dumps(worst_count)}); gen_dataset {replay_gen_s:.1f} s "
+          f"({truth_line[0]}); main() {replay_s:.1f} s: load + stage "
+          f"{timing_of(replay_out, 'load+truth+stage')} s, stage-1 "
+          f"predict + verify "
+          f"{timing_of(replay_out, 'stage-1 predict+verify')} s, gossip "
+          f"predict {timing_of(replay_out, 'gossip predict')} s", flush=True)
+    data_dir.cleanup()
+
+    # ------------------------------------------------ 9. bench and probe
     bench_keys = ("metric", "value", "unit", "vs_baseline", "graphs_per_s",
                   "bytes_per_edge_layer", "sol_fraction", "hbm_gbps_assumed",
                   "train_edges_per_s", "train_step_ms", "dtype", "device",
@@ -1552,7 +1768,7 @@ def main() -> int:
     for name, n in probe_launches.items():
         check(n > 0, f"probe variant {name} never launched in its series")
 
-    # ------------------------------------------------------ 9. the record
+    # ----------------------------------------------------- 10. the record
     seg_src = "desco_tpu_torch/csrc/segment_sum.cu"
     typed_src = "desco_tpu_torch/csrc/typed_aggregate.cu"
     wrappers = {"k1": ("sorted_segment_sum", 310, seg_src),
@@ -1563,9 +1779,10 @@ def main() -> int:
     for key, (wrapper, line_no, src_file) in wrappers.items():
         for d, suffix, paths in (
                 ("f32", "", (launches, train_launches, launches_bf,
-                             bf_launches)),
+                             bf_launches, replay_launches)),
                 ("bf16", "_bf16", (launches_bf, bf_launches))):
-            # f32 rows: every launch of the four paths that was not on
+            # f32 rows: every launch of the five paths (serving,
+            # training, their bf16 runs, the r4 replay) that was not on
             # bf16 rows; bf16 rows: the bf16 launches of the bf16 paths
             if d == "f32":
                 per_path = [p[wrapper] - p[wrapper + "_bf16"] for p in paths]
@@ -1583,7 +1800,8 @@ def main() -> int:
     # f32 rows (the query tower and the gossip model are f32; the bf16
     # tower aggregates through K2); the bf16 instantiation is checked and
     # timed in phase 2 and reported beside the f32 one
-    paths = (launches, train_launches, launches_bf, bf_launches)
+    paths = (launches, train_launches, launches_bf, bf_launches,
+             replay_launches)
     for key, wrapper, line_no in (("k1g", "gather_segment_sum", 310),
                                   ("k1g_bwd", "gather_segment_sum_bwd", 464)):
         per_path = [p[wrapper] - p[wrapper + "_bf16"] for p in paths]

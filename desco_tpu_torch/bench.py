@@ -81,9 +81,8 @@ def build_workload(n_graphs: int = 24, seed: int = 0, depth: int = 4,
     batch, which carries ``edge_bwd_perm`` (the train step needs K3).
 
     The graphs come from the port's numpy generator
-    (``data/synthetic.random_connected_graphs``, numpy seed ``seed``), not
-    from desco_tpu's ``generate_synthetic``: that one draws from networkx
-    generators, and a GPU machine for this port has no networkx. Sizes and
+    (``data/synthetic.random_connected_graphs``, numpy seed ``seed``), as
+    they have since the bench's baseline was recorded. Sizes and
     densities follow Syn_1827's samplers for its 30-120-node sample ids.
 
     With ``device`` the batches are torch tensors there (labels and the

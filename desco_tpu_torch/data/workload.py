@@ -3,12 +3,14 @@ gossip samples.
 
 desco_tpu's ``Workload`` (``desco_tpu/data/workload.py``), copied so the
 port imports nothing of desco_tpu: exact canonical-count ground truth
-(cached on disk under ``root``, keyed by the query-set signature),
-neighborhood samples, gossip samples and the graph-level aggregations.
-The order-3 tconv samples come from the native C++ prep when it is
-available. Left out (ROADMAP.md, Queue 1): the neighborhood sample
-cache, the truth shards of multi-host materialization and the labeled
-truth.
+(cached on disk under ``root``, keyed by the query-set signature), the
+truth shards of multi-host materialization, neighborhood samples with
+their disk cache, gossip samples and the graph-level aggregations. The
+order-3 tconv samples come from the native C++ prep when it is
+available. Both caches use desco_tpu's file names and formats, so either
+package reads the other's. Left out (ROADMAP.md, Queue 1): the labeled
+truth and the whole-graph samples of the no-canonical-partition
+ablation.
 """
 
 from __future__ import annotations
@@ -95,6 +97,63 @@ class Workload:
             np.save(path, truth)
         return truth
 
+    # ------------------------------------------- multi-host truth shards
+    def shard_path(self, query_ids: Sequence[int], shard: int,
+                   num_shards: int) -> str:
+        return os.path.join(
+            self.root, "CanonicalCountTruth",
+            _query_signature(query_ids)
+            + f".shard{shard}of{num_shards}.npz")
+
+    def compute_groundtruth_shard(
+        self, query_ids: Sequence[int], shard: int, num_shards: int,
+        queries: Optional[List[Graph]] = None,
+        num_workers: Optional[int] = None,
+    ) -> str:
+        """Exact truth for the graphs with ``gi % num_shards == shard``,
+        saved as a partial file (one shard per host);
+        ``merge_groundtruth_shards`` assembles the canonical cache.
+        Returns the shard file path."""
+        if not 0 <= shard < num_shards:
+            raise ValueError(f"shard {shard} not in [0, {num_shards})")
+        if queries is None:
+            queries = atlas_queries(list(query_ids))
+        idx = list(range(shard, len(self.graphs), num_shards))
+        per_graph = truth_native.parallel_canonical_counts(
+            [self.graphs[gi] for gi in idx], queries, num_workers)
+        path = self.shard_path(query_ids, shard, num_shards)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        np.savez(path, **{str(gi): arr
+                          for gi, arr in zip(idx, per_graph)})
+        return path
+
+    def merge_groundtruth_shards(
+        self, query_ids: Sequence[int], num_shards: int,
+    ) -> np.ndarray:
+        """Assemble shard files into the full (total_nodes, Q) truth and
+        write the canonical cache (so later runs hit the normal path).
+        Raises if any shard file or graph is missing."""
+        out = np.zeros((self.total_nodes, len(query_ids)), np.float64)
+        seen = np.zeros(len(self.graphs), bool)
+        for k in range(num_shards):
+            path = self.shard_path(query_ids, k, num_shards)
+            if not os.path.exists(path):
+                raise FileNotFoundError(f"missing truth shard: {path}")
+            with np.load(path) as z:
+                for key in z.files:
+                    gi = int(key)
+                    lo = self.node_offsets[gi]
+                    hi = self.node_offsets[gi + 1]
+                    out[lo:hi] = z[key]
+                    seen[gi] = True
+        if not seen.all():
+            missing = np.nonzero(~seen)[0][:5].tolist()
+            raise ValueError(f"graphs missing from shards: {missing}...")
+        cache = self.groundtruth_path(query_ids)
+        os.makedirs(os.path.dirname(cache), exist_ok=True)
+        np.save(cache, out)
+        return out
+
     # ---------------------------------------------------- neighborhoods
     def extract_neighborhoods(self, depth: int):
         """(neighborhoods, NeighborhoodIndex) via the native kernel when
@@ -124,28 +183,71 @@ class Workload:
             np.array(index, dtype=np.int64).reshape(-1, 2),
             np.array(indicator, dtype=bool))
 
+    def _neigh_cache_path(self, depth, use_tconv, order=3) -> str:
+        """desco_tpu's sample-cache directory, keyed by depth and the
+        typing flags (the port's samples are heterogeneous and unlabeled,
+        which desco_tpu's names leave unmarked)."""
+        suffix = ("_tconv" if use_tconv else "") + (
+            f"_order{order}" if order != 3 else "")
+        return os.path.join(
+            self.root, "NeighborhoodDataset",
+            f"neighs_depth_{depth}{suffix}")
+
     def neighborhood_samples(
         self, depth: int,
         use_tconv: bool = True,
         truth: Optional[np.ndarray] = None,
         num_workers: Optional[int] = None,
         order: int = 3,
+        use_cache: bool = False,
     ) -> tuple[List[GraphSample], NeighborhoodIndex]:
         """Canonical-neighborhood GraphSamples (the reference's
         NeighborhoodDataset), with ``truth`` rows attached as labels when
-        given — serving passes zeros, as desco_tpu does."""
-        if order == 3 and use_tconv and truth_native.native_available():
-            samples, nindex = self._native_fast_samples(
-                depth, num_workers=num_workers)
-        else:
-            neighs, nindex = self.extract_neighborhoods(depth)
-            samples = [neighborhood_sample(nb, use_tconv=use_tconv,
-                                           order=order)
-                       for nb in neighs]
+        given — serving passes zeros, as desco_tpu does. ``use_cache``
+        (needs a ``root``) reads the samples' structure from desco_tpu's
+        sample cache, or writes it there after building it; a cache that
+        does not fit the graphs (a dataset regenerated in the same root)
+        is rebuilt with a warning."""
+        use_cache = use_cache and self.root is not None
+        samples = None
+        if use_cache:
+            cache = self._neigh_cache_path(depth, use_tconv, order=order)
+            if os.path.exists(cache):
+                samples, nindex = self._load_neigh_cache(cache)
+                if not self._cache_fits(nindex):
+                    import warnings
+
+                    warnings.warn(
+                        f"neighborhood cache at {cache} does not match the "
+                        f"current dataset (stale after regeneration?) — "
+                        f"recomputing", stacklevel=2)
+                    samples = None
+        if samples is None:
+            if order == 3 and use_tconv and truth_native.native_available():
+                samples, nindex = self._native_fast_samples(
+                    depth, num_workers=num_workers)
+            else:
+                neighs, nindex = self.extract_neighborhoods(depth)
+                samples = [neighborhood_sample(nb, use_tconv=use_tconv,
+                                               order=order)
+                           for nb in neighs]
+            if use_cache:
+                self._save_neigh_cache(cache, samples, nindex)
         if truth is not None:
             for s, (gid, vid) in zip(samples, nindex.index):
                 s.y = truth[self.node_offsets[gid] + vid].astype(np.float32)
         return samples, nindex
+
+    def _cache_fits(self, nindex: NeighborhoodIndex) -> bool:
+        """Whether a cached index can belong to these graphs: a stale
+        cache's (gid, vid) rows would index the new truth — IndexError at
+        best, silently wrong labels at worst."""
+        idx = np.asarray(nindex.index)
+        return not (len(nindex.indicator) != self.total_nodes
+                    or (len(idx)
+                        and (idx[:, 0].max() >= len(self.graphs)
+                             or np.any(self.node_offsets[idx[:, 0]]
+                                       + idx[:, 1] >= self.total_nodes))))
 
     def _native_fast_samples(self, depth: int,
                              num_workers: Optional[int] = None):
@@ -185,6 +287,67 @@ class Workload:
             np.array(index, np.int64).reshape(-1, 2),
             np.concatenate(indicator) if indicator
             else np.zeros(0, bool))
+
+    def _save_neigh_cache(self, path, samples, nindex) -> None:
+        """A directory of raw ``.npy`` files, one per field (desco_tpu's
+        format); they load back as file-backed memmaps."""
+        from ..utils.memory import prefault
+
+        os.makedirs(path, exist_ok=True)
+
+        def cat(parts, dtype, width=None):
+            # concatenate into a prefaulted buffer (a fresh allocation
+            # faults its pages in one at a time)
+            if not parts:
+                return (np.zeros(0, dtype) if width is None
+                        else np.zeros((0, width), dtype))
+            total = sum(len(p) for p in parts)
+            shape = (total,) if width is None else (total, width)
+            out = np.empty(shape, dtype)
+            prefault(out)
+            off = 0
+            for p in parts:
+                out[off:off + len(p)] = p
+                off += len(p)
+            return out
+
+        fields = {
+            "n_nodes": np.array([s.n_nodes for s in samples], np.int32),
+            "n_edges": np.array([s.n_edges for s in samples], np.int32),
+            "node_type": cat([s.node_type for s in samples], np.int32),
+            "x": cat([s.x for s in samples], np.float32,
+                     width=samples[0].x.shape[1] if samples else 1),
+            "edge_src": cat([s.edge_src for s in samples], np.int32),
+            "edge_dst": cat([s.edge_dst for s in samples], np.int32),
+            "edge_type": cat([s.edge_type for s in samples], np.int32),
+            "index": nindex.index, "indicator": nindex.indicator,
+        }
+        for k, v in fields.items():
+            np.save(os.path.join(path, k + ".npy"), v)
+
+    def _load_neigh_cache(self, path):
+        def ld(k, mmap=True):
+            return np.load(os.path.join(path, k + ".npy"),
+                           mmap_mode="r" if mmap else None)
+
+        n_nodes = np.asarray(ld("n_nodes", mmap=False))
+        n_edges = np.asarray(ld("n_edges", mmap=False))
+        no = np.concatenate([[0], np.cumsum(n_nodes)])
+        eo = np.concatenate([[0], np.cumsum(n_edges)])
+        nt, x = ld("node_type"), ld("x")
+        es, ed, et = ld("edge_src"), ld("edge_dst"), ld("edge_type")
+        samples = []
+        for i in range(len(n_nodes)):
+            samples.append(GraphSample(
+                node_type=nt[no[i]:no[i + 1]],
+                x=x[no[i]:no[i + 1]],
+                edge_src=es[eo[i]:eo[i + 1]],
+                edge_dst=ed[eo[i]:eo[i + 1]],
+                edge_type=et[eo[i]:eo[i + 1]],
+            ))
+        return samples, NeighborhoodIndex(
+            np.asarray(ld("index", mmap=False)),
+            np.asarray(ld("indicator", mmap=False)))
 
     # ---------------------------------------------------------- gossip
     def gossip_samples(

@@ -107,3 +107,16 @@ class Graph:
             seen[nbrs] = True
             frontier = nbrs
         return np.nonzero(seen)[0].astype(np.int32)
+
+
+def relabel_graph(g: Graph, mapping: np.ndarray) -> Graph:
+    """Relabel nodes: new_id = mapping[old_id]. ``mapping`` must be a
+    permutation of 0..n-1. Node order is load-bearing for the canonical
+    partition and the gossip direction bits."""
+    mapping = np.asarray(mapping, dtype=np.int32)
+    edges = mapping[g.edges] if g.n_edges else g.edges
+    feat = None
+    if g.node_feat is not None:
+        feat = np.empty_like(g.node_feat)
+        feat[mapping] = g.node_feat
+    return Graph(g.n_nodes, edges, feat)

@@ -2,7 +2,16 @@
 ``main.py`` for one device.
 
     python -m desco_tpu_torch.main --train_neigh --train_gossip \\
-        --test_gossip --train_dataset SynNp_1827 --test_dataset SynNp_256_1
+        --test_gossip --train_dataset Syn_1827 --valid_dataset Syn_1827 \\
+        --test_dataset Syn_1827_test
+
+    python -m desco_tpu_torch.main --test_gossip \\
+        --neigh_checkpoint release/r4/neigh.best \\
+        --gossip_checkpoint release/r4/gossip.best \\
+        --test_dataset Syn_1827_test
+
+(the second replays the released weights). Datasets take desco_tpu's
+names and suffixes (``data/datasets.py``).
 
 Pipeline: load datasets -> exact ground truth (C++ VF2, cached) ->
 canonical partition -> train/eval the SHMP neighborhood model -> scatter
@@ -148,6 +157,10 @@ def main(argv=None) -> int:
         test_stage = prepare_stage_data(cfg, test_graphs,
                                         name=args.test_dataset,
                                         need_truth=True)
+    print(f"{args.test_dataset}: {len(test_graphs)} graphs, "
+          f"{test_stage.workload.total_nodes} nodes, "
+          f"{len(test_stage.samples)} neighborhoods in "
+          f"{len(test_stage.batches)} target batches")
 
     # ---------------------------------------------- neighborhood stage
     if args.train_neigh:
@@ -188,6 +201,7 @@ def main(argv=None) -> int:
         with _phase("gossip batch prep (test)"):
             test_gbatches = prepare_gossip_batches(cfg, test_stage,
                                                    counts["test"])
+        print(f"{args.test_dataset}: {len(test_gbatches)} gossip batches")
         if args.train_gossip:
             print("training gossip model...")
             train_gb = prepare_gossip_batches(

@@ -216,8 +216,9 @@ def prepare_stage_data(cfg: PipelineConfig, graphs: List[Graph],
     device work.
 
     ``need_truth=True`` (training and evaluation) computes the exact VF2
-    ground truth, cached under ``cfg.data_root/name``, attaches it as
-    labels and packs the backward edge permutation; the default (pure
+    ground truth, cached under ``cfg.data_root/name`` beside the
+    neighborhood sample cache, attaches it as labels and packs the
+    backward edge permutation; the default (pure
     serving: no labels exist and none are needed) leaves the label
     columns zero and skips the permutation's host lexsort."""
     check_serving_config(cfg)
@@ -232,9 +233,11 @@ def prepare_stage_data(cfg: PipelineConfig, graphs: List[Graph],
                                        num_workers=cfg.num_workers)
     else:
         truth = np.zeros((wl.total_nodes, len(cfg.query_ids)), np.float64)
+    # the sample cache under the dataset's root only where truth is
+    # computed: a serving request sees its graphs once
     samples, nindex = wl.neighborhood_samples(
         cfg.depth, use_tconv=cfg.use_tconv, truth=truth,
-        num_workers=cfg.num_workers, order=cfg.order)
+        num_workers=cfg.num_workers, order=cfg.order, use_cache=need_truth)
     if cfg.degree_feature:
         apply_degree_feature(samples)
     if callable(capacities):

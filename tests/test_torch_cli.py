@@ -5,6 +5,7 @@ one), and options of unported features raise naming ROADMAP.md."""
 
 import dataclasses
 import os
+import random
 
 import numpy as np
 import pytest
@@ -48,16 +49,26 @@ def test_flag_surface_matches_desco_tpu():
     assert set(jcfg) == set(tcfg)
 
 
-def test_datasets_know_synnp_only():
+def test_datasets_take_desco_tpu_names(tmp_path):
     a, b = load_data("SynNp_5"), load_data("SynNp_5_0")
     assert len(a) == 5
     assert all(np.array_equal(g.edges, h.edges) for g, h in zip(a, b))
     c = load_data("SynNp_5_1")
     assert any(g.n_nodes != h.n_nodes or not np.array_equal(g.edges, h.edges)
                for g, h in zip(a, c))
-    for name in ("Syn_1827", "MUTAG", "SynNp_x", "SynNp_5_train"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            load_data(name)
+    for name in ("SynNp_x", "NoSuchDataset"):
+        with pytest.raises(NotImplementedError, match="unknown dataset"):
+            load_data(name, str(tmp_path))
+    with pytest.raises(FileNotFoundError,
+                       match=os.path.join(str(tmp_path), "MUTAG", "raw")):
+        load_data("MUTAG", str(tmp_path))
+    # desco_tpu's suffix rule: random.Random(0).shuffle, 25 / 25 / 50
+    idx = list(range(5))
+    random.Random(0).shuffle(idx)
+    assert [g.n_nodes for g in load_data("SynNp_5_train")] == [
+        a[i].n_nodes for i in idx[:1]]
+    assert all(np.array_equal(g.edges, a[i].edges) for g, i in zip(
+        load_data("SynNp_5_test"), idx[2:]))
 
 
 @pytest.fixture(scope="module")
@@ -156,15 +167,11 @@ def test_cli_default_device_is_the_gpu(tmp_path):
     (["--use_node_feature", "--train_neigh"], "ROADMAP"),
     (["--neigh_order", "4", "--train_neigh"], "ROADMAP"),
     (["--neigh_conv_type", "GIN", "--train_neigh"], "ROADMAP"),
-    (["--train_dataset", "Syn_1827", "--train_neigh"], "ROADMAP"),
+    (["--neigh_conv_type", "PNA", "--train_neigh"], "ROADMAP"),
 ])
 def test_unported_options_raise_naming_the_roadmap(tmp_path, flags, match):
-    base = [a for a in TINY_FLAGS]
-    if "--train_dataset" in flags:
-        i = base.index("--train_dataset")
-        del base[i:i + 2]
     with pytest.raises(NotImplementedError, match=match):
-        tmain.main(base + flags + [
+        tmain.main(TINY_FLAGS + flags + [
             "--device", "cpu", "--data_root", str(tmp_path / "d"),
             "--output_dir", str(tmp_path / "o"),
             "--neigh_model_path", str(tmp_path / "n")])

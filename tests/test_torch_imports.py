@@ -5,6 +5,8 @@ has jax preloaded, so sys.modules cannot tell."""
 
 import ast
 import pathlib
+import subprocess
+import sys
 
 import pytest
 
@@ -52,5 +54,28 @@ def test_every_module_is_checked():
                  "desco_tpu_torch/bench.py",
                  "desco_tpu_torch/tools/segsum_inner_ablation.py",
                  "desco_tpu_torch/tools/serving_profile.py",
-                 "desco_tpu_torch/graph/atlas.py", "chip_smoke.py"):
+                 "desco_tpu_torch/graph/atlas.py",
+                 "desco_tpu_torch/data/nx_subset.py",
+                 "desco_tpu_torch/data/tu_proxy.py",
+                 "desco_tpu_torch/data/datasets.py",
+                 "desco_tpu_torch/gen_dataset.py", "chip_smoke.py"):
         assert must in names
+
+
+def test_data_layer_runs_without_networkx(tmp_path):
+    """The generators, the proxies and the loader in a process where
+    ``import networkx`` fails, as on a machine without it."""
+    code = (
+        "import sys; sys.modules['networkx'] = None\n"
+        "from desco_tpu_torch.data import synthetic, tu_proxy\n"
+        "from desco_tpu_torch.data.datasets import fingerprint, load_data\n"
+        "from desco_tpu_torch import gen_dataset\n"
+        "synthetic.generate_synthetic(12, 10, 60, seed=1)\n"
+        "synthetic.generate_combined_syn(12, seed=1)\n"
+        "for fn, _, kw in tu_proxy.TU_PROXY_RECIPES.values():\n"
+        "    fn(3, seed=0, **kw)\n"
+        f"print(fingerprint(load_data('Syn_64_test', {str(tmp_path)!r})))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert len(proc.stdout.strip()) == 16

@@ -1,6 +1,6 @@
 """desco_tpu_torch serving against desco_tpu's CountingService on the
-release/r4 checkpoints (SAGE SHMP, 8 layers, hidden 64; 2-layer gossip),
-on the CPU.
+release/r4 checkpoints (SAGE SHMP, 8 layers, hidden 64; 2-layer gossip)
+and release/r5 (the same with the degree feature), on the CPU.
 
 Tolerances: neighborhood and node counts rtol 1e-3 of the count (floored
 at 1e-2 absolute: a de-logged 2^pred - 1 near zero carries pred's f32
@@ -59,6 +59,32 @@ def test_r4_service_matches_desco_tpu(results, graphs):
     np.testing.assert_array_equal(ours.neighborhood_counts[rows],
                                   ref.neighborhood_counts[rows])
     assert np.abs(ours.graphlet_counts - ref.graphlet_counts).max() <= 1
+
+
+def test_r5_service_matches_desco_tpu():
+    """release/r5 (``degree_feature``: log2(1 + degree) inputs to both
+    towers) on the r4 test's graphs, drawn by each package's own
+    generator."""
+    from desco_tpu.serving import CountingService as JService
+    from desco_tpu_torch.data.synthetic import generate_synthetic as t_gen
+
+    r5 = ("release/r5/degf.neigh.best", "release/r5/degf.gossip.best")
+    jgraphs = generate_synthetic(6, min_size=10, max_size=28, seed=5)
+    tgraphs = t_gen(6, min_size=10, max_size=28, seed=5)
+    assert all(g.n_nodes == h.n_nodes and np.array_equal(g.edges, h.edges)
+               for g, h in zip(tgraphs, jgraphs))
+    svc = CountingService(*r5, device="cpu")
+    assert svc.cfg.degree_feature
+    ours, ref = svc.count(tgraphs), JService(*r5).count(jgraphs)
+    assert ours.refined and ref.refined
+    _close(ours.neighborhood_counts, ref.neighborhood_counts)
+    _close(ours.node_counts, ref.node_counts)
+    np.testing.assert_array_equal(ours.verified_rows, ref.verified_rows)
+    assert len(ours.verified_rows) > 0
+    rows = ours.verified_rows
+    np.testing.assert_array_equal(ours.neighborhood_counts[rows],
+                                  ref.neighborhood_counts[rows])
+    np.testing.assert_array_equal(ours.graphlet_counts, ref.graphlet_counts)
 
 
 def test_r4_service_loads_paper_config(port_service):
