@@ -112,12 +112,37 @@ nonzero on a failed check (no phase catches its own failure):
      batches, K1 once per target batch, the gather-fused K1 1 + 2 x 29
      per gossip batch, no backward kernel) plus main's one query-tower
      embedding (8 gather-fused K1, one pooling K1).
-  9. bench and probe: ``python -m desco_tpu_torch.bench`` for float32
+  9. ablations, on phase 8's data: (a) K2' and K3' at T = 33 (their
+     types in chunks) on a packed order-4 batch of Syn_1827_test_max15
+     (graphs of at most 15 nodes: orbit typing is host Python; seconds
+     per 1000 neighborhoods printed) and on a random 33-type stream at
+     the serving batch's shape, f32 and bf16: against the plain versions
+     at phase 2's tolerances, two runs bit-equal, CUDA-graph times, bound
+     and yardstick as in phase 2; K1 and K4 at GAT's and PNA's use sites
+     ([E, 64] and [E, 1] rows over a target batch's N*T keys) against
+     their plain versions, timed; (b) GIN, GCN, GAT and PNA at the paper
+     width (8 layers, hidden 64, 6 types, 29 queries) on the first two
+     target batches of the replay set: a forward, counts within rtol
+     1e-3 of the CPU (floored as in phase 3), and one train step,
+     gradients within phase 5's bound; launches zeroed before and read
+     after each, exactly as ``expected_conv_launches`` predicts (GIN /
+     GCN: K2 8 per target batch and K3 8 per train step; GAT / PNA: no
+     K2 or K3, K1 per sum and pooling, K4 behind them); two same-seed
+     train steps bit-equal for GIN and GCN, printed for GAT and PNA; the
+     same CUDA-vs-CPU and bit-equality checks for an order-4 (33-type)
+     train step; (c) ``ablation_gnns --neigh_conv_type GIN`` and
+     ``ablation_wo_canonical`` on the replay set (train = valid = test)
+     and ``main --train_neigh --neigh_order 4`` on Syn_1827_test_max15,
+     2 epochs each, in this process: finite normed MSE figures, the
+     orbit-typing line, launches on the expected kernels.
+ 10. bench and probe: ``python -m desco_tpu_torch.bench`` for float32
      and bfloat16 in subprocesses (one JSON line each, K2 = 8 launches
      per forward, 0 < sol_fraction <= 1.05), and one series of the K5
      probe (tools/segsum_inner_ablation.py) at K = 128 on the bench
      stream, every variant launched through its wrapper.
- 10. one JSON line of kernels, the card line, then the final ok line.
+ 11. one JSON line of kernels (K2' and K3' at T = 33 in rows of their
+     own, launched by the order-4 run; every other row's launches count
+     the ablation path too), the card line, then the final ok line.
 """
 
 from __future__ import annotations
@@ -868,10 +893,14 @@ def k5_checks(torch, cs, probe, dev, seed: int) -> dict:
 
 
 # ------------------------------------------------- phase 5: gradient check
-def grad_errors(torch, loss_on, params, what: str) -> float:
+def grad_errors(torch, loss_on, params, what: str,
+                zero_below: float = 0.0, limit: float = 1e-4) -> float:
     """Gradients of ``loss_on(params, device)`` on CUDA (kernels) against
     the CPU (plain versions): the largest error relative to its tensor's
-    scale, which must stay within 1e-4."""
+    scale, which must stay within ``limit``. ``zero_below``: a tensor whose
+    scale is under this fraction of the largest tensor's is measured
+    against that floor instead (a gradient that is mathematically zero
+    comes out as rounding noise on both sides)."""
     grads = {}
     for dev in ("cuda", "cpu"):
         p = copy.deepcopy(params).to(dev).requires_grad_(True)
@@ -883,14 +912,391 @@ def grad_errors(torch, loss_on, params, what: str) -> float:
                       for n, q in p.named_parameters()}
         grads[dev]["(loss)"] = loss.detach().cpu().reshape(1)
     worst = 0.0
+    floor = zero_below * max(float(r.abs().max())
+                             for r in grads["cpu"].values())
     for name, ref in grads["cpu"].items():
-        scale = float(ref.abs().max())
+        scale = max(float(ref.abs().max()), floor)
         err = float((grads["cuda"][name] - ref).abs().max())
         rel = err / scale if scale > 0 else (0.0 if err == 0 else float("inf"))
-        check(rel <= 1e-4, f"{what}: gradient of {name} off by {rel:.3g} of "
-              f"its scale {scale:.3g}")
+        check(rel <= limit, f"{what}: gradient of {name} off by {rel:.3g} "
+              f"of its scale {scale:.3g}")
         worst = max(worst, rel)
     return worst
+
+
+# ------------------------------------------------------ phase 9: ablations
+ORDER4_SET = "Syn_1827_test_max15"
+ABLATION_CONVS = ("GIN", "GCN", "GAT", "PNA")
+# per layer of the GAT and PNA aggregations: the K1 sums (GAT: num and
+# den; PNA: the count, the sum and the sum of squared deviations), those
+# that carry a gradient (K4 behind them; PNA's count of ones has none),
+# and the K4 gathers (PNA's mean back to the edges, K1 behind it)
+CONV_SUMS = {"GAT": (2, 2, 0), "PNA": (3, 2, 1)}
+
+
+def expected_conv_launches(conv: str, n_fwd: int, n_steps: int,
+                           layers: int = 8) -> dict:
+    """Launches of ``n_fwd`` ``forward_counts`` calls (both towers) or of
+    ``n_steps`` train steps (forward and backward of both towers) at
+    ``layers`` layers: GIN / GCN run K2 in the target tower and the
+    gather-fused K1 in the query tower, GAT / PNA their K1 sums in both
+    and neither K2 nor K3; every tower pools once (K1, and K4 behind it
+    in a train step)."""
+    n = n_fwd + n_steps
+    if conv in CONV_SUMS:
+        s, s_grad, gathers = CONV_SUMS[conv]
+        return {"fused_typed_transform_aggregate": 0,
+                "typed_aggregate_bwd": 0, "gather_segment_sum": 0,
+                "gather_segment_sum_bwd": 0,
+                "sorted_segment_sum": 2 * (n * (s * layers + 1)
+                                           + n_steps * gathers * layers),
+                "segment_sum_vjp": 2 * (n * gathers * layers
+                                        + n_steps * (s_grad * layers + 1))}
+    return {"fused_typed_transform_aggregate": layers * n,
+            "typed_aggregate_bwd": layers * n_steps,
+            "gather_segment_sum": layers * n,
+            "gather_segment_sum_bwd": layers * n_steps,
+            "sorted_segment_sum": 2 * n, "segment_sum_vjp": 2 * n_steps}
+
+
+def typed_graph_ms(torch, cs, probe, case, dtype) -> tuple:
+    """CUDA-graph times of K2 and K3 at ``case`` (as ``time_cases``
+    times them): K2's function; K3's function and its kernel without the
+    dW reduction launch."""
+    x, w, st = case["x"].to(dtype), case["w"].to(dtype), case["st"]
+    us = probe.graph_us(lambda i: cs.fused_typed_transform_aggregate(
+        x, st.edge_src, st.keys, w, st.n_types, st.n_nodes, streams=st))
+    g = case["g"]
+    xp, wp = cs.pad_operands(x, w)
+    dx = torch.empty_like(x)
+    partial = torch.empty(
+        (cs.k3_blocks(xp, wp, st), st.n_types,
+         cs._tile_width(wp.shape[1]), cs._tile_width(wp.shape[2])),
+        device=g.device)
+    gt = g.to(dtype)
+    k3_alone = probe.graph_us(
+        lambda i: cs.launch_k3(gt, xp, wp, st, dx, partial))
+    k3_fn = probe.graph_us(lambda i: cs.typed_aggregate_bwd(g, x, w, st))
+    return ({"ms": us / 1e3, "kernel_only_ms": us / 1e3},
+            {"ms": k3_fn / 1e3, "kernel_only_ms": k3_alone / 1e3})
+
+
+def many_types_checks(torch, cs, probe, case, what: str) -> dict:
+    """K2 and K3 at a stream of more types than one tile's buffers hold
+    (``case``: x, w f32, g, streams with a permutation), f32 and bf16:
+    against the plain versions (phase 2's tolerances), two runs
+    bit-equal, CUDA-graph times, bound and yardstick (``k2_main``,
+    ``k3_main``). {(kernel, dtype name): row}."""
+    rows = {}
+    x, w, g, st = case["x"], case["w"], case["g"], case["st"]
+    t, h, k = w.shape
+    for dtype in (torch.float32, torch.bfloat16):
+        d = dname(dtype)
+        xd, wd = x.to(dtype), w.to(dtype)
+        tc = (cs.chunk_types(dtype, h, k, t),
+              cs.chunk_types(dtype, h, k, t, backward=True))
+        outs = [cs.fused_typed_transform_aggregate(
+            xd, st.edge_src, st.keys, wd, t, st.n_nodes, streams=st)
+            for _ in range(2)]
+        bwds = [cs.typed_aggregate_bwd(g, xd, wd, st) for _ in range(2)]
+        torch.cuda.synchronize()
+        check(torch.equal(*outs) and torch.equal(bwds[0][0], bwds[1][0])
+              and torch.equal(bwds[0][1], bwds[1][1]),
+              f"K2 / K3 {d} at {what}: two runs are not bit-equal")
+        timed2, timed3 = typed_graph_ms(torch, cs, probe, case, dtype)
+        print(f"K2' / K3' {d} at {what}: {t} types in chunks of {tc[0]} "
+              f"(K2') and {tc[1]} (K3'); two runs bit-equal", flush=True)
+        rows["k2", d] = k2_main(torch, cs, x.device, case, dtype, timed2)
+        rows["k3", d] = k3_main(torch, cs, x.device, case, dtype, timed3)
+        rows["k2", d]["types_per_chunk"] = tc[0]
+        rows["k3", d]["types_per_chunk"] = tc[1]
+    return rows
+
+
+def finite_figures(text: str, key: str) -> list:
+    """The list printed after ``<key>: `` (a normed MSE or MAE per query
+    size), which must be finite."""
+    lines = [ln for ln in text.splitlines() if ln.startswith(key + ": ")]
+    check(len(lines) == 1, f"no {key!r} line printed")
+    vals = json.loads(lines[0].split(": ", 1)[1])
+    check(len(vals) == 3 and all(np.isfinite(vals)),
+          f"{key}: {vals} not three finite figures")
+    return vals
+
+
+def ablation_phase(torch, cs, probe, dev, seed: int, gen_root: str,
+                   replay_root: str, work_dir: str, sb) -> dict:
+    """Phase 9: K2' and K3' at T = 33, the four other conv types at the
+    paper width, order 4, and the two ablation drivers and ``main
+    --neigh_order 4`` on the card. ``gen_root`` holds Syn_1827 (phase
+    8), ``replay_root`` the truth and samples of the replay set, ``sb``
+    is a serving target batch (its shape for the synthetic 33-type
+    stream). Returns what the record needs."""
+    from desco_tpu_torch import ablation_gnns, ablation_wo_canonical
+    from desco_tpu_torch import main as main_mod
+    from desco_tpu_torch.batch.packed import auto_capacities, pack_samples
+    from desco_tpu_torch.data.datasets import load_data
+    from desco_tpu_torch.data.workload import Workload
+    from desco_tpu_torch.models import neighborhood as neigh_mod
+    from desco_tpu_torch.models.shmp_gnn import batch_typed_streams
+    from desco_tpu_torch.pipeline import (
+        PipelineConfig, build_query_batch, model_configs, prepare_stage_data)
+
+    t9 = time.perf_counter()
+    arng = np.random.default_rng(seed + 9)
+    agen = torch.Generator(device=dev).manual_seed(seed + 9)
+
+    def typed_inputs(st, n_rows, t):
+        return {"x": torch.randn(n_rows, 64, device=dev, generator=agen),
+                "w": torch.randn(t, 64, 64, device=dev, generator=agen)
+                * 0.1,
+                "g": torch.randn(st.n_nodes, 64, device=dev, generator=agen),
+                "st": st}
+
+    # (a) K2' and K3' at T = 33: a packed order-4 batch of Syn_1827_test
+    # cut to graphs of at most 15 nodes (orbit typing is host Python),
+    # and a random 33-type stream at the serving batch's shape
+    o4_graphs = load_data(ORDER4_SET, gen_root)
+    o4_wl = Workload(o4_graphs)
+    o4_truth = o4_wl.compute_groundtruth(PipelineConfig().query_ids)
+    o4_samples, _ = o4_wl.neighborhood_samples(4, order=4, truth=o4_truth)
+    typing_s = o4_wl.typing_seconds
+    o4_tb = pack_samples(o4_samples, *auto_capacities(o4_samples, g_cap=512),
+                         n_queries=29)[0]
+    o4_dev = o4_tb.to(dev, training=True)
+    o4_case = typed_inputs(batch_typed_streams(o4_dev, 33), o4_dev.n_cap, 33)
+    o4_case["x"] = o4_case["x"] * o4_dev.node_mask[:, None]
+    print(f"order-4 typing of {ORDER4_SET}: {len(o4_graphs)} graphs, "
+          f"{sum(g.n_nodes for g in o4_graphs)} nodes, {len(o4_samples)} "
+          f"neighborhoods typed in {typing_s:.2f} s "
+          f"({typing_s / len(o4_samples) * 1e3:.2f} s per 1000 "
+          f"neighborhoods, host Python); first batch n_cap {o4_tb.n_cap}, "
+          f"e_cap {o4_tb.e_cap}, "
+          f"{len(np.unique(o4_tb.edge_type[o4_tb.edge_type < 33]))} of 33 "
+          f"types present", flush=True)
+    s_live = int((sb.edge_type != 63).sum())
+    x33, src33, keys33, _ = k2_case(torch, arng, dev, torch.float32,
+                                    sb.n_cap, 33, 64, 64, s_live,
+                                    pad=sb.e_cap - s_live)
+    syn_case = typed_inputs(
+        k3_streams(torch, cs, dev, src33, keys33, 33, sb.n_cap), sb.n_cap, 33)
+    syn_case["x"] = x33
+    with torch.inference_mode():
+        t33_rows = many_types_checks(torch, cs, probe, o4_case,
+                                     f"the {ORDER4_SET} order-4 batch")
+        t33_serving = many_types_checks(
+            torch, cs, probe, syn_case,
+            f"a 33-type stream at the serving batch's shape (n_cap "
+            f"{sb.n_cap}, e_cap {sb.e_cap}, {s_live} live)")
+    del syn_case, x33, src33, keys33
+
+    # (b) GIN, GCN, GAT and PNA at the paper width on the first target
+    # batches of the replay set (truth and samples from phase 8's caches)
+    abl_cfg = PipelineConfig(data_root=replay_root, seed=seed)
+    r40_stage = prepare_stage_data(abl_cfg, load_data(REPLAY_SET,
+                                                      replay_root),
+                                   name=REPLAY_SET, need_truth=True)
+    conv_batches = r40_stage.batches[:2]
+    qb_abl = build_query_batch(abl_cfg)
+    abl_launches = {k: 0 for k in cs.read_launches()}
+
+    # K1 and K4 at GAT's and PNA's use sites: [E, 64] and [E, 1] rows over
+    # the N*T (dst, type) keys of the first target batch (6 types)
+    site = conv_batches[0].to(dev)
+    keys6 = (site.edge_dst.int() * 6 + site.edge_type.int()).contiguous()
+    n_seg6 = site.n_cap * 6
+    offs6 = torch.searchsorted(keys6, torch.arange(
+        n_seg6 + 1, dtype=torch.int32, device=dev), out_int32=True)
+    site_rows = {}
+    with torch.inference_mode():
+        for k in (64, 1):
+            msgs = torch.randn(keys6.shape[0], k, device=dev, generator=agen)
+            res = torch.empty(n_seg6, k, device=dev)
+            fn_us = probe.graph_us(
+                lambda i: cs.sorted_segment_sum(msgs, keys6, n_seg6))
+            k1_us = probe.graph_us(
+                lambda i: cs.launch_k1(msgs, offs6, n_seg6, res))
+            site_rows["k1", k] = k1_main(
+                torch, cs, dev, msgs, keys6, n_seg6,
+                f"the GAT / PNA sums of {REPLAY_SET} batch 0, K = {k}",
+                {"ms": fn_us / 1e3, "kernel_only_ms": k1_us / 1e3})
+            g = torch.randn(n_seg6, k, device=dev, generator=agen)
+            d = torch.empty(keys6.shape[0], k, device=dev)
+            k4_us = probe.graph_us(
+                lambda i: cs.launch_k4(g, keys6, n_seg6, d))
+            site_rows["k4", k] = k4_main(
+                torch, cs, dev, g, keys6, torch.float32,
+                f"the GAT / PNA sums' backward and PNA's gather, K = {k}",
+                {"ms": k4_us / 1e3, "kernel_only_ms": k4_us / 1e3})
+
+    def add_launches(got):
+        for key, n in got.items():
+            abl_launches[key] += n
+
+    def same_seed_grads(params, tgt, qry, batch):
+        """Whether two train steps from the same weights on ``batch`` give
+        bit-equal gradients on the card, and the tensors that differ."""
+        b_dev, q_dev = batch.to(dev, training=True), qb_abl.to(dev)
+        grads = []
+        for _ in range(2):
+            p = copy.deepcopy(params).to(dev).requires_grad_(True)
+            neigh_mod.train_loss(p, tgt, qry, b_dev, q_dev).backward()
+            grads.append({n: q.grad for n, q in p.named_parameters()
+                          if q.grad is not None})
+        return [n for n, gr in grads[0].items()
+                if not torch.equal(gr, grads[1][n])]
+
+    conv_report = {}
+    for conv in ABLATION_CONVS:
+        t0 = time.perf_counter()
+        ccfg = dataclasses.replace(abl_cfg, conv_type=conv)
+        tgt_c, qry_c = model_configs(ccfg, dev)
+        tgt_h, qry_h = model_configs(ccfg, "cpu")
+        check((tgt_c.layer_num, tgt_c.hidden_dim, tgt_c.n_edge_types,
+               tgt_c.conv_type, qry_c.conv_type, len(ccfg.query_ids)) ==
+              (8, 64, 6, conv, conv, 29), f"{conv}: not at the paper width")
+        params_c = neigh_mod.init_neighborhood_model(
+            tgt_c, qry_c, torch.Generator().manual_seed(seed))
+        p_dev = copy.deepcopy(params_c).to(dev)
+        cs.reset_launches()
+        with torch.inference_mode():
+            preds = [neigh_mod.forward_counts(p_dev, tgt_c, qry_c, b.to(dev),
+                                              qb_abl.to(dev)).cpu()
+                     for b in conv_batches]
+            torch.cuda.synchronize()
+            fwd_l = cs.read_launches()
+            preds_h = [neigh_mod.forward_counts(params_c, tgt_h, qry_h,
+                                                b.to("cpu"), qb_abl.to("cpu"))
+                       for b in conv_batches]
+        rel = max(close_counts(
+            np.exp2(a.numpy()[b.graph_mask > 0]) - 1,
+            np.exp2(h.numpy()[b.graph_mask > 0]) - 1,
+            f"{conv} forward, CUDA vs CPU")
+            for a, h, b in zip(preds, preds_h, conv_batches))
+        cs.reset_launches()
+        # GAT's a_src in the query tower has a gradient of exactly 0 (all
+        # query nodes start from one row, so a segment's logits are
+        # equal and its softmax does not depend on a_src): rounding
+        # noise, 1e-19, on both sides
+        worst = grad_errors(torch, lambda p, d: neigh_mod.train_loss(
+            p, tgt_c, qry_c, conv_batches[0].to(d, training=True),
+            qb_abl.to(d)), params_c, f"{conv} train_loss",
+            zero_below=1e-9)
+        step_l = cs.read_launches()
+        for got, want, what in (
+                (fwd_l, expected_conv_launches(conv, len(conv_batches), 0),
+                 "forward"),
+                (step_l, expected_conv_launches(conv, 0, 1), "train step")):
+            bad = {k: (got[k], n) for k, n in want.items() if got[k] != n}
+            check(not bad, f"{conv} {what}: launches (got, expected) "
+                  f"{bad}")
+            add_launches(got)
+        differ = same_seed_grads(params_c, tgt_c, qry_c, conv_batches[0])
+        if conv in ("GIN", "GCN"):
+            check(not differ, f"{conv}: two same-seed train steps gave "
+                  f"different gradients in {differ}")
+        conv_report[conv] = {"max_count_rel": rel, "grad_rel": worst,
+                             "same_seed_equal": not differ}
+        print(f"{conv} at paper width: {len(conv_batches)} target batches "
+              f"of {REPLAY_SET} (n_cap {conv_batches[0].n_cap}) forward, "
+              f"counts CUDA vs CPU within {rel:.3g} (rtol 1e-3); one train "
+              f"step, gradients within {worst:.3g} of a tensor's scale; "
+              f"launches forward {json.dumps(fwd_l)}, train step "
+              f"{json.dumps(step_l)} (as predicted); two same-seed train "
+              f"steps bit-equal: {not differ}"
+              f"{'; differ: ' + ', '.join(differ) if differ else ''} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # order 4 (33 types, SAGE) through a train step: CUDA vs CPU, and two
+    # same-seed steps bit-equal
+    o4_cfg = dataclasses.replace(abl_cfg, order=4)
+    tgt_4, qry_4 = model_configs(o4_cfg, dev)
+    check(tgt_4.n_edge_types == 33 and tgt_4.agg_mode == "kernel",
+          "the order-4 target tower is not 33 types on the kernel")
+    params_4 = neigh_mod.init_neighborhood_model(
+        tgt_4, qry_4, torch.Generator().manual_seed(seed))
+    # K2' and K3' multiply in split TF32, 2^-21 of each product where
+    # f32 keeps 2^-24: at T = 6 this check sits at 1e-4 (phase 5), and 33
+    # types sum 5.5 times the products into each row, so 1e-3 here (two
+    # f32 paths on the CPU agree to 8e-7 at this batch)
+    cs.reset_launches()
+    worst4 = grad_errors(torch, lambda p, d: neigh_mod.train_loss(
+        p, tgt_4, qry_4, o4_tb.to(d, training=True), qb_abl.to(d)),
+        params_4, "order-4 train_loss", limit=1e-3)
+    o4_l = cs.read_launches()
+    check(o4_l["fused_typed_transform_aggregate"] == 8
+          and o4_l["typed_aggregate_bwd"] == 8,
+          f"order-4 train step launches {o4_l}: K2 and K3 not 8 each")
+    differ = same_seed_grads(params_4, tgt_4, qry_4, o4_tb)
+    check(not differ, f"order 4: two same-seed train steps gave different "
+          f"gradients in {differ}")
+    print(f"order 4 (33 types) train step on the {ORDER4_SET} batch: "
+          f"gradients CUDA vs CPU within {worst4:.3g} of a tensor's scale; "
+          f"K2 and K3 8 launches each; two same-seed steps bit-equal",
+          flush=True)
+
+    # (c) the ablation entry points, in this process, 2 epochs each
+    abl_dir = os.path.join(work_dir, "ablations")
+
+    def run_entry(fn, argv, what, own_rows=False):
+        """Run an entry point in this process; its launches join the
+        ablation path's unless ``own_rows`` (the order-4 run: K2' and K3'
+        at T = 33 have rows of their own in the record)."""
+        cs.reset_launches()
+        t0 = time.perf_counter()
+        rc, out = run_teed(fn, argv + [
+            "--neigh_epoch_num", "2", "--seed", str(seed),
+            "--data_root", replay_root,
+            "--output_dir", os.path.join(abl_dir, what),
+            "--neigh_model_path", os.path.join(abl_dir, what, "neigh")])
+        got = cs.read_launches()
+        check(rc == 0, f"{what} returned {rc}")
+        check("(device cuda)" in out, f"{what} did not run on CUDA")
+        if not own_rows:
+            add_launches(got)
+        return out, got, time.perf_counter() - t0
+
+    on_r40 = ["--train_dataset", REPLAY_SET, "--valid_dataset", REPLAY_SET,
+              "--test_dataset", REPLAY_SET]
+    gnn_out, gnn_l, gnn_s = run_entry(
+        ablation_gnns.main, ["--train_neigh", "--neigh_conv_type", "GIN"]
+        + on_r40, "ablation_gnns")
+    gnn_mse = finite_figures(gnn_out, "graphlet_norm_mse_neighborhood")
+    check(gnn_l["fused_typed_transform_aggregate"] > 0
+          and gnn_l["typed_aggregate_bwd"] > 0
+          and gnn_l["gather_segment_sum"] > 0,
+          f"ablation_gnns (GIN, one edge type) launches {gnn_l}")
+    wo_out, wo_l, wo_s = run_entry(ablation_wo_canonical.main, on_r40,
+                                    "ablation_wo_canonical")
+    wo_mse = finite_figures(wo_out, "wo_canonical graphlet_norm_mse")
+    check(wo_l["gather_segment_sum"] > 0 and wo_l["gather_segment_sum_bwd"] > 0
+          and wo_l["fused_typed_transform_aggregate"] == 0,
+          f"ablation_wo_canonical launches {wo_l}: the whole-graph towers "
+          f"aggregate through the gather-fused K1 only")
+    o4_out, o4_launches, o4_s = run_entry(
+        main_mod.main, ["--train_neigh", "--neigh_order", "4",
+                        "--train_dataset", ORDER4_SET, "--valid_dataset",
+                        ORDER4_SET, "--test_dataset", ORDER4_SET],
+        "main_order4", own_rows=True)
+    o4_mse = finite_figures(o4_out, "graphlet_norm_mse_neighborhood")
+    check(o4_launches["fused_typed_transform_aggregate"] > 0
+          and o4_launches["typed_aggregate_bwd"] > 0,
+          f"main --neigh_order 4 launches {o4_launches}")
+    typing_lines = [ln for ln in o4_out.splitlines()
+                    if ln.startswith("[timing] order-4 orbit typing")]
+    check(len(typing_lines) == 1, "main printed no orbit-typing seconds")
+    print(f"ablation entry points: ablation_gnns GIN {gnn_s:.1f} s, "
+          f"normed MSE {gnn_mse}, "
+          f"launches {json.dumps(gnn_l)}; ablation_wo_canonical "
+          f"{wo_s:.1f} s, normed MSE {wo_mse}, launches {json.dumps(wo_l)}; "
+          f"main --neigh_order 4 on {ORDER4_SET} {o4_s:.1f} s, normed MSE "
+          f"{o4_mse}, {typing_lines[0]}, launches "
+          f"{json.dumps(o4_launches)}", flush=True)
+    print(f"phase 9 (ablations) took {time.perf_counter() - t9:.1f} s",
+          flush=True)
+    return {"t33_rows": t33_rows, "t33_serving": t33_serving,
+            "abl_launches": abl_launches, "o4_launches": o4_launches,
+            "site_rows": site_rows}
 
 
 # --------------------------------------------------------- phase 3 checks
@@ -1723,9 +2129,16 @@ def main() -> int:
           f"predict + verify "
           f"{timing_of(replay_out, 'stage-1 predict+verify')} s, gossip "
           f"predict {timing_of(replay_out, 'gossip predict')} s", flush=True)
+
+    # ---------------------------------------------------- 9. ablations
+    abl = ablation_phase(torch, cs, probe, dev, args.seed, gen_root,
+                         replay_root, data_dir.name, main_stage.batches[0])
+    t33_rows, t33_serving = abl["t33_rows"], abl["t33_serving"]
+    site_rows = abl["site_rows"]
+    abl_launches, o4_launches = abl["abl_launches"], abl["o4_launches"]
     data_dir.cleanup()
 
-    # ------------------------------------------------ 9. bench and probe
+    # ----------------------------------------------- 10. bench and probe
     bench_keys = ("metric", "value", "unit", "vs_baseline", "graphs_per_s",
                   "bytes_per_edge_layer", "sol_fraction", "hbm_gbps_assumed",
                   "train_edges_per_s", "train_step_ms", "dtype", "device",
@@ -1768,7 +2181,7 @@ def main() -> int:
     for name, n in probe_launches.items():
         check(n > 0, f"probe variant {name} never launched in its series")
 
-    # ----------------------------------------------------- 10. the record
+    # ----------------------------------------------------- 11. the record
     seg_src = "desco_tpu_torch/csrc/segment_sum.cu"
     typed_src = "desco_tpu_torch/csrc/typed_aggregate.cu"
     wrappers = {"k1": ("sorted_segment_sum", 310, seg_src),
@@ -1779,11 +2192,12 @@ def main() -> int:
     for key, (wrapper, line_no, src_file) in wrappers.items():
         for d, suffix, paths in (
                 ("f32", "", (launches, train_launches, launches_bf,
-                             bf_launches, replay_launches)),
+                             bf_launches, replay_launches, abl_launches)),
                 ("bf16", "_bf16", (launches_bf, bf_launches))):
-            # f32 rows: every launch of the five paths (serving,
-            # training, their bf16 runs, the r4 replay) that was not on
-            # bf16 rows; bf16 rows: the bf16 launches of the bf16 paths
+            # f32 rows: every launch of the six paths (serving,
+            # training, their bf16 runs, the r4 replay, the ablations
+            # but the order-4 run) that was not on bf16 rows; bf16 rows:
+            # the bf16 launches of the bf16 paths
             if d == "f32":
                 per_path = [p[wrapper] - p[wrapper + "_bf16"] for p in paths]
             else:
@@ -1794,6 +2208,10 @@ def main() -> int:
                 replaces=f"desco_tpu/ops/pallas_segment.py:{line_no}",
                 launches=sum(per_path), launches_per_path=per_path,
                 **k_rows[key, d]))
+            if d == "f32" and key in ("k1", "k4"):
+                # the GAT / PNA use sites, measured in phase 9
+                kernels[-1]["gat_pna_sites"] = {
+                    f"K={k}": site_rows[key, k] for k in (64, 1)}
             check(sum(per_path) > 0,
                   f"kernel {wrapper} ({d}) never launched on a main path")
     # the gather-fused K1 and its backward: every main path runs them on
@@ -1801,7 +2219,7 @@ def main() -> int:
     # tower aggregates through K2); the bf16 instantiation is checked and
     # timed in phase 2 and reported beside the f32 one
     paths = (launches, train_launches, launches_bf, bf_launches,
-             replay_launches)
+             replay_launches, abl_launches)
     for key, wrapper, line_no in (("k1g", "gather_segment_sum", 310),
                                   ("k1g_bwd", "gather_segment_sum_bwd", 464)):
         per_path = [p[wrapper] - p[wrapper + "_bf16"] for p in paths]
@@ -1817,6 +2235,22 @@ def main() -> int:
             launches=sum(per_path), launches_per_path=per_path,
             **k_rows[key, "f32"],
             bf16_rows={"launches": 0, **k_rows[key, "bf16"]}))
+    # K2' and K3' at T = 33 (type chunks): launched by the order-4 run,
+    # measured at its packed batch and at the serving batch's shape; the
+    # bf16 instantiation is checked and timed in phase 9
+    for key, wrapper, line_no in (("k2", "fused_typed_transform_aggregate",
+                                   476),
+                                  ("k3", "typed_aggregate_bwd", 559)):
+        n = o4_launches[wrapper]
+        check(n > 0, f"kernel {wrapper} never launched at T = 33")
+        kernels.append(dict(
+            name=f"{wrapper} (K{key[1]}', f32, T = 33 in type chunks)",
+            route="cuda", source=typed_src,
+            replaces=f"desco_tpu/ops/pallas_segment.py:{line_no}",
+            launches=n, launches_per_path=[n], **t33_rows[key, "f32"],
+            bf16_rows={"launches": 0, **t33_rows[key, "bf16"]},
+            at_serving_shape={d: t33_serving[key, d]
+                              for d in ("f32", "bf16")}))
     for name, r in probe_row["variants"].items():
         kernels.append(dict(
             name=f"probe_{name} (K5)", route="cuda",

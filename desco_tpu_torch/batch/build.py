@@ -1,5 +1,5 @@
 """Build GraphSamples from host graphs: SHMP edge typing (a copy of
-``desco_tpu/batch/build.py``, order-3 typing only).
+``desco_tpu/batch/build.py``).
 
 Every edge carries a type id and a single typed kernel handles all
 relations. Type tables:
@@ -15,10 +15,16 @@ Neighborhood graphs (node types: 0=count, 1=canonical):
 Query graphs (single node type):
   with tconv: 0: triangle, 1: tride;  without: 0: union
 
+Order-4 SHMP (neighborhood graphs): type = orbit * 3 + combo, the 11
+edge-orbit classes of graph/orbits.py times the (src, dst) canonical
+combo of the plain table (0: count->count, 1: count->canonical, 2:
+canonical->count): 33 types.
+
 Gossip graphs (homogeneous): edge_type is the *direction bit* —
 0 where src < dst (forward), 1 otherwise.
 
-Order-4 (orbit) typing is not ported yet (ROADMAP.md, Queue 1 M14).
+The homogeneous ablation (``homogeneous_neighborhood_sample``) has one
+edge type and carries canonical-ness as a one-hot input feature.
 """
 
 from __future__ import annotations
@@ -40,6 +46,9 @@ NEIGH_TCONV_DST = (0, 0, 1, 1, 0, 0)
 NEIGH_PLAIN_DST = (0, 1, 0)
 QUERY_TCONV_DST = (0, 0)
 QUERY_PLAIN_DST = (0,)
+# order-4 SHMP: 11 edge-orbit classes x the 3 (src, dst) canonical combos
+# — type = orbit*3 + combo, dst per combo follows NEIGH_PLAIN_DST
+NEIGH_ORDER4_DST = tuple(NEIGH_PLAIN_DST) * 11
 
 
 def _directed(edges: np.ndarray):
@@ -62,17 +71,22 @@ def neighborhood_sample(
     x: Optional[np.ndarray] = None,
     order: int = 3,
 ) -> GraphSample:
-    if order != 3:
-        raise NotImplementedError(
-            f"order-{order} SHMP edge typing is not ported yet "
-            f"(ROADMAP.md, Queue 1 M14)")
     g = nb.graph
     node_type = np.full(g.n_nodes, COUNT, dtype=np.int32)
     node_type[nb.canonical] = CANONICAL
     src, dst, eid = _directed(g.edges)
     s_can = node_type[src] == CANONICAL
     d_can = node_type[dst] == CANONICAL
-    if use_tconv:
+    if order == 4:
+        # per-edge graphlet orbit class (graph/orbits.py) x (src, dst)
+        # canonical combo
+        from ..graph.orbits import order4_edge_types
+
+        orb = (order4_edge_types(g)[eid] if len(eid)
+               else np.zeros(0, np.int32))
+        combo = np.where(s_can, 2, np.where(d_can, 1, 0))
+        etype = (orb * 3 + combo).astype(np.int32)
+    elif use_tconv:
         tri = triangle_edge_mask(g)[eid] if len(eid) else np.zeros(0, bool)
         etype = np.where(
             s_can, np.where(tri, 4, 5),
@@ -118,4 +132,24 @@ def gossip_sample(
         x=x_counts.astype(np.float32),
         edge_src=src, edge_dst=dst, edge_type=etype,
         node_y=node_y,
+    )
+
+
+def homogeneous_neighborhood_sample(
+    nb: Neighborhood, y: Optional[np.ndarray] = None,
+) -> GraphSample:
+    """Ablation mode: no hetero types; canonical-ness as a one-hot input
+    feature."""
+    g = nb.graph
+    x = np.zeros((g.n_nodes, 1), dtype=np.float32)
+    x[nb.canonical] = 1.0
+    src, dst, _ = _directed(g.edges)
+    # node_type still marks the canonical node so the (untyped) model can
+    # apply its anchor MLP; with n_node_types=1 the typed linears ignore it
+    node_type = np.zeros(g.n_nodes, dtype=np.int32)
+    node_type[nb.canonical] = CANONICAL
+    return GraphSample(
+        node_type=node_type, x=x,
+        edge_src=src, edge_dst=dst,
+        edge_type=np.zeros(len(src), dtype=np.int32), y=y,
     )

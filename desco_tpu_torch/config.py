@@ -18,7 +18,8 @@ def build_parser() -> argparse.ArgumentParser:
         description="desco_tpu_torch: DeSCo in PyTorch on one CUDA device")
 
     n = p.add_argument_group("neighborhood counting model arguments")
-    n.add_argument("--neigh_conv_type", type=str, default="SAGE")
+    n.add_argument("--neigh_conv_type", type=str, default="SAGE",
+                   help="SAGE, GIN, GCN, GAT or PNA")
     n.add_argument("--neigh_layer_num", type=int, default=8)
     n.add_argument("--neigh_input_dim", type=int, default=1)
     n.add_argument("--use_node_feature",
@@ -36,8 +37,9 @@ def build_parser() -> argparse.ArgumentParser:
                    default=True)
     n.add_argument("--neigh_order", type=int, default=3, choices=[3, 4],
                    help="SHMP edge-typing order: 3 = triangle/tride "
-                        "tconv (paper); 4 is not ported yet (ROADMAP.md "
-                        "M14)")
+                        "tconv (paper); 4 = 4-node edge-orbit classes (33 "
+                        "types; exact host Python enumeration, molecular "
+                        "scale)")
     n.add_argument("-t", "--use_tconv", action=argparse.BooleanOptionalAction,
                    default=True,
                    help="triangle convolution (a case of SHMP)")

@@ -51,6 +51,19 @@
 // desco_typed_aggregate_dw_reduce sums them in block order (fixed, no
 // atomics) and casts to W's dtype.
 //
+// More types than fit. The shared tiles hold a tile's rows for every
+// type, about 17 KB per type for K2' and 9 KB for K3' at H = K = 64 in
+// f32: K2' takes at most 11 types at once, K3' 21. Past that (order-4
+// typing has 33) a tile's types run in chunks of tc (the host plans pick
+// the fewest chunks that fit, split evenly: 4 chunks of 9 for K2', 2 of
+// 17 for K3' at T = 33 in f32). Each chunk is gathered into the shared
+// tile and multiplied; the output rows (K2') and dx (K3') stay in each
+// warp's mma fragments across the chunks and are written once, and dW
+// goes to the block's partial in device memory. The types are multiplied
+// in the order 0 .. T-1 whatever the chunking, so a chunked run equals an
+// unchunked one bit for bit (desco_typed_aggregate_set_chunk_cap makes
+// the check possible at a T that fits whole).
+//
 // Layout contract (checked or arranged by ops/cuda_segment.py): x [n, h8],
 // g [n, k8], W [T, h8, k8] contiguous, 16-byte aligned, h8 and k8
 // multiples of 8 (the wrapper pads odd widths with zeros), both at most
@@ -184,43 +197,27 @@ __device__ __forceinline__ void add16(float (&acc)[8], const uint4& v,
 }
 
 // --------------------------------------------------------------- gather
-// S[t][r][c] = sum over e in [offs_s[r*T + t], offs_s[r*T + t + 1]) of
-// table[clamp(idx[e]), c] for the tile's rows r < kBM, every type t and
-// c < width (columns [width, ld) are left alone), by the ``n_warps`` warps
-// of threads ``tid`` = 0 .. 32*n_warps - 1. A group of ``G`` lanes owns
-// consecutive rows and walks their runs as one contiguous edge range with
-// 16-byte loads per lane, kUnroll rows in flight (across row ends) and the
-// next kUnroll indices prefetched; each (row, type) sum is written once.
-// Every run has one owner and a fixed order: the result does not depend on
-// the launch. (Equal chunks of the tile's edges per group, with carries
-// for the runs that cross chunks, balance long rows better but measured
-// slower on an H100: PERF.md.)
+// Sum the ``n_runs`` consecutive runs [ro[j], ro[j + 1]) of the edge
+// stream into the shared tile: run j goes to slot t of row r, starting at
+// (r_first, 0) with t cycling over ``tc`` slots before r steps on. The
+// runs are one contiguous edge range, walked by one group of lanes with
+// 16-byte loads per lane (column c; ``active`` lanes only), kUnroll rows
+// in flight (across run ends) and the next kUnroll indices prefetched;
+// each run's sum is written once, empty runs as zeros.
 template <typename T>
-__device__ __forceinline__ void gather_tile(const T* __restrict__ table,
+__device__ __forceinline__ void gather_runs(const T* __restrict__ tc_ptr,
                                             int n_table, int width,
                                             const int* __restrict__ idx,
-                                            const int* offs_s, int n_types,
-                                            float* s_tile, int ld, int G,
-                                            int tid, int n_warps) {
+                                            const int* ro, int n_runs,
+                                            int r_first, int tc,
+                                            float* s_tile, int ld, int c,
+                                            bool active) {
   constexpr int V = Elem<T>::kVec;
-  const int lane = tid & 31;
-  const int per_warp = 32 / G;
-  const int gid = (tid >> 5) * per_warp + lane / G;
-  const int n_groups = n_warps * per_warp;
-  const int c = (lane % G) * V;
-  const bool active = c < width;
-  const T* __restrict__ tc = table + (active ? c : 0);
   const int t_stride = kBM * ld;
-  // a group owns rows_per consecutive rows: their runs are one range
-  const int rows_per = (kBM + n_groups - 1) / n_groups;
-  const int r_first = gid * rows_per;
-  if (r_first >= kBM) return;
   int r = r_first, t = 0;
-  const int* ro = offs_s + r_first * n_types;
-  const int n_own = (min(r_first + rows_per, kBM) - r_first) * n_types;
-  const int hi = ro[n_own];
+  const int hi = ro[n_runs];
   int e = ro[0];
-  int ru = 0;       // run of the group, r*T + t - r_first*T
+  int ru = 0;       // run of the group
   int nb = ro[1];   // end of run ru
   float acc[V];
 #pragma unroll
@@ -237,7 +234,7 @@ __device__ __forceinline__ void gather_tile(const T* __restrict__ table,
 #pragma unroll
     for (int i = 0; i < V; ++i) acc[i] = 0.f;
     ++ru;
-    if (++t == n_types) {
+    if (++t == tc) {
       t = 0;
       ++r;
     }
@@ -253,7 +250,7 @@ __device__ __forceinline__ void gather_tile(const T* __restrict__ table,
       v[i] = make_uint4(0u, 0u, 0u, 0u);
       if (active && e + i < hi)
         v[i] = __ldg(reinterpret_cast<const uint4*>(
-            tc + static_cast<int64_t>(q[i]) * width));
+            tc_ptr + static_cast<int64_t>(q[i]) * width));
     }
     const int e2 = e + kUnroll;
 #pragma unroll
@@ -271,7 +268,52 @@ __device__ __forceinline__ void gather_tile(const T* __restrict__ table,
     }
     e = e2;
   }
-  while (ru < n_own) flush();  // the open run and empty ones
+  while (ru < n_runs) flush();  // the open run and empty ones
+}
+
+// S[j][r][c] = sum over e in [offs_s[r*T + t0 + j], offs_s[r*T + t0 + j +
+// 1]) of table[clamp(idx[e]), c] for the tile's rows r < kBM, the chunk's
+// types t0 + j, j < tc, and c < width (columns [width, ld) are left
+// alone), by the ``n_warps`` warps of threads ``tid`` = 0 .. 32*n_warps -
+// 1; ``offs_s`` holds the tile's kBM*T + 1 offsets. A group of ``G`` lanes
+// owns consecutive rows. With every type in one chunk (tc = T) a group's
+// runs are one contiguous edge range, walked at once; a chunk of fewer
+// types is one range per row. Every run has one owner and a fixed order:
+// the result does not depend on the launch or on the chunking. (Equal
+// chunks of the tile's edges per group, with carries for the runs that
+// cross chunks, balance long rows better but measured slower on an H100:
+// PERF.md.)
+template <typename T>
+__device__ __forceinline__ void gather_tile(const T* __restrict__ table,
+                                            int n_table, int width,
+                                            const int* __restrict__ idx,
+                                            const int* offs_s, int n_types,
+                                            int t0, int tc, float* s_tile,
+                                            int ld, int G, int tid,
+                                            int n_warps) {
+  constexpr int V = Elem<T>::kVec;
+  const int lane = tid & 31;
+  const int per_warp = 32 / G;
+  const int gid = (tid >> 5) * per_warp + lane / G;
+  const int n_groups = n_warps * per_warp;
+  const int c = (lane % G) * V;
+  const bool active = c < width;
+  const T* __restrict__ tc_ptr = table + (active ? c : 0);
+  // a group owns rows_per consecutive rows
+  const int rows_per = (kBM + n_groups - 1) / n_groups;
+  const int r_first = gid * rows_per;
+  if (r_first >= kBM) return;
+  const int r_end = min(r_first + rows_per, kBM);
+  if (tc == n_types) {
+    gather_runs<T>(tc_ptr, n_table, width, idx, offs_s + r_first * n_types,
+                   (r_end - r_first) * n_types, r_first, n_types, s_tile,
+                   ld, c, active);
+  } else {
+    for (int r = r_first; r < r_end; ++r)
+      gather_runs<T>(tc_ptr, n_table, width, idx,
+                     offs_s + r * n_types + t0, tc, r, tc, s_tile, ld, c,
+                     active);
+  }
 }
 
 // Copy the [HP, KP] tile of one W_t ([h8, k8] in device memory) into
@@ -321,21 +363,27 @@ template <typename T, int HP, int KP>
 struct FwdShape {
   static constexpr int kALd = HP + 4;  // f32, conflict-free A fragments
   static constexpr int kWLd = KP + 8;  // conflict-free B fragments
+  // a tile's offsets, all T types
   __host__ __device__ static int offs_ints(int n_types) {
     return round16((kBM * n_types + 1) * 4) / 4;
   }
-  __host__ __device__ static int a_floats(int n_types) {
-    return n_types * kBM * kALd;
-  }
+  // an A buffer: the tile's rows for a chunk of tc types
+  __host__ __device__ static int a_floats(int tc) { return tc * kBM * kALd; }
   // two offsets and two A buffers, then W
-  __host__ __device__ static int w_offset(int n_types) {
-    return 2 * 4 * (offs_ints(n_types) + a_floats(n_types));
+  __host__ __device__ static int w_offset(int n_types, int tc) {
+    return 2 * 4 * (offs_ints(n_types) + a_floats(tc));
   }
   __host__ __device__ static int w_bytes(int n_mats) {
     return n_mats * HP * kWLd * static_cast<int>(sizeof(T));
   }
 };
 
+// The items of a block are (tile, chunk) pairs: tile i of the block's
+// tiles and chunk ch of its types, [ch*tc, min((ch + 1)*tc, T)), in that
+// order. The producers gather item it into A buffer it & 1; the consumers
+// keep out[32, K] of a tile in registers across its chunks, multiplying
+// the types in order 0 .. T-1 as with one chunk, and write it once after
+// the last: chunking changes no sum.
 template <typename T, int HP, int KP>
 __global__ void __launch_bounds__(kThreads, 1)
 typed_aggregate_fwd_kernel(const T* __restrict__ x, int n_rows, int h8,
@@ -343,16 +391,16 @@ typed_aggregate_fwd_kernel(const T* __restrict__ x, int n_rows, int h8,
                            const int* __restrict__ toffs, int n_nodes,
                            int n_types, const T* __restrict__ w, int k8,
                            float* __restrict__ out, int k, int n_tiles,
-                           int w_resident, int G) {
+                           int w_resident, int G, int tc, int n_chunks) {
   using S = FwdShape<T, HP, KP>;
   using WT = WarpTiles<kBM, KP, kConsumerWarps>;
   constexpr bool kExact = Elem<T>::kExact;
   extern __shared__ __align__(16) unsigned char smem[];
   const int n_offs = S::offs_ints(n_types);
-  const int n_a = S::a_floats(n_types);
+  const int n_a = S::a_floats(tc);
   int* offs_buf = reinterpret_cast<int*>(smem);                // [2][n_offs]
   float* a_buf = reinterpret_cast<float*>(offs_buf + 2 * n_offs);  // [2][n_a]
-  T* w_s = reinterpret_cast<T*>(smem + S::w_offset(n_types));
+  T* w_s = reinterpret_cast<T*>(smem + S::w_offset(n_types, tc));
   const int warp = threadIdx.x >> 5;
   const int n_seg = n_nodes * n_types;
   // the gather never writes the columns [h8, HP): zero both buffers once
@@ -362,20 +410,23 @@ typed_aggregate_fwd_kernel(const T* __restrict__ x, int n_rows, int h8,
   // this block's tiles: blockIdx.x, + gridDim.x, ...
   const int n_mine =
       (n_tiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
+  const int n_items = n_mine * n_chunks;
 
   if (warp < kProducerWarps) {  // ------------------------------ gathering
     const int tid = threadIdx.x;
-    for (int it = 0; it < n_mine; ++it) {
+    for (int it = 0; it < n_items; ++it) {
       const int b = it & 1;
-      const int row0 = (blockIdx.x + it * gridDim.x) * kBM;
+      const int ti = it / n_chunks, t0 = (it - ti * n_chunks) * tc;
+      const int row0 = (blockIdx.x + ti * gridDim.x) * kBM;
       int* offs_s = offs_buf + b * n_offs;
-      if (it >= 2) bar_sync(kBarEmpty + b, kThreads);  // tile it-2 is done
+      if (it >= 2) bar_sync(kBarEmpty + b, kThreads);  // item it-2 is done
       for (int i = tid; i <= kBM * n_types; i += kProducerThreads)
         offs_s[i] = toffs[min(row0 * n_types + i, n_seg)];
       bar_sync(kBarProducers, kProducerThreads);
       if (offs_s[0] != offs_s[kBM * n_types])
-        gather_tile<T>(x, n_rows, h8, src, offs_s, n_types, a_buf + b * n_a,
-                       S::kALd, G, tid, kProducerWarps);
+        gather_tile<T>(x, n_rows, h8, src, offs_s, n_types, t0,
+                       min(tc, n_types - t0), a_buf + b * n_a, S::kALd, G,
+                       tid, kProducerWarps);
       bar_arrive(kBarFull + b, kThreads);
     }
     return;
@@ -403,29 +454,32 @@ typed_aggregate_fwd_kernel(const T* __restrict__ x, int n_rows, int h8,
   const bool mma_warp = tile0 < WT::kTiles;
   const int mt = tile0 / (KP / 8);
   const int nt0 = tile0 % (KP / 8);
+  float acc[WT::kPerWarp][4], acc_x[WT::kPerWarp][4];
 
-  for (int it = 0; it < n_mine; ++it) {
+  for (int it = 0; it < n_items; ++it) {
     const int b = it & 1;
-    const int row0 = (blockIdx.x + it * gridDim.x) * kBM;
+    const int ti = it / n_chunks, ch = it - ti * n_chunks;
+    const int t0 = ch * tc, t1 = min(t0 + tc, n_types);
+    const int row0 = (blockIdx.x + ti * gridDim.x) * kBM;
     const int* offs_s = offs_buf + b * n_offs;
     const float* a_s = a_buf + b * n_a;
-    bar_sync(kBarFull + b, kThreads);  // tile it is gathered
+    bar_sync(kBarFull + b, kThreads);  // item it is gathered
     const bool empty = offs_s[0] == offs_s[kBM * n_types];
-
-    float acc[WT::kPerWarp][4], acc_x[WT::kPerWarp][4];
+    if (ch == 0) {
 #pragma unroll
-    for (int j = 0; j < WT::kPerWarp; ++j)
+      for (int j = 0; j < WT::kPerWarp; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[j][i] = acc_x[j][i] = 0.f;
+        for (int i = 0; i < 4; ++i) acc[j][i] = acc_x[j][i] = 0.f;
+    }
 
-    for (int t = 0; t < n_types; ++t) {
+    for (int t = t0; t < t1; ++t) {
       const T* w_t;
       if (w_resident) {
         w_t = w_s + t * wmat;
       } else {
         // the next copy (the next type, or type 0 of the next tile) into
         // the other buffer, then wait for this one
-        if (t + 1 < n_types || it + 1 < n_mine) {
+        if (t + 1 < n_types || ti + 1 < n_mine) {
           const int tn = t + 1 < n_types ? t + 1 : 0;
           load_w<T, HP, KP, S::kWLd>(w_s + ((q + 1) & 1) * wmat,
                                      w + tn * h8 * k8, h8, k8, tid,
@@ -437,7 +491,8 @@ typed_aggregate_fwd_kernel(const T* __restrict__ x, int n_rows, int h8,
         w_t = w_s + (q & 1) * wmat;
       }
       if (!empty && mma_warp) {
-        const float* a_t = a_s + t * kBM * S::kALd + (mt * 16 + g) * S::kALd;
+        const float* a_t =
+            a_s + (t - t0) * kBM * S::kALd + (mt * 16 + g) * S::kALd;
 #pragma unroll
         for (int kk = 0; kk < HP; kk += 8) {  // columns >= h8 are zero
           unsigned ahi[4], alo[4];
@@ -463,8 +518,8 @@ typed_aggregate_fwd_kernel(const T* __restrict__ x, int n_rows, int h8,
         ++q;
       }
     }
-    if (it + 2 < n_mine) bar_arrive(kBarEmpty + b, kThreads);
-    if (mma_warp) {
+    if (it + 2 < n_items) bar_arrive(kBarEmpty + b, kThreads);
+    if (mma_warp && ch == n_chunks - 1) {
 #pragma unroll
       for (int j = 0; j < WT::kPerWarp; ++j) {
         const int col = (nt0 + j) * 8 + 2 * tq;
@@ -493,9 +548,8 @@ struct BwdShape {
   __host__ __device__ static int offs_bytes(int n_types) {
     return round16((kBM * n_types + 1) * 4);
   }
-  __host__ __device__ static int u_bytes(int n_types) {
-    return n_types * kBM * kULd * 4;
-  }
+  // U for a chunk of tc types
+  __host__ __device__ static int u_bytes(int tc) { return tc * kBM * kULd * 4; }
   static constexpr int kXBytes = round16(kBM * kXLd * sizeof(T));
   __host__ __device__ static int w_bytes(int n_mats) {
     return n_mats * HP * kWLd * static_cast<int>(sizeof(T));
@@ -503,8 +557,8 @@ struct BwdShape {
   __host__ __device__ static int acc_bytes(int n_types) {
     return n_types * HP * kAccLd * 4;
   }
-  __host__ __device__ static int base_bytes(int n_types) {
-    return offs_bytes(n_types) + u_bytes(n_types) + kXBytes;
+  __host__ __device__ static int base_bytes(int n_types, int tc) {
+    return offs_bytes(n_types) + u_bytes(tc) + kXBytes;
   }
 };
 
@@ -517,7 +571,8 @@ typed_aggregate_bwd_kernel(const T* __restrict__ gt, int n_nodes, int k8,
                            const T* __restrict__ w, int n_types,
                            T* __restrict__ dx, int h,
                            float* __restrict__ partial, int n_tiles,
-                           int w_resident, int acc_in_smem, int G) {
+                           int w_resident, int acc_in_smem, int G, int tc,
+                           int n_chunks) {
   using S = BwdShape<T, HP, KP>;
   using DX = WarpTiles<kBM, HP>;
   using DW = WarpTiles<HP, KP>;
@@ -527,7 +582,7 @@ typed_aggregate_bwd_kernel(const T* __restrict__ gt, int n_nodes, int k8,
   int* offs_s = reinterpret_cast<int*>(smem);
   unsigned char* p = smem + S::offs_bytes(n_types);
   float* u_s = reinterpret_cast<float*>(p);
-  p += S::u_bytes(n_types);
+  p += S::u_bytes(tc);
   T* x_s = reinterpret_cast<T*>(p);
   p += S::kXBytes;
   T* w_s = reinterpret_cast<T*>(p);
@@ -547,7 +602,7 @@ typed_aggregate_bwd_kernel(const T* __restrict__ gt, int n_nodes, int k8,
   for (int i = threadIdx.x; i < n_types * HP * acc_ld; i += kThreads)
     dw_acc[i] = 0.f;
   // the gather never writes the columns [k8, KP) of U: zero them once
-  for (int i = threadIdx.x * 4; i < n_types * kBM * S::kULd; i += kThreads * 4)
+  for (int i = threadIdx.x * 4; i < tc * kBM * S::kULd; i += kThreads * 4)
     *reinterpret_cast<float4*>(u_s + i) = make_float4(0.f, 0.f, 0.f, 0.f);
   // this block's W copies in order: type j % T for j < n_mine * T
   const int n_mine =
@@ -587,9 +642,6 @@ typed_aggregate_bwd_kernel(const T* __restrict__ gt, int n_nodes, int k8,
     cp_async_commit();
     __syncthreads();
     const bool empty = offs_s[0] == offs_s[kBM * n_types];
-    if (!empty)
-      gather_tile<T>(gt, n_nodes, k8, rows, offs_s, n_types, u_s, S::kULd,
-                     G, threadIdx.x, kWarps);
 
     float dxa[DX::kPerWarp][4], dxa_x[DX::kPerWarp][4];
 #pragma unroll
@@ -597,93 +649,104 @@ typed_aggregate_bwd_kernel(const T* __restrict__ gt, int n_nodes, int k8,
 #pragma unroll
       for (int i = 0; i < 4; ++i) dxa[j][i] = dxa_x[j][i] = 0.f;
 
-    for (int t = 0; t < n_types; ++t) {
-      const T* w_t;
-      if (w_resident) {
-        if (t == 0) {
-          cp_async_wait<0>();  // the tile's x rows (and, once, all of W)
+    // the tile's types in chunks of tc (one chunk where U fits all T):
+    // gather U of the chunk, then multiply its types in order; dx stays
+    // in registers across the chunks and is written once
+    for (int t0 = 0; t0 < n_types; t0 += tc) {
+      const int t1 = min(t0 + tc, n_types);
+      if (t0 > 0) __syncthreads();  // the last chunk is done with u_s
+      if (!empty)
+        gather_tile<T>(gt, n_nodes, k8, rows, offs_s, n_types, t0, t1 - t0,
+                       u_s, S::kULd, G, threadIdx.x, kWarps);
+      for (int t = t0; t < t1; ++t) {
+        const T* w_t;
+        if (w_resident) {
+          if (t == t0) {
+            cp_async_wait<0>();  // the tile's x rows (and, once, all of W)
+            __syncthreads();
+          }
+          w_t = w_s + t * wmat;
+        } else {
+          if (q + 1 < n_copies)
+            load_w<T, HP, KP, S::kWLd>(w_s + ((q + 1) & 1) * wmat,
+                                       w + ((q + 1) % n_types) * h8 * k8, h8,
+                                       k8, threadIdx.x, kThreads);
+          cp_async_commit();
+          cp_async_wait<1>();  // this W_t and the tile's x rows have landed
           __syncthreads();
+          w_t = w_s + (q & 1) * wmat;
         }
-        w_t = w_s + t * wmat;
-      } else {
-        if (q + 1 < n_copies)
-          load_w<T, HP, KP, S::kWLd>(w_s + ((q + 1) & 1) * wmat,
-                                     w + ((q + 1) % n_types) * h8 * k8, h8,
-                                     k8, threadIdx.x, kThreads);
-        cp_async_commit();
-        cp_async_wait<1>();  // this W_t and the tile's x rows have landed
-        __syncthreads();
-        w_t = w_s + (q & 1) * wmat;
-      }
-      const float* u_t = u_s + t * kBM * S::kULd;
-      if (!empty && dx_warp) {
-        // dx[32, HP] += U_t [32, KP] @ W_t^T: A = U_t, B[c][hh] = W_t[hh][c]
-        const float* a_t = u_t + (dx_mt * 16 + g) * S::kULd;
+        const float* u_t = u_s + (t - t0) * kBM * S::kULd;
+        if (!empty && dx_warp) {
+          // dx[32, HP] += U_t [32, KP] @ W_t^T: A = U_t, B[c][hh] = W_t[hh][c]
+          const float* a_t = u_t + (dx_mt * 16 + g) * S::kULd;
 #pragma unroll
-        for (int kk = 0; kk < KP; kk += 8) {  // columns >= k8 are zero
-          unsigned ahi[4], alo[4];
-          frag<false>(a_t[kk + tq], ahi[0], alo[0]);
-          frag<false>(a_t[8 * S::kULd + kk + tq], ahi[1], alo[1]);
-          frag<false>(a_t[kk + tq + 4], ahi[2], alo[2]);
-          frag<false>(a_t[8 * S::kULd + kk + tq + 4], ahi[3], alo[3]);
+          for (int kk = 0; kk < KP; kk += 8) {  // columns >= k8 are zero
+            unsigned ahi[4], alo[4];
+            frag<false>(a_t[kk + tq], ahi[0], alo[0]);
+            frag<false>(a_t[8 * S::kULd + kk + tq], ahi[1], alo[1]);
+            frag<false>(a_t[kk + tq + 4], ahi[2], alo[2]);
+            frag<false>(a_t[8 * S::kULd + kk + tq + 4], ahi[3], alo[3]);
 #pragma unroll
-          for (int j = 0; j < DX::kPerWarp; ++j) {
-            const T* wr = w_t + ((dx_nt0 + j) * 8 + g) * S::kWLd;
-            unsigned bhi[2], blo[2];
-            frag<kExact>(to_float(wr[kk + tq]), bhi[0], blo[0]);
-            frag<kExact>(to_float(wr[kk + tq + 4]), bhi[1], blo[1]);
-            mma_split<false, kExact>(dxa[j], dxa_x[j], ahi, alo, bhi, blo);
+            for (int j = 0; j < DX::kPerWarp; ++j) {
+              const T* wr = w_t + ((dx_nt0 + j) * 8 + g) * S::kWLd;
+              unsigned bhi[2], blo[2];
+              frag<kExact>(to_float(wr[kk + tq]), bhi[0], blo[0]);
+              frag<kExact>(to_float(wr[kk + tq + 4]), bhi[1], blo[1]);
+              mma_split<false, kExact>(dxa[j], dxa_x[j], ahi, alo, bhi, blo);
+            }
           }
         }
-      }
-      if (!empty && dw_warp) {
-        // dW_t[HP, KP] += X^T [HP, 32] @ U_t [32, KP]
-        float* acc_t = dw_acc + t * HP * acc_ld;
-        float c[DW::kPerWarp][4], cx[DW::kPerWarp][4];
-#pragma unroll
-        for (int j = 0; j < DW::kPerWarp; ++j) {
-          const int col = (dw_nt0 + j) * 8 + 2 * tq;
-          const float2 lo = *reinterpret_cast<const float2*>(
-              acc_t + (dw_mt * 16 + g) * acc_ld + col);
-          const float2 hi8 = *reinterpret_cast<const float2*>(
-              acc_t + (dw_mt * 16 + g + 8) * acc_ld + col);
-          c[j][0] = lo.x;
-          c[j][1] = lo.y;
-          c[j][2] = hi8.x;
-          c[j][3] = hi8.y;
-#pragma unroll
-          for (int i = 0; i < 4; ++i) cx[j][i] = 0.f;
-        }
-#pragma unroll
-        for (int kk = 0; kk < kBM; kk += 8) {
-          const T* xa = x_s + (kk + tq) * S::kXLd + dw_mt * 16 + g;
-          unsigned ahi[4], alo[4];
-          frag<kExact>(to_float(xa[0]), ahi[0], alo[0]);
-          frag<kExact>(to_float(xa[8]), ahi[1], alo[1]);
-          frag<kExact>(to_float(xa[4 * S::kXLd]), ahi[2], alo[2]);
-          frag<kExact>(to_float(xa[4 * S::kXLd + 8]), ahi[3], alo[3]);
+        if (!empty && dw_warp) {
+          // dW_t[HP, KP] += X^T [HP, 32] @ U_t [32, KP]
+          float* acc_t = dw_acc + t * HP * acc_ld;
+          float c[DW::kPerWarp][4], cx[DW::kPerWarp][4];
 #pragma unroll
           for (int j = 0; j < DW::kPerWarp; ++j) {
-            const float* ub = u_t + (kk + tq) * S::kULd + (dw_nt0 + j) * 8 + g;
-            unsigned bhi[2], blo[2];
-            frag<false>(ub[0], bhi[0], blo[0]);
-            frag<false>(ub[4 * S::kULd], bhi[1], blo[1]);
-            mma_split<kExact, false>(c[j], cx[j], ahi, alo, bhi, blo);
+            const int col = (dw_nt0 + j) * 8 + 2 * tq;
+            const float2 lo = *reinterpret_cast<const float2*>(
+                acc_t + (dw_mt * 16 + g) * acc_ld + col);
+            const float2 hi8 = *reinterpret_cast<const float2*>(
+                acc_t + (dw_mt * 16 + g + 8) * acc_ld + col);
+            c[j][0] = lo.x;
+            c[j][1] = lo.y;
+            c[j][2] = hi8.x;
+            c[j][3] = hi8.y;
+#pragma unroll
+            for (int i = 0; i < 4; ++i) cx[j][i] = 0.f;
+          }
+#pragma unroll
+          for (int kk = 0; kk < kBM; kk += 8) {
+            const T* xa = x_s + (kk + tq) * S::kXLd + dw_mt * 16 + g;
+            unsigned ahi[4], alo[4];
+            frag<kExact>(to_float(xa[0]), ahi[0], alo[0]);
+            frag<kExact>(to_float(xa[8]), ahi[1], alo[1]);
+            frag<kExact>(to_float(xa[4 * S::kXLd]), ahi[2], alo[2]);
+            frag<kExact>(to_float(xa[4 * S::kXLd + 8]), ahi[3], alo[3]);
+#pragma unroll
+            for (int j = 0; j < DW::kPerWarp; ++j) {
+              const float* ub =
+                  u_t + (kk + tq) * S::kULd + (dw_nt0 + j) * 8 + g;
+              unsigned bhi[2], blo[2];
+              frag<false>(ub[0], bhi[0], blo[0]);
+              frag<false>(ub[4 * S::kULd], bhi[1], blo[1]);
+              mma_split<kExact, false>(c[j], cx[j], ahi, alo, bhi, blo);
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < DW::kPerWarp; ++j) {
+            const int col = (dw_nt0 + j) * 8 + 2 * tq;
+            *reinterpret_cast<float2*>(acc_t + (dw_mt * 16 + g) * acc_ld +
+                                       col) =
+                make_float2(c[j][0] + cx[j][0], c[j][1] + cx[j][1]);
+            *reinterpret_cast<float2*>(acc_t + (dw_mt * 16 + g + 8) * acc_ld +
+                                       col) =
+                make_float2(c[j][2] + cx[j][2], c[j][3] + cx[j][3]);
           }
         }
-#pragma unroll
-        for (int j = 0; j < DW::kPerWarp; ++j) {
-          const int col = (dw_nt0 + j) * 8 + 2 * tq;
-          *reinterpret_cast<float2*>(acc_t + (dw_mt * 16 + g) * acc_ld +
-                                     col) =
-              make_float2(c[j][0] + cx[j][0], c[j][1] + cx[j][1]);
-          *reinterpret_cast<float2*>(acc_t + (dw_mt * 16 + g + 8) * acc_ld +
-                                     col) =
-              make_float2(c[j][2] + cx[j][2], c[j][3] + cx[j][3]);
-        }
+        if (!w_resident) __syncthreads();  // this buffer is refilled next
+        ++q;
       }
-      if (!w_resident) __syncthreads();  // this buffer is refilled next
-      ++q;
     }
     if (dx_warp) {
 #pragma unroll
@@ -798,17 +861,54 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
+// The most types per chunk that the host plans use; 0: as many as fit.
+// Set through desco_typed_aggregate_set_chunk_cap (the chunked path can
+// then be checked against the unchunked one at the same T).
+int g_chunk_cap = 0;
+
+// Chunks of the T types: the fewest chunks whose types fit ``fits``,
+// split evenly (tc = ceil(T / n_chunks)); with T in one chunk where it
+// fits and the cap allows. False where not even one type fits.
+template <typename Fits>
+bool plan_chunks(int n_types, Fits fits, int* tc, int* n_chunks) {
+  int most = n_types;
+  if (g_chunk_cap > 0) most = min(most, g_chunk_cap);
+  while (most > 0 && !fits(most)) --most;
+  if (most == 0) return false;
+  *n_chunks = (n_types + most - 1) / most;
+  *tc = (n_types + *n_chunks - 1) / *n_chunks;
+  return true;
+}
+
+// K2's shared memory, best first: all T types in one chunk with W
+// resident (the paper width, T = 6), one chunk with a ring of two W
+// buffers, then chunks of the types with the ring (T above 11 at H = K =
+// 64 in f32: the 33 types of order-4 typing run in 4 chunks of 9).
+template <typename T, int HP, int KP>
+int fwd_plan(int n_types, int* bytes, int* w_resident, int* tc,
+             int* n_chunks) {
+  using S = FwdShape<T, HP, KP>;
+  auto need = [&](int c, bool res) {
+    return S::w_offset(n_types, c) + S::w_bytes(res ? n_types : 2);
+  };
+  if (!plan_chunks(n_types, [&](int c) { return need(c, false) <= kMaxSmem; },
+                   tc, n_chunks))
+    return static_cast<int>(cudaErrorInvalidValue);
+  *w_resident = need(*tc, true) <= kMaxSmem ? 1 : 0;
+  *bytes = need(*tc, *w_resident);
+  return 0;
+}
+
 template <typename T, int HP, int KP>
 int launch_fwd(const void* x, int n_rows, int h8, const int* src,
                const int* toffs, int n_nodes, int n_types, const void* w,
                int k8, float* out, int k, cudaStream_t s) {
-  using S = FwdShape<T, HP, KP>;
   auto kernel = typed_aggregate_fwd_kernel<T, HP, KP>;
   const int G = group_lanes(h8, Elem<T>::kVec);
-  const int base = S::w_offset(n_types);
-  const int resident = base + S::w_bytes(n_types) <= kMaxSmem ? 1 : 0;
-  const int bytes = base + S::w_bytes(resident ? n_types : 2);
-  if (bytes > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  int bytes = 0, resident = 0, tc = 0, n_chunks = 0;
+  const int rc = fwd_plan<T, HP, KP>(n_types, &bytes, &resident, &tc,
+                                     &n_chunks);
+  if (rc != 0) return rc;
   static int set_bytes = -1, cached = 0;
   int per_sm = 0;
   cudaError_t e = configure(kernel, bytes, &per_sm, set_bytes, cached);
@@ -817,32 +917,48 @@ int launch_fwd(const void* x, int n_rows, int h8, const int* src,
   const int grid = min(n_tiles, max(per_sm, 1) * sm_count());
   kernel<<<grid, kThreads, bytes, s>>>(
       static_cast<const T*>(x), n_rows, h8, src, toffs, n_nodes, n_types,
-      static_cast<const T*>(w), k8, out, k, n_tiles, resident, G);
+      static_cast<const T*>(w), k8, out, k, n_tiles, resident, G, tc,
+      n_chunks);
   return static_cast<int>(cudaGetLastError());
 }
 
-// K3's shared memory, best first: W resident and dW in shared memory (the
-// bf16 tower at the paper width); W through a ring of two (f32); dW in
-// the partials in device memory. (A ring of three, which fits beside an
+// K3's shared memory, best first: all T types in one chunk with W
+// resident and dW in shared memory (the bf16 tower at the paper width);
+// one chunk with W through a ring of two (f32); one chunk with dW in the
+// partials in device memory; then chunks of the types, with the ring and
+// dW in the partials (T above 21 at H = K = 64: the 33 types of order-4
+// typing run in 2 chunks of 17). (A ring of three, which fits beside an
 // f32 dW, measured slower on an H100.)
 template <typename T, int HP, int KP>
 int bwd_plan(int n_rows, int n_types, int* bytes, int* w_resident,
-             int* acc_in_smem, int* grid) {
+             int* acc_in_smem, int* grid, int* tc, int* n_chunks) {
   using S = BwdShape<T, HP, KP>;
+  auto need = [&](int c, int res, int acc) {
+    return S::base_bytes(n_types, c) + S::w_bytes(res ? n_types : 2) +
+           (acc ? S::acc_bytes(n_types) : 0);
+  };
   const int choices[3][2] = {{1, 1}, {0, 1}, {0, 0}};
   *bytes = 0;
+  const bool whole = g_chunk_cap <= 0 || g_chunk_cap >= n_types;
   for (const auto& c : choices) {
-    const int b = S::base_bytes(n_types) +
-                  S::w_bytes(c[0] ? n_types : 2) +
-                  (c[1] ? S::acc_bytes(n_types) : 0);
-    if (b <= kMaxSmem) {
-      *bytes = b;
+    if (whole && need(n_types, c[0], c[1]) <= kMaxSmem) {
+      *bytes = need(n_types, c[0], c[1]);
       *w_resident = c[0];
       *acc_in_smem = c[1];
+      *tc = n_types;
+      *n_chunks = 1;
       break;
     }
   }
-  if (*bytes == 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (*bytes == 0) {
+    if (!plan_chunks(n_types,
+                     [&](int c) { return need(c, 0, 0) <= kMaxSmem; }, tc,
+                     n_chunks))
+      return static_cast<int>(cudaErrorInvalidValue);
+    *w_resident = 0;
+    *acc_in_smem = 0;
+    *bytes = need(*tc, 0, 0);
+  }
   static int set_bytes = -1, cached = 0;
   int per_sm = 0;
   cudaError_t e = configure(typed_aggregate_bwd_kernel<T, HP, KP>, *bytes,
@@ -858,9 +974,10 @@ int launch_bwd(const void* g, int n_nodes, int k8, const int* rows,
                const int* boffs, const void* x, int n_rows, int h8,
                const void* w, int n_types, void* dx, int h, float* partial,
                int n_blocks, cudaStream_t s) {
-  int bytes = 0, w_resident = 0, acc_in_smem = 0, grid = 0;
+  int bytes = 0, w_resident = 0, acc_in_smem = 0, grid = 0, tc = 0,
+      n_chunks = 0;
   const int rc = bwd_plan<T, HP, KP>(n_rows, n_types, &bytes, &w_resident,
-                                     &acc_in_smem, &grid);
+                                     &acc_in_smem, &grid, &tc, &n_chunks);
   if (rc != 0) return rc;
   if (grid != n_blocks) return static_cast<int>(cudaErrorInvalidValue);
   const int n_tiles = (n_rows + kBM - 1) / kBM;
@@ -868,7 +985,7 @@ int launch_bwd(const void* g, int n_nodes, int k8, const int* rows,
       static_cast<const T*>(g), n_nodes, k8, rows, boffs,
       static_cast<const T*>(x), n_rows, h8, static_cast<const T*>(w),
       n_types, static_cast<T*>(dx), h, partial, n_tiles, w_resident,
-      acc_in_smem, group_lanes(k8, Elem<T>::kVec));
+      acc_in_smem, group_lanes(k8, Elem<T>::kVec), tc, n_chunks);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -909,10 +1026,22 @@ struct Bwd {
 struct BwdBlocks {
   template <typename T, int HP, int KP>
   static int run(int n_rows, int n_types) {
-    int bytes = 0, w_res = 0, acc = 0, grid = 0;
+    int bytes = 0, w_res = 0, acc = 0, grid = 0, tc = 0, n_chunks = 0;
     const int rc = bwd_plan<T, HP, KP>(n_rows, n_types, &bytes, &w_res,
-                                       &acc, &grid);
+                                       &acc, &grid, &tc, &n_chunks);
     return rc != 0 ? -rc : grid;
+  }
+};
+// The types per chunk of K2' (backward = 0) or K3' (backward = 1).
+struct ChunkTypes {
+  template <typename T, int HP, int KP>
+  static int run(int n_types, int backward) {
+    int bytes = 0, a = 0, b = 0, grid = 0, tc = 0, n_chunks = 0;
+    const int rc = backward ? bwd_plan<T, HP, KP>(1, n_types, &bytes, &a,
+                                                  &b, &grid, &tc, &n_chunks)
+                            : fwd_plan<T, HP, KP>(n_types, &bytes, &a, &tc,
+                                                  &n_chunks);
+    return rc != 0 ? -rc : tc;
   }
 };
 
@@ -922,7 +1051,7 @@ bool known_dtype(int dtype) { return dtype == kF32 || dtype == kBf16; }
 
 extern "C" {
 
-int desco_typed_aggregate_abi_version() { return 1; }
+int desco_typed_aggregate_abi_version() { return 2; }
 
 const char* desco_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
@@ -951,6 +1080,23 @@ int desco_typed_aggregate_bwd_blocks(int dtype, int h8, int k8, int n_types,
   if (!known_dtype(dtype) || !shape_ok(h8, k8, n_types) || n_rows <= 0)
     return -static_cast<int>(cudaErrorInvalidValue);
   return dispatch<BwdBlocks>(dtype, h8, k8, n_rows, n_types);
+}
+
+// The most types per chunk of K2' and K3' (0: as many as fit in shared
+// memory, the default). Types are summed in the same order either way, so
+// a cap changes no result, only the path that computes it.
+void desco_typed_aggregate_set_chunk_cap(int cap) {
+  g_chunk_cap = cap > 0 ? cap : 0;
+}
+
+// The types per chunk that K2' (backward = 0) or K3' (backward = 1) runs
+// for these widths and T on the current device; negative: minus a CUDA
+// error code (no chunking fits).
+int desco_typed_aggregate_chunk_types(int dtype, int h8, int k8,
+                                      int n_types, int backward) {
+  if (!known_dtype(dtype) || !shape_ok(h8, k8, n_types))
+    return -static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<ChunkTypes>(dtype, h8, k8, n_types, backward);
 }
 
 // K3': dx [n_rows, h] in the dtype of x, and the per-block dW partials

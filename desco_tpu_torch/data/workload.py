@@ -7,21 +7,27 @@ port imports nothing of desco_tpu: exact canonical-count ground truth
 truth shards of multi-host materialization, neighborhood samples with
 their disk cache, gossip samples and the graph-level aggregations. The
 order-3 tconv samples come from the native C++ prep when it is
-available. Both caches use desco_tpu's file names and formats, so either
-package reads the other's. Left out (ROADMAP.md, Queue 1): the labeled
-truth and the whole-graph samples of the no-canonical-partition
-ablation.
+available; order-4 (orbit) typing and the homogeneous ablation's samples
+take the generic path. The whole-graph samples of the
+no-canonical-partition ablation are ``wo_canonical_samples``. Both
+caches use desco_tpu's file names and formats, so either package reads
+the other's. Left out (ROADMAP.md, Queue 1 M11): the labeled truth.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import time
 from typing import List, Optional, Sequence
 
 import numpy as np
 
-from ..batch.build import gossip_sample, neighborhood_sample
+from ..batch.build import (
+    gossip_sample,
+    homogeneous_neighborhood_sample,
+    neighborhood_sample,
+)
 from ..batch.packed import GraphSample
 from ..graph.atlas import gen_queries as atlas_queries
 from ..graph.canonical import Neighborhood, extract_all_neighborhoods
@@ -63,6 +69,9 @@ class Workload:
         self.node_offsets = np.concatenate(
             [[0], np.cumsum([g.n_nodes for g in graphs])]).astype(np.int64)
         self.total_nodes = int(self.node_offsets[-1])
+        # seconds the last generic sample build spent typing edges
+        # (order-4 orbit typing is pure Python: main.py prints it)
+        self.typing_seconds: Optional[float] = None
 
     # ------------------------------------------------------------ truth
     def groundtruth_path(self, query_ids: Sequence[int]) -> str:
@@ -183,11 +192,13 @@ class Workload:
             np.array(index, dtype=np.int64).reshape(-1, 2),
             np.array(indicator, dtype=bool))
 
-    def _neigh_cache_path(self, depth, use_tconv, order=3) -> str:
+    def _neigh_cache_path(self, depth, use_tconv, use_hetero=True,
+                          order=3) -> str:
         """desco_tpu's sample-cache directory, keyed by depth and the
-        typing flags (the port's samples are heterogeneous and unlabeled,
-        which desco_tpu's names leave unmarked)."""
-        suffix = ("_tconv" if use_tconv else "") + (
+        typing flags (the port's samples are unlabeled, which desco_tpu's
+        names leave unmarked)."""
+        suffix = ("" if use_hetero else "_homo") + (
+            "_tconv" if use_tconv else "") + (
             f"_order{order}" if order != 3 else "")
         return os.path.join(
             self.root, "NeighborhoodDataset",
@@ -200,18 +211,24 @@ class Workload:
         num_workers: Optional[int] = None,
         order: int = 3,
         use_cache: bool = False,
+        use_hetero: bool = True,
     ) -> tuple[List[GraphSample], NeighborhoodIndex]:
         """Canonical-neighborhood GraphSamples (the reference's
         NeighborhoodDataset), with ``truth`` rows attached as labels when
-        given — serving passes zeros, as desco_tpu does. ``use_cache``
-        (needs a ``root``) reads the samples' structure from desco_tpu's
-        sample cache, or writes it there after building it; a cache that
-        does not fit the graphs (a dataset regenerated in the same root)
-        is rebuilt with a warning."""
+        given — serving passes zeros, as desco_tpu does. ``order=4`` types
+        edges by 4-node orbit class x canonical combo (33 types,
+        graph/orbits.py: exact enumeration in host Python, molecular
+        scale); ``use_hetero=False`` builds the homogeneous ablation's
+        one-type samples. ``use_cache`` (needs a ``root``) reads the
+        samples' structure from desco_tpu's sample cache, or writes it
+        there after building it; a cache that does not fit the graphs (a
+        dataset regenerated in the same root) is rebuilt with a
+        warning."""
         use_cache = use_cache and self.root is not None
         samples = None
         if use_cache:
-            cache = self._neigh_cache_path(depth, use_tconv, order=order)
+            cache = self._neigh_cache_path(depth, use_tconv, use_hetero,
+                                           order)
             if os.path.exists(cache):
                 samples, nindex = self._load_neigh_cache(cache)
                 if not self._cache_fits(nindex):
@@ -223,14 +240,19 @@ class Workload:
                         f"recomputing", stacklevel=2)
                     samples = None
         if samples is None:
-            if order == 3 and use_tconv and truth_native.native_available():
+            if (order == 3 and use_hetero and use_tconv
+                    and truth_native.native_available()):
                 samples, nindex = self._native_fast_samples(
                     depth, num_workers=num_workers)
             else:
                 neighs, nindex = self.extract_neighborhoods(depth)
+                t0 = time.perf_counter()
                 samples = [neighborhood_sample(nb, use_tconv=use_tconv,
                                                order=order)
+                           if use_hetero
+                           else homogeneous_neighborhood_sample(nb)
                            for nb in neighs]
+                self.typing_seconds = time.perf_counter() - t0
             if use_cache:
                 self._save_neigh_cache(cache, samples, nindex)
         if truth is not None:
@@ -348,6 +370,32 @@ class Workload:
         return samples, NeighborhoodIndex(
             np.asarray(ld("index", mmap=False)),
             np.asarray(ld("indicator", mmap=False)))
+
+    # ------------------------------------------------- wo-canonical mode
+    def wo_canonical_samples(
+        self, query_ids: Sequence[int],
+        use_tconv: bool = True,
+        truth: Optional[np.ndarray] = None,
+        num_workers: Optional[int] = None,
+    ) -> List[GraphSample]:
+        """Whole-graph samples for the no-canonical-partition ablation:
+        each graph becomes ONE untyped (union_node) sample labeled with
+        its graph-level counts. The labels are RAW graphlet counts; the
+        training path applies log2(+1) once (the reference stores
+        log2(count + 1) and logs again, a double log desco_tpu does not
+        reproduce, nor does the port)."""
+        from ..batch.build import query_sample
+
+        if truth is None:
+            truth = self.compute_groundtruth(query_ids,
+                                             num_workers=num_workers)
+        graphlet = self.aggregate_node_counts(truth)
+        samples = []
+        for gid, g in enumerate(self.graphs):
+            s = query_sample(g, use_tconv=use_tconv)
+            s.y = graphlet[gid].astype(np.float32)
+            samples.append(s)
+        return samples
 
     # ---------------------------------------------------------- gossip
     def gossip_samples(

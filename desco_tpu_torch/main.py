@@ -17,9 +17,12 @@ Pipeline: load datasets -> exact ground truth (C++ VF2, cached) ->
 canonical partition -> train/eval the SHMP neighborhood model -> scatter
 stage-1 counts into gossip features -> train/eval the gossip model ->
 CSV outputs and normed MSE / MAE per query size. It runs on CUDA unless
-``--device cpu`` is given, and raises when no GPU is visible. Checkpoint
-ensembles, ``--compile_cache`` and ``--n_devices > 1`` are not ported yet
-and raise (ROADMAP.md, Queue 1).
+``--device cpu`` is given, and raises when no GPU is visible. Every conv
+type (``--neigh_conv_type``), order-4 typing (``--neigh_order 4``) and
+the homogeneous samples (``--no-use_hetero``) run; the two ablation
+drivers (``ablation_gnns``, ``ablation_wo_canonical``) sit beside it.
+Checkpoint ensembles, ``--compile_cache`` and ``--n_devices > 1`` are not
+ported yet and raise (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -161,6 +164,16 @@ def main(argv=None) -> int:
           f"{test_stage.workload.total_nodes} nodes, "
           f"{len(test_stage.samples)} neighborhoods in "
           f"{len(test_stage.batches)} target batches")
+    if cfg.order == 4:  # orbit typing is host Python: say what it cost
+        staged = {args.test_dataset: test_stage}
+        if args.train_neigh or args.train_gossip:
+            staged.update({args.train_dataset: train_stage,
+                           args.valid_dataset: val_stage})
+        for name, st in staged.items():
+            if st.workload.typing_seconds is not None:
+                print(f"[timing] order-4 orbit typing {name}: "
+                      f"{st.workload.typing_seconds:.1f}s for "
+                      f"{len(st.samples)} neighborhoods")
 
     # ---------------------------------------------- neighborhood stage
     if args.train_neigh:

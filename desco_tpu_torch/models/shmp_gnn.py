@@ -1,5 +1,4 @@
-"""SHMP GNN core + embedding head — the port of ``desco_tpu/models/shmp_gnn.py``
-(SAGE convolution).
+"""SHMP GNN core + embedding head — the port of ``desco_tpu/models/shmp_gnn.py``.
 
 SHMP is data, not module structure: edges carry a type id, and every
 layer is
@@ -18,10 +17,19 @@ gather-fused sorted segment-sum K1 over (dst, type) keys (forward and
 backward), then one matmul. A
 service runs the query tower once, when it loads.
 
+The conv types are desco_tpu's five. SAGE, GIN (a two-linear update per
+node type on x_neigh + x, eps 0) and GCN (x = x_neigh) aggregate as
+above, so K2 / K3 or the gather-fused K1 run them on the card. GAT and
+PNA aggregate through their own providers (``gat_aggregator``,
+``pna_aggregator``): the typed transform z = x @ W[t] is a matmul, their
+sums over the (dst, type)-sorted edge stream go through K1
+(``sorted_segment_sum``; its backward is K4) and their segment max / min
+through ``scatter_reduce`` (``ops.segment.segment_max``), as desco_tpu
+leaves those to ``jax.ops``.
+
 Parameters are ``nn.Module`` trees in desco_tpu's pytree layout
 (models/init.py); the forward is a plain function of (params, config,
-batch), as in desco_tpu. GIN, GCN, GAT and PNA convolutions are not
-ported yet (ROADMAP.md, Queue 1 M3).
+batch), as in desco_tpu.
 
 Dropout (``cfg.dropout``, training only) follows desco_tpu's places: after
 the relu of every layer and after the first post linear. desco_tpu folds
@@ -35,7 +43,8 @@ different masks from the same seed; parity tests run with dropout 0.
 masters, and are cast inside the forward (``cast_params``), so autograd
 returns f32 gradients; activations, the transform z = x @ W and the
 update linears run in bf16; every segment reduction accumulates in f32
-(K1, K2 and their plain versions) and is folded back to bf16. The count
+(K1, K2 and their plain versions) and is folded back to bf16. PNA's
+degree counts and moments stay f32, as desco_tpu keeps them. The count
 head lives outside this module and stays f32.
 
 Padding invariant: node features of padding slots are forced to zero
@@ -46,6 +55,7 @@ it survives the bf16 casts (the mask is 0 or 1 in either type).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -53,16 +63,19 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..batch.packed import PackedGraphs
-from ..ops.segment import graph_pool_sum, typed_edge_aggregate
-from .init import Linear, linear_params, mlp_params
+from ..ops.segment import graph_pool_sum, segment_max, typed_edge_aggregate
+from .init import Linear, Tree, linear_params, mlp_params
 
 AGG_MODES = ("aggregate_first", "kernel")
+CONV_TYPES = ("SAGE", "GIN", "GCN", "GAT", "PNA")
 
 
 @dataclasses.dataclass(frozen=True)
 class SHMPConfig:
     """Static model configuration (desco_tpu's SHMPConfig minus the
-    per-node output of the baselines)."""
+    per-node output of the baselines). ``agg_mode`` is the SAGE, GIN and
+    GCN aggregation; GAT and PNA aggregate through their own providers
+    in every mode, as in desco_tpu."""
 
     n_node_types: int = 2
     n_edge_types: int = 6
@@ -85,10 +98,10 @@ class SHMPConfig:
     agg_mode: str = "aggregate_first"
 
     def __post_init__(self):
-        if self.conv_type != "SAGE":
+        if self.conv_type not in CONV_TYPES:
             raise NotImplementedError(
-                f"conv_type={self.conv_type!r}: the port has SAGE only so "
-                f"far (GIN, GCN, GAT, PNA: ROADMAP.md, Queue 1 M3)")
+                f"conv_type={self.conv_type!r}: desco_tpu's conv types are "
+                f"{', '.join(CONV_TYPES)}")
         if self.dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype={self.dtype}: a tower runs in "
                              f"torch.float32 or torch.bfloat16")
@@ -102,21 +115,37 @@ class SHMPConfig:
 
 
 def init_shmp(cfg: SHMPConfig,
-              generator: Optional[torch.Generator] = None) -> nn.ModuleDict:
-    """Fresh parameters for the SHMP BaseGNN, desco_tpu's tree layout."""
+              generator: Optional[torch.Generator] = None) -> Tree:
+    """Fresh parameters for the SHMP BaseGNN, desco_tpu's tree layout:
+    per conv type ``upd`` (SAGE), ``upd1`` and ``upd2`` (GIN), nothing
+    (GCN), ``att`` = (a_src, a_dst) [L, T, H] each (GAT), ``pna_mix``
+    [L, T, 12H, H] (PNA)."""
     h, p = cfg.hidden_dim, cfg.post_input_dim
+    L, t_e, t_n = cfg.layer_num, cfg.n_edge_types, cfg.n_node_types
     g = generator
-    params = nn.ModuleDict({
+    params = Tree({
         # pre_mp cloned per node type (to_hetero semantics)
-        "pre": linear_params(cfg.input_dim, h, cfg.n_node_types,
-                             generator=g),
+        "pre": linear_params(cfg.input_dim, h, t_n, generator=g),
         # conv lin per (layer, edge type)
-        "conv": linear_params(h, h, cfg.layer_num, cfg.n_edge_types,
-                              generator=g),
+        "conv": linear_params(h, h, L, t_e, generator=g),
         "post": mlp_params([p, h, h, 256, cfg.output_dim], generator=g),
-        "upd": linear_params(2 * h, h, cfg.layer_num, cfg.n_node_types,
-                             generator=g),
     })
+    if cfg.conv_type == "SAGE":
+        params["upd"] = linear_params(2 * h, h, L, t_n, generator=g)
+    elif cfg.conv_type == "GIN":
+        # 2-layer update MLP per (layer, node type); eps fixed at 0
+        params["upd1"] = linear_params(h, h, L, t_n, generator=g)
+        params["upd2"] = linear_params(h, h, L, t_n, generator=g)
+    elif cfg.conv_type == "GAT":
+        # per-(layer, edge-type) attention vectors (GATConv, heads=1)
+        params["att"] = nn.ParameterList([
+            torch.randn(L, t_e, h, generator=g) / math.sqrt(h)
+            for _ in range(2)])
+    elif cfg.conv_type == "PNA":
+        # per-(layer, edge-type) mixer over 3 scalers x 4 aggregators x H
+        k = 1.0 / math.sqrt(12 * h)
+        params["pna_mix"] = nn.Parameter(
+            torch.empty(L, t_e, 12 * h, h).uniform_(-k, k, generator=g))
     if cfg.use_anchor:
         params["anchor"] = linear_params(p, p, generator=g)
     return params
@@ -141,9 +170,14 @@ def cast_params(params, dtype: torch.dtype):
         return params
     if isinstance(params, Linear):
         return _CastLinear(params.w.to(dtype), params.b.to(dtype))
+    if isinstance(params, nn.ParameterList):  # GAT's (a_src, a_dst)
+        return [p.to(dtype) for p in params]
     if isinstance(params, nn.ModuleList):
         return [cast_params(m, dtype) for m in params]
-    return {name: cast_params(m, dtype) for name, m in params.items()}
+    out = {name: cast_params(m, dtype) for name, m in params.items()}
+    out.update({name: p.to(dtype)  # PNA's pna_mix
+                for name, p in params.named_parameters(recurse=False)})
+    return out
 
 
 def _per_type_linear(x, w, b, node_type, n_types):
@@ -218,33 +252,179 @@ def packed_aggregator(cfg: SHMPConfig, batch: PackedGraphs):
     return agg_fn
 
 
+def _edge_stream(batch: PackedGraphs, n_types: int):
+    """(keys, rows): the (dst, type) keys dst*T + type of the batch's
+    sorted edge stream, int32 and ascending (padding keys fall past
+    n_cap*T and every sum drops them), and the row type*n_cap + src of
+    each edge's transformed source in z [T*n_cap, K] (padding edges'
+    types clipped into range, as desco_tpu clips them)."""
+    keys = (batch.edge_dst.int() * n_types
+            + batch.edge_type.int()).contiguous()
+    e_t = batch.edge_type.long().clamp(0, n_types - 1)
+    return keys, e_t * batch.n_cap + batch.edge_src.long()
+
+
+def gat_aggregator(cfg: SHMPConfig, batch: PackedGraphs, att):
+    """Typed GAT attention aggregation (conv_type='GAT'; desco_tpu's
+    ``gat_aggregator``, shmp_gnn.py:180-231): attention softmax-normalized
+    within each (dst, edge-type) segment with a self-loop term, per-type
+    outputs summed. fn(x, conv_w, layer) -> [N, K] (f32 for a bf16
+    tower: the softmax sums are K1's f32 sums)."""
+    from ..ops.cuda_segment import sorted_segment_sum
+
+    a_src_all, a_dst_all = att  # [L, T, H] each
+    t_n = cfg.n_edge_types
+    keys, rows = _edge_stream(batch, t_n)
+    e_t = batch.edge_type.long().clamp(0, t_n - 1)
+    src, dst = batch.edge_src.long(), batch.edge_dst.long()
+
+    def agg_fn(x, conv_w, layer):
+        n = x.shape[0]
+        n_seg = n * t_n
+        a_src, a_dst = a_src_all[layer], a_dst_all[layer]
+        z = torch.matmul(x, conv_w)                       # [T, N, K]
+        s_src = torch.einsum("tnk,tk->tn", z, a_src)      # [T, N]
+        s_dst = torch.einsum("tnk,tk->tn", z, a_dst)
+        s_e = F.leaky_relu(s_src[e_t, src] + s_dst[e_t, dst], 0.2)
+        m = segment_max(s_e, keys, n_seg)  # empty segments -> 0
+        # padding keys subtract 0 (desco_tpu's take with fill 0); their
+        # terms are dropped by the sums
+        m_e = torch.cat([m, m.new_zeros(1)])[keys.long().clamp(max=n_seg)]
+        p = torch.exp(s_e - m_e)
+        z_src = z.reshape(n_seg, -1)[rows]                # [E, K]
+        num = sorted_segment_sum(p[:, None] * z_src, keys,
+                                 n_seg).view(n, t_n, -1)
+        den = sorted_segment_sum(p[:, None], keys, n_seg).view(n, t_n)
+        m2 = m.view(n, t_n)
+        # merge the self-loop candidate into each (node, type) softmax;
+        # an empty segment (den == 0) anchors the rescale at the
+        # self-logit, so the result is exactly z_self there
+        s_self = F.leaky_relu(s_src + s_dst, 0.2).T       # [N, T]
+        empty = den == 0
+        big = torch.where(empty, s_self, torch.maximum(m2, s_self))
+        w_edges = torch.where(empty, 0.0, torch.exp(m2 - big))
+        w_self = torch.exp(s_self - big)
+        z_self = z.transpose(0, 1)                        # [N, T, K]
+        out_t = ((num * w_edges[..., None] + w_self[..., None] * z_self)
+                 / (den * w_edges + w_self)[..., None])
+        return out_t.sum(dim=1)
+    return agg_fn
+
+
+def pna_aggregator(cfg: SHMPConfig, batch: PackedGraphs, mix_w_all):
+    """Typed PNA aggregation (conv_type='PNA'; desco_tpu's
+    ``pna_aggregator``, shmp_gnn.py:234-305): [mean, min, max, std] of
+    z = x @ W[t] over each (dst, type) segment, scaled by {1,
+    log(d+1)/delta, delta/log(d+1)} and mixed by ``mix_w[t]``, summed
+    over the types; d is the segment's in-degree clamped to >= 1 and
+    delta the batch's mean log(total in-degree + 1) over its valid nodes,
+    without gradient. Counts and moments are f32 under a bf16 tower (a
+    bf16 count saturates at 256). fn(x, conv_w, layer) -> [N, H] f32.
+
+    The variance is taken in two passes, the sum of (z - mean)^2 over the
+    segment: desco_tpu's E[z^2] - E[z]^2 is the same function, but in f32
+    it cancels to rounding noise where a segment's values nearly tie
+    (relative variance under about 1e-7), and sqrt's gradient 1 / (2 std)
+    with it, so a change of summation order (the card against the CPU)
+    moves the gradients by 1e-3 of their scale at eight layers. The mean
+    goes back to the edges through K4 (``sorted_gather``)."""
+    from ..ops.cuda_segment import sorted_gather, sorted_segment_sum
+
+    t_n = cfg.n_edge_types
+    keys, rows = _edge_stream(batch, t_n)
+    nmask_f = batch.node_mask.float()
+
+    def agg_fn(x, conv_w, layer):
+        n = x.shape[0]
+        n_seg = n * t_n
+        mix_w = mix_w_all[layer]                          # [T, 12H, H]
+        z = torch.matmul(x, conv_w)                       # [T, N, K]
+        z_src = z.reshape(n_seg, -1)[rows]                # [E, K]
+        z32 = z_src.float()
+        cnt = sorted_segment_sum(z32.new_ones((z32.shape[0], 1)), keys,
+                                 n_seg)[:, 0]
+        d = cnt.clamp(min=1.0)[:, None]
+        mean = sorted_segment_sum(z32, keys, n_seg) / d
+        dev_e = z32 - sorted_gather(mean, keys, n_seg)
+        var = sorted_segment_sum(dev_e * dev_e, keys, n_seg) / d
+        # gradient-safe sqrt: var == 0 (empty or single-element segments)
+        # gives zero gradient, not sqrt'(0) = inf
+        pos = var > 0
+        std = torch.where(pos, torch.sqrt(torch.where(pos, var, 1.0)), 0.0)
+        mn = segment_max(z_src, keys, n_seg, "amin")  # empty -> 0
+        mx = segment_max(z_src, keys, n_seg, "amax")
+        feats = torch.cat([mean, mn.float(), mx.float(), std],
+                          dim=-1).view(n, t_n, -1)        # [N, T, 4K]
+        logd = torch.log(cnt.clamp(min=1.0) + 1.0).view(n, t_n)
+        d_tot = cnt.view(n, t_n).sum(dim=1)
+        delta = ((torch.log(d_tot.clamp(min=1.0) + 1.0) * nmask_f).sum()
+                 / nmask_f.sum().clamp(min=1.0)).clamp(min=1e-6).detach()
+        amp = (logd / delta)[..., None]
+        att = (delta / logd)[..., None]
+        # mixed in f32, as JAX promotes a bf16 mix_w against f32 features
+        w_id, w_amp, w_att = mix_w.to(feats.dtype).split(
+            mix_w.shape[1] // 3, dim=1)                   # [T, 4K, H] each
+
+        def mix(f, w):  # "ntf,tfh->nh"
+            return f.reshape(n, -1) @ w.reshape(-1, w.shape[-1])
+
+        return mix(feats, w_id) + mix(feats * amp, w_amp) + mix(
+            feats * att, w_att)
+    return agg_fn
+
+
+def aggregator(cfg: SHMPConfig, batch: PackedGraphs, params):
+    """The layer aggregation fn(x, conv_w, layer) of ``cfg.conv_type``
+    for parameters already cast to the tower's type (desco_tpu's choice
+    in ``apply_shmp_core``)."""
+    if cfg.conv_type == "GAT":
+        return gat_aggregator(cfg, batch, params["att"])
+    if cfg.conv_type == "PNA":
+        return pna_aggregator(cfg, batch, params["pna_mix"])
+    agg = packed_aggregator(cfg, batch)
+    return lambda x, conv_w, layer: agg(x, conv_w)
+
+
 def run_shmp_layers(params, cfg: SHMPConfig, x, ntype, nmask,
                     aggregate_fn, train: bool = False,
                     generator: Optional[torch.Generator] = None
                     ) -> torch.Tensor:
-    """The L conv layers with concat-skip. ``aggregate_fn(x, conv_w)``
-    returns the type-transformed neighbor sum [N, K] (no bias)."""
+    """The L conv layers with concat-skip. ``aggregate_fn(x, conv_w,
+    layer)`` returns the type-transformed neighbor sum [N, K] (no
+    bias)."""
+    conv = params["conv"]
     # per-dst-type conv bias: bias_by_ntype[t_n] = sum of the conv biases
-    # of the edge types whose dst node type is t_n
-    dst_t = torch.as_tensor(cfg.edge_dst_type, device=x.device)
-    conv, upd = params["conv"], params["upd"]
+    # of the edge types whose dst node type is t_n (a sum per node type,
+    # not an atomic index_add_: the same bits every run)
+    by_ntype = [torch.tensor([t for t, d in enumerate(cfg.edge_dst_type)
+                              if d == nt], dtype=torch.long,
+                             device=x.device)
+                for nt in range(cfg.n_node_types)]
     embs = [x]
     for l in range(cfg.layer_num):
-        # the aggregation accumulates and returns f32 (K2 does, and its
+        # the aggregation may accumulate and return f32 (K2 does, and its
         # plain version): fold back to the tower's type so a bf16 tower
         # stays bf16 through the concat / update chain
-        x_neigh = aggregate_fn(x, conv.w[l]).to(cfg.dtype)
-        bias_by_ntype = x.new_zeros(
-            (cfg.n_node_types, conv.b.shape[-1])).index_add_(
-                0, dst_t, conv.b[l])
-        bias_rows = bias_by_ntype[0]
+        x_neigh = aggregate_fn(x, conv.w[l], l).to(cfg.dtype)
+        bias_rows = conv.b[l].index_select(0, by_ntype[0]).sum(dim=0)
         for t in range(1, cfg.n_node_types):  # select, not gather
-            bias_rows = torch.where((ntype == t)[:, None],
-                                    bias_by_ntype[t], bias_rows)
+            bias_rows = torch.where(
+                (ntype == t)[:, None],
+                conv.b[l].index_select(0, by_ntype[t]).sum(dim=0),
+                bias_rows)
         x_neigh = x_neigh + bias_rows
-        upd_in = torch.cat([x_neigh, x], dim=-1)
-        x = _per_type_linear(upd_in, upd.w[l], upd.b[l], ntype,
-                             cfg.n_node_types)
+        if cfg.conv_type == "SAGE":
+            upd = params["upd"]
+            x = _per_type_linear(torch.cat([x_neigh, x], dim=-1), upd.w[l],
+                                 upd.b[l], ntype, cfg.n_node_types)
+        elif cfg.conv_type == "GIN":  # update MLP on x_neigh + (1 + 0) x
+            u1, u2 = params["upd1"], params["upd2"]
+            hmid = torch.relu(_per_type_linear(
+                x_neigh + x, u1.w[l], u1.b[l], ntype, cfg.n_node_types))
+            x = _per_type_linear(hmid, u2.w[l], u2.b[l], ntype,
+                                 cfg.n_node_types)
+        else:  # GCN, GAT, PNA: the conv output itself
+            x = x_neigh
         x = dropout(torch.relu(x), cfg.dropout, train, generator) * nmask
         embs.append(x)
     return torch.cat(embs, dim=-1)
@@ -269,7 +449,7 @@ def _shmp_core(params, cfg: SHMPConfig, batch: PackedGraphs, train,
                          params["pre"].b, ntype, cfg.n_node_types)
     x = x * nmask
     return run_shmp_layers(params, cfg, x, ntype, nmask,
-                           packed_aggregator(cfg, batch), train, generator)
+                           aggregator(cfg, batch, params), train, generator)
 
 
 def apply_shmp(params, cfg: SHMPConfig, batch: PackedGraphs,
@@ -303,12 +483,20 @@ def _apply_post(post, x, rate: float = 0.0, train: bool = False,
 def neighborhood_target_config(
     use_tconv: bool = True, use_hetero: bool = True, order: int = 3, **kw
 ) -> SHMPConfig:
-    from ..batch.build import NEIGH_PLAIN_DST, NEIGH_TCONV_DST
+    from ..batch.build import (
+        NEIGH_ORDER4_DST,
+        NEIGH_PLAIN_DST,
+        NEIGH_TCONV_DST,
+    )
 
-    if order != 3 or not use_hetero:
-        raise NotImplementedError(
-            "order-4 SHMP and the homogeneous (use_hetero=False) ablation "
-            "are not ported yet (ROADMAP.md, Queue 1 M14)")
+    if order == 4:
+        # order-4 SHMP: 11 edge-orbit classes x 3 canonical combos
+        return SHMPConfig(n_node_types=2, n_edge_types=33,
+                          edge_dst_type=NEIGH_ORDER4_DST, **kw)
+    if not use_hetero:
+        return SHMPConfig(n_node_types=1, n_edge_types=1,
+                          edge_dst_type=(0,), use_anchor=True,
+                          canonical_type=1, **kw)
     if use_tconv:
         return SHMPConfig(n_node_types=2, n_edge_types=6,
                           edge_dst_type=NEIGH_TCONV_DST, **kw)

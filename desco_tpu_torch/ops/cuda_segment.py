@@ -44,7 +44,12 @@ in TF32, two passes), with W copied into shared memory by ``cp.async``.
 So neither desco_tpu's transform z = x @ W [T*N, K] nor the cotangent sums
 u [N*T, K] are ever written to device memory. dW crosses blocks: each
 block writes one f32 partial and a second small kernel sums them in
-block order. What bounds them at the paper width (H = K = 64, T = 6) is
+block order. Where a tile's buffers for all T types do not fit in shared
+memory (T above 11 for K2', 21 for K3' at H = K = 64; order-4 typing has
+33), the types run in chunks (``chunk_types``), the outputs kept in
+registers across them and the types summed in the same order, so the
+result is the same bits. What bounds them at the paper width (H = K =
+64, T = 6) is
 the split-TF32 products on the tensor cores and the gather of one
 128-256 B row per live edge from L2. The widths are at most 128 (odd widths are padded with zeros here).
 The index streams of a batch (``TypedStreams``) are derived once per
@@ -132,9 +137,11 @@ def library() -> ctypes.CDLL:
 def typed_library() -> ctypes.CDLL:
     """The loaded K2 / K3 library (built on first use)."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    return _load(TYPED_STEM, "desco_typed_aggregate_abi_version", 1, {
+    return _load(TYPED_STEM, "desco_typed_aggregate_abi_version", 2, {
         "desco_typed_aggregate_fwd": [p, i, i, i, p, p, i, i, p, i, p, i, p],
         "desco_typed_aggregate_bwd_blocks": [i, i, i, i, i],
+        "desco_typed_aggregate_chunk_types": [i, i, i, i, i],
+        "desco_typed_aggregate_set_chunk_cap": [i],
         "desco_typed_aggregate_bwd": [p, i, i, i, p, p, p, i, i, p, i, p, i,
                                       p, i, p],
         "desco_typed_aggregate_dw_reduce": [p, i, i, i, i, i, i, p, i, p]})
@@ -233,6 +240,28 @@ def k3_blocks(x, conv_w, st: "TypedStreams") -> int:
         if nb <= 0:
             _check(-nb or 1, lib)
         return nb
+
+
+def chunk_types(dtype: torch.dtype, h: int, k: int, n_types: int,
+                backward: bool = False) -> int:
+    """The types per chunk K2' (or, ``backward``, K3') runs for widths H,
+    K and ``n_types`` types on the current card: all of them where one
+    tile's per-type buffers fit in shared memory, else the even split
+    into the fewest chunks that fit."""
+    lib = typed_library()
+    tc = lib.desco_typed_aggregate_chunk_types(
+        _DTYPE_CODE[dtype], _round8(h), _round8(k), n_types, int(backward))
+    if tc <= 0:
+        _check(-tc or 1, lib)
+    return tc
+
+
+def set_chunk_cap(cap: int) -> None:
+    """Cap the types per chunk of K2' and K3' at ``cap`` (0: as many as
+    fit, the default). The types are summed in one order whatever the
+    chunking, so a cap changes no result: it lets a check run the chunked
+    path at a T that fits whole and compare the two bit for bit."""
+    typed_library().desco_typed_aggregate_set_chunk_cap(int(cap))
 
 
 def launch_k3(g, x, conv_w, st: "TypedStreams", dx, partial) -> None:
@@ -384,6 +413,32 @@ def segment_sum_vjp(g: torch.Tensor, seg: torch.Tensor, n_segments: int,
 
 segment_sum_vjp.launches = 0
 segment_sum_vjp.launches_bf16 = 0
+
+
+class _SortedGather(torch.autograd.Function):
+    """K4 forward, K1 backward: the transpose of ``_SortedSegmentSum``."""
+
+    @staticmethod
+    def forward(ctx, table, seg, n_segments):
+        ctx.save_for_backward(seg)
+        ctx.n_segments = n_segments
+        return segment_sum_vjp(table, seg, n_segments)
+
+    @staticmethod
+    def backward(ctx, g):
+        (seg,) = ctx.saved_tensors
+        return (_sorted_segment_sum_forward(g.contiguous(), seg,
+                                            ctx.n_segments), None, None)
+
+
+def sorted_gather(table: torch.Tensor, seg: torch.Tensor,
+                  n_segments: int) -> torch.Tensor:
+    """rows [E, K] f32: rows[e] = table[seg[e]] where 0 <= seg[e] <
+    n_segments, else 0 (padding keys): a per-segment value handed back to
+    the segment's rows. table [n_segments, K] f32; seg [E] int32,
+    ascending. On the card K4's kernel; differentiable in table, the
+    backward is K1 over the same keys (no atomics)."""
+    return _SortedGather.apply(table, seg, n_segments)
 
 
 # ------------------------------------------------------- K2 and K3 streams

@@ -37,6 +37,30 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
     return out[:num_segments]
 
 
+def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int, reduce: str = "amax") -> torch.Tensor:
+    """out[s] = max (``reduce='amin'``: min) of data[i] with
+    segment_ids[i] == s, in data's dtype; an empty segment gives 0, the
+    value desco_tpu puts where ``jax.ops.segment_max`` returns -inf
+    (models/shmp_gnn.py:208, :289-290). Ids outside [0, num_segments)
+    drop into a spill row, as jax drops them (``scatter_reduce`` would
+    raise). ``scatter_reduce`` without the initial value: tied maxima
+    share the gradient equally, as in jax. The rows start at -inf (+inf
+    for the min), as jax's do, and are replaced by 0 only where no value
+    arrived: ``scatter_reduce``'s backward counts the initial value among
+    the ties when it equals the result, so a start at 0 would take half
+    the gradient of a segment whose maximum is 0."""
+    ids = segment_ids.long()
+    ids = ids.masked_fill((ids < 0) | (ids >= num_segments), num_segments)
+    if data.dim() > 1:
+        ids = ids.view(-1, *([1] * (data.dim() - 1))).expand_as(data)
+    start = float("-inf") if reduce == "amax" else float("inf")
+    out = data.new_full((num_segments + 1,) + tuple(data.shape[1:]), start)
+    out = out.scatter_reduce(0, ids, data, reduce, include_self=False)
+    out = out[:num_segments]
+    return torch.where(torch.isfinite(out), out, 0.0)
+
+
 def typed_edge_aggregate(
     x: torch.Tensor,          # [N, H] node features
     edge_src: torch.Tensor,   # [E] i32

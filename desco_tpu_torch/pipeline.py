@@ -13,10 +13,11 @@ training stages and the normed-MSE / MAE evaluation per query size.
 (f32 master parameters, f32 count head, f32 accumulation in every
 segment reduction); everything past the count head stays f32.
 
-Not ported yet, each raising where a config asks for it (ROADMAP.md,
-Queue 1): labeled mode (``use_node_feature``), order-4 typing, the
-homogeneous ablation, the other conv types, checkpoint ensembles and
-data-parallel meshes.
+Every conv type (``conv_type``), order-4 typing (``order=4``) and the
+homogeneous ablation (``use_hetero=False``) run through the same
+functions. Not ported yet, each raising where a config asks for it
+(ROADMAP.md, Queue 1): labeled mode (``use_node_feature``), checkpoint
+ensembles and data-parallel meshes.
 """
 
 from __future__ import annotations
@@ -112,15 +113,18 @@ class PipelineConfig:
 
 
 def check_serving_config(cfg: PipelineConfig) -> None:
-    """Raise for the options this slice has not ported."""
-    missing = [name for name, on in (
-        ("use_node_feature (labeled mode)", cfg.use_node_feature),
-        ("degree_feature with use_hetero=False",
-         cfg.degree_feature and not cfg.use_hetero),
-    ) if on]
-    if missing:
+    """Raise for the options the port has not ported, and for
+    degree_feature without use_hetero, which desco_tpu refuses too (the
+    degree would overwrite the homogeneous samples' canonical
+    indicator)."""
+    if cfg.degree_feature and not cfg.use_hetero:
+        raise ValueError(
+            "degree_feature requires use_hetero (homogeneous samples "
+            "carry the canonical indicator in x)")
+    if cfg.use_node_feature:
         raise NotImplementedError(
-            f"{', '.join(missing)}: not ported yet (ROADMAP.md, Queue 1)")
+            "use_node_feature (labeled mode): not ported yet (ROADMAP.md, "
+            "Queue 1 M11)")
 
 
 _QUERY_MEMO: dict = {}
@@ -237,7 +241,8 @@ def prepare_stage_data(cfg: PipelineConfig, graphs: List[Graph],
     # computed: a serving request sees its graphs once
     samples, nindex = wl.neighborhood_samples(
         cfg.depth, use_tconv=cfg.use_tconv, truth=truth,
-        num_workers=cfg.num_workers, order=cfg.order, use_cache=need_truth)
+        num_workers=cfg.num_workers, order=cfg.order, use_cache=need_truth,
+        use_hetero=cfg.use_hetero)
     if cfg.degree_feature:
         apply_degree_feature(samples)
     if callable(capacities):

@@ -42,7 +42,8 @@ from ..ops import cuda_segment as cs
 # (guard in the source, what replaces it) per switched-off part
 _GATHER = [("if (offs_s[0] != offs_s[kBM * n_types])\n        gather_tile<T>",
             "if (false)\n        gather_tile<T>"),
-           ("if (!empty)\n      gather_tile<T>", "if (false)\n      gather_tile<T>")]
+           ("if (!empty)\n        gather_tile<T>",
+            "if (false)\n        gather_tile<T>")]
 _PRODUCTS = [("if (!empty && mma_warp) {", "if (false) {"),
              ("if (!empty && dx_warp) {", "if (false) {"),
              ("if (!empty && dw_warp) {", "if (false) {")]

@@ -7,7 +7,12 @@ target tower, ``target/conv/1`` its bias, ``convs/0/gate/1/0`` the second
 gate layer's weight of gossip layer 0. Every (w, b) pair of the tree is
 a path ending in ``/0`` and ``/1``; the port keeps the same tree as
 ``nn.Module``s (models/init.py), so ``<path>/0`` is the parameter
-``<path>.w`` and ``<path>/1`` is ``<path>.b``. ``params_from_jax`` is the
+``<path>.w`` and ``<path>/1`` is ``<path>.b``. Two leaves are no (w, b)
+pair: GAT's ``att`` is the pair (a_src, a_dst), kept as an
+``nn.ParameterList`` (``<path>.att.0``, ``<path>.att.1`` for
+``<path>/att/0``, ``<path>/att/1``), and PNA's ``pna_mix`` is a bare
+array beside subtrees, kept as a parameter of the same name in its
+``Tree`` node (``<path>.pna_mix``). ``params_from_jax`` is the
 one bridge: the release checkpoints and the parity tests (which flatten
 desco_tpu parameters the same way) both go through it, and
 ``save_checkpoint`` writes the same keys back (``jax_key``), so desco_tpu's
@@ -29,25 +34,40 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..models.init import Linear
+from ..models.init import Linear, Tree
+
+# tree keys whose two array leaves are a pair of their own, not a Linear's
+# (w, b): GAT's attention vectors (a_src, a_dst)
+PAIRS = ("att",)
+
+
+def _param(arr: np.ndarray) -> nn.Parameter:
+    return nn.Parameter(torch.from_numpy(np.array(arr, np.float32)))
 
 
 def _build(node: dict, path: str) -> nn.Module:
-    if set(node) == {"0", "1"} and all(
-            isinstance(v, np.ndarray) for v in node.values()):
+    arrays = {k: v for k, v in node.items() if isinstance(v, np.ndarray)}
+    if set(node) == {"0", "1"} and len(arrays) == 2:
+        if path.rsplit("/", 1)[-1] in PAIRS:
+            return nn.ParameterList([_param(node["0"]), _param(node["1"])])
         return Linear(torch.from_numpy(np.array(node["0"], np.float32)),
                       torch.from_numpy(np.array(node["1"], np.float32)))
-    if any(isinstance(v, np.ndarray) for v in node.values()):
-        raise ValueError(f"checkpoint subtree {path or '/'} mixes arrays "
-                         f"and subtrees: {sorted(node)}")
-    if all(k.isdigit() for k in node):
+    if all(k.isdigit() for k in node) and not arrays:
         idx = sorted(int(k) for k in node)
         if idx != list(range(len(idx))):
             raise ValueError(f"checkpoint list {path} has gaps: {idx}")
         return nn.ModuleList([_build(node[str(i)], f"{path}/{i}")
                               for i in idx])
-    return nn.ModuleDict({k: _build(v, f"{path}/{k}" if path else k)
-                          for k, v in sorted(node.items())})
+    if any(k.isdigit() for k in arrays):
+        raise ValueError(f"checkpoint subtree {path or '/'} holds list "
+                         f"items that are arrays: {sorted(node)}")
+    # a dict node; a bare array beside subtrees (PNA's pna_mix) is a
+    # parameter of the node under its own key
+    tree = Tree()
+    for k, v in sorted(node.items()):
+        tree[k] = (_param(v) if isinstance(v, np.ndarray)
+                   else _build(v, f"{path}/{k}" if path else k))
+    return tree
 
 
 def params_from_jax(flat: Dict[str, np.ndarray]) -> nn.Module:
@@ -64,9 +84,11 @@ def params_from_jax(flat: Dict[str, np.ndarray]) -> nn.Module:
 
 
 def jax_key(state_dict_key: str) -> str:
-    """The desco_tpu checkpoint key of one of the port's parameters."""
+    """The desco_tpu checkpoint key of one of the port's parameters: a
+    Linear's ``w`` / ``b`` are leaves ``0`` / ``1``; the items of a pair
+    and a bare array keep their keys."""
     *path, leaf = state_dict_key.split(".")
-    return "/".join(path + [{"w": "0", "b": "1"}[leaf]])
+    return "/".join(path + [{"w": "0", "b": "1"}.get(leaf, leaf)])
 
 
 def flatten_params(params: nn.Module) -> Dict[str, np.ndarray]:

@@ -163,11 +163,7 @@ def test_cli_default_device_is_the_gpu(tmp_path):
     (["--compile_cache", "x"], "M17"),
     (["--neigh_checkpoint", "a", "b"], "M11"),
     (["--neigh_bf16_train", "--train_neigh", "--n_devices", "2"], "M15"),
-    (["--serve_bf16", "--train_neigh", "--no-use_hetero"], "ROADMAP"),
     (["--use_node_feature", "--train_neigh"], "ROADMAP"),
-    (["--neigh_order", "4", "--train_neigh"], "ROADMAP"),
-    (["--neigh_conv_type", "GIN", "--train_neigh"], "ROADMAP"),
-    (["--neigh_conv_type", "PNA", "--train_neigh"], "ROADMAP"),
 ])
 def test_unported_options_raise_naming_the_roadmap(tmp_path, flags, match):
     with pytest.raises(NotImplementedError, match=match):

@@ -18,6 +18,8 @@ except that K3's bf16 dx and dW are f32 results rounded to bf16 (one
 bf16 step, rtol 2^-7); K4's bf16 result and the K5 probe's bit patterns
 must be equal."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -25,6 +27,7 @@ import torch
 from desco_tpu_torch.ops import cuda_segment as cs
 
 T = torch.from_numpy
+BF = torch.bfloat16
 
 
 @pytest.fixture
@@ -185,6 +188,82 @@ def test_k3_kernel_matches_plain_on_gpu(rng, cuda_device, n, h, k, t, e):
     close(dw, dw_ref)
 
 
+def typed_pair(rng, dev, n, h, k, t, e, dtype):
+    """(x, w, streams with a backward permutation, g) on the card."""
+    x, src, _, _, keys, w = typed_case(rng, n, t, h, k, e)
+    st = cs.typed_streams(T(src).to(dev), T(keys).to(dev), t, n, n,
+                          T(bwd_perm_of(src, keys, t, n)).to(dev))
+    g = T(rng.standard_normal((n, k)).astype(np.float32)).to(dev)
+    return (T(x).to(dev).to(dtype), T(w).to(dev).to(dtype), st, g)
+
+
+def run_k2_k3(x, w, st):
+    with torch.inference_mode():
+        out = cs.fused_typed_transform_aggregate(
+            x, st.edge_src, st.keys, w, st.n_types, st.n_nodes, streams=st)
+        dx, dw = cs.typed_aggregate_bwd(g_of(st, w), x, w, st)
+    torch.cuda.synchronize()
+    return out, dx, dw
+
+
+def g_of(st, w):
+    gen = torch.Generator(device=w.device).manual_seed(st.n_types)
+    return torch.randn(st.n_nodes, w.shape[2], device=w.device,
+                       generator=gen)
+
+
+# (n, h, k, t, live edges): more types than one tile's buffers hold in
+# shared memory (K2' takes at most 11 at H = K = 64 in f32, K3' 21):
+# T = 12 and 22 just past those, 13 odd, 33 the order-4 typing; widths
+# 128 (two types per K2' chunk) and odd ones
+MANY_TYPE_CASES = [(1000, 64, 64, 12, 8000), (1000, 64, 64, 13, 8000),
+                   (1000, 64, 64, 22, 8000), (2000, 64, 64, 33, 16000),
+                   (500, 128, 128, 33, 4000), (333, 16, 33, 33, 2000)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, BF], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n,h,k,t,e", MANY_TYPE_CASES)
+def test_k2_k3_in_type_chunks_match_plain_on_gpu(rng, cuda_device, n, h, k,
+                                                 t, e, dtype):
+    """K2' and K3' past their shared memory: the types run in chunks,
+    against the plain versions (bf16 dx / dW one bf16 step), and two runs
+    are bit-equal."""
+    x, w, st, g = typed_pair(rng, cuda_device, n, h, k, t, e, dtype)
+    assert cs.chunk_types(dtype, h, k, t) <= t
+    if (h, k, dtype) == (64, 64, torch.float32):
+        assert cs.chunk_types(dtype, h, k, t) < t  # K2' needs chunks here
+        assert (cs.chunk_types(dtype, h, k, t, backward=True) < t) == (t > 21)
+    out, dx, dw = run_k2_k3(x, w, st)
+    close(out, cs.fused_typed_transform_aggregate_plain(
+        x, st.edge_src, st.keys, w, t, n))
+    dx_ref, dw_ref = cs.typed_aggregate_bwd_plain(g_of(st, w), x, w, st)
+    rtol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    close(dx, dx_ref, rtol)
+    close(dw, dw_ref, rtol)
+    for a, b in zip((out, dx, dw), run_k2_k3(x, w, st)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, BF], ids=["f32", "bf16"])
+@pytest.mark.parametrize("t,cap", [(6, 2), (6, 4), (33, 5)])
+def test_type_chunks_change_no_bit(rng, cuda_device, t, cap, dtype):
+    """The chunked path sums the types in the order of the whole one: a
+    cap on the types per chunk gives bit-equal out, dx and dW."""
+    x, w, st, _ = typed_pair(rng, cuda_device, 1000, 64, 64, t, 9000, dtype)
+    whole = run_k2_k3(x, w, st)
+    cs.set_chunk_cap(cap)
+    try:
+        assert cs.chunk_types(dtype, 64, 64, t) <= cap
+        assert cs.chunk_types(dtype, 64, 64, t, backward=True) <= cap
+        chunked = run_k2_k3(x, w, st)
+    finally:
+        cs.set_chunk_cap(0)
+    for a, b in zip(whole, chunked):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("with_perm", [True, False])
 def test_kernel_gradients_match_plain_autograd(rng, cuda_device, with_perm):
@@ -251,7 +330,6 @@ def test_wrapper_counts_launches_and_checks_inputs(rng, cuda_device):
 
 
 # ------------------------------------------------------------- bf16 rows
-BF = torch.bfloat16
 
 
 @pytest.mark.cuda
@@ -486,3 +564,75 @@ def test_gossip_loss_runs_the_gather_fused_kernel(cuda_device):
     assert (got["gather_segment_sum"], got["gather_segment_sum_bwd"]) == (
         1 + 4 * 29, 29)
     assert got["sorted_segment_sum"] == got["segment_sum_vjp"] == 0
+
+
+def conv_batch(rng, n_graphs=6, order=3):
+    """A packed target batch of small random graphs' depth-2
+    neighborhoods, with random inputs, typed at ``order``."""
+    from desco_tpu_torch.batch.packed import auto_capacities, pack_samples
+    from desco_tpu_torch.data.workload import Workload
+    from desco_tpu_torch.graph import Graph
+
+    graphs = []
+    for _ in range(n_graphs):
+        n = int(rng.integers(6, 14))
+        iu = np.triu_indices(n, k=1)
+        keep = rng.random(len(iu[0])) < 0.4
+        graphs.append(Graph(n, np.stack([iu[0][keep], iu[1][keep]],
+                                        axis=1).astype(np.int32)))
+    samples, _ = Workload(graphs).neighborhood_samples(2, order=order)
+    for s in samples:
+        s.x = rng.standard_normal((s.n_nodes, 1)).astype(np.float32)
+    return pack_samples(samples, *auto_capacities(samples, g_cap=64))[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("conv,order", [("GAT", 3), ("PNA", 3), ("GIN", 3),
+                                        ("GCN", 3), ("SAGE", 4)])
+def test_conv_towers_on_gpu_match_cpu(rng, cuda_device, conv, order):
+    """A target tower of each conv type (and order-4 typing, 33 types) on
+    the card against the same on the CPU: output rtol 1e-4 of its scale,
+    every parameter's gradient within 1e-4 of its scale (phase 5's
+    bound). GAT and PNA run K1 (2 and 3 sums per layer, and the pooling)
+    and K4 behind them (PNA also one K4 gather per layer, K1 behind it),
+    never K2 or K3; the others K2 and K3."""
+    import copy
+
+    from desco_tpu_torch.models import shmp_gnn as sg
+
+    layers = 2
+    cfg = sg.neighborhood_target_config(
+        order=order, hidden_dim=16, output_dim=16, layer_num=layers,
+        conv_type=conv)
+    params = sg.init_shmp(cfg, torch.Generator().manual_seed(1))
+    batch = conv_batch(rng, order=order)
+    cot = torch.randn(batch.g_cap, 16, generator=torch.Generator()
+                      .manual_seed(2))
+    runs = {}
+    for dev, mode in (("cpu", "aggregate_first"), (cuda_device, "kernel")):
+        p = copy.deepcopy(params).to(dev).requires_grad_(True)
+        c = dataclasses.replace(cfg, agg_mode=mode)
+        cs.reset_launches()
+        out = sg.apply_shmp(p, c, batch.to(dev, training=True))
+        (out * cot.to(dev)).sum().backward()
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        runs[str(dev)] = (out.detach().cpu(),
+                          {k: v.grad.cpu() for k, v in
+                           p.named_parameters()}, cs.read_launches())
+    (out_c, g_c, _), (out_g, g_g, n) = runs["cpu"], runs[str(cuda_device)]
+    assert float((out_g - out_c).abs().max()) <= 1e-4 * float(
+        out_c.abs().max())
+    for k, want in g_c.items():
+        scale = float(want.abs().max())
+        assert float((g_g[k] - want).abs().max()) <= 1e-4 * scale, k
+    sums, gathers = {"GAT": (2, 0), "PNA": (3, 1)}.get(conv, (0, 0))
+    if sums:
+        assert n["sorted_segment_sum"] == (sums + gathers) * layers + 1
+        # PNA's count of ones has no gradient
+        assert n["segment_sum_vjp"] == (2 + gathers) * layers + 1
+        assert n["fused_typed_transform_aggregate"] == 0
+        assert n["typed_aggregate_bwd"] == 0
+    else:
+        assert n["fused_typed_transform_aggregate"] == layers
+        assert n["typed_aggregate_bwd"] == layers

@@ -104,9 +104,13 @@ def test_fresh_init_has_desco_tpu_layout():
 
 
 def test_unported_conv_types_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dataclasses.replace(tower_cfgs("target", 2, 8)[1], conv_type="GIN")
+    """Every conv type of desco_tpu is ported, and order-4 typing; a conv
+    type desco_tpu does not have raises, as desco_tpu's init_shmp does."""
+    cfg = tower_cfgs("target", 2, 8)[1]
+    with pytest.raises(NotImplementedError, match="SAGE, GIN, GCN, GAT"):
+        dataclasses.replace(cfg, conv_type="GOSSIP")
+    for conv in ("GIN", "GCN", "GAT", "PNA"):
+        assert dataclasses.replace(cfg, conv_type=conv).conv_type == conv
     with pytest.raises(ValueError, match="agg_mode"):
         tshmp.SHMPConfig(agg_mode="cumsum")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tshmp.neighborhood_target_config(order=4)
+    assert tshmp.neighborhood_target_config(order=4).n_edge_types == 33
