@@ -91,8 +91,8 @@ def build_parser() -> argparse.ArgumentParser:
     o.add_argument("--data_root", type=str, default="data")
     o.add_argument("--output_dir", type=str, default=None)
     o.add_argument("--neigh_checkpoint", type=str, nargs="+", default=None,
-                   help="one path serves that model (several paths, an "
-                        "ensemble, are not ported yet: ROADMAP.md M11)")
+                   help="one path serves that model; several paths "
+                        "serve and evaluate their ensemble")
     o.add_argument("--gossip_checkpoint", type=str, default=None)
     o.add_argument("--train_neigh", action="store_true")
     o.add_argument("--train_gossip", action="store_true")

@@ -9,9 +9,11 @@ their disk cache, gossip samples and the graph-level aggregations. The
 order-3 tconv samples come from the native C++ prep when it is
 available; order-4 (orbit) typing and the homogeneous ablation's samples
 take the generic path. The whole-graph samples of the
-no-canonical-partition ablation are ``wo_canonical_samples``. Both
-caches use desco_tpu's file names and formats, so either package reads
-the other's. Left out (ROADMAP.md, Queue 1 M11): the labeled truth.
+no-canonical-partition ablation are ``wo_canonical_samples``; labeled
+mode has its own truth (``compute_groundtruth_labeled``, label-preserving
+VF2) and featured samples (``use_node_feat``). Both caches use
+desco_tpu's file names and formats, so either package reads the
+other's.
 """
 
 from __future__ import annotations
@@ -50,6 +52,23 @@ def _query_signature(query_ids: Sequence[int], max_len: int = 30) -> str:
             ",".join(map(str, ids)).encode()).hexdigest()[:10]
         sig += "_h" + digest
     return sig
+
+
+def _labeled_query_signature(queries, q_labels) -> str:
+    """Cache-file stem of labeled truth: a digest of the full query
+    structure (edges and label assignment per query), since a count and a
+    summed size alone collide across label expansions of same-shaped
+    query sets."""
+    import hashlib
+
+    h = hashlib.sha1()
+    for q, ql in zip(queries, q_labels):
+        h.update(np.int64(q.n_nodes).tobytes())
+        e = np.asarray(q.edges, np.int64).reshape(-1, 2)
+        h.update(e[np.lexsort((e[:, 1], e[:, 0]))].tobytes())
+        h.update(np.asarray(ql, np.int64).tobytes())
+    return ("query_num_{:d}_node_feat_h{}"
+            .format(len(queries), h.hexdigest()[:12]))
 
 
 @dataclasses.dataclass
@@ -101,6 +120,35 @@ class Workload:
         per_graph = truth_native.parallel_canonical_counts(
             self.graphs, queries, num_workers)
         truth = np.concatenate(per_graph, axis=0).astype(np.float64)
+        if use_cache:
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            np.save(path, truth)
+        return truth
+
+    def compute_groundtruth_labeled(
+        self, queries: List[Graph],
+        num_workers: Optional[int] = None,
+        use_cache: bool = True,
+    ) -> np.ndarray:
+        """(total_nodes, len(queries)) float64 canonical counts under node
+        label matching (labeled mode): ``queries`` and the graphs carry
+        one-hot ``node_feat``, the labels are its argmax. Cached as
+        ``.npy`` under ``root`` beside the unlabeled truth, keyed by
+        ``_labeled_query_signature``."""
+        use_cache = use_cache and self.root is not None
+        if use_cache:
+            q_labels = [truth_native.labels_of(q) for q in queries]
+            path = os.path.join(
+                self.root, "CanonicalCountTruth",
+                _labeled_query_signature(queries, q_labels) + ".npy")
+            if os.path.exists(path):
+                truth = np.load(path)
+                if truth.shape == (self.total_nodes, len(queries)):
+                    return truth
+        per_graph = truth_native.parallel_labeled_counts(
+            self.graphs, queries, num_workers)
+        truth = (np.concatenate(per_graph, axis=0) if per_graph
+                 else np.zeros((0, len(queries)), np.float64))
         if use_cache:
             os.makedirs(os.path.dirname(path), exist_ok=True)
             np.save(path, truth)
@@ -193,12 +241,12 @@ class Workload:
             np.array(indicator, dtype=bool))
 
     def _neigh_cache_path(self, depth, use_tconv, use_hetero=True,
-                          order=3) -> str:
+                          use_node_feat=False, order=3) -> str:
         """desco_tpu's sample-cache directory, keyed by depth and the
-        typing flags (the port's samples are unlabeled, which desco_tpu's
-        names leave unmarked)."""
+        typing and feature flags."""
         suffix = ("" if use_hetero else "_homo") + (
             "_tconv" if use_tconv else "") + (
+            "_node_feat" if use_node_feat else "") + (
             f"_order{order}" if order != 3 else "")
         return os.path.join(
             self.root, "NeighborhoodDataset",
@@ -212,6 +260,7 @@ class Workload:
         order: int = 3,
         use_cache: bool = False,
         use_hetero: bool = True,
+        use_node_feat: bool = False,
     ) -> tuple[List[GraphSample], NeighborhoodIndex]:
         """Canonical-neighborhood GraphSamples (the reference's
         NeighborhoodDataset), with ``truth`` rows attached as labels when
@@ -219,16 +268,24 @@ class Workload:
         edges by 4-node orbit class x canonical combo (33 types,
         graph/orbits.py: exact enumeration in host Python, molecular
         scale); ``use_hetero=False`` builds the homogeneous ablation's
-        one-type samples. ``use_cache`` (needs a ``root``) reads the
+        one-type samples. ``use_node_feat`` (labeled mode) takes each
+        node's one-hot ``node_feat`` as its input feature; its ``truth``
+        is the labeled one (``compute_groundtruth_labeled``). ``use_cache``
+        (needs a ``root``) reads the
         samples' structure from desco_tpu's sample cache, or writes it
         there after building it; a cache that does not fit the graphs (a
         dataset regenerated in the same root) is rebuilt with a
         warning."""
+        if use_node_feat and not use_hetero:
+            raise ValueError(
+                "use_node_feat=True with use_hetero=False is "
+                "unsupported: the homogeneous sample builder carries no "
+                "node features, so labels would be silently dropped")
         use_cache = use_cache and self.root is not None
         samples = None
         if use_cache:
             cache = self._neigh_cache_path(depth, use_tconv, use_hetero,
-                                           order)
+                                           use_node_feat, order)
             if os.path.exists(cache):
                 samples, nindex = self._load_neigh_cache(cache)
                 if not self._cache_fits(nindex):
@@ -243,12 +300,14 @@ class Workload:
             if (order == 3 and use_hetero and use_tconv
                     and truth_native.native_available()):
                 samples, nindex = self._native_fast_samples(
-                    depth, num_workers=num_workers)
+                    depth, use_node_feat, num_workers=num_workers)
             else:
                 neighs, nindex = self.extract_neighborhoods(depth)
                 t0 = time.perf_counter()
-                samples = [neighborhood_sample(nb, use_tconv=use_tconv,
-                                               order=order)
+                samples = [neighborhood_sample(
+                               nb, use_tconv=use_tconv, order=order,
+                               x=(self.graphs[nb.gid].node_feat[nb.nodes]
+                                  if use_node_feat else None))
                            if use_hetero
                            else homogeneous_neighborhood_sample(nb)
                            for nb in neighs]
@@ -271,7 +330,7 @@ class Workload:
                              or np.any(self.node_offsets[idx[:, 0]]
                                        + idx[:, 1] >= self.total_nodes))))
 
-    def _native_fast_samples(self, depth: int,
+    def _native_fast_samples(self, depth: int, use_node_feat: bool = False,
                              num_workers: Optional[int] = None):
         """6-type tconv samples via ONE fused C call per graph
         (native prepare_samples: partition + induced subgraph + triangle
@@ -294,7 +353,9 @@ class Workload:
             index.extend((gid, int(v)) for v in vids)
             no = np.concatenate([[0], np.cumsum(sizes[keep])])
             eo = np.concatenate([[0], np.cumsum(esizes[keep])])
-            x_flat = np.zeros((len(nodes), 1), np.float32)
+            x_flat = (g.node_feat[nodes].astype(np.float32)
+                      if use_node_feat
+                      else np.zeros((len(nodes), 1), np.float32))
             nt_flat = np.zeros(len(nodes), np.int32)
             nt_flat[no[1:] - 1] = 1  # canonical node is last per slice
             for i in range(len(vids)):

@@ -116,3 +116,16 @@ def graph_atlas_plus(query_id: int) -> Graph:
 def gen_queries(query_ids: Sequence[int]) -> List[Graph]:
     """Queries as host Graphs, nodes 0..k-1."""
     return [graph_atlas_plus(int(i)) for i in query_ids]
+
+
+def expand_query_labels(q: Graph, n_labels: int) -> List[Graph]:
+    """All ``n_labels ** k`` node-labeled variants of a query, as Graphs
+    with one-hot ``node_feat``, in desco_tpu's order (the last node's
+    label varies fastest). Exponential; only sensible for small label
+    sets."""
+    import itertools
+
+    eye = np.eye(n_labels, dtype=np.float32)
+    return [Graph(q.n_nodes, q.edges.copy(), eye[list(assign)])
+            for assign in itertools.product(range(n_labels),
+                                            repeat=q.n_nodes)]

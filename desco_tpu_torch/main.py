@@ -18,11 +18,13 @@ canonical partition -> train/eval the SHMP neighborhood model -> scatter
 stage-1 counts into gossip features -> train/eval the gossip model ->
 CSV outputs and normed MSE / MAE per query size. It runs on CUDA unless
 ``--device cpu`` is given, and raises when no GPU is visible. Every conv
-type (``--neigh_conv_type``), order-4 typing (``--neigh_order 4``) and
-the homogeneous samples (``--no-use_hetero``) run; the two ablation
-drivers (``ablation_gnns``, ``ablation_wo_canonical``) sit beside it.
-Checkpoint ensembles, ``--compile_cache`` and ``--n_devices > 1`` are not
-ported yet and raise (ROADMAP.md, Queue 1).
+type (``--neigh_conv_type``), order-4 typing (``--neigh_order 4``), the
+homogeneous samples (``--no-use_hetero``) and labeled mode
+(``--use_node_feature --neigh_input_dim <labels>``, on datasets that
+carry node labels) run; several ``--neigh_checkpoint`` paths evaluate
+their ensemble. The two ablation drivers (``ablation_gnns``,
+``ablation_wo_canonical``) sit beside it. ``--compile_cache`` and
+``--n_devices > 1`` are not ported yet and raise (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -119,10 +121,6 @@ def main(argv=None) -> int:
         raise NotImplementedError(
             "--compile_cache has no counterpart in the port yet "
             "(ROADMAP.md, Queue 1 M17)")
-    if args.neigh_checkpoint and len(args.neigh_checkpoint) > 1:
-        raise NotImplementedError(
-            "checkpoint ensembles (several --neigh_checkpoint paths) are "
-            "not ported yet (ROADMAP.md, Queue 1 M11)")
     device = resolve_device(args.device)
 
     if not args.train_neigh and args.neigh_checkpoint:
@@ -144,19 +142,24 @@ def main(argv=None) -> int:
     qb = build_query_batch(cfg)
     tgt_cfg, qry_cfg = model_configs(cfg, device)
 
-    # datasets load exactly as named; train = valid is one stage
+    # datasets load exactly as named (with their node labels in labeled
+    # mode); train = valid is one stage
+    def load(name):
+        return load_data(name, cfg.data_root,
+                         with_labels=cfg.use_node_feature)
+
     if args.train_neigh or args.train_gossip:
         with _phase(f"load+truth+stage {args.train_dataset}"):
             train_stage = prepare_stage_data(
-                cfg, load_data(args.train_dataset, cfg.data_root),
-                name=args.train_dataset, need_truth=True)
+                cfg, load(args.train_dataset), name=args.train_dataset,
+                need_truth=True)
         val_stage = (
             train_stage if args.valid_dataset == args.train_dataset
-            else prepare_stage_data(
-                cfg, load_data(args.valid_dataset, cfg.data_root),
-                name=args.valid_dataset, need_truth=True))
+            else prepare_stage_data(cfg, load(args.valid_dataset),
+                                    name=args.valid_dataset,
+                                    need_truth=True))
     with _phase(f"load+truth+stage {args.test_dataset}"):
-        test_graphs = load_data(args.test_dataset, cfg.data_root)
+        test_graphs = load(args.test_dataset)
         test_stage = prepare_stage_data(cfg, test_graphs,
                                         name=args.test_dataset,
                                         need_truth=True)
@@ -181,32 +184,37 @@ def main(argv=None) -> int:
         res, tgt_cfg, qry_cfg = train_neighborhood_stage(
             cfg, train_stage, val_stage, qb, device=device,
             ckpt_path=args.neigh_model_path, resume=args.resume)
-        neigh_params = res.best_params
+        members = [res.best_params]
         print(f"best neighborhood val loss: {res.best_val:.5f}")
     else:
         if not args.neigh_checkpoint:
             raise SystemExit("need --train_neigh or --neigh_checkpoint")
-        neigh_params = load_checkpoint(args.neigh_checkpoint[0])[0]
-        print(f"loaded neighborhood model from {args.neigh_checkpoint[0]}")
-    neigh_params = neigh_params.requires_grad_(False).to(device)
+        # several checkpoints evaluate their ensemble (stage-1
+        # predictions averaged in log2(count + 1) space)
+        members = [load_checkpoint(c)[0] for c in args.neigh_checkpoint]
+        print(f"loaded neighborhood model from "
+              f"{', '.join(args.neigh_checkpoint)}")
+    members = [p.requires_grad_(False).to(device) for p in members]
     with torch.inference_mode():
-        query_embs = neigh_mod.embed_queries(neigh_params, qry_cfg,
-                                             qb.to(device))
+        q_dev = qb.to(device)
+        member_embs = [neigh_mod.embed_queries(p, qry_cfg, q_dev)
+                       for p in members]
+    # gossip conditions on one query tower: the first member's
+    neigh_params, query_embs = members[0], member_embs[0]
 
     # stage-1 predictions (verified rows carry EXACT counts)
     with _phase("stage-1 predict+verify (test)"):
         counts_test, verified_rows = neighborhood_predictions(
-            neigh_params, tgt_cfg, query_embs, test_stage, cfg, device)
+            members, tgt_cfg, member_embs, test_stage, cfg, device)
     counts = {"test": counts_test}
     # train/val stage-1 predictions feed ONLY gossip training
     if args.train_gossip:
         counts["train"] = neighborhood_predictions(
-            neigh_params, tgt_cfg, query_embs, train_stage, cfg, device)[0]
+            members, tgt_cfg, member_embs, train_stage, cfg, device)[0]
         counts["val"] = (
             counts["train"] if val_stage is train_stage
             else neighborhood_predictions(
-                neigh_params, tgt_cfg, query_embs, val_stage, cfg,
-                device)[0])
+                members, tgt_cfg, member_embs, val_stage, cfg, device)[0])
 
     # ---------------------------------------------------- gossip stage
     gossip_node_counts = None

@@ -72,10 +72,9 @@ CONV_TYPES = ("SAGE", "GIN", "GCN", "GAT", "PNA")
 
 @dataclasses.dataclass(frozen=True)
 class SHMPConfig:
-    """Static model configuration (desco_tpu's SHMPConfig minus the
-    per-node output of the baselines). ``agg_mode`` is the SAGE, GIN and
-    GCN aggregation; GAT and PNA aggregate through their own providers
-    in every mode, as in desco_tpu."""
+    """Static model configuration (desco_tpu's SHMPConfig). ``agg_mode``
+    is the SAGE, GIN and GCN aggregation; GAT and PNA aggregate through
+    their own providers in every mode, as in desco_tpu."""
 
     n_node_types: int = 2
     n_edge_types: int = 6
@@ -87,6 +86,8 @@ class SHMPConfig:
     conv_type: str = "SAGE"
     dropout: float = 0.0
     use_anchor: bool = True        # anchor MLP on canonical nodes
+    # the post MLP per node, no pooling (the DIAMNet baseline's towers)
+    per_node_output: bool = False
     canonical_type: int = 1
     # the tower's working type: float32, or bfloat16 with f32 master
     # parameters and f32 accumulation in every segment reduction
@@ -456,14 +457,20 @@ def apply_shmp(params, cfg: SHMPConfig, batch: PackedGraphs,
                train: bool = False,
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """BaseGNN.forward: core -> anchor MLP on canonical nodes -> global
-    add pool -> post MLP. Returns [G, out] in ``cfg.dtype``."""
+    add pool -> post MLP. Returns [G, out] in ``cfg.dtype``, or [N, out]
+    with ``cfg.per_node_output`` (the post MLP per node, padding rows
+    zeroed)."""
     params = cast_params(params, cfg.dtype)
     emb = _shmp_core(params, cfg, batch, train, generator)
     if cfg.use_anchor:
         anchored = F.leaky_relu(params["anchor"](emb), negative_slope=0.1)
         is_canon = (batch.node_type == cfg.canonical_type)[:, None]
         emb = torch.where(is_canon, anchored, emb)
-    emb = emb * batch.node_mask[:, None].to(cfg.dtype)
+    nmask = batch.node_mask[:, None].to(cfg.dtype)
+    if cfg.per_node_output:
+        return _apply_post(params["post"], emb, cfg.dropout, train,
+                           generator) * nmask
+    emb = emb * nmask
     pooled = graph_pool_sum(emb, batch.node_graph, batch.g_cap)
     return _apply_post(params["post"], pooled, cfg.dropout, train, generator)
 

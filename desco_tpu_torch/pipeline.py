@@ -15,9 +15,13 @@ segment reduction); everything past the count head stays f32.
 
 Every conv type (``conv_type``), order-4 typing (``order=4``) and the
 homogeneous ablation (``use_hetero=False``) run through the same
-functions. Not ported yet, each raising where a config asks for it
-(ROADMAP.md, Queue 1): labeled mode (``use_node_feature``), checkpoint
-ensembles and data-parallel meshes.
+functions. Labeled mode (``use_node_feature``) expands each query into
+all its one-hot label assignments (``neigh_input_dim`` labels), feeds
+the graphs' one-hot ``node_feat`` to the target tower, and counts, bounds
+and verifies under label-preserving matching. A list of neighborhood
+models (a checkpoint ensemble) averages their stage-1 predictions in
+log2(count + 1) space. Data-parallel meshes are not ported yet and raise
+(ROADMAP.md, Queue 1 M15).
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ from .analysis import mae, norm_mse, round_relu
 from .batch.build import query_sample
 from .batch.packed import GraphSample, PackedGraphs, auto_capacities, pack_samples
 from .data.workload import NeighborhoodIndex, Workload
-from .graph.atlas import gen_queries, gen_query_ids
+from .graph.atlas import expand_query_labels, gen_queries, gen_query_ids
 from .graph.container import Graph
 from .models import gossip as gossip_mod
 from .models import neighborhood as neigh_mod
@@ -45,10 +49,7 @@ from .utils.device import resolve_device
 @dataclasses.dataclass
 class PipelineConfig:
     """desco_tpu's PipelineConfig, with its names and defaults (the
-    paper config). Checkpoint config blobs rehydrate into it. Fields of
-    options the port does not have yet are kept so that a config that
-    sets them raises (check_serving_config, train_neighborhood_stage)
-    instead of being run wrong."""
+    paper config). Checkpoint config blobs rehydrate into it."""
 
     query_sizes: Sequence[int] = (3, 4, 5)
     depth: int = 4
@@ -113,36 +114,40 @@ class PipelineConfig:
 
 
 def check_serving_config(cfg: PipelineConfig) -> None:
-    """Raise for the options the port has not ported, and for
-    degree_feature without use_hetero, which desco_tpu refuses too (the
-    degree would overwrite the homogeneous samples' canonical
-    indicator)."""
+    """Raise for the feature combinations desco_tpu refuses: the degree
+    feature writes x[:, 0], which would overwrite the homogeneous
+    samples' canonical indicator or the first label column."""
     if cfg.degree_feature and not cfg.use_hetero:
         raise ValueError(
             "degree_feature requires use_hetero (homogeneous samples "
             "carry the canonical indicator in x)")
-    if cfg.use_node_feature:
-        raise NotImplementedError(
-            "use_node_feature (labeled mode): not ported yet (ROADMAP.md, "
-            "Queue 1 M11)")
+    if cfg.degree_feature and cfg.use_node_feature:
+        raise ValueError(
+            "degree_feature and use_node_feature are mutually exclusive "
+            "(the degree write clobbers label column 0)")
 
 
 _QUERY_MEMO: dict = {}
 
 
 def pipeline_queries(cfg: PipelineConfig) -> List[Graph]:
-    """The query set (memoized: serving consults it several times per
-    request; queries are immutable host Graphs)."""
-    key = tuple(cfg.query_ids)
+    """The query set: the atlas queries, each expanded into its one-hot
+    label assignments in labeled mode (memoized: serving consults it
+    several times per request; queries are immutable host Graphs)."""
+    key = (tuple(cfg.query_ids), cfg.use_node_feature, cfg.neigh_input_dim)
     hit = _QUERY_MEMO.get(key)
     if hit is None:
-        hit = _QUERY_MEMO[key] = gen_queries(cfg.query_ids)
+        hit = gen_queries(cfg.query_ids)
+        if cfg.use_node_feature:
+            hit = [v for q in hit
+                   for v in expand_query_labels(q, cfg.neigh_input_dim)]
+        _QUERY_MEMO[key] = hit
     return hit
 
 
 def pipeline_query_groups(cfg: PipelineConfig) -> List[List[int]]:
     """Query indices grouped by query size, ascending (the per-size
-    normed-MSE grouping)."""
+    normed-MSE grouping), over the expanded set in labeled mode."""
     queries = pipeline_queries(cfg)
     sizes = sorted({q.n_nodes for q in queries})
     return [[i for i, q in enumerate(queries) if q.n_nodes == s]
@@ -224,7 +229,9 @@ def prepare_stage_data(cfg: PipelineConfig, graphs: List[Graph],
     neighborhood sample cache, attaches it as labels and packs the
     backward edge permutation; the default (pure
     serving: no labels exist and none are needed) leaves the label
-    columns zero and skips the permutation's host lexsort."""
+    columns zero and skips the permutation's host lexsort. In labeled
+    mode the truth is the label-preserving one over the expanded query
+    set and the samples carry the graphs' one-hot ``node_feat``."""
     check_serving_config(cfg)
     if need_truth and name is None:
         raise ValueError("need_truth=True wants the dataset's name (its "
@@ -232,17 +239,21 @@ def prepare_stage_data(cfg: PipelineConfig, graphs: List[Graph],
     wl = Workload(graphs,
                   root=os.path.join(cfg.data_root, name) if name else None,
                   name=name or "request")
-    if need_truth:
+    if not need_truth:
+        truth = np.zeros((wl.total_nodes, len(pipeline_queries(cfg))),
+                         np.float64)
+    elif cfg.use_node_feature:
+        truth = wl.compute_groundtruth_labeled(pipeline_queries(cfg),
+                                               num_workers=cfg.num_workers)
+    else:
         truth = wl.compute_groundtruth(cfg.query_ids,
                                        num_workers=cfg.num_workers)
-    else:
-        truth = np.zeros((wl.total_nodes, len(cfg.query_ids)), np.float64)
     # the sample cache under the dataset's root only where truth is
     # computed: a serving request sees its graphs once
     samples, nindex = wl.neighborhood_samples(
         cfg.depth, use_tconv=cfg.use_tconv, truth=truth,
         num_workers=cfg.num_workers, order=cfg.order, use_cache=need_truth,
-        use_hetero=cfg.use_hetero)
+        use_hetero=cfg.use_hetero, use_node_feat=cfg.use_node_feature)
     if cfg.degree_feature:
         apply_degree_feature(samples)
     if callable(capacities):
@@ -303,11 +314,33 @@ def neighborhood_predictions(params, tgt_cfg, query_embs,
     and exact-recounted on the top tail when cfg.verify_budget > 0, and
     the neighborhood row indices whose counts are now EXACT. With
     ``cfg.serve_bf16`` the target tower runs in bfloat16; the count head
-    and everything after it stay f32."""
+    and everything after it stay f32.
+
+    A list of models with the list of their query embeddings is a
+    checkpoint ensemble: the members' predictions are averaged in the
+    model's log2(count + 1) space (count errors are multiplicative), then
+    de-logged; clamp and verification run once on the mean. The batches
+    go to the device once and every member reads them. A one-member list
+    is the single path."""
     if cfg.serve_bf16:
         tgt_cfg = dataclasses.replace(tgt_cfg, dtype=torch.bfloat16)
-    counts = train_loop.predict_neighborhood_counts(
-        params, tgt_cfg, query_embs, stage.batches, device)
+    members = list(params) if isinstance(params, (list, tuple)) else [params]
+    embs = (list(query_embs) if isinstance(query_embs, (list, tuple))
+            else [query_embs])
+    if len(members) != len(embs):
+        raise ValueError(f"{len(members)} ensemble members but "
+                         f"{len(embs)} query embeddings")
+    if len(members) == 1:
+        counts = train_loop.predict_neighborhood_counts(
+            members[0], tgt_cfg, embs[0], stage.batches, device)
+    else:
+        staged = train_loop.stage_batches_for_predict(stage.batches, device)
+        logs = np.mean([
+            np.log2(np.maximum(train_loop.predict_neighborhood_counts(
+                p, tgt_cfg, e, stage.batches, device, staged=staged),
+                0.0) + 1.0)
+            for p, e in zip(members, embs)], axis=0)
+        counts = np.exp2(logs) - 1.0
     verified = np.zeros(0, np.int64)
     if cfg.clamp_counts:
         from .truth.bounds import clamp_counts
@@ -332,7 +365,8 @@ def verify_tail_counts(counts: np.ndarray, stage: StageData,
     count — unioned across columns and with the top-k by row total — are
     replaced by exact canonical counts from the thread-pooled native VF2
     run on their own (<= depth-d) neighborhood subgraphs. Uses only the
-    input graph. Returns (counts copy, verified row indices)."""
+    input graph; labeled mode recounts under label matching. Returns
+    (counts copy, verified row indices)."""
     queries = pipeline_queries(cfg)
     n = counts.shape[0]
     k = max(1, int(np.ceil(cfg.verify_budget * n)))
@@ -341,7 +375,6 @@ def verify_tail_counts(counts: np.ndarray, stage: StageData,
     flagged = np.unique(np.concatenate([by_total, by_col.ravel()]))
 
     from .graph.canonical import canonical_neighborhood
-    from .truth import native as truth_native
 
     counts = counts.copy()
     index = np.asarray(stage.nindex.index)
@@ -356,11 +389,20 @@ def verify_tail_counts(counts: np.ndarray, stage: StageData,
     row_arr = np.asarray(rows, np.int64)
     if not nbs:
         return counts, row_arr
-    per_nb = truth_native.parallel_canonical_counts(
+    per_nb = _canonical_counts(cfg)(
         [nb.graph for nb in nbs], queries, cfg.num_workers)
     for nb, i, cc in zip(nbs, rows, per_nb):
         counts[i] = cc[nb.canonical]
     return counts, row_arr
+
+
+def _canonical_counts(cfg: PipelineConfig):
+    """The exact per-node counter of ``cfg``'s mode: label-preserving VF2
+    in labeled mode, plain VF2 otherwise (both thread-parallel)."""
+    from .truth import native as truth_native
+
+    return (truth_native.parallel_labeled_counts if cfg.use_node_feature
+            else truth_native.parallel_canonical_counts)
 
 
 def exact_columns(cfg: PipelineConfig) -> np.ndarray:
@@ -384,7 +426,6 @@ def exact_small_counts(counts: np.ndarray, stage: StageData,
     sub_queries = [queries[i] for i in qcols]
 
     from .batch.build import CANONICAL
-    from .truth import native as truth_native
 
     graphs, canon = [], []
     for s in stage.samples:
@@ -392,11 +433,11 @@ def exact_small_counts(counts: np.ndarray, stage: StageData,
         und = s.edge_src < s.edge_dst
         edges = np.stack(
             [s.edge_src[und], s.edge_dst[und]], 1).astype(np.int32)
-        graphs.append(Graph(s.n_nodes, edges))
+        graphs.append(Graph(s.n_nodes, edges,
+                            s.x if cfg.use_node_feature else None))
         canon.append(int(np.argmax(s.node_type == CANONICAL)))
     counts = counts.copy()
-    per_nb = truth_native.parallel_canonical_counts(
-        graphs, sub_queries, cfg.num_workers)
+    per_nb = _canonical_counts(cfg)(graphs, sub_queries, cfg.num_workers)
     for r, (cc, cv) in enumerate(zip(per_nb, canon)):
         counts[r, qcols] = cc[cv]
     return counts, qcols
@@ -422,14 +463,17 @@ def stage_bounds(stage: StageData, cfg: PipelineConfig,
     """(#neighborhoods, Q) combinatorial upper bounds of a request,
     computed once and memoized on the StageData (the stage-1 clamp and
     the stage-3 node clamp use the same bounds)."""
-    key = (canonical_type, tuple(cfg.query_ids))
+    key = (canonical_type, cfg.use_node_feature, tuple(cfg.query_ids),
+           cfg.neigh_input_dim)
     cache = getattr(stage, "_bounds_cache", None)
     if cache is None or cache[0] != key:
         from .truth.bounds import neighborhood_count_bounds
 
+        # labeled mode divides by the label-preserving |Aut|
         cached = neighborhood_count_bounds(
             stage.batches, pipeline_queries(cfg),
-            canonical_type=canonical_type, device=device)
+            canonical_type=canonical_type, labeled=cfg.use_node_feature,
+            device=device)
         object.__setattr__(stage, "_bounds_cache", (key, cached))
         return cached
     return cache[1]

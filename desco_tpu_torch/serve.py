@@ -12,12 +12,16 @@ One response line per request, in order:
      "refined": true, "verified": 3}
 
 Errors come back as {"id": ..., "error": "..."} without killing the
-daemon; a line ``quit`` ends it. The service runs on CUDA unless
-``--device cpu`` is given; ``--bf16`` runs the target tower in bfloat16.
+daemon; a line ``quit`` ends it (on TCP: ends that connection). The
+service runs on CUDA unless ``--device cpu`` is given; ``--bf16`` runs
+the target tower in bfloat16; several ``--neigh_ckpt`` paths serve their
+ensemble. ``--n_devices`` other than 1 (M15) and ``--compile_cache``
+(M17) are not ported yet and raise (ROADMAP.md, Queue 1).
 
 Usage:
   python -m desco_tpu_torch.serve --neigh_ckpt release/r4/neigh.best \\
       --gossip_ckpt release/r4/gossip.best         # stdin/stdout
+  python -m desco_tpu_torch.serve ... --tcp 127.0.0.1:8345   # line-JSON TCP
 """
 
 from __future__ import annotations
@@ -30,6 +34,10 @@ import sys
 def build_service(args):
     from .serving import CountingService
 
+    if args.compile_cache:
+        raise NotImplementedError(
+            "--compile_cache has no counterpart in the port yet "
+            "(ROADMAP.md, Queue 1 M17)")
     overrides = {}
     if args.verify_budget is not None:
         overrides["verify_budget"] = args.verify_budget
@@ -39,7 +47,8 @@ def build_service(args):
         overrides["serve_bf16"] = True
     return CountingService(
         args.neigh_ckpt, args.gossip_ckpt,
-        config_overrides=overrides or None, device=args.device)
+        config_overrides=overrides or None, n_devices=args.n_devices,
+        device=args.device)
 
 
 def handle(svc, req: dict) -> dict:
@@ -83,13 +92,22 @@ def serve_lines(svc, rfile, wfile) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m desco_tpu_torch.serve")
-    ap.add_argument("--neigh_ckpt", required=True)
+    # several paths serve their ensemble
+    ap.add_argument("--neigh_ckpt", required=True, nargs="+")
     ap.add_argument("--gossip_ckpt", default=None)
+    ap.add_argument("--n_devices", type=int, default=1,
+                    help="devices (more than 1, data-parallel serving, is "
+                         "not ported yet: ROADMAP.md M15)")
     ap.add_argument("--verify_budget", type=float, default=None)
     ap.add_argument("--exact_size", type=int, default=0,
                     help="serve queries with <= N nodes exactly")
     ap.add_argument("--bf16", action="store_true",
                     help="bfloat16 target tower (config serve_bf16)")
+    ap.add_argument("--tcp", default=None, metavar="HOST:PORT",
+                    help="serve line-JSON over TCP instead of stdio, one "
+                         "connection at a time")
+    ap.add_argument("--compile_cache", default=None, metavar="DIR",
+                    help="not ported yet (ROADMAP.md M17)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without "
                          "a GPU unless 'cpu' is given)")
@@ -98,6 +116,16 @@ def main(argv=None) -> int:
     svc = build_service(args)
     print("ready", file=sys.stderr, flush=True)
 
+    if args.tcp:
+        import socket
+
+        host, port = args.tcp.rsplit(":", 1)
+        srv = socket.create_server((host, int(port)))
+        print(f"listening on {args.tcp}", file=sys.stderr, flush=True)
+        while True:
+            conn, _ = srv.accept()
+            with conn, conn.makefile("r") as rf, conn.makefile("w") as wf:
+                serve_lines(svc, rf, wf)
     serve_lines(svc, sys.stdin, sys.stdout)
     return 0
 

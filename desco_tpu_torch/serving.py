@@ -13,9 +13,14 @@ The service runs on CUDA unless the caller passes ``device="cpu"``; with
 no GPU visible it raises rather than fall back. Float32 throughout, with
 TF32 off (utils/device.py), unless ``config_overrides={"serve_bf16":
 True}`` asks for the bfloat16 target tower (f32 parameters cast in the
-forward, f32 count head, f32 gossip). Not in this slice (ROADMAP.md, Queue 1):
-``count_large_graph`` (halo-sharded gossip, M16) and ``n_devices > 1``
-(data-parallel serving, M15).
+forward, f32 count head, f32 gossip). A sequence of neighborhood
+checkpoints serves their ensemble (stage-1 predictions averaged in
+log2(count + 1) space; the config rehydrates from the first member and
+the gossip stage reads the first member's query embeddings). A
+checkpoint trained in labeled mode (``use_node_feature``) serves graphs
+that carry one-hot ``node_feat``. Not in this slice (ROADMAP.md, Queue
+1): ``count_large_graph`` (halo-sharded gossip, M16), ``n_devices > 1``
+(data-parallel serving, M15) and ``compile_cache`` (M17).
 
 Typical use::
 
@@ -29,7 +34,7 @@ from __future__ import annotations
 import dataclasses
 import queue
 import threading
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -92,29 +97,35 @@ class CountingService:
 
     def __init__(
         self,
-        neigh_checkpoint: str,
+        neigh_checkpoint: Union[str, Sequence[str]],
         gossip_checkpoint: Optional[str] = None,
         config_overrides: Optional[dict] = None,
         n_devices: int = 1,
         device=None,
     ) -> None:
-        """``device``: None or "cuda" serve on the GPU (and raise when
-        none is visible); "cpu" serves on the CPU, as the tests do."""
+        """``neigh_checkpoint``: a path, or a sequence of paths for an
+        ensemble. ``device``: None or "cuda" serve on the GPU (and raise
+        when none is visible); "cpu" serves on the CPU, as the tests do."""
         if n_devices != 1:
             raise NotImplementedError(
                 "data-parallel serving (n_devices != 1) is not ported yet "
                 "(ROADMAP.md, Queue 1 M15)")
         self.device = resolve_device(device)
-        self.neigh_params, meta = self._load(neigh_checkpoint)
-        self.cfg = cfg = _rehydrate_config(meta, config_overrides)
+        paths = ([neigh_checkpoint] if isinstance(neigh_checkpoint, str)
+                 else list(neigh_checkpoint))
+        members, metas = zip(*(self._load(p) for p in paths))
+        self.members = list(members)
+        self.cfg = cfg = _rehydrate_config(metas[0], config_overrides)
         self.tgt_cfg, self.qry_cfg = model_configs(cfg, self.device)
         self.query_batch = build_query_batch(cfg)
-        # static query set -> embed once, reuse every request (the count
-        # head and the gossip model both read these embeddings)
+        # static query set -> embed once per member, reuse every request
+        # (each member's count head reads its own embeddings; the gossip
+        # model conditions on the first member's)
         with torch.inference_mode():
-            self.query_embs = neigh_mod.embed_queries(
-                self.neigh_params, self.qry_cfg,
-                self.query_batch.to(self.device))
+            q_dev = self.query_batch.to(self.device)
+            self.member_embs = [
+                neigh_mod.embed_queries(p, self.qry_cfg, q_dev)
+                for p in self.members]
         self.gossip_params = None
         if gossip_checkpoint is not None:
             self.gossip_params, _ = self._load(gossip_checkpoint)
@@ -218,7 +229,7 @@ class CountingService:
         if not stage.samples:
             return self._empty_result(stage)
         counts, verified = neighborhood_predictions(
-            self.neigh_params, self.tgt_cfg, self.query_embs, stage,
+            self.members, self.tgt_cfg, self.member_embs, stage,
             self.cfg, self.device)
         if not refine:
             return self._package_unrefined(stage, counts, verified)
@@ -227,7 +238,7 @@ class CountingService:
             capacities=lambda samples: self._pin_caps(
                 self._gossip_buckets, samples, self.cfg.gossip_batch_size))
         node_counts = predict_gossip_counts(
-            self.gossip_params, self.query_embs, gb, self.device)
+            self.gossip_params, self.member_embs[0], gb, self.device)
         return self._guard_and_package(stage, node_counts, counts, verified)
 
     def _guard_and_package(self, stage, node_counts, counts,

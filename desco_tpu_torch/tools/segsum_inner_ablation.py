@@ -488,7 +488,7 @@ def _own_cases(device, seed: int) -> dict:
     samples, _ = Workload(load_data(f"SynNp_320_{seed}")
                           ).neighborhood_samples(svc.cfg.depth)
     trb = pack_samples(samples, *auto_capacities(samples, g_cap=512))[0]
-    conv_w = svc.neigh_params["target"]["conv"].w[3].contiguous()
+    conv_w = svc.members[0]["target"]["conv"].w[3].contiguous()
     return kernel_cases(stage.batches[0].to(device), gb.to(device),
                         trb.to(device, training=True), conv_w)
 

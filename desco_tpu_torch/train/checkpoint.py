@@ -12,11 +12,14 @@ pair: GAT's ``att`` is the pair (a_src, a_dst), kept as an
 ``nn.ParameterList`` (``<path>.att.0``, ``<path>.att.1`` for
 ``<path>/att/0``, ``<path>/att/1``), and PNA's ``pna_mix`` is a bare
 array beside subtrees, kept as a parameter of the same name in its
-``Tree`` node (``<path>.pna_mix``). ``params_from_jax`` is the
-one bridge: the release checkpoints and the parity tests (which flatten
+``Tree`` node (``<path>.pna_mix``), as are the bare arrays of the
+baselines' trees (DIAMNet's attention ``q`` ... ``g_b`` and LSTM ``wi``,
+``wh``, ``b``; LRP's per-layer ``w``, ``b``), whose keys stay as they are
+even where they read ``w`` or ``b``. ``params_from_jax`` is the one
+bridge: the release checkpoints and the parity tests (which flatten
 desco_tpu parameters the same way) both go through it, and
-``save_checkpoint`` writes the same keys back (``jax_key``), so desco_tpu's
-``load_checkpoint`` reads what the port saved.
+``save_checkpoint`` writes the same keys back (``jax_keys``), so
+desco_tpu's ``load_checkpoint`` reads what the port saved.
 
 The optimizer state goes to ``.opt.npz`` in a layout of the port's own
 (desco_tpu's is optax's state tree and does not interchange): ``count`` is
@@ -37,8 +40,9 @@ from torch import nn
 from ..models.init import Linear, Tree
 
 # tree keys whose two array leaves are a pair of their own, not a Linear's
-# (w, b): GAT's attention vectors (a_src, a_dst)
-PAIRS = ("att",)
+# (w, b): GAT's attention vectors (a_src, a_dst), DIAMNet's layer norms
+# (scale, bias)
+PAIRS = ("att", "ln_q", "ln_k", "ln_v")
 
 
 def _param(arr: np.ndarray) -> nn.Parameter:
@@ -70,9 +74,12 @@ def _build(node: dict, path: str) -> nn.Module:
     return tree
 
 
-def params_from_jax(flat: Dict[str, np.ndarray]) -> nn.Module:
+def params_from_jax(flat):
     """desco_tpu parameters, flattened as its checkpoints flatten them
-    (``{"target/conv/0": array, ...}``), as the port's module tree."""
+    (``{"target/conv/0": array, ...}``), as the port's module tree; a
+    list of such dicts (the members of an ensemble) as a list of trees."""
+    if isinstance(flat, (list, tuple)):
+        return [params_from_jax(f) for f in flat]
     tree: dict = {}
     for key, arr in flat.items():
         *path, leaf = key.split("/")
@@ -83,17 +90,24 @@ def params_from_jax(flat: Dict[str, np.ndarray]) -> nn.Module:
     return _build(tree, "")
 
 
-def jax_key(state_dict_key: str) -> str:
-    """The desco_tpu checkpoint key of one of the port's parameters: a
-    Linear's ``w`` / ``b`` are leaves ``0`` / ``1``; the items of a pair
-    and a bare array keep their keys."""
-    *path, leaf = state_dict_key.split(".")
-    return "/".join(path + [{"w": "0", "b": "1"}.get(leaf, leaf)])
+def jax_keys(params: nn.Module) -> Dict[str, str]:
+    """{state-dict key: desco_tpu checkpoint key} of the port's
+    parameters: a Linear's ``w`` / ``b`` are leaves ``0`` / ``1``; the
+    items of a pair and the bare arrays of a ``Tree`` keep their keys."""
+    out = {}
+    for path, mod in params.named_modules():
+        parts = path.split(".") if path else []
+        for name, _ in mod.named_parameters(recurse=False):
+            leaf = ({"w": "0", "b": "1"}[name] if isinstance(mod, Linear)
+                    else name)
+            out[".".join(parts + [name])] = "/".join(parts + [leaf])
+    return out
 
 
 def flatten_params(params: nn.Module) -> Dict[str, np.ndarray]:
     """The parameters under desco_tpu's checkpoint keys, as numpy."""
-    return {jax_key(k): v.detach().cpu().numpy()
+    keys = jax_keys(params)
+    return {keys[k]: v.detach().cpu().numpy()
             for k, v in params.state_dict().items()}
 
 

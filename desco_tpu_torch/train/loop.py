@@ -56,7 +56,7 @@ from ..models import gossip as gossip_mod
 from ..models import neighborhood as neigh_mod
 from ..models.shmp_gnn import SHMPConfig
 from ..utils.device import resolve_device
-from .checkpoint import jax_key, load_checkpoint, save_checkpoint
+from .checkpoint import jax_keys, load_checkpoint, save_checkpoint
 from .schedule import ReduceLROnPlateau
 
 
@@ -87,12 +87,13 @@ class Adam:
         self.count = torch.zeros((), dtype=torch.float32, device=dev)
         self._slices: Dict[str, tuple] = {}
         self._params = [p for _, p in named]
+        keys = jax_keys(params)
         off = 0
         for name, p in named:
             n = p.numel()
             p.data = self.flat[off:off + n].view(p.shape)
             p.grad = self.grad[off:off + n].view(p.shape)
-            self._slices[jax_key(name)] = (off, off + n, tuple(p.shape))
+            self._slices[keys[name]] = (off, off + n, tuple(p.shape))
             off += n
 
     def zero_grad(self) -> None:
@@ -437,14 +438,26 @@ def _valid_rows(batches: List[PackedGraphs], preds: torch.Tensor,
     return np.concatenate(out, axis=0)
 
 
+def stage_batches_for_predict(batches: List[PackedGraphs],
+                              device) -> PackedGraphs:
+    """A request's packed batches, stacked and moved to ``device`` in one
+    transfer: the ``staged`` argument of ``predict_neighborhood_counts``,
+    which the members of an ensemble share."""
+    return stack_batches(batches).to(device)
+
+
 def predict_neighborhood_counts(params, tgt_cfg, query_embs: torch.Tensor,
                                 batches: List[PackedGraphs],
-                                device) -> np.ndarray:
+                                device, staged: Optional[PackedGraphs] = None
+                                ) -> np.ndarray:
     """(#valid graphs over all batches, Q) de-logged stage-1 counts.
     ``query_embs`` ([Q, H] on ``device``, ``embed_queries``) come from the
-    query tower, which a service runs once: the query set is static."""
+    query tower, which a service runs once: the query set is static.
+    ``staged``: ``batches`` already on the device
+    (``stage_batches_for_predict``)."""
     with torch.inference_mode():
-        stacked = stack_batches(batches).to(device)
+        stacked = (staged if staged is not None
+                   else stage_batches_for_predict(batches, device))
         preds = torch.stack([
             neigh_mod.predict_counts_from_embs(params, tgt_cfg,
                                                stacked[bi], query_embs)

@@ -127,14 +127,22 @@ def _batch_bounds(batch: PackedGraphs, schedules,
 
 def neighborhood_count_bounds(
     batches: List[PackedGraphs], queries: Sequence[Graph],
-    canonical_type: int = 1, *, device,
+    canonical_type: int = 1, labeled: bool = False, *, device,
 ) -> np.ndarray:
     """(#neighborhoods, Q) f32 upper bounds, rows in the same valid-graph
     order as ``predict_neighborhood_counts``. Host batches are moved to
-    ``device``; the labeled (label-preserving |Aut|) mode is not ported."""
+    ``device``.
+
+    ``labeled``: divide by the label-preserving |Aut(q)| (queries carry
+    one-hot node_feat). The structural divisor is larger (a
+    (0, 0, 1)-labeled triangle has 6 structural automorphisms but 2 that
+    keep its labels), so it would make the bounds too small and clamp
+    away correct labeled predictions."""
     schedules = _hashable_schedules(queries)
-    auts = np.array([symmetric_factor(q) for q in queries],
-                    dtype=np.float32)
+    auts = np.array([
+        symmetric_factor(q, (q.node_feat.argmax(-1).astype(np.int32)
+                             if labeled else None))
+        for q in queries], dtype=np.float32)
     outs, valids = [], []
     with torch.inference_mode():
         for b in batches:

@@ -133,18 +133,70 @@ def _edges_ptr(g: Graph):
 def vf2_count_native(
     target: Graph, query: Graph,
     per_node: Optional[np.ndarray] = None,
+    target_labels: Optional[np.ndarray] = None,
+    query_labels: Optional[np.ndarray] = None,
 ) -> int:
-    """Induced embeddings of ``query`` in ``target`` (unlabeled; the
-    port's serving slice has no labeled mode). ``per_node`` (int64,
-    len n_target) accumulates each embedding at its max target node."""
+    """Induced embeddings of ``query`` in ``target``; with integer node
+    labels on both sides (labeled mode) a query node maps only to a
+    target node of its label. ``per_node`` (int64, len n_target)
+    accumulates each embedding at its max target node."""
+    if (target_labels is None) != (query_labels is None):
+        raise ValueError(
+            "target_labels and query_labels must be given together")
     lib = load_library()
     te, tp = _edges_ptr(target)
     qe, qp = _edges_ptr(query)
     pn = (per_node.ctypes.data_as(ctypes.POINTER(ctypes.c_longlong))
           if per_node is not None else None)
+    tl = ql = None
+    if target_labels is not None:
+        tlab = np.ascontiguousarray(target_labels, dtype=np.int32)
+        qlab = np.ascontiguousarray(query_labels, dtype=np.int32)
+        tl = tlab.ctypes.data_as(ctypes.POINTER(ctypes.c_int))
+        ql = qlab.ctypes.data_as(ctypes.POINTER(ctypes.c_int))
     return int(lib.vf2_count(
         target.n_nodes, target.n_edges, tp,
-        query.n_nodes, query.n_edges, qp, None, None, pn))
+        query.n_nodes, query.n_edges, qp, tl, ql, pn))
+
+
+def labels_of(g: Graph) -> np.ndarray:
+    """A labeled graph's integer node labels: the argmax of its one-hot
+    ``node_feat``."""
+    return g.node_feat.argmax(-1).astype(np.int32)
+
+def parallel_labeled_counts(
+    targets: Sequence[Graph], queries: Sequence[Graph],
+    num_workers: Optional[int] = None,
+) -> List[np.ndarray]:
+    """Canonical counts per target under label matching (labeled mode:
+    targets and queries carry one-hot ``node_feat``), divided by each
+    query's label-preserving |Aut|; thread-parallel over targets when the
+    native library runs (the C call releases the GIL)."""
+    from .vf2 import count_induced_embeddings, symmetric_factor
+
+    q_labels = [labels_of(q) for q in queries]
+    sf = [max(symmetric_factor(q, ql), 1) for q, ql in zip(queries, q_labels)]
+    count = (vf2_count_native if native_available()
+             else count_induced_embeddings)
+    results = [np.zeros((t.n_nodes, len(queries)), np.float64)
+               for t in targets]
+
+    def one_target(ti):
+        t = targets[ti]
+        t_labels = labels_of(t)
+        for qi, q in enumerate(queries):
+            per = np.zeros(t.n_nodes, np.int64)
+            count(t, q, per, t_labels, q_labels[qi])
+            results[ti][:, qi] = per / sf[qi]
+
+    if native_available() and len(targets) > 1:
+        with ThreadPoolExecutor(
+                max_workers=num_workers or os.cpu_count() or 1) as ex:
+            list(ex.map(one_target, range(len(targets))))
+    else:
+        for ti in range(len(targets)):
+            one_target(ti)
+    return results
 
 
 def symmetric_factor_native(query: Graph) -> int:

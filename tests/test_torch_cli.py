@@ -161,9 +161,7 @@ def test_cli_default_device_is_the_gpu(tmp_path):
     (["--n_devices", "2"], "M15"),
     (["--n_devices", "0"], "M15"),
     (["--compile_cache", "x"], "M17"),
-    (["--neigh_checkpoint", "a", "b"], "M11"),
     (["--neigh_bf16_train", "--train_neigh", "--n_devices", "2"], "M15"),
-    (["--use_node_feature", "--train_neigh"], "ROADMAP"),
 ])
 def test_unported_options_raise_naming_the_roadmap(tmp_path, flags, match):
     with pytest.raises(NotImplementedError, match=match):

@@ -33,7 +33,7 @@ from desco_tpu_torch.pipeline import PipelineConfig, build_query_batch
 from desco_tpu_torch.train import checkpoint as tckpt
 from desco_tpu_torch.train.checkpoint import (
     flatten_params,
-    jax_key,
+    jax_keys,
     params_from_jax,
 )
 
@@ -137,7 +137,8 @@ def test_conv_tower_gradients_match_jax_grad(conv, inputs):
     (tshmp.apply_shmp(tparams, tcfg, batch.to("cpu", training=True))
      * torch.from_numpy(cot)).sum().backward()
     if conv == "PNA" and inputs == "random":
-        got = {jax_key(n): p.grad.numpy()
+        keys = jax_keys(tparams)
+        got = {keys[n]: p.grad.numpy()
                for n, p in tparams.named_parameters()}
         for key, want in _flatten(jgrads).items():
             scale = float(np.abs(want).max())

@@ -245,6 +245,35 @@ def test_k2_k3_in_type_chunks_match_plain_on_gpu(rng, cuda_device, n, h, k,
         assert torch.equal(a, b)
 
 
+# (n, h, k, live edges) at one edge type, the DIAMNet graph tower's: every
+# (dst, type) run is a whole destination row, the W ring holds one matrix
+# and the chunk loop runs once; widths 64 (the tower's) and odd ones
+ONE_TYPE_CASES = [(1000, 64, 64, 8000), (1000, 64, 64, 0),
+                  (333, 33, 17, 2000), (129, 64, 128, 600)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, BF], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n,h,k,e", ONE_TYPE_CASES)
+def test_k2_k3_at_one_edge_type_match_plain_on_gpu(rng, cuda_device, n, h,
+                                                   k, e, dtype):
+    """K2' and K3' at T = 1 against the plain versions (bf16 dx / dW one
+    bf16 step), and two runs bit-equal; one chunk of one type."""
+    x, w, st, _ = typed_pair(rng, cuda_device, n, h, k, 1, e, dtype)
+    assert cs.chunk_types(dtype, h, k, 1) == 1
+    assert cs.chunk_types(dtype, h, k, 1, backward=True) == 1
+    out, dx, dw = run_k2_k3(x, w, st)
+    assert tuple(dw.shape) == (1, h, k)
+    close(out, cs.fused_typed_transform_aggregate_plain(
+        x, st.edge_src, st.keys, w, 1, n))
+    dx_ref, dw_ref = cs.typed_aggregate_bwd_plain(g_of(st, w), x, w, st)
+    rtol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    close(dx, dx_ref, rtol)
+    close(dw, dw_ref, rtol)
+    for a, b in zip((out, dx, dw), run_k2_k3(x, w, st)):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, BF], ids=["f32", "bf16"])
 @pytest.mark.parametrize("t,cap", [(6, 2), (6, 4), (33, 5)])

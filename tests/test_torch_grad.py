@@ -255,10 +255,11 @@ def assert_grads_match(tparams, jgrads, min_nonzero=1):
 
 
 def flatten_grads(tparams):
-    from desco_tpu_torch.train.checkpoint import jax_key
+    from desco_tpu_torch.train.checkpoint import jax_keys
 
-    return {jax_key(n): (p.grad if p.grad is not None
-                         else torch.zeros_like(p)).numpy()
+    keys = jax_keys(tparams)
+    return {keys[n]: (p.grad if p.grad is not None
+                      else torch.zeros_like(p)).numpy()
             for n, p in tparams.named_parameters()}
 
 
@@ -326,9 +327,10 @@ def test_make_adam_matches_optax_chain(rng, weight_decay):
     tx = jloop.make_adam(weight_decay)
     jstate = tx.init(jparams)
     opt = tloop.make_adam(tparams, weight_decay)
-    from desco_tpu_torch.train.checkpoint import jax_key
+    from desco_tpu_torch.train.checkpoint import jax_keys
 
-    named = {jax_key(n): p for n, p in tparams.named_parameters()}
+    keys = jax_keys(tparams)
+    named = {keys[n]: p for n, p in tparams.named_parameters()}
     for step in range(6):
         lr = 1e-2 if step < 3 else 5e-3
         grads = {k: (rng.standard_normal(v.shape) * 10.0 ** rng.integers(

@@ -24,7 +24,7 @@ from desco_tpu_torch.models import gossip as tgossip
 from desco_tpu_torch.models import neighborhood as tneigh
 from desco_tpu_torch.pipeline import PipelineConfig, build_query_batch
 from desco_tpu_torch.pipeline import model_configs as t_model_configs
-from desco_tpu_torch.train.checkpoint import jax_key, params_from_jax
+from desco_tpu_torch.train.checkpoint import jax_keys, params_from_jax
 
 from test_torch_shmp import (  # noqa: F401 (autouse fixture)
     jax_batch, one_torch_thread, target_batch)
@@ -127,6 +127,7 @@ def test_fresh_init_layout_matches_desco_tpu():
     ]
     for jp, tp in pairs:
         jshapes = {k: v.shape for k, v in _flatten(jp).items()}
-        tshapes = {jax_key(k): tuple(v.shape)
+        keys = jax_keys(tp)
+        tshapes = {keys[k]: tuple(v.shape)
                    for k, v in tp.state_dict().items()}
         assert jshapes == tshapes

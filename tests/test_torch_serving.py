@@ -93,14 +93,14 @@ def test_r4_service_loads_paper_config(port_service):
     assert (svc.tgt_cfg.layer_num, svc.tgt_cfg.hidden_dim,
             svc.tgt_cfg.n_edge_types) == (8, 64, 6)
     assert svc.tgt_cfg.agg_mode == "aggregate_first"  # CPU default
-    conv = svc.neigh_params["target"]["conv"]
+    conv = svc.members[0]["target"]["conv"]
     assert tuple(conv.w.shape) == (8, 6, 64, 64)
     npz = np.load(NEIGH + ".params.npz")
     np.testing.assert_array_equal(conv.w.numpy(), npz["target/conv/0"])
     gate = svc.gossip_params["convs"][0]["gate"][1]
     np.testing.assert_array_equal(
         gate.w.numpy(), np.load(GOSSIP + ".params.npz")["convs/0/gate/1/0"])
-    assert tuple(svc.query_embs.shape) == (29, 64)
+    assert tuple(svc.member_embs[0].shape) == (29, 64)
 
 
 def test_kernel_mode_and_stream_match_count(graphs, port_service, results):
@@ -199,10 +199,12 @@ def test_device_functions_take_no_default_device(fn):
     assert param.default is inspect.Parameter.empty
 
 
-@pytest.mark.parametrize("override", [{"use_node_feature": True}])
+@pytest.mark.parametrize("override", [["--compile_cache", "x"]])
 def test_unported_options_raise(override):
+    from desco_tpu_torch.serve import main
+
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CountingService(NEIGH, device="cpu", config_overrides=override)
+        main(["--neigh_ckpt", NEIGH, "--device", "cpu"] + override)
 
 
 def test_unported_entry_points_raise(port_service, graphs):

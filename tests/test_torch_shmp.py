@@ -90,12 +90,13 @@ def test_tower_matches_apply_shmp(kind, layers, hidden, agg_mode):
 def test_fresh_init_has_desco_tpu_layout():
     """Port-initialized towers carry desco_tpu's keys and shapes, and the
     torch-Linear U(+-1/sqrt(fan_in)) range."""
-    from desco_tpu_torch.train.checkpoint import jax_key
+    from desco_tpu_torch.train.checkpoint import jax_keys
 
     jcfg, tcfg = tower_cfgs("target", 3, 16)
     jflat = _flatten(jshmp.init_shmp(jax.random.PRNGKey(0), jcfg))
     tparams = tshmp.init_shmp(tcfg, torch.Generator().manual_seed(0))
-    tflat = {jax_key(k): v for k, v in tparams.state_dict().items()}
+    keys = jax_keys(tparams)
+    tflat = {keys[k]: v for k, v in tparams.state_dict().items()}
     assert {k: v.shape for k, v in jflat.items()} == {
         k: tuple(v.shape) for k, v in tflat.items()}
     for key, v in tflat.items():
