@@ -168,11 +168,36 @@ nonzero on a failed check (no phase catches its own failure):
      per forward, 0 < sol_fraction <= 1.05), and one series of the K5
      probe (tools/segsum_inner_ablation.py) at K = 128 on the bench
      stream, every variant launched through its wrapper.
+ 13. the halo path (run before the record), 4 shards on the one card, on
+     desco_tpu's large-graph recipe (a BA-style graph of 20,000 nodes,
+     degree 4, seed 3): (c) ``count_large_graph`` with release/r4 and
+     every guard: counts finite and >= 0, wall seconds of stage 1, the
+     partition and the halo gossip, n_loc / N, launches (K2 8 per target
+     batch, K1 once per target batch, the gather-fused K1 1 + 2 x 29 per
+     halo aggregate's streams); (b) ``serve_gossip_counts`` at 4 shards
+     against 1 (rtol 1e-4, floored at 1) and against the CPU (rtol 1e-3,
+     floored at 1); (a) the halo SHMP core of r4's target tower on the
+     graph's whole-graph typed sample against the packed
+     ``apply_shmp_core`` on K2' (within 1e-3 of max|out|), and a GAT and
+     a PNA tower at width 64 on a ``force_pull`` partition against their
+     packed towers, forward (1e-3 of max|out|) and backward (finite,
+     error printed), launches exactly as ``expected_halo_conv`` predicts
+     (K1 sums, K4 behind them); (d) the halo gossip loss on a partition
+     with push pairs against the packed ``gossip_loss`` (gradients within
+     phase 5's 1e-4 of a tensor's scale), launches (the gather-fused K1
+     forward and backward per stream), and two same-seed halo train steps
+     (dropout 0.01, Adam) bit-equal; ``python -m desco_tpu_torch.serve
+     --large_threshold 1000`` answering a 2,000-node graph as
+     ``count_large_graph`` does; (e) every kernel of the path launched,
+     and the gather-fused K1 (forward and backward) on a gossip shard's
+     interior, boundary and send streams and the 1-column degrees, K1
+     and K4 at the halo GAT / PNA sums, checked and timed as in phase 2.
  12. one JSON line of kernels (K2' and K3' at T = 33 and at T = 1 in
      rows of their own, launched by the order-4 run and the DIAMNet
      driver; every other row's launches count the ablation path, labeled
-     serving and the ensembles too, the gather-fused K1's the baseline
-     drivers as well), the card line, then the final ok line.
+     serving and the ensembles and the halo path too, the gather-fused
+     K1's the baseline entry points as well; K1, K4 and the gather-fused K1
+     carry their halo use sites), the card line, then the final ok line.
 """
 
 from __future__ import annotations
@@ -412,7 +437,7 @@ def k1_edge_cases(torch, cs, rng, dev, dtype) -> None:
     }
     for name, kw in cases.items():
         msgs, seg, n = k1_case(torch, cs, rng, dev, dtype, **kw)
-        out = cs.sorted_segment_sum(msgs, seg, n)
+        out = cs.sorted_segment_sum(msgs, seg, n, cs.segment_offsets(seg, n))
         torch.cuda.synchronize()
         err = max_err(torch, out, cs.sorted_segment_sum_plain(msgs, seg, n),
                       f"K1 {dname(dtype)} {name}")
@@ -421,10 +446,12 @@ def k1_edge_cases(torch, cs, rng, dev, dtype) -> None:
 
 
 def k1_main(torch, cs, dev, msgs, seg, n, label, timed: dict) -> dict:
-    """Check K1 at one main-path shape on msgs' dtype; time the wrapper,
-    the plain version and, for f32 rows, ``index_add_`` (no one PyTorch
-    call sums bf16 rows into f32)."""
-    out = cs.sorted_segment_sum(msgs, seg, n)
+    """Check K1 at one main-path shape on msgs' dtype; time the wrapper
+    (on the stream's offsets, derived once), the plain version and, for
+    f32 rows, ``index_add_`` (no one PyTorch call sums bf16 rows into
+    f32)."""
+    offs = cs.segment_offsets(seg, n)
+    out = cs.sorted_segment_sum(msgs, seg, n, offs)
     torch.cuda.synchronize()
     err = max_err(torch, out, cs.sorted_segment_sum_plain(msgs, seg, n),
                   f"K1 {dname(msgs.dtype)} {label}")
@@ -445,7 +472,7 @@ def k1_main(torch, cs, dev, msgs, seg, n, label, timed: dict) -> dict:
     row = {
         **timed,
         "wrapper_ms": cuda_ms(
-            torch, lambda: cs.sorted_segment_sum(msgs, seg, n)),
+            torch, lambda: cs.sorted_segment_sum(msgs, seg, n, offs)),
         "plain_ms": cuda_ms(
             torch, lambda: cs.sorted_segment_sum_plain(msgs, seg, n)),
         "library_ms": library_ms,
@@ -547,6 +574,23 @@ def gather_edge_cases(torch, cs, rng, dev, dtype) -> None:
               f"{err:.3g}; backward bit-equal over two runs)", flush=True)
 
 
+def gather_bytes(torch, st, k: int, it: int, way: str) -> int:
+    """The HBM bytes the gather-fused K1 (``way`` "fwd") or its backward
+    ("bwd") must move on this stream with rows of ``it`` bytes per element
+    in x and dx: the rows it reads, each once (the distinct live sources
+    of x, or the distinct live segments of the f32 cotangent g; dead rows
+    are never read), its index and offset arrays, and the whole f32
+    output (forward) or dx (backward) written once."""
+    e_live = int(st.fwd_toffs[-1])
+    if way == "fwd":
+        read = int(torch.unique(st.edge_src[:e_live]).numel())
+        return (read * k * it + e_live * 4 + st.fwd_toffs.numel() * 4
+                + st.n_nodes * st.n_types * k * 4)
+    read = int(torch.unique(st.bwd_keys[:e_live]).numel())
+    return (read * k * 4 + e_live * 4 + st.bwd_soffs.numel() * 4
+            + st.n_rows * k * it)
+
+
 def gather_main(torch, cs, dev, case, dtype, graph_rows: dict) -> tuple:
     """Check the gather-fused K1 and its backward at the gossip layer-0
     aggregation (the ``gossip`` case of ``kernel_cases``) on x in
@@ -570,15 +614,12 @@ def gather_main(torch, cs, dev, case, dtype, graph_rows: dict) -> tuple:
     rows = {}
     for way in ("fwd", "bwd"):
         r = graph_rows[f"gather_{way}_{dname(dtype)}"]
+        moved = gather_bytes(torch, st, k, it, way)
         if way == "fwd":
-            moved = (x.numel() * it + e_live * 4 + st.fwd_toffs.numel() * 4
-                     + n_seg * k * 4)
             wrapper = lambda: cs.gather_segment_sum(x, st)  # noqa: E731
             plain = lambda: cs.gather_segment_sum_plain(x, st)  # noqa: E731
             library = lambda: torch.sparse.mm(csr, x)  # noqa: E731
         else:
-            moved = (g.numel() * 4 + e_live * 4 + st.bwd_soffs.numel() * 4
-                     + n * k * it)
             wrapper = lambda: cs.gather_segment_sum_bwd(  # noqa: E731
                 g, st, dtype)
             plain = lambda: cs.gather_segment_sum_bwd_plain(  # noqa: E731
@@ -923,7 +964,8 @@ def k5_checks(torch, cs, probe, dev, seed: int) -> dict:
                           f"{int(ref[1])}")
                     out, ref = out[0], ref[0]
                 if name == "full":
-                    check(torch.equal(out, cs.sorted_segment_sum(m, sg, ns)),
+                    check(torch.equal(out, cs.sorted_segment_sum(
+                        m, sg, ns, cs.segment_offsets(sg, ns))),
                           f"K5 full {label}: not bit-equal to K1")
                 if name in ("noacc", "stream"):  # bit patterns and zeros
                     check(torch.equal(out, ref),
@@ -1164,15 +1206,15 @@ def ablation_phase(torch, cs, probe, dev, seed: int, gen_root: str,
     site = conv_batches[0].to(dev)
     keys6 = (site.edge_dst.int() * 6 + site.edge_type.int()).contiguous()
     n_seg6 = site.n_cap * 6
-    offs6 = torch.searchsorted(keys6, torch.arange(
-        n_seg6 + 1, dtype=torch.int32, device=dev), out_int32=True)
+    # the offsets as the GAT / PNA aggregators derive them: once per batch
+    offs6 = cs.segment_offsets(keys6, n_seg6)
     site_rows = {}
     with torch.inference_mode():
         for k in (64, 1):
             msgs = torch.randn(keys6.shape[0], k, device=dev, generator=agen)
             res = torch.empty(n_seg6, k, device=dev)
             fn_us = probe.graph_us(
-                lambda i: cs.sorted_segment_sum(msgs, keys6, n_seg6))
+                lambda i: cs.sorted_segment_sum(msgs, keys6, n_seg6, offs6))
             k1_us = probe.graph_us(
                 lambda i: cs.launch_k1(msgs, offs6, n_seg6, res))
             site_rows["k1", k] = k1_main(
@@ -1805,6 +1847,529 @@ def serving_rest_phase(torch, cs, probe, dev, seed: int, gen_root: str,
           f"{time.perf_counter() - t10:.1f} s", flush=True)
     return {"serving_launches": serving_launches, **base,
             "labeled": {k: v for k, v in lab.items() if k != "launches"}}
+
+
+# ----------------------------------------------------------- phase 13: halo
+# desco_tpu's large-graph harness recipe (analysis/large_graph_serving.py:
+# 31-36, 55-63): a BA-style graph, 20,000 nodes, degree 4, seed 3
+HALO_NODES, HALO_DEGREE, HALO_GRAPH_SEED = 20000, 4, 3
+HALO_SHARDS = 4
+# the daemon's --large_threshold run: a 2,000-node graph of the same
+# recipe over a threshold of 1,000 nodes
+DAEMON_LARGE_NODES, DAEMON_THRESHOLD = 2000, 1000
+
+
+def ba_graph(Graph, n: int, degree: int, seed: int):
+    """desco_tpu's large-graph recipe: node v attaches to min(v, degree
+    // 2) uniform earlier nodes (duplicates merged)."""
+    rng = np.random.default_rng(seed)
+    pairs = set()
+    for v in range(1, n):
+        m = min(v, max(1, degree // 2))
+        for t in set(rng.integers(0, v, m).tolist()):
+            pairs.add((t, v))
+    return Graph(n, np.array(sorted(pairs), np.int32))
+
+
+def halo_streams(shards) -> dict:
+    """How many shards carry a live send stream and a boundary stream."""
+    return {"send": sum(int(sh.send.edge_src.numel() > 0) for sh in shards),
+            "boundary": sum(int(sh.boundary is not None) for sh in shards),
+            "shards": len(shards)}
+
+
+def per_aggregate(shards) -> int:
+    """Gather-fused K1 launches of one ``halo_typed_aggregate``: the pull
+    sends, the interior streams, the boundary streams."""
+    c = halo_streams(shards)
+    return c["send"] + c["shards"] + c["boundary"]
+
+
+def expected_halo_conv(conv: str, shards, layers: int,
+                       backward: bool) -> dict:
+    """Launches of one halo GAT / PNA core (and its backward): per layer
+    and stream the K1 sums and K4 gathers of ``CONV_SUMS``, the pull
+    sends on the gather-fused K1; backward K4 behind every sum with a
+    gradient, K1 behind every K4 gather, K1' behind every send (every
+    shard reads its halo table)."""
+    s, s_grad, gathers = CONV_SUMS[conv]
+    c = halo_streams(shards)
+    streams = c["shards"] + c["boundary"]
+    out = {"sorted_segment_sum": layers * streams * s,
+           "segment_sum_vjp": layers * streams * gathers,
+           "gather_segment_sum": layers * c["send"],
+           "gather_segment_sum_bwd": 0}
+    if backward:
+        out["sorted_segment_sum"] += layers * streams * gathers
+        out["segment_sum_vjp"] += layers * streams * s_grad
+        out["gather_segment_sum_bwd"] = layers * c["send"]
+    return out
+
+
+def launches_match(got: dict, want: dict) -> bool:
+    return all(got[k] == v for k, v in want.items())
+
+
+# library ops that would sum rows: none may run in a halo forward on the
+# card (its sums are the kernels')
+LIBRARY_SUMS = ("index_add", "scatter_add", "index_put", "sparse",
+                "segment_reduce", "bincount")
+
+
+@contextlib.contextmanager
+def library_sums(torch, what: str):
+    """Record every op dispatched inside the block and fail if one of
+    them is a library sum (``LIBRARY_SUMS``); the kernels' launches go
+    past the dispatcher and are counted by their wrappers instead."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        names = set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.add(str(func))
+            return func(*args, **(kwargs or {}))
+
+    with Ops() as mode:
+        yield
+    bad = sorted(n for n in mode.names
+                 if any(s in n for s in LIBRARY_SUMS))
+    check(not bad, f"{what}: library sums on the card: {bad}")
+    print(f"{what}: {len(mode.names)} distinct ops dispatched, no library "
+          f"sum", flush=True)
+
+
+def halo_gather_site(torch, cs, probe, dev, x, st, what: str) -> dict:
+    """The gather-fused K1 and its backward at one halo stream of the
+    card's run: checked against the plain versions (``gather_check``),
+    timed in CUDA graphs of 8 launches, the plain versions eagerly, and
+    ``sparse.mm`` of the stream's unit CSR adjacency (and its transpose)
+    as the yardstick; the bound in HBM bytes over the live rows
+    (``gather_bytes``)."""
+    n_seg, k = st.n_nodes * st.n_types, x.shape[1]
+    g = torch.randn(n_seg, k, device=dev)
+    err = gather_check(torch, cs, x, g, st, what)
+    e_live = int(st.fwd_toffs[-1])
+    ones = torch.ones(e_live, device=dev)
+    csr = torch.sparse_csr_tensor(st.fwd_toffs,
+                                  st.edge_src[:e_live].contiguous(), ones,
+                                  (n_seg, st.n_rows))
+    csr_t = torch.sparse_csr_tensor(st.bwd_soffs,
+                                    st.bwd_keys[:e_live].contiguous(), ones,
+                                    (st.n_rows, n_seg))
+    rows = {}
+    for way in ("fwd", "bwd"):
+        moved = gather_bytes(torch, st, k, 4, way)
+        if way == "fwd":
+            fn = lambda: cs.gather_segment_sum(x, st)  # noqa: E731
+            plain = lambda: cs.gather_segment_sum_plain(x, st)  # noqa: E731
+            lib = lambda: torch.sparse.mm(csr, x)  # noqa: E731
+        else:
+            fn = lambda: cs.gather_segment_sum_bwd(g, st)  # noqa: E731
+            plain = lambda: cs.gather_segment_sum_bwd_plain(  # noqa: E731
+                g, st)
+            lib = lambda: torch.sparse.mm(csr_t, g)  # noqa: E731
+        b_ms, b_by = bound(moved, e_live * k)
+        rows[way] = {
+            "ms": probe.graph_us(lambda i: fn()) / 1e3,
+            "plain_ms": cuda_ms(torch, plain),
+            "library_ms": library_yardstick(lib, f"K1' {way} {what}"),
+            "library": "torch.sparse.mm of the stream's unit CSR adjacency"
+                       + (" (transposed)" if way == "bwd" else ""),
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": moved,
+            "max_abs_err": err,
+            "shape": f"x [{st.n_rows}, {k}] -> {n_seg} segments, "
+                     f"{e_live} live edges"}
+    print(f"K1' at {what}: {json.dumps(rows)}", flush=True)
+    return rows
+
+
+def halo_phase(torch, cs, probe, dev, seed: int, svc) -> dict:
+    """Phase 13: the halo path on the card at D = 4 shards on the one
+    card. (c) ``count_large_graph`` on the 20k-node graph, wall time by
+    stage; (b) ``serve_gossip_counts`` at D = 4 against D = 1 and the CPU;
+    (a) the sharded SHMP tower (r4's target tower) on the graph's
+    whole-graph typed sample against the packed ``apply_shmp_core`` (K2'),
+    and a GAT and a PNA tower at width 64 on a ``force_pull`` partition
+    against their packed towers, forward and backward; (d) one halo
+    gossip train step against the packed ``gossip_loss``, and two
+    same-seed steps bit-equal; the daemon's ``--large_threshold``; (e)
+    launches zeroed before and read after every run. Returns the halo
+    path's launches and the use-site rows of the record."""
+    from desco_tpu_torch.batch.build import gossip_sample
+    from desco_tpu_torch.batch.packed import auto_capacities, pack_samples
+    from desco_tpu_torch.data.workload import Workload
+    from desco_tpu_torch.graph import Graph
+    from desco_tpu_torch.models import gossip as gossip_mod
+    from desco_tpu_torch.models import shmp_gnn
+    from desco_tpu_torch.parallel import halo
+    from desco_tpu_torch.pipeline import prepare_stage_data
+    from desco_tpu_torch.train.loop import make_adam
+
+    t13 = time.perf_counter()
+    hrng = np.random.default_rng(seed + 13)
+    hgen = torch.Generator(device=dev).manual_seed(seed + 13)
+    n = HALO_NODES
+    g = ba_graph(Graph, n, HALO_DEGREE, HALO_GRAPH_SEED)
+    print(f"halo graph: {n} nodes, {g.n_edges} undirected edges (BA, "
+          f"degree {HALO_DEGREE}, seed {HALO_GRAPH_SEED}); {HALO_SHARDS} "
+          f"shards on {torch.cuda.device_count()} card(s)", flush=True)
+    halo_launches = {k: 0 for k in cs.read_launches()}
+
+    def add(got):
+        for key, v in got.items():
+            halo_launches[key] += v
+
+    # the gossip partition serve_gossip_counts builds (metis order)
+    gs = gossip_sample(g, np.zeros((n, 29), np.float32))
+    order = halo.locality_order(n, gs.edge_src, gs.edge_dst)
+    inv = np.empty(n, np.int64)
+    inv[order] = np.arange(n)
+    gpart = halo.partition_typed_graph(
+        n, gs.node_type[order], gs.x[order],
+        inv[gs.edge_src].astype(np.int32), inv[gs.edge_dst].astype(np.int32),
+        gs.edge_type, HALO_SHARDS, n_types=2)
+    g_agg = per_aggregate(halo.place_shards(gpart, [dev]))
+
+    # (c) count_large_graph end to end, every guard on
+    stage = prepare_stage_data(svc.cfg, [g], capacities=svc._select_neigh_caps)
+    n_b = len(stage.batches)
+    stats = {}
+    cs.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = svc.count_large_graph(g, n_devices=HALO_SHARDS, stats=stats)
+    wall = time.perf_counter() - t0
+    got = cs.read_launches()
+    add(got)
+    check_counts(res, 1, "count_large_graph")
+    check(res.node_counts.shape == (n, 29), "count_large_graph node counts")
+    want = {"fused_typed_transform_aggregate": 8 * n_b,
+            "sorted_segment_sum": n_b,
+            "gather_segment_sum": (1 + 2 * 29) * g_agg,
+            "typed_aggregate_bwd": 0, "segment_sum_vjp": 0,
+            "gather_segment_sum_bwd": 0}
+    print(f"count_large_graph launches: {json.dumps(got)}; expected "
+          f"{json.dumps(want)} ({n_b} target batches; {g_agg} gather-fused "
+          f"K1 per halo aggregate)", flush=True)
+    check(launches_match(got, want), "count_large_graph launches")
+    print(f"count_large_graph ({HALO_SHARDS} shards): {wall:.2f} s wall: "
+          f"stage 1 {stats['stage1_s']:.2f} s ({len(stage.samples)} "
+          f"neighborhoods, {n_b} batches, {len(res.verified_rows)} verified "
+          f"rows), partition {stats['partition_s']:.2f} s, halo gossip "
+          f"{stats['gossip_s']:.2f} s; n_loc / N = {stats['n_loc']} / {n} "
+          f"= {stats['n_loc'] / n:.4f}; graphlet counts "
+          f"{res.graphlet_counts[0].astype(int).tolist()}", flush=True)
+
+    # (c) again through a service made for this request, as a daemon's
+    # first request: no bucket pinned by smaller requests before it
+    from desco_tpu_torch.serving import CountingService
+
+    fresh = CountingService(R4_NEIGH, R4_GOSSIP, device=dev)
+    fstats = {}
+    cs.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res_f = fresh.count_large_graph(g, n_devices=HALO_SHARDS, stats=fstats)
+    wall_f = time.perf_counter() - t0
+    got = cs.read_launches()
+    add(got)
+    del fresh
+    check_counts(res_f, 1, "count_large_graph, fresh service")
+    rel_f = close_counts(res_f.graphlet_counts, res.graphlet_counts,
+                         "count_large_graph, fresh vs warm service")
+    n_bf = fstats["stage1_batches"]
+    want = {**want, "fused_typed_transform_aggregate": 8 * n_bf,
+            "sorted_segment_sum": n_bf}
+    check(launches_match(got, want), "count_large_graph launches, fresh")
+    print(f"count_large_graph ({HALO_SHARDS} shards), fresh service: "
+          f"{wall_f:.2f} s wall: stage 1 {fstats['stage1_s']:.2f} s ({n_bf} "
+          f"batches, {len(res_f.verified_rows)} verified rows), partition "
+          f"{fstats['partition_s']:.2f} s, halo gossip "
+          f"{fstats['gossip_s']:.2f} s; graphlet counts vs the warm "
+          f"service's max rel {rel_f:.3g} (bound 1e-3, floored at 1)",
+          flush=True)
+
+    # (b) serve_gossip_counts: D = 4 against D = 1 and the CPU
+    x_all = np.zeros((n, 29), np.float32)
+    x_all[np.asarray(stage.nindex.indicator)] = res.neighborhood_counts
+    q_embs = svc.member_embs[0]
+    cs.reset_launches()
+    t0 = time.perf_counter()
+    with library_sums(torch, "serve_gossip_counts at 4 shards"):
+        out4 = halo.serve_gossip_counts(svc.gossip_params, g, x_all,
+                                        q_embs, n_devices=HALO_SHARDS,
+                                        device=dev)
+    s4 = time.perf_counter() - t0
+    add(cs.read_launches())
+    t0 = time.perf_counter()
+    out1, st1 = halo.serve_gossip_counts(svc.gossip_params, g, x_all, q_embs,
+                                         n_devices=1, return_stats=True,
+                                         device=dev)
+    s1 = time.perf_counter() - t0
+    rel41 = float((np.abs(out4 - out1)
+                   / np.maximum(np.abs(out1), 1.0)).max())
+    check(np.isfinite(out4).all() and rel41 <= 1e-4,
+          f"serve_gossip_counts D = 4 vs D = 1: {rel41:.3g} > 1e-4")
+    t0 = time.perf_counter()
+    out_cpu = halo.serve_gossip_counts(
+        copy.deepcopy(svc.gossip_params).to("cpu"), g, x_all, q_embs.cpu(),
+        n_devices=HALO_SHARDS, device="cpu")
+    s_cpu = time.perf_counter() - t0
+    rel_cpu = close_counts(out4, out_cpu, "serve_gossip_counts CUDA vs CPU")
+    print(f"serve_gossip_counts: D = 4 {s4:.2f} s, D = 1 {s1:.2f} s "
+          f"(n_loc {st1['n_loc']}), CPU D = 4 {s_cpu:.2f} s; D = 4 vs D = 1 "
+          f"max rel {rel41:.3g} (bound 1e-4), CUDA vs CPU max rel "
+          f"{rel_cpu:.3g} (bound 1e-3, floored at 1)", flush=True)
+
+    # (a) the sharded SHMP tower on the whole-graph typed sample
+    [ws] = Workload([g]).wo_canonical_samples(
+        svc.cfg.query_ids, truth=np.zeros((n, 29)))
+    ws.x = hrng.standard_normal((n, 1)).astype(np.float32)
+    [wb] = pack_samples([ws], *auto_capacities([ws], g_cap=1), n_queries=29)
+    wb_dev = wb.to(dev)
+    tgt, tparams = svc.tgt_cfg, svc.members[0]["target"]
+    check(tgt.agg_mode == "kernel", "the r4 target tower is not on K2")
+    part = halo.partition_typed_graph(
+        n, ws.node_type, ws.x, ws.edge_src, ws.edge_dst, ws.edge_type,
+        HALO_SHARDS, n_types=tgt.n_edge_types)
+    shards = halo.place_shards(part, [dev])
+    with torch.inference_mode():
+        ref = shmp_gnn.apply_shmp_core(tparams, tgt, wb_dev)[:n]
+        cs.reset_launches()
+        t0 = time.perf_counter()
+        outs = halo.halo_shmp_core(tparams, tgt, shards)
+        torch.cuda.synchronize()
+        tower_s = time.perf_counter() - t0
+        got = cs.read_launches()
+        add(got)
+        with library_sums(torch, "the halo SHMP tower"):
+            halo.halo_shmp_core(tparams, tgt, shards)
+        halo_out = torch.cat([o[:int(r[1] - r[0])]
+                              for o, r in zip(outs, part.node_range)])
+    scale = float(ref.abs().max())
+    err = float((halo_out - ref).abs().max())
+    want = {"gather_segment_sum": 8 * per_aggregate(shards),
+            "fused_typed_transform_aggregate": 0, "sorted_segment_sum": 0}
+    print(f"halo SHMP tower (r4 target, SAGE, 8 layers, hidden 64, T = 6) "
+          f"on the whole-graph sample: n_loc {part.n_loc}, h_max "
+          f"{part.h_max}, p_max {part.p_max}, e_int "
+          f"{part.edge_src_int.shape[1]}, e_bnd {part.edge_src_bnd.shape[1]}"
+          f"; {tower_s * 1e3:.1f} ms; max |halo - packed K2'| {err:.3g} of "
+          f"max|out| {scale:.3g} ({err / scale:.3g}, bound 1e-3); launches "
+          f"{json.dumps(got)}, expected {json.dumps(want)}", flush=True)
+    check(err <= 1e-3 * scale, "halo SHMP tower vs the packed tower")
+    check(launches_match(got, want), "halo SHMP tower launches")
+
+    conv_rows = {}
+    for conv in ("GAT", "PNA"):
+        ccfg = shmp_gnn.neighborhood_target_config(conv_type=conv)
+        cparams = shmp_gnn.init_shmp(
+            ccfg, torch.Generator().manual_seed(seed + 13)).to(dev)
+        cpart = halo.partition_typed_graph(
+            n, ws.node_type, ws.x, ws.edge_src, ws.edge_dst, ws.edge_type,
+            HALO_SHARDS, n_types=ccfg.n_edge_types, force_pull=True)
+        cshards = halo.place_shards(cpart, [dev])
+        check(cpart.p_max == 0 and halo_streams(cshards)["boundary"]
+              == HALO_SHARDS, f"{conv}: the force_pull partition")
+        w = torch.randn(n, ccfg.post_input_dim, device=dev, generator=hgen)
+        grads = {}
+        for way in ("packed", "halo"):
+            cparams.zero_grad()
+            cs.reset_launches()
+            if way == "packed":
+                out = shmp_gnn.apply_shmp_core(cparams, ccfg, wb_dev)[:n]
+            else:
+                with library_sums(torch, f"the halo {conv} tower"):
+                    outs = halo.halo_shmp_core(cparams, ccfg, cshards)
+                out = torch.cat([o[:int(r[1] - r[0])]
+                                 for o, r in zip(outs, cpart.node_range)])
+            fwd = cs.read_launches()
+            (out * w).sum().backward()
+            torch.cuda.synchronize()
+            both = cs.read_launches()
+            grads[way] = ({k: p.grad.clone()
+                           for k, p in cparams.named_parameters()
+                           if p.grad is not None}, out.detach())
+        add(both)
+        want_f = expected_halo_conv(conv, cshards, ccfg.layer_num, False)
+        want_b = expected_halo_conv(conv, cshards, ccfg.layer_num, True)
+        ref_out, out = grads["packed"][1], grads["halo"][1]
+        scale = float(ref_out.abs().max())
+        err = float((out - ref_out).abs().max())
+        top = max(float(r.abs().max()) for r in grads["packed"][0].values())
+        gerr = max(float((grads["halo"][0][k] - r).abs().max())
+                   / max(float(r.abs().max()), 1e-9 * top)
+                   for k, r in grads["packed"][0].items())
+        print(f"halo {conv} tower (8 layers, hidden 64, force_pull): max "
+              f"|halo - packed| {err:.3g} of {scale:.3g} ({err / scale:.3g}, "
+              f"bound 1e-3); gradients max {gerr:.3g} of a tensor's scale "
+              f"(bound 1e-4); launches forward {json.dumps(fwd)} (expected "
+              f"{json.dumps(want_f)}), with the backward {json.dumps(both)} "
+              f"(expected {json.dumps(want_b)})", flush=True)
+        check(err <= 1e-3 * scale, f"halo {conv} tower vs the packed tower")
+        check(all(torch.isfinite(v).all() for v in grads["halo"][0].values()),
+              f"halo {conv}: non-finite gradients")
+        check(gerr <= 1e-4, f"halo {conv} gradients vs the packed tower's: "
+              f"{gerr:.3g} of a tensor's scale > 1e-4")
+        check(launches_match(fwd, want_f) and launches_match(both, want_b),
+              f"halo {conv} launches")
+        conv_rows[conv] = {"err": err / scale, "grad_err": gerr}
+        del cparams, cshards, grads
+
+    # (d) one halo gossip train step at D = 4 (the natural-order
+    # partition: push pairs in the backward too) against the packed loss
+    truth = (x_all * hrng.uniform(0.5, 1.5, (n, 1))).astype(np.float32)
+    s_tr = gossip_sample(g, x_all, truth)
+    tpart = halo.partition_typed_graph(
+        n, s_tr.node_type, x_all, s_tr.edge_src, s_tr.edge_dst,
+        s_tr.edge_type, HALO_SHARDS, node_y=truth, n_types=2)
+    tshards = halo.place_shards(tpart, [dev])
+    check(tpart.p_max > 0, "the gossip training partition has no push pair")
+    [tb] = pack_samples([s_tr], *auto_capacities([s_tr], g_cap=1),
+                        n_queries=29, need_bwd_perm=True)
+    tb_dev = tb.to(dev, training=True)
+    gp0 = copy.deepcopy(svc.gossip_params).requires_grad_(True)
+    q_embs = q_embs.clone()  # the service's are inference tensors
+    grads, losses = {}, {}
+    for way in ("packed", "halo"):
+        p = copy.deepcopy(gp0)
+        cs.reset_launches()
+        if way == "packed":
+            loss = gossip_mod.gossip_loss(p, tb_dev, q_embs)
+        else:
+            loss = halo.halo_gossip_loss(p, tshards, q_embs)
+        loss.backward()
+        torch.cuda.synchronize()
+        if way == "halo":
+            step_launches = cs.read_launches()
+        losses[way] = float(loss.detach())
+        grads[way] = {k: q.grad for k, q in p.named_parameters()
+                      if q.grad is not None}
+    gerr = max(float((grads["halo"][k] - r).abs().max())
+               / max(float(r.abs().max()), 1e-30)
+               for k, r in grads["packed"].items())
+    lerr = abs(losses["halo"] - losses["packed"]) / abs(losses["packed"])
+    t_agg = per_aggregate(tshards)
+    want = {"gather_segment_sum": (1 + 2 * 29) * t_agg,
+            "gather_segment_sum_bwd": 29 * t_agg, "sorted_segment_sum": 0,
+            "segment_sum_vjp": 0}
+    add(step_launches)
+    print(f"halo gossip loss at D = {HALO_SHARDS} (p_max {tpart.p_max}) vs "
+          f"the packed gossip_loss: loss {losses['halo']:.6g} vs "
+          f"{losses['packed']:.6g} (rel {lerr:.3g}), gradients max "
+          f"{gerr:.3g} of a tensor's scale (bound 1e-4); launches "
+          f"{json.dumps(step_launches)}, expected {json.dumps(want)}",
+          flush=True)
+    check(gerr <= 1e-4 and lerr <= 1e-5, "halo gossip gradients vs packed")
+    check(launches_match(step_launches, want), "halo gossip step launches")
+    steps = []
+    for _ in range(2):
+        p = copy.deepcopy(gp0)
+        opt = make_adam(p)
+        step = halo.halo_gossip_step_fn(opt, dropout=0.01)
+        t0 = time.perf_counter()
+        loss, ok = step(p, tshards, q_embs, 1e-3, seed=seed)
+        torch.cuda.synchronize()
+        steps.append((loss, opt.grad.clone(), opt.flat.clone(),
+                      time.perf_counter() - t0))
+    check(bool(steps[0][0] == steps[1][0])
+          and torch.equal(steps[0][1], steps[1][1])
+          and torch.equal(steps[0][2], steps[1][2]),
+          "two same-seed halo gossip train steps differ")
+    print(f"halo gossip train step (dropout 0.01, Adam): loss "
+          f"{float(steps[0][0]):.6g}, {steps[0][3] * 1e3:.1f} / "
+          f"{steps[1][3] * 1e3:.1f} ms; two same-seed steps bit-equal "
+          f"(loss, gradients, parameters)", flush=True)
+    del tb_dev, grads, steps
+
+    # the daemon's --large_threshold over stdio
+    g2 = ba_graph(Graph, DAEMON_LARGE_NODES, HALO_DEGREE, HALO_GRAPH_SEED)
+    reqs = [{"id": 1, "graphs": [{"n": g2.n_nodes,
+                                  "edges": g2.edges.tolist()}]},
+            {"id": 2, "graphs": [{"n": 4, "edges": [[0, 1], [1, 2],
+                                                    [2, 3]]}]}]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "desco_tpu_torch.serve", "--neigh_ckpt",
+         R4_NEIGH, "--gossip_ckpt", R4_GOSSIP, "--large_threshold",
+         str(DAEMON_THRESHOLD)],
+        input="".join(json.dumps(r) + "\n" for r in reqs) + "quit\n",
+        capture_output=True, text=True, timeout=600, cwd=REPO)
+    check(proc.returncode == 0,
+          f"daemon exited {proc.returncode}: {proc.stderr[-2000:]}")
+    replies = [json.loads(line) for line in proc.stdout.splitlines()
+               if line.strip()]
+    check([r.get("id") for r in replies] == [1, 2]
+          and all("error" not in r for r in replies),
+          f"daemon replies {replies}")
+    want = svc.count_large_graph(g2).graphlet_counts
+    got = np.asarray(replies[0]["graphlet_counts"])
+    check(got.shape == want.shape
+          and np.all(np.abs(got - want) <= np.maximum(1.0, 1e-3 * want)),
+          "the daemon's large-graph reply differs from count_large_graph")
+    print(f"daemon --large_threshold {DAEMON_THRESHOLD}: a "
+          f"{DAEMON_LARGE_NODES}-node graph served by count_large_graph and "
+          f"a 4-node one by count in {time.perf_counter() - t0:.1f} s "
+          f"(process start included)", flush=True)
+
+    # (e) the halo use sites of the kernels, timed
+    sites = {}
+    with torch.inference_mode():
+        sh0 = halo.place_shards(gpart, [dev])[0]
+        xg = torch.randn(sh0.n_loc, 128, device=dev, generator=hgen)
+        sites["k1g_interior"] = halo_gather_site(
+            torch, cs, probe, dev, xg, sh0.interior,
+            f"the gossip's interior stream (shard 0 of {HALO_SHARDS}, layer "
+            f"0, K = 128)")
+        xh = torch.randn(sh0.send.n_nodes, 128, device=dev, generator=hgen)
+        sites["k1g_boundary"] = halo_gather_site(
+            torch, cs, probe, dev, xh, sh0.boundary,
+            "the gossip's boundary stream (shard 0, K = 128)")
+        sites["k1g_send"] = halo_gather_site(
+            torch, cs, probe, dev, xg, sh0.send,
+            "the gossip's pull sends (shard 0, K = 128)")
+        sites["k1g_degrees"] = halo_gather_site(
+            torch, cs, probe, dev, sh0.node_mask[:, None].contiguous(),
+            sh0.interior, "the direction degrees (shard 0, K = 1)")
+        csh = halo.place_shards(halo.partition_typed_graph(
+            n, ws.node_type, ws.x, ws.edge_src, ws.edge_dst, ws.edge_type,
+            HALO_SHARDS, n_types=6, force_pull=True), [dev])[0]
+        keys, n_seg = csh.interior.keys, csh.n_loc * 6
+        offs = csh.interior.fwd_toffs
+        for k in (64, 1):
+            msgs = torch.randn(keys.shape[0], k, device=dev, generator=hgen)
+            res_k = torch.empty(n_seg, k, device=dev)
+            # as the halo GAT / PNA call it: the offsets of the shard's
+            # stream, derived once
+            fn_us = probe.graph_us(
+                lambda i: cs.sorted_segment_sum(msgs, keys, n_seg, offs))
+            k1_us = probe.graph_us(
+                lambda i: cs.launch_k1(msgs, offs, n_seg, res_k))
+            sites["k1", k] = k1_main(
+                torch, cs, dev, msgs, keys, n_seg,
+                f"the halo GAT / PNA sums (shard 0's interior stream), "
+                f"K = {k}", {"ms": fn_us / 1e3, "kernel_only_ms": k1_us / 1e3})
+            gk = torch.randn(n_seg, k, device=dev, generator=hgen)
+            d = torch.empty(keys.shape[0], k, device=dev)
+            k4_us = probe.graph_us(lambda i: cs.launch_k4(gk, keys, n_seg, d))
+            sites["k4", k] = k4_main(
+                torch, cs, dev, gk, keys, torch.float32,
+                f"the halo GAT / PNA sums' backward and PNA's gather, "
+                f"K = {k}", {"ms": k4_us / 1e3, "kernel_only_ms": k4_us / 1e3})
+    print(f"phase 13 (halo) launches: {json.dumps(halo_launches)}", flush=True)
+    for name in ("gather_segment_sum", "gather_segment_sum_bwd",
+                 "sorted_segment_sum", "segment_sum_vjp",
+                 "fused_typed_transform_aggregate"):
+        check(halo_launches[name] > 0, f"phase 13: {name} never launched")
+    print(f"phase 13 (halo) took {time.perf_counter() - t13:.1f} s",
+          flush=True)
+    return {"launches": halo_launches, "sites": sites,
+            "large_graph": {"wall_s": wall, **stats,
+                            "graphlet_counts":
+                                res.graphlet_counts[0].tolist(),
+                            "fresh_service": {"wall_s": wall_f, **fstats}},
+            "conv": conv_rows}
 
 
 # --------------------------------------------------------- phase 3 checks
@@ -2701,6 +3266,9 @@ def main() -> int:
     for name, n in probe_launches.items():
         check(n > 0, f"probe variant {name} never launched in its series")
 
+    # ------------------------------------------------------- 13. halo
+    hal = halo_phase(torch, cs, probe, dev, args.seed, svc)
+
     # ----------------------------------------------------- 12. the record
     seg_src = "desco_tpu_torch/csrc/segment_sum.cu"
     typed_src = "desco_tpu_torch/csrc/typed_aggregate.cu"
@@ -2714,13 +3282,13 @@ def main() -> int:
         for d, suffix, paths in (
                 ("f32", "", (launches, train_launches, launches_bf,
                              bf_launches, replay_launches, abl_launches,
-                             serving_rest)),
+                             serving_rest, hal["launches"])),
                 ("bf16", "_bf16", (launches_bf, bf_launches))):
-            # f32 rows: every launch of the seven paths (serving,
+            # f32 rows: every launch of the eight paths (serving,
             # training, their bf16 runs, the r4 replay, the ablations
-            # but the order-4 run, labeled serving and the ensembles)
-            # that was not on bf16 rows; bf16 rows: the bf16 launches of
-            # the bf16 paths
+            # but the order-4 run, labeled serving and the ensembles, the
+            # halo path) that was not on bf16 rows; bf16 rows: the bf16
+            # launches of the bf16 paths
             if d == "f32":
                 per_path = [p[wrapper] - p[wrapper + "_bf16"] for p in paths]
             else:
@@ -2735,6 +3303,9 @@ def main() -> int:
                 # the GAT / PNA use sites, measured in phase 9
                 kernels[-1]["gat_pna_sites"] = {
                     f"K={k}": site_rows[key, k] for k in (64, 1)}
+                # the halo GAT / PNA use sites, measured in phase 13
+                kernels[-1]["halo_sites"] = {
+                    f"K={k}": hal["sites"][key, k] for k in (64, 1)}
             check(sum(per_path) > 0,
                   f"kernel {wrapper} ({d}) never launched on a main path")
     # the gather-fused K1 and its backward: every main path runs them on
@@ -2743,7 +3314,7 @@ def main() -> int:
     # timed in phase 2 and reported beside the f32 one
     paths = (launches, train_launches, launches_bf, bf_launches,
              replay_launches, abl_launches, serving_rest,
-             rest["driver_launches"])
+             rest["driver_launches"], hal["launches"])
     for key, wrapper, line_no in (("k1g", "gather_segment_sum", 310),
                                   ("k1g_bwd", "gather_segment_sum_bwd", 464)):
         per_path = [p[wrapper] - p[wrapper + "_bf16"] for p in paths]
@@ -2758,7 +3329,13 @@ def main() -> int:
             replaces=f"desco_tpu/ops/pallas_segment.py:{line_no}",
             launches=sum(per_path), launches_per_path=per_path,
             **k_rows[key, "f32"],
-            bf16_rows={"launches": 0, **k_rows[key, "bf16"]}))
+            bf16_rows={"launches": 0, **k_rows[key, "bf16"]},
+            # the halo streams of the gossip partition, measured in
+            # phase 13 (forward or backward)
+            halo_sites={site: hal["sites"][site][
+                "bwd" if key.endswith("bwd") else "fwd"]
+                for site in ("k1g_interior", "k1g_boundary", "k1g_send",
+                             "k1g_degrees")}))
     # K2' and K3' at T = 33 (type chunks): launched by the order-4 run,
     # measured at its packed batch and at the serving batch's shape; the
     # bf16 instantiation is checked and timed in phase 9

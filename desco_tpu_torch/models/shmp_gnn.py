@@ -162,21 +162,25 @@ class _CastLinear(NamedTuple):
         return x @ self.w + self.b
 
 
-def cast_params(params, dtype: torch.dtype):
+def cast_params(params, dtype: torch.dtype, device=None):
     """The tower's parameter tree with every f32 leaf cast to ``dtype``
     (the tree itself for f32): desco_tpu's ``cast_params``. The stored
     parameters stay the f32 masters; the casts are part of the forward's
-    graph, so their gradients arrive in f32."""
-    if dtype == torch.float32:
+    graph, so their gradients arrive in f32. ``device``: the leaves are
+    also copied there (the halo path's shards on other devices), again
+    inside the graph."""
+    if dtype == torch.float32 and device is None:
         return params
     if isinstance(params, Linear):
-        return _CastLinear(params.w.to(dtype), params.b.to(dtype))
+        return _CastLinear(params.w.to(device, dtype),
+                           params.b.to(device, dtype))
     if isinstance(params, nn.ParameterList):  # GAT's (a_src, a_dst)
-        return [p.to(dtype) for p in params]
+        return [p.to(device, dtype) for p in params]
     if isinstance(params, nn.ModuleList):
-        return [cast_params(m, dtype) for m in params]
-    out = {name: cast_params(m, dtype) for name, m in params.items()}
-    out.update({name: p.to(dtype)  # PNA's pna_mix
+        return [cast_params(m, dtype, device) for m in params]
+    out = {name: cast_params(m, dtype, device)
+           for name, m in params.items()}
+    out.update({name: p.to(device, dtype)  # PNA's pna_mix
                 for name, p in params.named_parameters(recurse=False)})
     return out
 
@@ -271,11 +275,12 @@ def gat_aggregator(cfg: SHMPConfig, batch: PackedGraphs, att):
     within each (dst, edge-type) segment with a self-loop term, per-type
     outputs summed. fn(x, conv_w, layer) -> [N, K] (f32 for a bf16
     tower: the softmax sums are K1's f32 sums)."""
-    from ..ops.cuda_segment import sorted_segment_sum
+    from ..ops.cuda_segment import segment_offsets, sorted_segment_sum
 
     a_src_all, a_dst_all = att  # [L, T, H] each
     t_n = cfg.n_edge_types
     keys, rows = _edge_stream(batch, t_n)
+    offs = segment_offsets(keys, batch.n_cap * t_n)
     e_t = batch.edge_type.long().clamp(0, t_n - 1)
     src, dst = batch.edge_src.long(), batch.edge_dst.long()
 
@@ -290,26 +295,42 @@ def gat_aggregator(cfg: SHMPConfig, batch: PackedGraphs, att):
         m = segment_max(s_e, keys, n_seg)  # empty segments -> 0
         # padding keys subtract 0 (desco_tpu's take with fill 0); their
         # terms are dropped by the sums
-        m_e = torch.cat([m, m.new_zeros(1)])[keys.long().clamp(max=n_seg)]
-        p = torch.exp(s_e - m_e)
+        p = torch.exp(s_e - segment_pick(m, keys, n_seg))
         z_src = z.reshape(n_seg, -1)[rows]                # [E, K]
-        num = sorted_segment_sum(p[:, None] * z_src, keys,
-                                 n_seg).view(n, t_n, -1)
-        den = sorted_segment_sum(p[:, None], keys, n_seg).view(n, t_n)
-        m2 = m.view(n, t_n)
-        # merge the self-loop candidate into each (node, type) softmax;
-        # an empty segment (den == 0) anchors the rescale at the
-        # self-logit, so the result is exactly z_self there
-        s_self = F.leaky_relu(s_src + s_dst, 0.2).T       # [N, T]
-        empty = den == 0
-        big = torch.where(empty, s_self, torch.maximum(m2, s_self))
-        w_edges = torch.where(empty, 0.0, torch.exp(m2 - big))
-        w_self = torch.exp(s_self - big)
-        z_self = z.transpose(0, 1)                        # [N, T, K]
-        out_t = ((num * w_edges[..., None] + w_self[..., None] * z_self)
-                 / (den * w_edges + w_self)[..., None])
-        return out_t.sum(dim=1)
+        num = sorted_segment_sum(p[:, None] * z_src, keys, n_seg, offs)
+        den = sorted_segment_sum(p[:, None], keys, n_seg, offs)
+        return gat_softmax_out(num, den, m, s_src, s_dst, z)
     return agg_fn
+
+
+def segment_pick(table: torch.Tensor, keys: torch.Tensor,
+                 n_seg: int) -> torch.Tensor:
+    """table[keys] for a stream's segment keys, 0 for padding keys (>=
+    n_seg): desco_tpu's take with fill 0."""
+    return torch.cat([table, table.new_zeros(1)])[
+        keys.long().clamp(max=n_seg)]
+
+
+def gat_softmax_out(num, den, m, s_src, s_dst, z) -> torch.Tensor:
+    """GAT's output [N, K] from its per-(node, type) softmax sums: num
+    [N*T, K] and den [N*T, 1] the sums of exp(s_e - m) z_src and of
+    exp(s_e - m) over each segment's edges, m [N*T] the segment maxima
+    (0 where empty), s_src / s_dst [T, N] the logits, z [T, N, K] the
+    transformed rows. The self-loop candidate is merged into each
+    softmax; an empty segment (den == 0) anchors the rescale at the
+    self-logit, so the result is exactly z_self there. The types are
+    summed."""
+    t_n, n = s_src.shape
+    num, den, m2 = num.view(n, t_n, -1), den.view(n, t_n), m.view(n, t_n)
+    s_self = F.leaky_relu(s_src + s_dst, 0.2).T           # [N, T]
+    empty = den == 0
+    big = torch.where(empty, s_self, torch.maximum(m2, s_self))
+    w_edges = torch.where(empty, 0.0, torch.exp(m2 - big))
+    w_self = torch.exp(s_self - big)
+    z_self = z.transpose(0, 1)                            # [N, T, K]
+    out_t = ((num * w_edges[..., None] + w_self[..., None] * z_self)
+             / (den * w_edges + w_self)[..., None])
+    return out_t.sum(dim=1)
 
 
 def pna_aggregator(cfg: SHMPConfig, batch: PackedGraphs, mix_w_all):
@@ -329,10 +350,12 @@ def pna_aggregator(cfg: SHMPConfig, batch: PackedGraphs, mix_w_all):
     with it, so a change of summation order (the card against the CPU)
     moves the gradients by 1e-3 of their scale at eight layers. The mean
     goes back to the edges through K4 (``sorted_gather``)."""
-    from ..ops.cuda_segment import sorted_gather, sorted_segment_sum
+    from ..ops.cuda_segment import (segment_offsets, sorted_gather,
+                                    sorted_segment_sum)
 
     t_n = cfg.n_edge_types
     keys, rows = _edge_stream(batch, t_n)
+    offs = segment_offsets(keys, batch.n_cap * t_n)
     nmask_f = batch.node_mask.float()
 
     def agg_fn(x, conv_w, layer):
@@ -343,35 +366,55 @@ def pna_aggregator(cfg: SHMPConfig, batch: PackedGraphs, mix_w_all):
         z_src = z.reshape(n_seg, -1)[rows]                # [E, K]
         z32 = z_src.float()
         cnt = sorted_segment_sum(z32.new_ones((z32.shape[0], 1)), keys,
-                                 n_seg)[:, 0]
+                                 n_seg, offs)[:, 0]
         d = cnt.clamp(min=1.0)[:, None]
-        mean = sorted_segment_sum(z32, keys, n_seg) / d
-        dev_e = z32 - sorted_gather(mean, keys, n_seg)
-        var = sorted_segment_sum(dev_e * dev_e, keys, n_seg) / d
-        # gradient-safe sqrt: var == 0 (empty or single-element segments)
-        # gives zero gradient, not sqrt'(0) = inf
-        pos = var > 0
-        std = torch.where(pos, torch.sqrt(torch.where(pos, var, 1.0)), 0.0)
+        mean = sorted_segment_sum(z32, keys, n_seg, offs) / d
+        dev_e = z32 - sorted_gather(mean, keys, n_seg, offs)
+        var = sorted_segment_sum(dev_e * dev_e, keys, n_seg, offs) / d
         mn = segment_max(z_src, keys, n_seg, "amin")  # empty -> 0
         mx = segment_max(z_src, keys, n_seg, "amax")
-        feats = torch.cat([mean, mn.float(), mx.float(), std],
-                          dim=-1).view(n, t_n, -1)        # [N, T, 4K]
-        logd = torch.log(cnt.clamp(min=1.0) + 1.0).view(n, t_n)
-        d_tot = cnt.view(n, t_n).sum(dim=1)
-        delta = ((torch.log(d_tot.clamp(min=1.0) + 1.0) * nmask_f).sum()
-                 / nmask_f.sum().clamp(min=1.0)).clamp(min=1e-6).detach()
-        amp = (logd / delta)[..., None]
-        att = (delta / logd)[..., None]
-        # mixed in f32, as JAX promotes a bf16 mix_w against f32 features
-        w_id, w_amp, w_att = mix_w.to(feats.dtype).split(
-            mix_w.shape[1] // 3, dim=1)                   # [T, 4K, H] each
-
-        def mix(f, w):  # "ntf,tfh->nh"
-            return f.reshape(n, -1) @ w.reshape(-1, w.shape[-1])
-
-        return mix(feats, w_id) + mix(feats * amp, w_amp) + mix(
-            feats * att, w_att)
+        lsum, valid = pna_log_degree_sum(cnt, nmask_f)
+        return pna_mix(cnt, mean, var, mn, mx, lsum, valid, mix_w)
     return agg_fn
+
+
+def pna_log_degree_sum(cnt, nmask_f):
+    """(sum of log(total in-degree + 1) over the valid nodes, their
+    count): the parts of PNA's delta, the mean, from the (dst, type)
+    counts cnt [N*T] and the node mask [N] (a sharded graph sums them
+    over its shards)."""
+    d_tot = cnt.view(nmask_f.shape[0], -1).sum(dim=1)
+    return ((torch.log(d_tot.clamp(min=1.0) + 1.0) * nmask_f).sum(),
+            nmask_f.sum())
+
+
+def pna_mix(cnt, mean, var, mn, mx, lsum, valid, mix_w) -> torch.Tensor:
+    """PNA's output [N, H] from its per-(dst, type) statistics (cnt [N*T],
+    mean / var [N*T, K] f32, mn / mx [N*T, K]), the delta parts of
+    ``pna_log_degree_sum`` and the layer's mix_w [T, 12K, H]: [mean, min,
+    max, std] scaled by {1, log(d+1)/delta, delta/log(d+1)} and mixed,
+    summed over the types; delta without gradient."""
+    t_n = mix_w.shape[0]
+    n = cnt.shape[0] // t_n
+    # gradient-safe sqrt: var == 0 (empty or single-element segments)
+    # gives zero gradient, not sqrt'(0) = inf
+    pos = var > 0
+    std = torch.where(pos, torch.sqrt(torch.where(pos, var, 1.0)), 0.0)
+    feats = torch.cat([mean, mn.float(), mx.float(), std],
+                      dim=-1).view(n, t_n, -1)            # [N, T, 4K]
+    logd = torch.log(cnt.clamp(min=1.0) + 1.0).view(n, t_n)
+    delta = (lsum / valid.clamp(min=1.0)).clamp(min=1e-6).detach()
+    amp = (logd / delta)[..., None]
+    att = (delta / logd)[..., None]
+    # mixed in f32, as JAX promotes a bf16 mix_w against f32 features
+    w_id, w_amp, w_att = mix_w.to(feats.dtype).split(
+        mix_w.shape[1] // 3, dim=1)                       # [T, 4K, H] each
+
+    def mix(f, w):  # "ntf,tfh->nh"
+        return f.reshape(n, -1) @ w.reshape(-1, w.shape[-1])
+
+    return mix(feats, w_id) + mix(feats * amp, w_amp) + mix(
+        feats * att, w_att)
 
 
 def aggregator(cfg: SHMPConfig, batch: PackedGraphs, params):
@@ -393,42 +436,77 @@ def run_shmp_layers(params, cfg: SHMPConfig, x, ntype, nmask,
     """The L conv layers with concat-skip. ``aggregate_fn(x, conv_w,
     layer)`` returns the type-transformed neighbor sum [N, K] (no
     bias)."""
-    conv = params["conv"]
-    # per-dst-type conv bias: bias_by_ntype[t_n] = sum of the conv biases
-    # of the edge types whose dst node type is t_n (a sum per node type,
-    # not an atomic index_add_: the same bits every run)
-    by_ntype = [torch.tensor([t for t, d in enumerate(cfg.edge_dst_type)
+    return run_shmp_layers_sharded(
+        [params], cfg, [x], [ntype], [nmask],
+        lambda xs, conv_ws, layer: [aggregate_fn(xs[0], conv_ws[0], layer)],
+        train, [generator])[0]
+
+
+def run_shmp_layers_sharded(shard_params, cfg: SHMPConfig, xs, ntypes,
+                            nmasks, aggregate_fn, train: bool = False,
+                            generators=None) -> list:
+    """``run_shmp_layers`` over the shards of one partitioned graph
+    (parallel/halo.py), in lockstep: per layer, ``aggregate_fn(xs,
+    conv_ws, layer)`` maps the list of the shards' x to the list of their
+    x_neigh (it exchanges rows between the shards), then every shard runs
+    the layer body on its own rows. ``shard_params``, ``ntypes``,
+    ``nmasks`` and ``generators`` (or None) are per shard, on its device.
+    Returns the list of the shards' concat-skip embeddings."""
+    generators = generators or [None] * len(xs)
+    by_ntype = {}
+    for p, x in zip(shard_params, xs):
+        if x.device not in by_ntype:
+            # per-dst-type conv bias: bias_by_ntype[t_n] = sum of the
+            # conv biases of the edge types whose dst node type is t_n (a
+            # sum per node type, not an atomic index_add_: the same bits
+            # every run)
+            by_ntype[x.device] = [
+                torch.tensor([t for t, d in enumerate(cfg.edge_dst_type)
                               if d == nt], dtype=torch.long,
                              device=x.device)
                 for nt in range(cfg.n_node_types)]
-    embs = [x]
+    embs = [[x] for x in xs]
     for l in range(cfg.layer_num):
-        # the aggregation may accumulate and return f32 (K2 does, and its
-        # plain version): fold back to the tower's type so a bf16 tower
-        # stays bf16 through the concat / update chain
-        x_neigh = aggregate_fn(x, conv.w[l], l).to(cfg.dtype)
-        bias_rows = conv.b[l].index_select(0, by_ntype[0]).sum(dim=0)
-        for t in range(1, cfg.n_node_types):  # select, not gather
-            bias_rows = torch.where(
-                (ntype == t)[:, None],
-                conv.b[l].index_select(0, by_ntype[t]).sum(dim=0),
-                bias_rows)
-        x_neigh = x_neigh + bias_rows
-        if cfg.conv_type == "SAGE":
-            upd = params["upd"]
-            x = _per_type_linear(torch.cat([x_neigh, x], dim=-1), upd.w[l],
-                                 upd.b[l], ntype, cfg.n_node_types)
-        elif cfg.conv_type == "GIN":  # update MLP on x_neigh + (1 + 0) x
-            u1, u2 = params["upd1"], params["upd2"]
-            hmid = torch.relu(_per_type_linear(
-                x_neigh + x, u1.w[l], u1.b[l], ntype, cfg.n_node_types))
-            x = _per_type_linear(hmid, u2.w[l], u2.b[l], ntype,
-                                 cfg.n_node_types)
-        else:  # GCN, GAT, PNA: the conv output itself
-            x = x_neigh
-        x = dropout(torch.relu(x), cfg.dropout, train, generator) * nmask
-        embs.append(x)
-    return torch.cat(embs, dim=-1)
+        x_neighs = aggregate_fn(xs, [p["conv"].w[l] for p in shard_params],
+                                l)
+        xs = [_layer_body(p, cfg, l, x, x_neigh, ntype, nmask,
+                          by_ntype[x.device], train, gen)
+              for p, x, x_neigh, ntype, nmask, gen in zip(
+                  shard_params, xs, x_neighs, ntypes, nmasks, generators)]
+        for e, x in zip(embs, xs):
+            e.append(x)
+    return [torch.cat(e, dim=-1) for e in embs]
+
+
+def _layer_body(params, cfg: SHMPConfig, l: int, x, x_neigh, ntype, nmask,
+                by_ntype, train, generator):
+    """Layer ``l`` after its aggregation: conv bias, update, relu,
+    dropout and the padding mask."""
+    conv = params["conv"]
+    # the aggregation may accumulate and return f32 (K2 does, and its
+    # plain version): fold back to the tower's type so a bf16 tower stays
+    # bf16 through the concat / update chain
+    x_neigh = x_neigh.to(cfg.dtype)
+    bias_rows = conv.b[l].index_select(0, by_ntype[0]).sum(dim=0)
+    for t in range(1, cfg.n_node_types):  # select, not gather
+        bias_rows = torch.where(
+            (ntype == t)[:, None],
+            conv.b[l].index_select(0, by_ntype[t]).sum(dim=0),
+            bias_rows)
+    x_neigh = x_neigh + bias_rows
+    if cfg.conv_type == "SAGE":
+        upd = params["upd"]
+        x = _per_type_linear(torch.cat([x_neigh, x], dim=-1), upd.w[l],
+                             upd.b[l], ntype, cfg.n_node_types)
+    elif cfg.conv_type == "GIN":  # update MLP on x_neigh + (1 + 0) x
+        u1, u2 = params["upd1"], params["upd2"]
+        hmid = torch.relu(_per_type_linear(
+            x_neigh + x, u1.w[l], u1.b[l], ntype, cfg.n_node_types))
+        x = _per_type_linear(hmid, u2.w[l], u2.b[l], ntype,
+                             cfg.n_node_types)
+    else:  # GCN, GAT, PNA: the conv output itself
+        x = x_neigh
+    return dropout(torch.relu(x), cfg.dropout, train, generator) * nmask
 
 
 def apply_shmp_core(params, cfg: SHMPConfig, batch: PackedGraphs,

@@ -18,8 +18,9 @@ backward behind graph pooling, the gather of desco_tpu's
 K1 and K4 (``csrc/segment_sum.cu``) are bound by bytes: each edge adds or
 copies one K-float row, a quarter of an f32 operation per byte moved, far
 below the card's f32 ridge (67 TFLOP/s over 3.35 TB/s). A sorted stream is
-CSR: K1 takes its row offsets (one ``torch.searchsorted`` for pooling, as
-the JAX wrapper does at pallas_segment.py:345; the (dst, type) and
+CSR: K1 takes its row offsets (``segment_offsets``, one
+``torch.searchsorted`` per stream, as the JAX wrapper does at
+pallas_segment.py:345, shared by the stream's sums; the (dst, type) and
 (src, type) offsets of ``TypedStreams`` for the typed aggregation, derived
 once per batch) and, optionally, the row of x each edge reads. Padding
 keys sort past the last offset and are never visited. One warp owns one
@@ -306,7 +307,16 @@ def sorted_segment_sum_plain(msgs: torch.Tensor, seg: torch.Tensor,
     return segment_sum(msgs.float(), seg, n_segments)
 
 
-def _sorted_segment_sum_forward(msgs, seg, n_segments):
+def segment_offsets(seg: torch.Tensor, n_segments: int) -> torch.Tensor:
+    """The CSR offsets [n_segments + 1] int32 of a sorted int32 id stream:
+    segment s is [offs[s], offs[s + 1]); ids past the last segment (padding
+    keys) lie past offs[-1]. One ``searchsorted``, on seg's device."""
+    bounds = torch.arange(n_segments + 1, dtype=torch.int32,
+                          device=seg.device)
+    return torch.searchsorted(seg, bounds, out_int32=True)
+
+
+def _sorted_segment_sum_forward(msgs, seg, n_segments, offs):
     if _on_cpu(msgs, seg):
         return sorted_segment_sum_plain(msgs, seg, n_segments)
     _require_cuda(msgs, seg)
@@ -322,9 +332,10 @@ def _sorted_segment_sum_forward(msgs, seg, n_segments):
                       device=msgs.device)
     if n_segments == 0 or k == 0:
         return out
-    bounds = torch.arange(n_segments + 1, dtype=torch.int32,
-                          device=msgs.device)
-    offs = torch.searchsorted(seg, bounds, out_int32=True)
+    if offs.dtype != torch.int32 or offs.shape != (n_segments + 1,):
+        raise ValueError(f"offs must be the [{n_segments + 1}] int32 "
+                         f"offsets of seg, got {offs.dtype} "
+                         f"{tuple(offs.shape)}")
     launch_k1(msgs, offs, n_segments, out)
     _count(sorted_segment_sum, msgs.dtype)
     return out
@@ -334,27 +345,30 @@ class _SortedSegmentSum(torch.autograd.Function):
     """K1 forward, K4 backward (desco_tpu's ``sorted_segment_sum_ad``)."""
 
     @staticmethod
-    def forward(ctx, msgs, seg, n_segments):
+    def forward(ctx, msgs, seg, n_segments, offs):
         ctx.save_for_backward(seg)
         ctx.n_segments = n_segments
         ctx.msgs_dtype = msgs.dtype  # the cotangent follows the primal
-        return _sorted_segment_sum_forward(msgs, seg, n_segments)
+        return _sorted_segment_sum_forward(msgs, seg, n_segments, offs)
 
     @staticmethod
     def backward(ctx, g):
         (seg,) = ctx.saved_tensors
         return segment_sum_vjp(g, seg, ctx.n_segments,
-                               dtype=ctx.msgs_dtype), None, None
+                               dtype=ctx.msgs_dtype), None, None, None
 
 
 def sorted_segment_sum(msgs: torch.Tensor, seg: torch.Tensor,
-                       n_segments: int) -> torch.Tensor:
+                       n_segments: int, offs: torch.Tensor) -> torch.Tensor:
     """Segment-sum of a sorted stream: out[s] = sum of msgs[e] over the
     edges with seg[e] == s. msgs [E, K] f32 or bf16; seg [E] int32,
     ascending; ids >= n_segments (padding keys) and < 0 are dropped.
     Accumulates in f32 and returns [n_segments, K] f32 for either type.
-    Differentiable in msgs (backward: K4, in msgs' dtype)."""
-    return _SortedSegmentSum.apply(msgs, seg, n_segments)
+    Differentiable in msgs (backward: K4, in msgs' dtype). ``offs``: the
+    stream's [n_segments + 1] int32 offsets (``segment_offsets``), which
+    the caller derives once per stream and shares between its sums; the
+    plain version on the CPU does not read them."""
+    return _SortedSegmentSum.apply(msgs, seg, n_segments, offs)
 
 
 sorted_segment_sum.launches = 0
@@ -419,26 +433,29 @@ class _SortedGather(torch.autograd.Function):
     """K4 forward, K1 backward: the transpose of ``_SortedSegmentSum``."""
 
     @staticmethod
-    def forward(ctx, table, seg, n_segments):
+    def forward(ctx, table, seg, n_segments, offs):
         ctx.save_for_backward(seg)
         ctx.n_segments = n_segments
+        ctx.offs = offs
         return segment_sum_vjp(table, seg, n_segments)
 
     @staticmethod
     def backward(ctx, g):
         (seg,) = ctx.saved_tensors
         return (_sorted_segment_sum_forward(g.contiguous(), seg,
-                                            ctx.n_segments), None, None)
+                                            ctx.n_segments, ctx.offs),
+                None, None, None)
 
 
 def sorted_gather(table: torch.Tensor, seg: torch.Tensor,
-                  n_segments: int) -> torch.Tensor:
+                  n_segments: int, offs: torch.Tensor) -> torch.Tensor:
     """rows [E, K] f32: rows[e] = table[seg[e]] where 0 <= seg[e] <
     n_segments, else 0 (padding keys): a per-segment value handed back to
     the segment's rows. table [n_segments, K] f32; seg [E] int32,
     ascending. On the card K4's kernel; differentiable in table, the
-    backward is K1 over the same keys (no atomics)."""
-    return _SortedGather.apply(table, seg, n_segments)
+    backward is K1 over the same keys (no atomics; ``offs`` as for
+    ``sorted_segment_sum``)."""
+    return _SortedGather.apply(table, seg, n_segments, offs)
 
 
 # ------------------------------------------------------- K2 and K3 streams
@@ -493,11 +510,8 @@ def typed_streams(edge_src: torch.Tensor, keys: torch.Tensor, n_types: int,
     if n_rows == 0 or max(n_nodes + 1, n_rows) * n_types >= PAD_SKEY:
         raise ValueError(f"{n_rows} rows / {n_nodes} nodes x {n_types} "
                          f"types do not fit the kernel's int32 keys")
-    dev = keys.device
-    bounds = torch.arange(n_nodes * n_types + 1, dtype=torch.int32,
-                          device=dev)
     st = TypedStreams(edge_src, keys, n_types, n_nodes, n_rows,
-                      torch.searchsorted(keys, bounds, out_int32=True))
+                      segment_offsets(keys, n_nodes * n_types))
     if bwd_perm is not None:
         _require(bwd_perm, "bwd_perm", torch.int32, 1)
         if bwd_perm.shape != keys.shape:

@@ -121,7 +121,9 @@ def graph_pool_sum(
     """global_add_pool: [G, H] in node_emb's dtype. Nodes are packed graph
     by graph, so ``node_graph`` is sorted and K1 applies; pad nodes (id G)
     drop."""
-    from .cuda_segment import sorted_segment_sum
+    from .cuda_segment import segment_offsets, sorted_segment_sum
 
-    return sorted_segment_sum(node_emb.contiguous(), node_graph.int(),
-                              n_graphs).to(node_emb.dtype)
+    seg = node_graph.int()
+    return sorted_segment_sum(node_emb.contiguous(), seg, n_graphs,
+                              segment_offsets(seg, n_graphs)
+                              ).to(node_emb.dtype)

@@ -11,12 +11,15 @@ One response line per request, in order:
     {"id": 7, "graphlet_counts": [[...29 floats...], ...],
      "refined": true, "verified": 3}
 
-Errors come back as {"id": ..., "error": "..."} without killing the
-daemon; a line ``quit`` ends it (on TCP: ends that connection). The
-service runs on CUDA unless ``--device cpu`` is given; ``--bf16`` runs
-the target tower in bfloat16; several ``--neigh_ckpt`` paths serve their
-ensemble. ``--n_devices`` other than 1 (M15) and ``--compile_cache``
-(M17) are not ported yet and raise (ROADMAP.md, Queue 1).
+A request with one graph of at least ``--large_threshold`` nodes
+(default 5000) goes to ``CountingService.count_large_graph``, whose
+gossip stage runs halo-sharded (over stdio and ``--tcp`` alike). Errors
+come back as {"id": ..., "error": "..."} without killing the daemon; a
+line ``quit`` ends it (on TCP: ends that connection). The service runs
+on CUDA unless ``--device cpu`` is given; ``--bf16`` runs the target
+tower in bfloat16; several ``--neigh_ckpt`` paths serve their ensemble.
+``--n_devices`` other than 1 (M15) and ``--compile_cache`` (M17) are not
+ported yet and raise (ROADMAP.md, Queue 1).
 
 Usage:
   python -m desco_tpu_torch.serve --neigh_ckpt release/r4/neigh.best \\
@@ -29,6 +32,8 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+
+LARGE_THRESHOLD = 5000  # nodes of a single graph served halo-sharded
 
 
 def build_service(args):
@@ -51,7 +56,7 @@ def build_service(args):
         device=args.device)
 
 
-def handle(svc, req: dict) -> dict:
+def handle(svc, req: dict, large_threshold: int = LARGE_THRESHOLD) -> dict:
     import numpy as np
 
     from .graph import Graph
@@ -60,7 +65,11 @@ def handle(svc, req: dict) -> dict:
         Graph(int(g["n"]), np.asarray(g.get("edges", []), np.int32))
         for g in req["graphs"]
     ]
-    res = svc.count(graphs, refine=req.get("refine"))
+    refine = req.get("refine")
+    if len(graphs) == 1 and graphs[0].n_nodes >= large_threshold:
+        res = svc.count_large_graph(graphs[0], refine=refine)
+    else:
+        res = svc.count(graphs, refine=refine)
     out = {
         "id": req.get("id"),
         "graphlet_counts": res.graphlet_counts.tolist(),
@@ -72,7 +81,8 @@ def handle(svc, req: dict) -> dict:
     return out
 
 
-def serve_lines(svc, rfile, wfile) -> None:
+def serve_lines(svc, rfile, wfile,
+                large_threshold: int = LARGE_THRESHOLD) -> None:
     for line in rfile:
         line = line.strip()
         if not line:
@@ -83,7 +93,7 @@ def serve_lines(svc, rfile, wfile) -> None:
         try:
             req = json.loads(line)
             rid = req.get("id")
-            out = handle(svc, req)
+            out = handle(svc, req, large_threshold)
         except Exception as e:  # the daemon survives bad requests
             out = {"id": rid, "error": f"{type(e).__name__}: {e}"}
         wfile.write(json.dumps(out) + "\n")
@@ -98,6 +108,10 @@ def main(argv=None) -> int:
     ap.add_argument("--n_devices", type=int, default=1,
                     help="devices (more than 1, data-parallel serving, is "
                          "not ported yet: ROADMAP.md M15)")
+    ap.add_argument("--large_threshold", type=int, default=LARGE_THRESHOLD,
+                    help="a request of one graph with at least this many "
+                         "nodes is served by count_large_graph "
+                         "(halo-sharded gossip)")
     ap.add_argument("--verify_budget", type=float, default=None)
     ap.add_argument("--exact_size", type=int, default=0,
                     help="serve queries with <= N nodes exactly")
@@ -125,8 +139,8 @@ def main(argv=None) -> int:
         while True:
             conn, _ = srv.accept()
             with conn, conn.makefile("r") as rf, conn.makefile("w") as wf:
-                serve_lines(svc, rf, wf)
-    serve_lines(svc, sys.stdin, sys.stdout)
+                serve_lines(svc, rf, wf, args.large_threshold)
+    serve_lines(svc, sys.stdin, sys.stdout, args.large_threshold)
     return 0
 
 

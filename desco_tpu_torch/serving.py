@@ -18,9 +18,11 @@ checkpoints serves their ensemble (stage-1 predictions averaged in
 log2(count + 1) space; the config rehydrates from the first member and
 the gossip stage reads the first member's query embeddings). A
 checkpoint trained in labeled mode (``use_node_feature``) serves graphs
-that carry one-hot ``node_feat``. Not in this slice (ROADMAP.md, Queue
-1): ``count_large_graph`` (halo-sharded gossip, M16), ``n_devices > 1``
-(data-parallel serving, M15) and ``compile_cache`` (M17).
+that carry one-hot ``node_feat``. ``count_large_graph`` serves one large
+graph: stage 1 as ``count`` does, the gossip halo-sharded
+(parallel/halo.py). Not in this slice (ROADMAP.md, Queue 1):
+``n_devices > 1`` (data-parallel serving, M15) and ``compile_cache``
+(M17).
 
 Typical use::
 
@@ -34,6 +36,7 @@ from __future__ import annotations
 import dataclasses
 import queue
 import threading
+import time
 from typing import Optional, Sequence, Union
 
 import numpy as np
@@ -207,10 +210,44 @@ class CountingService:
         return self.count([graph], **kw).graphlet_counts[0]
 
     def count_large_graph(self, graph: Graph, n_devices: int = 0,
-                          refine: Optional[bool] = None) -> CountResult:
-        raise NotImplementedError(
-            "single-large-graph serving (halo-sharded gossip) is not "
-            "ported yet (ROADMAP.md, Queue 1 M16, and kernel K4)")
+                          refine: Optional[bool] = None,
+                          stats: Optional[dict] = None) -> CountResult:
+        """Single-LARGE-graph serving (P2P/Astro scale): stage 1 runs
+        through the bounded canonical decomposition, as in ``count``
+        (the working set is depth-d neighborhoods whatever the graph's
+        size), and the gossip stage, which must see the WHOLE graph, runs
+        halo-sharded over ``n_devices`` shards (0: one per visible CUDA
+        device; one on the CPU), so no shard holds the whole graph
+        (parallel/halo.serve_gossip_counts). The guards apply as in
+        ``count``. ``stats``, a dict, gets the host seconds of stage 1
+        (``stage1_s``: decomposition, forward, bounds, verification), its
+        target batches (``stage1_batches``) and the gossip's
+        ``serve_gossip_counts`` stats."""
+        from .parallel.halo import serve_gossip_counts
+
+        refine = self._check_refine(refine)
+        t0 = time.perf_counter()
+        stage = prepare_stage_data(self.cfg, [graph],
+                                   capacities=self._select_neigh_caps)
+        if not stage.samples:
+            return self._empty_result(stage)
+        counts, verified = neighborhood_predictions(
+            self.members, self.tgt_cfg, self.member_embs, stage,
+            self.cfg, self.device)
+        if stats is not None:
+            stats["stage1_s"] = time.perf_counter() - t0
+            stats["stage1_batches"] = len(stage.batches)
+        if not refine:
+            return self._package_unrefined(stage, counts, verified)
+        x_all = np.zeros((graph.n_nodes, counts.shape[1]), np.float32)
+        x_all[np.asarray(stage.nindex.indicator)] = counts.astype(
+            np.float32)
+        node_counts, gossip_stats = serve_gossip_counts(
+            self.gossip_params, graph, x_all, self.member_embs[0],
+            n_devices=n_devices, return_stats=True, device=self.device)
+        if stats is not None:
+            stats.update(gossip_stats)
+        return self._guard_and_package(stage, node_counts, counts, verified)
 
     def _empty_result(self, stage) -> CountResult:
         """All-zero counts: every canonical neighborhood is edgeless

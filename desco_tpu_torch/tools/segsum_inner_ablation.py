@@ -178,12 +178,6 @@ def _check_inputs(msgs, seg, n_segments) -> None:
         raise ValueError("the probe wants at least one segment and column")
 
 
-def _offsets(seg, n_segments):
-    bounds = torch.arange(n_segments + 1, dtype=torch.int32,
-                          device=seg.device)
-    return torch.searchsorted(seg, bounds, out_int32=True)
-
-
 def _segsum_variant(mode: str, plain: Callable) -> Callable:
     def variant(msgs: torch.Tensor, seg: torch.Tensor, n_segments: int):
         if cs._on_cpu(msgs, seg):
@@ -191,7 +185,8 @@ def _segsum_variant(mode: str, plain: Callable) -> Callable:
         _check_inputs(msgs, seg, n_segments)
         out = torch.empty((n_segments, msgs.shape[1]), dtype=torch.float32,
                           device=msgs.device)
-        launch_segsum(mode, msgs, _offsets(seg, n_segments), n_segments, out)
+        launch_segsum(mode, msgs, cs.segment_offsets(seg, n_segments),
+                      n_segments, out)
         variant.launches += 1
         return out
 
@@ -292,7 +287,7 @@ def time_variants(msgs, seg, n: int) -> dict:
     """Hot and cold µs per call of the four variants, with their bounds."""
     e, k = msgs.shape
     dev = msgs.device
-    offs = _offsets(seg, n)
+    offs = cs.segment_offsets(seg, n)
     e_live = int(offs[-1])
     stream_bytes = e * k * 2
     n_copies = int(2 * L2_BYTES // stream_bytes) + 2
@@ -330,7 +325,8 @@ def probe_series(device, k: int, seed: int = 0, log=print) -> dict:
     msgs, seg, n = bench_stream(device, k, seed)
     with torch.inference_mode():
         outs = {name: fn(msgs, seg, n) for name, fn in VARIANTS.items()}
-        if not torch.equal(outs["full"], cs.sorted_segment_sum(msgs, seg, n)):
+        if not torch.equal(outs["full"], cs.sorted_segment_sum(
+                msgs, seg, n, cs.segment_offsets(seg, n))):
             raise RuntimeError("probe_full is not bit-equal to K1")
         row = time_variants(msgs, seg, n)
     log(f"bench stream: msgs bf16 [{row['e']}, {k}] "
@@ -383,7 +379,8 @@ def gather_old_forward(x, st):
     """What the gossip aggregation ran before K1 took the gather: the
     [E, K] messages by ``index_select``, then K1 over the keys."""
     return cs.sorted_segment_sum(x.index_select(0, st.edge_src.long()),
-                                 st.keys, st.n_nodes * st.n_types)
+                                 st.keys, st.n_nodes * st.n_types,
+                                 st.fwd_toffs)
 
 
 def gather_old_backward(g, st, dtype):
@@ -408,12 +405,12 @@ def time_cases(cases: dict) -> dict:
     for dname, dtype in (("f32", torch.float32), ("bf16", bf)):
         c = cases["k1_pool"]
         msgs, seg, n = c["msgs"].to(dtype), c["seg"], c["n"]
-        offs = _offsets(seg, n)
+        offs = cs.segment_offsets(seg, n)
         res = torch.empty((n, msgs.shape[1]), device=msgs.device)
         out[f"k1_pool_{dname}"] = {
             "alone_us": graph_us(lambda i: cs.launch_k1(msgs, offs, n, res)),
-            "function_us": graph_us(
-                lambda i: cs.sorted_segment_sum(msgs, seg, n)),
+            "function_us": graph_us(lambda i: cs.sorted_segment_sum(
+                msgs, seg, n, cs.segment_offsets(seg, n))),
         }
         c = cases["gossip"]
         x, g, st = c["x"].to(dtype), c["g"], c["st"]

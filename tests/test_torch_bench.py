@@ -181,7 +181,8 @@ def test_probe_variant_on_the_hand_example(name):
     assert probe.VARIANTS[name].launches == before  # the plain path
     if name == "full":  # the segment-sum; the padding row is dropped
         want = np.stack([HAND[:3].sum(0), np.zeros(4), HAND[3:7].sum(0)])
-        assert torch.equal(out, cs.sorted_segment_sum(msgs, seg, 3))
+        assert torch.equal(out, cs.sorted_segment_sum(
+            msgs, seg, 3, cs.segment_offsets(seg, 3)))
     elif name == "nooffs":  # fixed runs of 3 rows, ids ignored
         want = np.stack([HAND[:3].sum(0), HAND[3:6].sum(0), HAND[6:].sum(0)])
     elif name == "noacc":   # OR of the runs' bf16 bit patterns

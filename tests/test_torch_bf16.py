@@ -61,7 +61,8 @@ def test_k1_bf16_matches_pallas_interpret(rng, interpret_mode, k):
     msgs, seg = sorted_stream(rng, 300, 960, k)
     ref = np.asarray(ps.pallas_sorted_segment_sum(
         jbf(msgs), jnp.asarray(seg), 300))
-    out = cs.sorted_segment_sum(bf(msgs), T(seg), 300)
+    out = cs.sorted_segment_sum(bf(msgs), T(seg), 300,
+                                cs.segment_offsets(T(seg), 300))
     assert out.dtype == torch.float32  # f32 accumulate, f32 out
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-2, atol=2e-2)
     # against an f64 sum of the same bf16 rows: f32 accumulation error only
@@ -141,7 +142,8 @@ def test_k4_bf16_cotangent_follows_the_primal(rng, interpret_mode):
     ref = jax.grad(f)(jbf(msgs))
     assert ref.dtype == jnp.bfloat16
     m = bf(msgs).requires_grad_()
-    (cs.sorted_segment_sum(m, T(seg), n) * T(g)).sum().backward()
+    (cs.sorted_segment_sum(m, T(seg), n, cs.segment_offsets(T(seg), n))
+     * T(g)).sum().backward()
     assert m.grad.dtype == BF
     np.testing.assert_array_equal(f32(m.grad), np.asarray(ref, np.float32))
     assert float(m.grad[-64:].abs().max()) == 0.0  # pad keys get zero

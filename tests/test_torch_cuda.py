@@ -75,7 +75,7 @@ def test_k1_kernel_matches_plain_on_gpu(rng, cuda_device, k):
     msgs, seg = sorted_stream(rng, 700, 5000, k, neg=3)
     m, s = T(msgs).to(cuda_device), T(seg).to(cuda_device)
     with torch.inference_mode():
-        out = cs.sorted_segment_sum(m, s, 700)
+        out = cs.sorted_segment_sum(m, s, 700, cs.segment_offsets(s, 700))
         ref = cs.sorted_segment_sum_plain(m, s, 700)
     torch.cuda.synchronize()
     torch.testing.assert_close(out, ref, rtol=1e-5,
@@ -327,7 +327,8 @@ def test_k1_gradient_runs_k4_on_gpu(rng, cuda_device):
     s = T(seg).to(cuda_device)
     wgt = torch.randn(50, 64, device=cuda_device)
     before = cs.segment_sum_vjp.launches
-    (cs.sorted_segment_sum(m, s, 50) * wgt).sum().backward()
+    out = cs.sorted_segment_sum(m, s, 50, cs.segment_offsets(s, 50))
+    (out * wgt).sum().backward()
     torch.cuda.synchronize()
     assert cs.segment_sum_vjp.launches == before + 1
     assert torch.equal(m.grad, cs.segment_sum_vjp_plain(wgt, s, 50))
@@ -348,14 +349,15 @@ def test_wrapper_counts_launches_and_checks_inputs(rng, cuda_device):
     m, s = T(msgs).to(cuda_device), T(seg).to(cuda_device)
     before = cs.sorted_segment_sum.launches
     with torch.inference_mode():
-        cs.sorted_segment_sum(m, s, 50)
+        offs = cs.segment_offsets(s, 50)
+        cs.sorted_segment_sum(m, s, 50, offs)
         assert cs.sorted_segment_sum.launches == before + 1
         with pytest.raises(ValueError, match="int32"):
-            cs.sorted_segment_sum(m, s.long(), 50)
+            cs.sorted_segment_sum(m, s.long(), 50, offs)
         with pytest.raises(ValueError, match="contiguous"):
-            cs.sorted_segment_sum(m.t().contiguous().t(), s, 50)
+            cs.sorted_segment_sum(m.t().contiguous().t(), s, 50, offs)
         with pytest.raises(ValueError, match="CUDA"):
-            cs.sorted_segment_sum(m, T(seg), 50)
+            cs.sorted_segment_sum(m, T(seg), 50, offs)
 
 
 # ------------------------------------------------------------- bf16 rows
@@ -368,7 +370,7 @@ def test_k1_bf16_kernel_matches_plain_on_gpu(rng, cuda_device, k):
     m, s = T(msgs).to(cuda_device).to(BF), T(seg).to(cuda_device)
     before = cs.sorted_segment_sum.launches_bf16
     with torch.inference_mode():
-        out = cs.sorted_segment_sum(m, s, 700)
+        out = cs.sorted_segment_sum(m, s, 700, cs.segment_offsets(s, 700))
         ref = cs.sorted_segment_sum_plain(m, s, 700)
     torch.cuda.synchronize()
     assert cs.sorted_segment_sum.launches_bf16 == before + 1
@@ -419,7 +421,8 @@ def test_k4_bf16_kernel_equals_plain_on_gpu(rng, cuda_device, k):
     assert torch.equal(out, cs.segment_sum_vjp_plain(g, s, 700, BF))
     # behind K1 under grad: the cotangent takes the messages' dtype
     m = torch.randn(len(seg), k, device=cuda_device).to(BF).requires_grad_()
-    (cs.sorted_segment_sum(m, s, 700) * g).sum().backward()
+    out2 = cs.sorted_segment_sum(m, s, 700, cs.segment_offsets(s, 700))
+    (out2 * g).sum().backward()
     assert m.grad.dtype == BF and torch.equal(m.grad, out)
 
 
@@ -440,7 +443,8 @@ def test_probe_variants_match_plain_on_gpu(rng, cuda_device, k):
             assert torch.equal(out[1], ref[1])
             out, ref = out[0], ref[0]
         if name == "full":
-            assert torch.equal(out, cs.sorted_segment_sum(m, s, 333))
+            assert torch.equal(out, cs.sorted_segment_sum(
+                m, s, 333, cs.segment_offsets(s, 333)))
         if name in ("noacc", "stream"):
             assert torch.equal(out, ref)
         else:
@@ -548,12 +552,13 @@ def test_k1_identity_equals_probe_full_and_edge_order(rng, cuda_device, k):
     msgs, seg = sorted_stream(rng, 300, 3000, k)
     m, s = T(msgs).to(cuda_device).to(BF), T(seg).to(cuda_device)
     with torch.inference_mode():
-        assert torch.equal(cs.sorted_segment_sum(m, s, 300),
+        offs = cs.segment_offsets(s, 300)
+        assert torch.equal(cs.sorted_segment_sum(m, s, 300, offs),
                            probe.probe_full(m, s, 300))
         if k > 16:  # one lane per element: edge order, bit for bit
             mf = T(msgs).to(cuda_device)
-            out = cs.sorted_segment_sum(mf, s, 300)
-            offs = probe._offsets(s, 300).cpu().numpy()
+            out = cs.sorted_segment_sum(mf, s, 300, offs)
+            offs = offs.cpu().numpy()
             ref = np.zeros((300, k), np.float32)
             for r in range(300):
                 acc = np.zeros(k, np.float32)
@@ -665,3 +670,131 @@ def test_conv_towers_on_gpu_match_cpu(rng, cuda_device, conv, order):
     else:
         assert n["fused_typed_transform_aggregate"] == layers
         assert n["typed_aggregate_bwd"] == layers
+
+
+def halo_typed_graph(rng, n=120, p=0.06):
+    """(n, node_type, x, src, dst, type) of a random graph's whole-graph
+    typed sample (2 edge types: triangle edges or not) with random
+    inputs."""
+    from desco_tpu_torch.batch.build import query_sample
+    from desco_tpu_torch.graph import Graph
+
+    iu = np.triu_indices(n, k=1)
+    keep = rng.random(len(iu[0])) < p
+    g = Graph(n, np.stack([iu[0][keep], iu[1][keep]], 1).astype(np.int32))
+    s = query_sample(g)
+    x = rng.standard_normal((n, 1)).astype(np.float32)
+    return g, (n, s.node_type, x, s.edge_src, s.edge_dst, s.edge_type)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("conv", ["SAGE", "GAT", "PNA"])
+def test_halo_tower_on_gpu_matches_cpu(rng, cuda_device, conv):
+    """The halo SHMP core at 4 shards on the card against the same on the
+    CPU, output and gradients within 1e-4 of their scale. SAGE sums its
+    streams on the gather-fused K1 (forward and backward: sends, interior
+    and boundary streams, 3 x 4 launches per layer on this partition),
+    GAT and PNA on K1 with K4 behind; no halo sum on K2."""
+    import copy
+
+    from desco_tpu_torch.models import shmp_gnn as sg
+    from desco_tpu_torch.parallel import halo
+
+    layers = 2
+    cfg = sg.neighborhood_target_config(hidden_dim=16, output_dim=16,
+                                        layer_num=layers, conv_type=conv)
+    params = sg.init_shmp(cfg, torch.Generator().manual_seed(3))
+    _, args = halo_typed_graph(rng)
+    part = halo.partition_typed_graph(*args, 4, n_types=6,
+                                      force_pull=conv != "SAGE")
+    cot = torch.randn(part.n_devices, part.n_loc, cfg.post_input_dim,
+                      generator=torch.Generator().manual_seed(4))
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        p = copy.deepcopy(params).to(dev).requires_grad_(True)
+        shards = halo.place_shards(part, [torch.device(dev)])
+        cs.reset_launches()
+        outs = halo.halo_shmp_core(p, cfg, shards)
+        sum((o * c.to(dev)).sum() for o, c in zip(outs, cot)).backward()
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        runs[str(dev)] = (torch.stack([o.detach().cpu() for o in outs]),
+                          {k: v.grad.cpu() for k, v in p.named_parameters()
+                           if v.grad is not None}, cs.read_launches(),
+                          shards)
+    (out_c, g_c, _, _), (out_g, g_g, n, shards) = (runs["cpu"],
+                                                   runs[str(cuda_device)])
+    assert float((out_g - out_c).abs().max()) <= 1e-4 * float(
+        out_c.abs().max())
+    for k, want in g_c.items():
+        scale = float(want.abs().max())
+        assert float((g_g[k] - want).abs().max()) <= 1e-4 * scale, k
+    assert all(sh.boundary is not None for sh in shards)
+    sends = sum(int(sh.send.edge_src.numel() > 0) for sh in shards)
+    assert n["fused_typed_transform_aggregate"] == 0
+    if conv == "SAGE":
+        per_agg = sends + 2 * len(shards)
+        assert n["gather_segment_sum"] == layers * per_agg
+        assert n["gather_segment_sum_bwd"] == layers * per_agg
+        assert n["sorted_segment_sum"] == n["segment_sum_vjp"] == 0
+    else:
+        sums, grad_sums, gathers = {"GAT": (2, 2, 0), "PNA": (3, 2, 1)}[conv]
+        streams = 2 * len(shards)
+        assert n["sorted_segment_sum"] == layers * streams * (sums + gathers)
+        assert n["segment_sum_vjp"] == layers * streams * (grad_sums
+                                                           + gathers)
+        assert n["gather_segment_sum"] == layers * sends
+
+
+@pytest.mark.cuda
+def test_halo_gossip_step_on_gpu_is_bit_stable(rng, cuda_device):
+    """A halo gossip train step at 4 shards (a partition with push pairs)
+    on the card: its gradients within 1e-4 of the CPU's, two same-seed
+    steps (dropout 0.01) bit-equal, the gather-fused K1 forward and
+    backward on every stream."""
+    import copy
+
+    from desco_tpu_torch.batch.build import gossip_sample
+    from desco_tpu_torch.models import gossip as gm
+    from desco_tpu_torch.parallel import halo
+    from desco_tpu_torch.train.loop import make_adam
+
+    g, _ = halo_typed_graph(rng, n=200, p=0.03)
+    counts = rng.random((g.n_nodes, 3)).astype(np.float32) * 5
+    truth = counts * rng.uniform(0.5, 1.5, (g.n_nodes, 1)).astype(np.float32)
+    s = gossip_sample(g, counts, truth)
+    part = halo.partition_typed_graph(g.n_nodes, s.node_type, counts,
+                                      s.edge_src, s.edge_dst, s.edge_type,
+                                      4, node_y=truth, n_types=2)
+    params = gm.init_gossip_model(hidden_dim=16, emb_channels=16,
+                                  generator=torch.Generator().manual_seed(5))
+    embs = torch.randn(3, 16, generator=torch.Generator().manual_seed(6))
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        p = copy.deepcopy(params).to(dev).requires_grad_(True)
+        halo.halo_gossip_loss(p, halo.place_shards(part, [torch.device(dev)]),
+                              embs.to(dev)).backward()
+        grads[str(dev)] = {k: v.grad.cpu() for k, v in p.named_parameters()
+                           if v.grad is not None}
+    for k, want in grads["cpu"].items():
+        scale = float(want.abs().max())
+        assert float((grads[str(cuda_device)][k] - want).abs().max()) <= (
+            1e-4 * max(scale, 1e-30)), k
+    shards = halo.place_shards(part, [cuda_device])
+    steps = []
+    for _ in range(2):
+        p = copy.deepcopy(params).to(cuda_device)
+        opt = make_adam(p)
+        cs.reset_launches()
+        halo.halo_gossip_step_fn(opt, dropout=0.01)(
+            p, shards, embs.to(cuda_device), 1e-3, seed=7)
+        torch.cuda.synchronize()
+        steps.append((opt.grad.clone(), opt.flat.clone(), cs.read_launches()))
+    assert torch.equal(steps[0][0], steps[1][0])
+    assert torch.equal(steps[0][1], steps[1][1])
+    n = steps[0][2]
+    assert part.p_max > 0
+    sends = sum(int(sh.send.edge_src.numel() > 0) for sh in shards)
+    per_agg = sends + 4 + sum(int(sh.boundary is not None) for sh in shards)
+    assert n["gather_segment_sum"] == (1 + 2 * 3) * per_agg
+    assert n["gather_segment_sum_bwd"] == 3 * per_agg

@@ -186,7 +186,8 @@ def test_k4_plain_matches_sorted_segment_sum_ad(rng, interpret_mode):
         jnp.asarray(msgs), jnp.asarray(seg), n_seg))
     ref_grad = np.asarray(jax.grad(f)(jnp.asarray(msgs)))
     m = T(msgs).clone().requires_grad_()
-    out = cs.sorted_segment_sum(m, T(seg), n_seg)
+    out = cs.sorted_segment_sum(m, T(seg), n_seg,
+                                cs.segment_offsets(T(seg), n_seg))
     (out * T(wgt)).sum().backward()
     np.testing.assert_allclose(out.detach().numpy(), ref_out, rtol=1e-5,
                                atol=1e-6)

@@ -41,7 +41,8 @@ def test_k1_plain_matches_pallas_interpret(rng, interpret_mode, k):
     msgs, seg = sorted_stream(rng, 300, 960, k)
     ref = np.asarray(ps.pallas_sorted_segment_sum(
         jnp.asarray(msgs), jnp.asarray(seg), 300))
-    out = cs.sorted_segment_sum(T(msgs), T(seg), 300).numpy()
+    out = cs.sorted_segment_sum(T(msgs), T(seg), 300,
+                                cs.segment_offsets(T(seg), 300)).numpy()
     np.testing.assert_allclose(out, ref, rtol=1e-2, atol=2e-2)
 
 
@@ -49,7 +50,8 @@ def test_k1_plain_matches_xla_f32(rng):
     msgs, seg = sorted_stream(rng, 500, 3000, 48, neg=5)
     ref = np.asarray(jseg.segment_sum(jnp.asarray(msgs), jnp.asarray(seg),
                                       500, indices_are_sorted=True))
-    out = cs.sorted_segment_sum(T(msgs), T(seg), 500).numpy()
+    out = cs.sorted_segment_sum(T(msgs), T(seg), 500,
+                                cs.segment_offsets(T(seg), 500)).numpy()
     np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5)
 
 
@@ -109,7 +111,8 @@ def test_segment_ops_match_xla(rng):
 def test_wrappers_take_plain_path_only_on_cpu(rng):
     msgs, seg = sorted_stream(rng, 40, 200, 8)
     before = [kern.launches for kern in cs.KERNELS]
-    cs.sorted_segment_sum(T(msgs), T(seg), 40)
+    offs = cs.segment_offsets(T(seg), 40)
+    cs.sorted_segment_sum(T(msgs), T(seg), 40, offs)
     x, src, _, _, keys, w = typed_case(rng, 50, 2, 8, 8, 100)
     cs.fused_typed_transform_aggregate(T(x), T(src), T(keys), T(w), 2, 50)
     # the plain path is no kernel launch
@@ -118,7 +121,7 @@ def test_wrappers_take_plain_path_only_on_cpu(rng):
     # tensor is neither CPU nor CUDA
     meta = T(msgs).to("meta")
     with pytest.raises(ValueError, match="CUDA"):
-        cs.sorted_segment_sum(meta, T(seg), 40)
+        cs.sorted_segment_sum(meta, T(seg), 40, offs)
     with pytest.raises(ValueError, match="CUDA"):
         cs.fused_typed_transform_aggregate(
             T(x).to("meta"), T(src), T(keys), T(w), 2, 50)

@@ -208,7 +208,5 @@ def test_unported_options_raise(override):
 
 
 def test_unported_entry_points_raise(port_service, graphs):
-    with pytest.raises(NotImplementedError, match="M16"):
-        port_service.count_large_graph(graphs[1][0])
     with pytest.raises(NotImplementedError, match="M15"):
         CountingService(NEIGH, device="cpu", n_devices=2)
