@@ -192,12 +192,34 @@ nonzero on a failed check (no phase catches its own failure):
      and the gather-fused K1 (forward and backward) on a gossip shard's
      interior, boundary and send streams and the 1-column degrees, K1
      and K4 at the halo GAT / PNA sums, checked and timed as in phase 2.
+ 14. data parallelism (run before the record), D = 2 and D = 4 replicas
+     on the one card: (a) phase 3's 256-graph request through
+     ``CountingService(n_devices=2)``, every output bit-equal to phase 3's
+     result, and both stages' DP predict at D = 2 and 4 bit-equal to one
+     device (K2 8 per padded target batch, the gather-fused K1 1 + 2 x 29
+     per padded gossip batch, no backward kernel); (b) a D = 2 step of
+     each training stage on the phase-6 set (the neighborhood's weighted
+     by valid graphs, the gossip's a sum) against the single-device
+     losses (rtol 1e-5) and gradients (1e-4 of a tensor's scale), the
+     same on the CPU, two same-seed steps bit-equal (the gossip's also
+     with dropout), and 2 epochs of each stage at D = 1 and D = 2 through
+     ``train_*_stage(mesh=...)`` with launches per padded batch and the
+     epoch ms; (c) DP x halo on a 2 x 2 grid: phase 13's graph and a
+     12,000-node one of the same recipe (seed 4), harmonized partitions,
+     the composed gossip loss and gradients against the sum of the
+     replicas' (rtol 1e-5, 1e-5 of a tensor's scale), two same-seed
+     steps bit-equal, the composed SHMP forward bit-equal to each
+     replica's ``halo_shmp_core``; (d) ``graft_entry.dryrun_multichip(4)``,
+     and ``enable_compilation_cache`` on a fresh directory: one process
+     builds every library there (started first, it runs beside the rest
+     of the phase), a second one loads them without nvcc or g++.
  12. one JSON line of kernels (K2' and K3' at T = 33 and at T = 1 in
      rows of their own, launched by the order-4 run and the DIAMNet
      driver; every other row's launches count the ablation path, labeled
-     serving and the ensembles and the halo path too, the gather-fused
-     K1's the baseline entry points as well; K1, K4 and the gather-fused K1
-     carry their halo use sites), the card line, then the final ok line.
+     serving and the ensembles, the halo path and data parallelism too,
+     the gather-fused K1's the baseline entry points as well; K1, K4 and
+     the gather-fused K1 carry their halo use sites), the card line, then
+     the final ok line.
 """
 
 from __future__ import annotations
@@ -2372,6 +2394,486 @@ def halo_phase(torch, cs, probe, dev, seed: int, svc) -> dict:
             "conv": conv_rows}
 
 
+# ------------------------------------------- phase 14: data parallelism
+# the second graph of the DP x halo run: desco_tpu's large-graph recipe
+# at 12,000 nodes, seed 4 (the first is phase 13's 20,000 nodes, seed 3)
+DP_HALO_SECOND = (12000, 4)
+
+
+def flat_of(torch, params, loss) -> "torch.Tensor":
+    """d loss / d params as one flat vector (zeros where none flows)."""
+    ps = list(params.parameters())
+    grads = torch.autograd.grad(loss, ps, allow_unused=True)
+    return torch.cat([(g if g is not None else torch.zeros_like(p))
+                      .reshape(-1) for g, p in zip(grads, ps)])
+
+
+def tensor_err(torch, params, got, ref) -> float:
+    """The largest error of a flat gradient against a reference, relative
+    to each parameter tensor's own scale (a tensor whose reference is all
+    zero must come out zero)."""
+    worst, off = 0.0, 0
+    got, ref = got.double().cpu(), ref.double().cpu()
+    for p in params.parameters():
+        a, b = got[off:off + p.numel()], ref[off:off + p.numel()]
+        off += p.numel()
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        worst = max(worst, err / scale if scale > 0 else
+                    (0.0 if err == 0 else float("inf")))
+    return worst
+
+
+def dp_step_checks(torch, cs, add, dp, params, loss_fn, loss_fn_cpu,
+                   batches, kind, what: str) -> dict:
+    """One D = 2 DP step's loss and reduced gradients against the
+    single-device losses and gradients of its batches ('graphs': the
+    valid-graph-weighted mean; 'sum': the sum), on the card (phase 5's
+    bound, 1e-4 of each tensor's scale) and on the CPU (the same bound),
+    plus two same-seed DP train steps bit-equal. ``add`` takes the
+    launches of the DP runs alone; the single-device references run
+    outside the counted windows."""
+    from desco_tpu_torch.train.loop import make_adam
+
+    mesh = dp.make_mesh(2)
+    group = dp.place_batches(batches, mesh, training=True)
+    cs.reset_launches()
+    t0 = time.perf_counter()
+    loss, flat = dp.dp_loss_and_grads(loss_fn, params, group, mesh, kind)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    add(cs.read_launches())
+    ws = [float(b.graph_mask.sum()) if kind == "graphs" else 1.0
+          for b in batches]
+    wsum = max(sum(ws), 1.0) if kind == "graphs" else 1.0
+    ref_loss, ref_flat = 0.0, None
+    for b, w in zip(group, ws):
+        one = loss_fn(params, b, None)
+        g = flat_of(torch, params, one).double() * (w / wsum)
+        ref_loss += float(one.detach()) * w / wsum
+        ref_flat = g if ref_flat is None else ref_flat + g
+    lerr = abs(float(loss) - ref_loss) / max(abs(ref_loss), 1e-30)
+    gerr = tensor_err(torch, params, flat, ref_flat)
+    # the same step on the CPU (the kernels' plain versions)
+    cpu_params = copy.deepcopy(params).to("cpu")
+    cmesh = dp.make_mesh(2, "cpu")
+    t0 = time.perf_counter()
+    closs, cflat = dp.dp_loss_and_grads(
+        loss_fn_cpu, cpu_params, dp.place_batches(batches, cmesh,
+                                                  training=True),
+        cmesh, kind)
+    cpu_s = time.perf_counter() - t0
+    cerr = tensor_err(torch, params, flat, cflat)
+    clerr = abs(float(loss) - float(closs)) / max(abs(float(closs)), 1e-30)
+    # two same-seed train steps (Adam; the gossip draws dropout masks)
+    steps = []
+    for _ in range(2):
+        p = copy.deepcopy(params)
+        opt = make_adam(p)
+        step = dp.dp_step_fn(loss_fn, opt, mesh, kind)
+        gens = dp.replica_generators(mesh, 14)
+        cs.reset_launches()
+        s_loss, ok = step(p, group, 1e-3, gens)
+        add(cs.read_launches())
+        steps.append((float(s_loss), bool(ok), opt.grad.clone(),
+                      opt.flat.clone()))
+    same = (steps[0][0] == steps[1][0] and steps[0][1]
+            and torch.equal(steps[0][2], steps[1][2])
+            and torch.equal(steps[0][3], steps[1][3]))
+    print(f"{what}: D = 2 DP step loss {float(loss):.6g} vs the "
+          f"{'weighted mean' if kind == 'graphs' else 'sum'} of the "
+          f"single-device losses {ref_loss:.6g} (rel {lerr:.3g}, bound "
+          f"1e-5); reduced gradients vs theirs max {gerr:.3g} of a tensor's "
+          f"scale (bound 1e-4); CUDA vs CPU: loss rel {clerr:.3g}, "
+          f"gradients {cerr:.3g} of a tensor's scale (bound 1e-4; CPU "
+          f"{cpu_s:.1f} s); {step_ms:.1f} ms for the step's two replicas; "
+          f"two same-seed train steps bit-equal: {same}", flush=True)
+    check(lerr <= 1e-5 and gerr <= 1e-4, f"{what}: DP step vs single-device")
+    check(clerr <= 1e-5 and cerr <= 1e-4, f"{what}: DP step CUDA vs CPU")
+    check(same, f"{what}: two same-seed DP steps differ")
+    return {"loss_rel": lerr, "grad_err": gerr, "cpu_grad_err": cerr,
+            "step_ms": step_ms}
+
+
+def dp_phase(torch, cs, dev, seed: int, svc, main_req, res_main,
+             main_stage, train_stage, tcfg, qb, gbatches, best, tgt_cfg,
+             qry_cfg) -> dict:
+    """Phase 14: data parallelism on the one card, D = 2 and D = 4
+    replicas. (a) DP serving: phase 3's 256-graph request through
+    ``CountingService(n_devices=2)`` (every output bit-equal to phase 3's
+    result) and both stages' DP predict at D = 2 and D = 4 (bit-equal to
+    one device; K2 eight times per padded target batch, no backward
+    kernel); (b) DP training: a D = 2 step of each stage against the
+    single-device losses and gradients, on the card and the CPU, two
+    same-seed steps bit-equal, and 2 epochs of each stage at D = 1 and
+    D = 2 through ``train_*_stage(mesh=...)`` (launches per padded batch);
+    (c) DP x halo on a 2 x 2 grid: two BA graphs (20,000 and 12,000 nodes)
+    with harmonized partitions, the composed gossip loss and gradients
+    against the sum of the replicas', two same-seed steps bit-equal, the
+    composed SHMP forward against each replica's ``halo_shmp_core``; (d)
+    ``graft_entry.dryrun_multichip(4)`` and the build cache across two
+    processes. Returns the phase's launches and figures."""
+    from desco_tpu_torch import graft_entry
+    from desco_tpu_torch.batch.build import gossip_sample
+    from desco_tpu_torch.data.workload import Workload
+    from desco_tpu_torch.graph import Graph
+    from desco_tpu_torch.models import gossip as gossip_mod
+    from desco_tpu_torch.models import neighborhood as neigh_mod
+    from desco_tpu_torch.parallel import dp, halo, topology
+    from desco_tpu_torch.pipeline import (train_gossip_stage,
+                                          train_neighborhood_stage)
+    from desco_tpu_torch.serving import CountingService
+    from desco_tpu_torch.train import loop as train_loop
+    from desco_tpu_torch.train.loop import make_adam
+
+    t14 = time.perf_counter()
+    # (d), first half: a fresh process builds every library into a fresh
+    # cache directory while the rest of the phase runs
+    cache_dir = tempfile.TemporaryDirectory(prefix="desco_smoke_cache_")
+    probe_cmd = [sys.executable, "-c", (
+        "import json, os, sys, time\n"
+        "from desco_tpu_torch.utils.compile_cache import "
+        "enable_compilation_cache\n"
+        "path = enable_compilation_cache(sys.argv[1])\n"
+        "from desco_tpu_torch.ops import cuda_build\n"
+        "from desco_tpu_torch.truth import native\n"
+        "libs = cuda_build.build_all()\n"
+        "t0 = time.perf_counter(); so = native._build()\n"
+        "print(json.dumps({'path': path, 'libs': libs, 'native': so, "
+        "'native_mtime': os.stat(so).st_mtime_ns, 'native_s': "
+        "time.perf_counter() - t0, 'build_s': cuda_build.build_seconds}))\n"),
+        cache_dir.name]
+    first = subprocess.Popen(probe_cmd, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True, cwd=REPO)
+    dp_launches = {k: 0 for k in cs.read_launches()}
+
+    def add(got):
+        for key, v in got.items():
+            dp_launches[key] += v
+
+    # (a) DP serving, phase 3's request
+    n_main = len(main_stage.batches)
+    svc2 = CountingService(R4_NEIGH, R4_GOSSIP, device=dev, n_devices=2)
+    svc2._neigh_buckets.update(svc._neigh_buckets)  # the same batches
+    svc2._gossip_buckets.update(svc._gossip_buckets)
+    cs.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res2 = svc2.count(main_req)
+    dp_req_s = time.perf_counter() - t0
+    got = cs.read_launches()
+    add(got)
+    padded = -(-n_main // 2) * 2
+    differ = [f.name for f in dataclasses.fields(res_main)
+              if not np.array_equal(getattr(res2, f.name),
+                                    getattr(res_main, f.name))]
+    print(f"CountingService(n_devices=2), phase 3's 256-graph request: "
+          f"{dp_req_s * 1e3:.1f} ms; launches {json.dumps(got)}; expected "
+          f"K2 = 8 x {padded} padded target batches; equal to phase 3's "
+          f"result bit for bit: {not differ}"
+          f"{' (differ: ' + ', '.join(differ) + ')' if differ else ''}",
+          flush=True)
+    check(not differ, "DP serving differs from phase 3's single-device "
+          "result")
+    check(got["fused_typed_transform_aggregate"] == 8 * padded
+          and got["sorted_segment_sum"] == padded,
+          "DP serving: K2 != 8 x padded target batches or K1 != one "
+          "pooling per padded batch")
+    check(all(got[k] == 0 for k in ("typed_aggregate_bwd", "segment_sum_vjp",
+                                    "gather_segment_sum_bwd")),
+          "DP serving launched a backward kernel")
+    del svc2
+    member, embs = svc.members[0], svc.member_embs[0]
+    gb_main = prepare_gossip_batches_for(svc, main_stage,
+                                         res_main.neighborhood_counts)
+    single = train_loop.predict_neighborhood_counts(
+        member, svc.tgt_cfg, embs, main_stage.batches, dev)
+    single_g = train_loop.predict_gossip_counts(svc.gossip_params, embs,
+                                                gb_main, dev)
+    dp_ms = {}
+    for d in (2, 4):
+        mesh = dp.make_mesh(d)
+        cs.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got_n = dp.dp_predict_neighborhood_counts(
+            member, svc.tgt_cfg, embs, main_stage.batches, mesh)
+        t1 = time.perf_counter()
+        got_g = dp.dp_predict_gossip_counts(svc.gossip_params, embs,
+                                            gb_main, mesh)
+        dp_ms[d] = ((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3)
+        got = cs.read_launches()
+        add(got)
+        pad_n = -(-n_main // d) * d
+        pad_g = -(-len(gb_main) // d) * d
+        check(np.array_equal(got_n, single) and np.array_equal(got_g,
+                                                               single_g),
+              f"DP predict at D = {d} differs from one device")
+        check(got["fused_typed_transform_aggregate"] == 8 * pad_n
+              and got["gather_segment_sum"] == (1 + 2 * 29) * pad_g
+              and got["typed_aggregate_bwd"] == 0
+              and got["gather_segment_sum_bwd"] == 0,
+              f"DP predict launches at D = {d}: {got}")
+        print(f"DP predict at D = {d} ({pad_n} padded target batches, "
+              f"{pad_g} gossip batches): stage 1 {dp_ms[d][0]:.1f} ms, "
+              f"gossip {dp_ms[d][1]:.1f} ms; both bit-equal to one device; "
+              f"launches {json.dumps(got)}", flush=True)
+
+    # (b) DP training: one D = 2 step of each stage
+    q_dev = qb.to(dev)
+    p_neigh = neigh_mod.init_neighborhood_model(
+        tgt_cfg, qry_cfg, torch.Generator().manual_seed(seed)).to(dev)
+    neigh_rows = dp_step_checks(
+        torch, cs, add, dp, p_neigh,
+        train_loop.neighborhood_loss_fn(tgt_cfg, qry_cfg, q_dev),
+        train_loop.neighborhood_loss_fn(tgt_cfg, qry_cfg, qb.to("cpu")),
+        train_stage.batches[:2], "graphs",
+        f"neighborhood stage (paper config, {train_stage.batches[0].n_cap} "
+        f"node slots per batch)")
+    with torch.no_grad():
+        q_embs = neigh_mod.embed_queries(best, qry_cfg, q_dev).clone()
+    p_gossip = gossip_mod.init_gossip_model(
+        hidden_dim=tcfg.gossip_hidden_dim,
+        emb_channels=tcfg.neigh_hidden_dim,
+        generator=torch.Generator().manual_seed(seed + 1)).to(dev)
+    gpair = dp.pad_batches_to_multiple(list(gbatches[:2]), 2)
+    gossip_rows = dp_step_checks(
+        torch, cs, add, dp, p_gossip, train_loop.gossip_loss_fn(0.0, q_embs),
+        train_loop.gossip_loss_fn(0.0, q_embs.cpu()), gpair, "sum",
+        f"gossip stage (29 queries, {gpair[0].n_cap} node slots)")
+    # the same step's dropout path (tcfg.gossip_dropout) repeats too
+    steps = []
+    mesh2 = dp.make_mesh(2)
+    ggroup = dp.place_batches(gpair, mesh2, training=True)
+    for _ in range(2):
+        p = copy.deepcopy(p_gossip)
+        opt = make_adam(p)
+        step = dp.dp_step_fn(
+            train_loop.gossip_loss_fn(tcfg.gossip_dropout, q_embs), opt,
+            mesh2, "sum")
+        cs.reset_launches()
+        s_loss, _ = step(p, ggroup, 1e-3, dp.replica_generators(mesh2, seed))
+        add(cs.read_launches())
+        steps.append((float(s_loss), opt.grad.clone(), opt.flat.clone()))
+    check(steps[0][0] == steps[1][0] and torch.equal(steps[0][1], steps[1][1])
+          and torch.equal(steps[0][2], steps[1][2]),
+          "two same-seed DP gossip steps with dropout differ")
+    print(f"DP gossip step with dropout {tcfg.gossip_dropout}: two same-seed "
+          f"steps bit-equal (loss {steps[0][0]:.6g})", flush=True)
+
+    # (b) two epochs of each stage at D = 1 and D = 2
+    ecfg = dataclasses.replace(tcfg, neigh_epochs=2, gossip_epochs=2)
+    n_b, n_gb = len(train_stage.batches), len(gbatches)
+    epochs = {}
+    for d in (1, 2):
+        mesh = dp.make_mesh(d)
+        pad_b, pad_g = -(-n_b // d) * d, -(-n_gb // d) * d
+        cs.reset_launches()
+        res, _, _ = train_neighborhood_stage(
+            ecfg, train_stage, train_stage, qb, mesh=mesh,
+            log_fn=lambda *_: None)
+        got = cs.read_launches()
+        add(got)
+        check(np.isfinite(res.train_losses).all()
+              and np.isfinite(res.val_losses).all(),
+              f"D = {d} neighborhood epochs: losses not finite")
+        check(got["typed_aggregate_bwd"] == 8 * 2 * pad_b
+              and got["fused_typed_transform_aggregate"]
+              == 8 * 2 * (pad_b + n_b),
+              f"D = {d} neighborhood epochs: launches {got}, expected K3 = "
+              f"8 x 2 x {pad_b}, K2 = 8 x 2 x ({pad_b} + {n_b} val)")
+        cs.reset_launches()
+        gres, _ = train_gossip_stage(
+            ecfg, best, tgt_cfg, qry_cfg, qb, gbatches, gbatches, mesh=mesh,
+            log_fn=lambda *_: None)
+        got_g = cs.read_launches()
+        add(got_g)
+        check(np.isfinite(gres.train_losses).all(),
+              f"D = {d} gossip epochs: losses not finite")
+        want_fwd = (8 + 2 * pad_g * GOSSIP_FWD_PER_STEP
+                    + 2 * n_gb * GOSSIP_FWD_PER_EVAL)
+        check(got_g["gather_segment_sum"] == want_fwd
+              and got_g["gather_segment_sum_bwd"]
+              == 2 * pad_g * GOSSIP_BWD_PER_STEP,
+              f"D = {d} gossip epochs: launches {got_g}, expected the "
+              f"gather-fused K1 {want_fwd} forward")
+        epochs[d] = {
+            "neigh_epoch_ms": [1e3 * t for t in res.train_times],
+            "neigh_losses": res.train_losses,
+            "gossip_epoch_ms": [1e3 * t for t in gres.train_times],
+            "gossip_losses": gres.train_losses,
+            "padded_batches": [pad_b, pad_g]}
+        print(f"D = {d}: 2 neighborhood epochs ({pad_b} batches, {pad_b // d}"
+              f" steps each): train ms {[round(x, 1) for x in epochs[d]['neigh_epoch_ms']]}"
+              f", loss {[round(x, 4) for x in res.train_losses]}; 2 gossip "
+              f"epochs ({pad_g} batches): train ms "
+              f"{[round(x, 1) for x in epochs[d]['gossip_epoch_ms']]}, loss "
+              f"{[round(x, 1) for x in gres.train_losses]}; launches "
+              f"neighborhood {json.dumps(got)}, gossip {json.dumps(got_g)}",
+              flush=True)
+
+    # (c) DP x halo: two BA graphs on a 2 x 2 grid of the one card
+    hrng = np.random.default_rng(seed + 14)
+    graphs = [ba_graph(Graph, HALO_NODES, HALO_DEGREE, HALO_GRAPH_SEED),
+              ba_graph(Graph, DP_HALO_SECOND[0], HALO_DEGREE,
+                       DP_HALO_SECOND[1])]
+    specs = []
+    for g in graphs:
+        x = hrng.uniform(0.0, 8.0, (g.n_nodes, 29)).astype(np.float32)
+        truth = (x * hrng.uniform(0.5, 1.5, (g.n_nodes, 1))).astype(
+            np.float32)
+        s = gossip_sample(g, x, truth)
+        specs.append(dict(n_nodes=g.n_nodes, node_type=s.node_type, x=x,
+                          edge_src=s.edge_src, edge_dst=s.edge_dst,
+                          edge_type=s.edge_type, node_y=truth))
+    t0 = time.perf_counter()
+    parts = topology.harmonized_partitions(specs, 2, n_types=2)
+    part_s = time.perf_counter() - t0
+    caps = [halo.partition_caps(p) for p in parts]
+    check(caps[0] == caps[1], f"harmonized partitions differ: {caps}")
+    grid = topology.make_mesh2d(2, 2)
+    replicas = topology.place_replicas(topology.stack_partitions(parts),
+                                       grid)
+    gp0 = copy.deepcopy(svc.gossip_params).requires_grad_(True)
+    hq = embs.clone()  # the service's are inference tensors
+    cs.reset_launches()
+    t0 = time.perf_counter()
+    loss, flat = topology.dp_halo_gossip_loss_and_grads(gp0, replicas, hq)
+    torch.cuda.synchronize()
+    halo_ms = (time.perf_counter() - t0) * 1e3
+    add(cs.read_launches())
+    ref_loss, ref_flat = 0.0, None
+    for shards in replicas:
+        one = halo.halo_gossip_loss(gp0, shards, hq)
+        g = flat_of(torch, gp0, one)
+        ref_loss += float(one.detach())
+        ref_flat = g if ref_flat is None else ref_flat + g
+    lerr = abs(float(loss) - ref_loss) / abs(ref_loss)
+    gerr = tensor_err(torch, gp0, flat, ref_flat)
+    steps = []
+    for _ in range(2):
+        p = copy.deepcopy(gp0)
+        opt = make_adam(p)
+        step = topology.dp_halo_gossip_step_fn(opt, dropout=0.01)
+        cs.reset_launches()
+        s_loss, ok = step(p, replicas, hq, 1e-3, seed=seed)
+        add(cs.read_launches())
+        steps.append((float(s_loss), bool(ok), opt.grad.clone(),
+                      opt.flat.clone()))
+    same = (steps[0][:2] == steps[1][:2] and steps[0][1]
+            and torch.equal(steps[0][2], steps[1][2])
+            and torch.equal(steps[0][3], steps[1][3]))
+    print(f"DP x halo (2 x 2 on {torch.cuda.device_count()} card(s); "
+          f"{graphs[0].n_nodes} and {graphs[1].n_nodes} nodes, harmonized "
+          f"caps {json.dumps(caps[0])} in {part_s:.2f} s): composed loss "
+          f"{float(loss):.6g} vs the sum of the replicas' "
+          f"{ref_loss:.6g} (rel {lerr:.3g}, bound 1e-5); gradients max "
+          f"{gerr:.3g} of a tensor's scale (bound 1e-5); {halo_ms:.1f} ms; "
+          f"two same-seed steps (dropout 0.01) bit-equal: {same}",
+          flush=True)
+    check(lerr <= 1e-5 and gerr <= 1e-5, "DP x halo vs the replicas' sum")
+    check(same, "two same-seed DP x halo steps differ")
+    # the composed SHMP forward (r4's target tower) on the two graphs'
+    # whole-graph typed samples
+    tspecs = []
+    for g in graphs:
+        [ws] = Workload([g]).wo_canonical_samples(
+            svc.cfg.query_ids, truth=np.zeros((g.n_nodes, 29)))
+        tspecs.append(dict(n_nodes=g.n_nodes, node_type=ws.node_type,
+                           x=hrng.standard_normal((g.n_nodes, 1)).astype(
+                               np.float32),
+                           edge_src=ws.edge_src, edge_dst=ws.edge_dst,
+                           edge_type=ws.edge_type))
+    tparts = topology.harmonized_partitions(
+        tspecs, 2, n_types=svc.tgt_cfg.n_edge_types)
+    treps = topology.place_replicas(topology.stack_partitions(tparts), grid)
+    tparams = member["target"]
+    with torch.inference_mode():
+        cs.reset_launches()
+        outs = topology.dp_halo_shmp_forward(svc.tgt_cfg)(tparams, treps)
+        got = cs.read_launches()
+        add(got)
+        for d, part in enumerate(tparts):
+            own = halo.halo_shmp_core(tparams, svc.tgt_cfg,
+                                      halo.place_shards(part, [dev]))
+            check(all(torch.equal(a, b) for a, b in zip(outs[d], own)),
+                  f"composed SHMP forward, replica {d}, differs from its "
+                  f"halo_shmp_core")
+    want = 8 * sum(per_aggregate(r) for r in treps)
+    check(got["gather_segment_sum"] == want
+          and got["fused_typed_transform_aggregate"] == 0,
+          f"composed SHMP forward launches {got}, expected {want} "
+          f"gather-fused K1")
+    print(f"dp_halo_shmp_forward (r4 target tower, 2 x 2): each replica "
+          f"bit-equal to its halo_shmp_core; launches {json.dumps(got)}",
+          flush=True)
+
+    # (d) the graft entry's multi-chip drill, and the build cache; the
+    # drill holds DP serving against one device's, so its launches stay
+    # out of the path's counts
+    cs.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        graft = graft_entry.dryrun_multichip(4)
+    graft_launches = cs.read_launches()
+    check("OK" in buf.getvalue(), "dryrun_multichip(4) printed no OK")
+    print(f"graft_entry.dryrun_multichip(4) on the card in "
+          f"{time.perf_counter() - t0:.2f} s (launches, not counted on the "
+          f"path: {json.dumps(graft_launches)}): {buf.getvalue().strip()}",
+          flush=True)
+    out1, err1 = first.communicate(timeout=600)
+    check(first.returncode == 0, f"the build-cache probe exited "
+          f"{first.returncode}: {err1[-2000:]}")
+    t0 = time.perf_counter()
+    second = subprocess.run(probe_cmd, capture_output=True, text=True,
+                            timeout=600, cwd=REPO)
+    second_s = time.perf_counter() - t0
+    check(second.returncode == 0, f"the second build-cache probe exited "
+          f"{second.returncode}: {second.stderr[-2000:]}")
+    b1, b2 = json.loads(out1.splitlines()[-1]), json.loads(
+        second.stdout.splitlines()[-1])
+    inside = all(p.startswith(os.path.join(b1["path"], "kernels"))
+                 for p in b1["libs"].values()) and b1["native"].startswith(
+        os.path.join(b1["path"], "native"))
+    check(inside and b1["libs"] == b2["libs"],
+          f"the build cache did not hold the libraries: {b1}, {b2}")
+    check(all(v > 0 for v in b1["build_s"].values())
+          and all(v == 0 for v in b2["build_s"].values())
+          and b2["native_mtime"] == b1["native_mtime"],
+          f"the second process rebuilt a library: {b2['build_s']}")
+    cache_dir.cleanup()
+    print(f"build cache: a fresh process built "
+          f"{json.dumps({k: round(v, 2) for k, v in b1['build_s'].items()})} "
+          f"s of nvcc and {b1['native_s']:.2f} s of g++ into it; a second "
+          f"process loaded all four without a compiler "
+          f"({json.dumps(b2['build_s'])}, native {b2['native_s']:.3f} s; "
+          f"{second_s:.1f} s with process start)", flush=True)
+    print(f"phase 14 (data parallelism) launches: {json.dumps(dp_launches)}",
+          flush=True)
+    for name in ("fused_typed_transform_aggregate", "typed_aggregate_bwd",
+                 "sorted_segment_sum", "segment_sum_vjp",
+                 "gather_segment_sum", "gather_segment_sum_bwd"):
+        check(dp_launches[name] > 0, f"phase 14: {name} never launched")
+    took = time.perf_counter() - t14
+    print(f"phase 14 (data parallelism) took {took:.1f} s", flush=True)
+    return {"launches": dp_launches, "serving_ms": dp_req_s * 1e3,
+            "predict_ms": dp_ms, "neigh_step": neigh_rows,
+            "gossip_step": gossip_rows, "epochs": epochs,
+            "dp_halo": {"loss_rel": lerr, "grad_err": gerr, "ms": halo_ms},
+            "graft": graft, "seconds": took}
+
+
+def prepare_gossip_batches_for(svc, stage, counts):
+    """The gossip batches ``svc`` serves for ``stage`` (its pinned
+    buckets)."""
+    from desco_tpu_torch.pipeline import prepare_gossip_batches
+
+    return prepare_gossip_batches(
+        svc.cfg, stage, counts,
+        capacities=lambda s: svc._pin_caps(svc._gossip_buckets, s,
+                                           svc.cfg.gossip_batch_size))
+
+
 # --------------------------------------------------------- phase 3 checks
 def check_counts(res, n_graphs: int, what: str) -> None:
     check(res.graphlet_counts.shape == (n_graphs, 29),
@@ -2595,6 +3097,9 @@ def main() -> int:
     res_stream = list(svc.count_stream(stream))
     timings["count_stream 4x64 graphs"] = time.perf_counter() - t0
     launches = cs.read_launches()
+    # the capacity buckets these requests ran with (phase 14 serves the
+    # 256-graph request again over data-parallel replicas)
+    phase3_buckets = (dict(svc._neigh_buckets), dict(svc._gossip_buckets))
     print(f"serving-path launches: {json.dumps(launches)}; expected K2 = 8 "
           f"x {sum(n_batches)} target batches, K1 = one pooling per target "
           f"batch, the gather-fused K1 = 1 + 2 x 29 per gossip batch",
@@ -3269,6 +3774,13 @@ def main() -> int:
     # ------------------------------------------------------- 13. halo
     hal = halo_phase(torch, cs, probe, dev, args.seed, svc)
 
+    # -------------------------------------------- 14. data parallelism
+    svc._neigh_buckets, svc._gossip_buckets = (dict(b) for b in
+                                               phase3_buckets)
+    dpr = dp_phase(torch, cs, dev, args.seed, svc, main_req, res_main,
+                   main_stage, train_stage, tcfg, qb, gbatches, best,
+                   tgt_cfg, qry_cfg)
+
     # ----------------------------------------------------- 12. the record
     seg_src = "desco_tpu_torch/csrc/segment_sum.cu"
     typed_src = "desco_tpu_torch/csrc/typed_aggregate.cu"
@@ -3282,13 +3794,14 @@ def main() -> int:
         for d, suffix, paths in (
                 ("f32", "", (launches, train_launches, launches_bf,
                              bf_launches, replay_launches, abl_launches,
-                             serving_rest, hal["launches"])),
+                             serving_rest, hal["launches"],
+                             dpr["launches"])),
                 ("bf16", "_bf16", (launches_bf, bf_launches))):
-            # f32 rows: every launch of the eight paths (serving,
+            # f32 rows: every launch of the nine paths (serving,
             # training, their bf16 runs, the r4 replay, the ablations
             # but the order-4 run, labeled serving and the ensembles, the
-            # halo path) that was not on bf16 rows; bf16 rows: the bf16
-            # launches of the bf16 paths
+            # halo path, data parallelism) that was not on bf16 rows;
+            # bf16 rows: the bf16 launches of the bf16 paths
             if d == "f32":
                 per_path = [p[wrapper] - p[wrapper + "_bf16"] for p in paths]
             else:
@@ -3314,7 +3827,7 @@ def main() -> int:
     # timed in phase 2 and reported beside the f32 one
     paths = (launches, train_launches, launches_bf, bf_launches,
              replay_launches, abl_launches, serving_rest,
-             rest["driver_launches"], hal["launches"])
+             rest["driver_launches"], hal["launches"], dpr["launches"])
     for key, wrapper, line_no in (("k1g", "gather_segment_sum", 310),
                                   ("k1g_bwd", "gather_segment_sum_bwd", 464)):
         per_path = [p[wrapper] - p[wrapper + "_bf16"] for p in paths]

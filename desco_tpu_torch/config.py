@@ -103,9 +103,8 @@ def build_parser() -> argparse.ArgumentParser:
     o.add_argument("--seed", type=int, default=0)
     o.add_argument("--resume", action="store_true",
                    help="resume training from the .last snapshot")
-    o.add_argument("--n_devices", type=int, default=1,
-                   help="devices (more than 1, data parallel, is not "
-                        "ported yet: ROADMAP.md M15)")
+    o.add_argument("--n_devices", type=int, default=0,
+                   help="data-parallel devices (0 = all available)")
     o.add_argument("--device", type=str, default=None,
                    help="torch device; default CUDA (raises when no GPU "
                         "is visible), 'cpu' runs on the CPU")
@@ -121,9 +120,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "EXACTLY (VF2 over all neighborhoods); 0 = fully "
                         "learned")
     o.add_argument("--compile_cache", type=str, default=None,
-                   help="desco_tpu's XLA cache directory; the port "
-                        "compiles nothing ahead and refuses the flag "
-                        "(ROADMAP.md M17)")
+                   help="build cache directory: the kernels and the "
+                        "native library are built there once and later "
+                        "runs load them instead of recompiling")
     return p
 
 

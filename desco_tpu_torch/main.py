@@ -1,5 +1,5 @@
 """desco_tpu_torch command line — the counterpart of desco_tpu's root
-``main.py`` for one device.
+``main.py``.
 
     python -m desco_tpu_torch.main --train_neigh --train_gossip \\
         --test_gossip --train_dataset Syn_1827 --valid_dataset Syn_1827 \\
@@ -23,8 +23,11 @@ homogeneous samples (``--no-use_hetero``) and labeled mode
 (``--use_node_feature --neigh_input_dim <labels>``, on datasets that
 carry node labels) run; several ``--neigh_checkpoint`` paths evaluate
 their ensemble. The two ablation drivers (``ablation_gnns``,
-``ablation_wo_canonical``) sit beside it. ``--compile_cache`` and
-``--n_devices > 1`` are not ported yet and raise (ROADMAP.md, Queue 1).
+``ablation_wo_canonical``) sit beside it. ``--n_devices`` (default 0,
+every visible GPU) above 1 trains both stages and predicts over that many
+data-parallel replicas (parallel/dp.py); the count is clamped to the
+visible GPUs, and on the CPU it is taken as given. ``--compile_cache
+DIR`` builds the kernels into DIR once for every later run.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from .config import build_parser, to_pipeline_config
 from .data.datasets import load_data
 from .models import neighborhood as neigh_mod
 from .models.gossip import gate_values
+from .parallel.dp import dp_predict_gossip_counts, make_mesh
 from .pipeline import (
     apply_exact_column_override,
     apply_verified_override,
@@ -59,7 +63,7 @@ from .pipeline import (
     train_neighborhood_stage,
 )
 from .train.checkpoint import load_checkpoint
-from .train.loop import predict_gossip_counts
+from .utils.compile_cache import enable_compilation_cache
 from .utils.device import resolve_device
 
 # checkpoint config fields an eval-only run adopts (see main)
@@ -113,15 +117,21 @@ def _adopt_checkpoint_config(cfg, path: str):
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     cfg = to_pipeline_config(args)
-    if args.n_devices != 1:
-        raise NotImplementedError(
-            "--n_devices other than 1 (data-parallel training and "
-            "serving) is not ported yet (ROADMAP.md, Queue 1 M15)")
     if args.compile_cache:
-        raise NotImplementedError(
-            "--compile_cache has no counterpart in the port yet "
-            "(ROADMAP.md, Queue 1 M17)")
+        enable_compilation_cache(args.compile_cache)
     device = resolve_device(args.device)
+    # the data-parallel mesh: 0 = every visible GPU, a count clamped to
+    # the visible GPUs (desco_tpu clamps to its devices); on the CPU the
+    # count as given stands in for desco_tpu's fake host devices
+    n_avail = (torch.cuda.device_count() if device.type == "cuda"
+               else max(args.n_devices, 1))
+    n_dev = min(args.n_devices if args.n_devices > 0 else n_avail, n_avail)
+    # the forwards run over ``mesh``; one replica trains with the
+    # single-device step
+    mesh = make_mesh(n_dev, device)
+    train_mesh = mesh if mesh.size > 1 else None
+    if train_mesh is not None:
+        print(f"data-parallel mesh: {mesh.size} devices")
 
     if not args.train_neigh and args.neigh_checkpoint:
         cfg = _adopt_checkpoint_config(cfg, args.neigh_checkpoint[0])
@@ -182,7 +192,7 @@ def main(argv=None) -> int:
     if args.train_neigh:
         print("training neighborhood model...")
         res, tgt_cfg, qry_cfg = train_neighborhood_stage(
-            cfg, train_stage, val_stage, qb, device=device,
+            cfg, train_stage, val_stage, qb, device=device, mesh=train_mesh,
             ckpt_path=args.neigh_model_path, resume=args.resume)
         members = [res.best_params]
         print(f"best neighborhood val loss: {res.best_val:.5f}")
@@ -205,16 +215,18 @@ def main(argv=None) -> int:
     # stage-1 predictions (verified rows carry EXACT counts)
     with _phase("stage-1 predict+verify (test)"):
         counts_test, verified_rows = neighborhood_predictions(
-            members, tgt_cfg, member_embs, test_stage, cfg, device)
+            members, tgt_cfg, member_embs, test_stage, cfg, device, mesh)
     counts = {"test": counts_test}
     # train/val stage-1 predictions feed ONLY gossip training
     if args.train_gossip:
         counts["train"] = neighborhood_predictions(
-            members, tgt_cfg, member_embs, train_stage, cfg, device)[0]
+            members, tgt_cfg, member_embs, train_stage, cfg, device,
+            mesh)[0]
         counts["val"] = (
             counts["train"] if val_stage is train_stage
             else neighborhood_predictions(
-                members, tgt_cfg, member_embs, val_stage, cfg, device)[0])
+                members, tgt_cfg, member_embs, val_stage, cfg, device,
+                mesh)[0])
 
     # ---------------------------------------------------- gossip stage
     gossip_node_counts = None
@@ -233,7 +245,8 @@ def main(argv=None) -> int:
                           need_bwd_perm=True))
             gres, _ = train_gossip_stage(
                 cfg, neigh_params, tgt_cfg, qry_cfg, qb, train_gb, val_gb,
-                device=device, ckpt_path=args.gossip_model_path,
+                device=device, mesh=train_mesh,
+                ckpt_path=args.gossip_model_path,
                 resume=args.resume)
             gossip_params = gres.best_params
             print(f"best gossip val loss: {gres.best_val:.5f}")
@@ -246,8 +259,8 @@ def main(argv=None) -> int:
         gossip_params = gossip_params.requires_grad_(False).to(device)
 
         with _phase("gossip predict (test)"):
-            gossip_node_counts = predict_gossip_counts(
-                gossip_params, query_embs, test_gbatches, device)
+            gossip_node_counts = dp_predict_gossip_counts(
+                gossip_params, query_embs, test_gbatches, mesh)
         if cfg.clamp_counts:
             # same combinatorial bound as stage 1, applied to the refined
             # per-node counts; verified-exact rows are restored after

@@ -20,8 +20,9 @@ all its one-hot label assignments (``neigh_input_dim`` labels), feeds
 the graphs' one-hot ``node_feat`` to the target tower, and counts, bounds
 and verifies under label-preserving matching. A list of neighborhood
 models (a checkpoint ensemble) averages their stage-1 predictions in
-log2(count + 1) space. Data-parallel meshes are not ported yet and raise
-(ROADMAP.md, Queue 1 M15).
+log2(count + 1) space. A ``mesh`` (parallel/dp.make_mesh) trains both
+stages data-parallel and shards the stage-1 forward over its replicas,
+bit-equal to one device.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ from .graph.container import Graph
 from .models import gossip as gossip_mod
 from .models import neighborhood as neigh_mod
 from .models.shmp_gnn import neighborhood_target_config, query_config
+from .parallel import dp
 from .train import loop as train_loop
 from .utils.device import resolve_device
 
@@ -267,13 +269,6 @@ def prepare_stage_data(cfg: PipelineConfig, graphs: List[Graph],
     return StageData(wl, samples, nindex, truth, batches)
 
 
-def _check_training_config(cfg: PipelineConfig, mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "data-parallel training over a mesh is not ported yet "
-            "(ROADMAP.md, Queue 1 M15)")
-
-
 def train_neighborhood_stage(
     cfg: PipelineConfig, train: StageData, val: StageData,
     query_batch: PackedGraphs, ckpt_path: Optional[str] = None,
@@ -282,14 +277,14 @@ def train_neighborhood_stage(
     """Train the neighborhood model on ``train`` with ``val`` monitored.
     Returns (TrainResult, tgt_cfg, qry_cfg). ``device``: None or "cuda"
     train on the GPU (and raise when none is visible), "cpu" on the CPU.
-    Fresh weights come from ``cfg.seed``.
+    Fresh weights come from ``cfg.seed``. A ``mesh`` trains data-parallel
+    over its replicas (parallel/dp.py).
 
     ``cfg.train_bf16`` puts the bf16 cast into the tower config of the
     train step only: the parameters are the f32 masters throughout, the
     val passes run the f32 tower (so plateau and best-checkpoint decisions
     match the serving forward), checkpoints are f32, and the returned
     ``tgt_cfg`` is f32."""
-    _check_training_config(cfg, mesh)
     device = resolve_device(device)
     tgt_cfg, qry_cfg = model_configs(cfg, device)
     params = neigh_mod.init_neighborhood_model(
@@ -302,13 +297,14 @@ def train_neighborhood_stage(
         epochs=cfg.neigh_epochs, lr=cfg.neigh_lr,
         weight_decay=cfg.neigh_weight_decay,
         ckpt_path=ckpt_path, ckpt_config=dataclasses.asdict(cfg),
-        seed=cfg.seed, log_fn=log_fn, resume=resume,
+        seed=cfg.seed, log_fn=log_fn, resume=resume, mesh=mesh,
         val_every=cfg.val_every, eval_tgt_cfg=tgt_cfg, device=device, **kw)
     return result, tgt_cfg, qry_cfg
 
 
 def neighborhood_predictions(params, tgt_cfg, query_embs,
-                             stage: StageData, cfg: PipelineConfig, device):
+                             stage: StageData, cfg: PipelineConfig, device,
+                             mesh=None):
     """(counts, verified): (#neighborhoods, Q) de-logged stage-1 counts,
     clamped to the combinatorial neighborhood bound when cfg.clamp_counts
     and exact-recounted on the top tail when cfg.verify_budget > 0, and
@@ -321,7 +317,10 @@ def neighborhood_predictions(params, tgt_cfg, query_embs,
     model's log2(count + 1) space (count errors are multiplicative), then
     de-logged; clamp and verification run once on the mean. The batches
     go to the device once and every member reads them. A one-member list
-    is the single path."""
+    is the single path. The forward runs over ``mesh`` (default: one
+    replica on ``device``), batch i on replica i % D (parallel/dp.py), bit
+    for bit what one device gives."""
+
     if cfg.serve_bf16:
         tgt_cfg = dataclasses.replace(tgt_cfg, dtype=torch.bfloat16)
     members = list(params) if isinstance(params, (list, tuple)) else [params]
@@ -330,16 +329,18 @@ def neighborhood_predictions(params, tgt_cfg, query_embs,
     if len(members) != len(embs):
         raise ValueError(f"{len(members)} ensemble members but "
                          f"{len(embs)} query embeddings")
+    mesh = mesh or dp.make_mesh(1, device)
+    staged = (dp.stage_batches_for_dp(stage.batches, mesh)
+              if len(members) > 1 else None)
+
+    def forward(p, e):
+        return dp.dp_predict_neighborhood_counts(
+            p, tgt_cfg, e, stage.batches, mesh, staged=staged)
     if len(members) == 1:
-        counts = train_loop.predict_neighborhood_counts(
-            members[0], tgt_cfg, embs[0], stage.batches, device)
+        counts = forward(members[0], embs[0])
     else:
-        staged = train_loop.stage_batches_for_predict(stage.batches, device)
-        logs = np.mean([
-            np.log2(np.maximum(train_loop.predict_neighborhood_counts(
-                p, tgt_cfg, e, stage.batches, device, staged=staged),
-                0.0) + 1.0)
-            for p, e in zip(members, embs)], axis=0)
+        logs = np.mean([np.log2(np.maximum(forward(p, e), 0.0) + 1.0)
+                        for p, e in zip(members, embs)], axis=0)
         counts = np.exp2(logs) - 1.0
     verified = np.zeros(0, np.int64)
     if cfg.clamp_counts:
@@ -534,8 +535,8 @@ def train_gossip_stage(
 ):
     """Train the gossip model against the (fixed) query embeddings of the
     trained neighborhood model. Returns (TrainResult, query_embs on the
-    device). Fresh weights come from ``cfg.seed + 1``."""
-    _check_training_config(cfg, mesh)
+    device). Fresh weights come from ``cfg.seed + 1``. A ``mesh`` trains
+    data-parallel (parallel/dp.py)."""
     device = resolve_device(device)
     with torch.no_grad():
         query_embs = neigh_mod.embed_queries(
@@ -549,7 +550,7 @@ def train_gossip_stage(
         epochs=cfg.gossip_epochs, lr=cfg.gossip_lr,
         weight_decay=cfg.gossip_weight_decay, dropout=cfg.gossip_dropout,
         ckpt_path=ckpt_path, ckpt_config=dataclasses.asdict(cfg),
-        seed=cfg.seed, log_fn=log_fn, resume=resume,
+        seed=cfg.seed, log_fn=log_fn, resume=resume, mesh=mesh,
         val_every=cfg.val_every, device=device, **kw)
     return result, query_embs
 

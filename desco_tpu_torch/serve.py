@@ -17,9 +17,10 @@ gossip stage runs halo-sharded (over stdio and ``--tcp`` alike). Errors
 come back as {"id": ..., "error": "..."} without killing the daemon; a
 line ``quit`` ends it (on TCP: ends that connection). The service runs
 on CUDA unless ``--device cpu`` is given; ``--bf16`` runs the target
-tower in bfloat16; several ``--neigh_ckpt`` paths serve their ensemble.
-``--n_devices`` other than 1 (M15) and ``--compile_cache`` (M17) are not
-ported yet and raise (ROADMAP.md, Queue 1).
+tower in bfloat16; several ``--neigh_ckpt`` paths serve their ensemble;
+``--n_devices`` above 1 serves over that many data-parallel replicas (-1:
+one per visible GPU), and ``--compile_cache DIR`` builds the kernels into
+DIR once for every later start.
 
 Usage:
   python -m desco_tpu_torch.serve --neigh_ckpt release/r4/neigh.best \\
@@ -39,10 +40,6 @@ LARGE_THRESHOLD = 5000  # nodes of a single graph served halo-sharded
 def build_service(args):
     from .serving import CountingService
 
-    if args.compile_cache:
-        raise NotImplementedError(
-            "--compile_cache has no counterpart in the port yet "
-            "(ROADMAP.md, Queue 1 M17)")
     overrides = {}
     if args.verify_budget is not None:
         overrides["verify_budget"] = args.verify_budget
@@ -53,7 +50,7 @@ def build_service(args):
     return CountingService(
         args.neigh_ckpt, args.gossip_ckpt,
         config_overrides=overrides or None, n_devices=args.n_devices,
-        device=args.device)
+        compile_cache=args.compile_cache, device=args.device)
 
 
 def handle(svc, req: dict, large_threshold: int = LARGE_THRESHOLD) -> dict:
@@ -106,8 +103,8 @@ def main(argv=None) -> int:
     ap.add_argument("--neigh_ckpt", required=True, nargs="+")
     ap.add_argument("--gossip_ckpt", default=None)
     ap.add_argument("--n_devices", type=int, default=1,
-                    help="devices (more than 1, data-parallel serving, is "
-                         "not ported yet: ROADMAP.md M15)")
+                    help=">1: data-parallel replicas for every forward "
+                         "(-1: one per visible GPU)")
     ap.add_argument("--large_threshold", type=int, default=LARGE_THRESHOLD,
                     help="a request of one graph with at least this many "
                          "nodes is served by count_large_graph "
@@ -121,7 +118,8 @@ def main(argv=None) -> int:
                     help="serve line-JSON over TCP instead of stdio, one "
                          "connection at a time")
     ap.add_argument("--compile_cache", default=None, metavar="DIR",
-                    help="not ported yet (ROADMAP.md M17)")
+                    help="build cache directory: restarts load the "
+                         "kernels built there instead of recompiling")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without "
                          "a GPU unless 'cpu' is given)")

@@ -1,4 +1,4 @@
-"""Serving API: graphs in -> graphlet counts out, on one CUDA device.
+"""Serving API: graphs in -> graphlet counts out, on CUDA.
 
 The port of ``desco_tpu/serving.py``. ``CountingService`` loads the
 checkpoints once (desco_tpu's ``.params.npz`` + ``.json``; the pipeline
@@ -20,9 +20,11 @@ the gossip stage reads the first member's query embeddings). A
 checkpoint trained in labeled mode (``use_node_feature``) serves graphs
 that carry one-hot ``node_feat``. ``count_large_graph`` serves one large
 graph: stage 1 as ``count`` does, the gossip halo-sharded
-(parallel/halo.py). Not in this slice (ROADMAP.md, Queue 1):
-``n_devices > 1`` (data-parallel serving, M15) and ``compile_cache``
-(M17).
+(parallel/halo.py). ``n_devices > 1`` (or -1, every visible device)
+shards both device stages over that many data-parallel replicas
+(parallel/dp.py), bit-equal to one device; ``compile_cache`` keeps the
+built kernels in a directory a restarted service reuses
+(utils/compile_cache.py).
 
 Typical use::
 
@@ -44,6 +46,7 @@ import torch
 
 from .graph import Graph
 from .models import neighborhood as neigh_mod
+from .parallel.dp import dp_predict_gossip_counts, make_mesh
 from .pipeline import (
     PipelineConfig,
     apply_exact_column_override,
@@ -58,7 +61,6 @@ from .pipeline import (
     prepare_stage_data,
 )
 from .train.checkpoint import load_checkpoint
-from .train.loop import predict_gossip_counts
 from .utils.device import resolve_device
 
 
@@ -104,16 +106,26 @@ class CountingService:
         gossip_checkpoint: Optional[str] = None,
         config_overrides: Optional[dict] = None,
         n_devices: int = 1,
+        compile_cache: Optional[str] = None,
         device=None,
     ) -> None:
         """``neigh_checkpoint``: a path, or a sequence of paths for an
         ensemble. ``device``: None or "cuda" serve on the GPU (and raise
-        when none is visible); "cpu" serves on the CPU, as the tests do."""
-        if n_devices != 1:
-            raise NotImplementedError(
-                "data-parallel serving (n_devices != 1) is not ported yet "
-                "(ROADMAP.md, Queue 1 M15)")
+        when none is visible); "cpu" serves on the CPU, as the tests do.
+        ``n_devices > 1`` (-1: one per visible CUDA device, one on the
+        CPU) runs every device forward over that many data-parallel
+        replicas (parallel/dp.py): the same bits, D batches per group.
+        ``compile_cache``: the directory the kernels are built into and
+        loaded from (utils/compile_cache.py)."""
+        if compile_cache:
+            from .utils.compile_cache import enable_compilation_cache
+
+            enable_compilation_cache(compile_cache)
         self.device = resolve_device(device)
+        # every device forward runs over this mesh, of one replica
+        # without data parallelism
+        self.mesh = make_mesh(0 if n_devices == -1 else max(n_devices, 1),
+                              self.device)
         paths = ([neigh_checkpoint] if isinstance(neigh_checkpoint, str)
                  else list(neigh_checkpoint))
         members, metas = zip(*(self._load(p) for p in paths))
@@ -233,7 +245,7 @@ class CountingService:
             return self._empty_result(stage)
         counts, verified = neighborhood_predictions(
             self.members, self.tgt_cfg, self.member_embs, stage,
-            self.cfg, self.device)
+            self.cfg, self.device, mesh=self.mesh)
         if stats is not None:
             stats["stage1_s"] = time.perf_counter() - t0
             stats["stage1_batches"] = len(stage.batches)
@@ -267,15 +279,15 @@ class CountingService:
             return self._empty_result(stage)
         counts, verified = neighborhood_predictions(
             self.members, self.tgt_cfg, self.member_embs, stage,
-            self.cfg, self.device)
+            self.cfg, self.device, mesh=self.mesh)
         if not refine:
             return self._package_unrefined(stage, counts, verified)
         gb = prepare_gossip_batches(
             self.cfg, stage, counts,
             capacities=lambda samples: self._pin_caps(
                 self._gossip_buckets, samples, self.cfg.gossip_batch_size))
-        node_counts = predict_gossip_counts(
-            self.gossip_params, self.member_embs[0], gb, self.device)
+        node_counts = dp_predict_gossip_counts(
+            self.gossip_params, self.member_embs[0], gb, self.mesh)
         return self._guard_and_package(stage, node_counts, counts, verified)
 
     def _guard_and_package(self, stage, node_counts, counts,

@@ -81,7 +81,7 @@ def main(argv=None) -> int:
 
     from .. import pipeline, serving
     from ..data.synthetic import random_connected_graphs
-    from ..train import loop
+    from ..parallel import dp
 
     if not torch.cuda.is_available():
         raise SystemExit("serving_profile needs a CUDA device")
@@ -100,11 +100,11 @@ def main(argv=None) -> int:
     totals: dict = defaultdict(float)
     _time_stages(torch, [
         (serving, "prepare_stage_data", "prepare (host)"),
-        (loop, "predict_neighborhood_counts", "neighborhood forward"),
+        (dp, "dp_predict_neighborhood_counts", "neighborhood forward"),
         (pipeline, "stage_bounds", "bounds"),
         (pipeline, "verify_tail_counts", "verify (VF2)"),
         (serving, "prepare_gossip_batches", "gossip packing (host)"),
-        (serving, "predict_gossip_counts", "gossip forward"),
+        (serving, "dp_predict_gossip_counts", "gossip forward"),
         (serving.CountingService, "_guard_and_package", "guards"),
     ], totals)
     torch.cuda.synchronize()

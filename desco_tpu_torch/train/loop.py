@@ -4,7 +4,9 @@ host-side plateau schedule, val-monitored best-checkpoint selection,
 ``.last`` snapshots with resume, and the predict functions of serving.
 
 All batches of a run share one shape and live on the device for the whole
-run (one stacked copy); the epoch is a Python loop over eager steps. What
+run (one stacked copy); the epoch is a Python loop over eager steps. With
+a ``mesh`` a step takes a group of D batches, one per data-parallel
+replica (parallel/dp.py), and validation stays on the one device. What
 desco_tpu does inside its jitted, donated-carry step is kept on the device
 here too, so an epoch reads back once:
 
@@ -55,6 +57,7 @@ from ..batch.packed import PAD_EDGE_TYPE, PackedGraphs, stack_batches
 from ..models import gossip as gossip_mod
 from ..models import neighborhood as neigh_mod
 from ..models.shmp_gnn import SHMPConfig
+from ..parallel import dp
 from ..utils.device import resolve_device
 from .checkpoint import jax_keys, load_checkpoint, save_checkpoint
 from .schedule import ReduceLROnPlateau
@@ -205,6 +208,7 @@ def run_training(
     seed: int = 0, ckpt_path: Optional[str] = None,
     ckpt_config: Optional[dict] = None,
     log_every: int = 10, log_fn=print, mesh=None,
+    weight_kind: str = "graphs",
     resume: bool = False, snapshot_every: int = 10,
     val_every: int = 1,
 ) -> TrainResult:
@@ -212,15 +216,18 @@ def run_training(
     ``eval_fn(params, batch) -> (loss_sum, weight)`` over batches on
     ``device``; ``params`` lie there and ``opt`` was made from them.
 
+    A ``mesh`` (parallel/dp.make_mesh) trains data-parallel: the train
+    batches are padded to a multiple of its D replicas and grouped D at a
+    time, each step reduces the replicas' gradients with ``weight_kind``
+    semantics (parallel/dp.py), and the epoch's train loss is the mean
+    over the groups, as in desco_tpu.
+
     Full training state (params + optimizer + plateau scheduler + epoch)
     snapshots to ``<ckpt_path>.last`` every ``snapshot_every`` epochs;
     ``resume=True`` continues from it."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "data-parallel training over a mesh is not ported yet "
-            "(ROADMAP.md, Queue 1 M15)")
     device = torch.device(device)
-    # live (non-pad) edges per epoch, for the per-epoch edges/s counter
+    # live (non-pad) edges per epoch, for the per-epoch edges/s counter,
+    # counted before the DP padding (pad batches carry real edge types)
     epoch_edges = int(sum(
         (np.asarray(b.edge_type) != PAD_EDGE_TYPE).sum()
         for b in train_batches))
@@ -232,7 +239,16 @@ def run_training(
         stacked = stack_batches(batches).to(device, training=True)
         return [stacked[i] for i in range(len(batches))]
 
-    train_dev = to_device_list(train_batches)
+    if mesh is None:
+        train_dev = to_device_list(train_batches)
+    else:
+        # a step takes a group of D batches, each resident on its
+        # replica's device; validation stays on ``device``
+        d_n = mesh.size
+        train_dev = dp.reshape_for_dp(dp.place_batches(
+            dp.pad_batches_to_multiple(list(train_batches), d_n), mesh,
+            training=True), d_n)
+        dp_step = dp.dp_step_fn(loss_fn, opt, mesh, weight_kind)
     val_dev = to_device_list(val_batches) if val_batches else None
     n_train = len(train_dev)
 
@@ -285,12 +301,19 @@ def run_training(
             torch.cuda.synchronize(device)
         t0 = time.time()
         generator.manual_seed(_epoch_seed(seed, epoch))
+        if mesh is not None:
+            gens = dp.replica_generators(mesh, _epoch_seed(seed, epoch))
         order = rng_np.permutation(n_train)
         loss_sum = torch.zeros((), device=device)
         n_bad = torch.zeros((), dtype=torch.int64, device=device)
         for bi in order:
-            loss, ok = train_step(params, opt, loss_fn, train_dev[int(bi)],
-                                  sched.lr, generator)
+            if mesh is None:
+                loss, ok = train_step(params, opt, loss_fn,
+                                      train_dev[int(bi)], sched.lr,
+                                      generator)
+            else:
+                loss, ok = dp_step(params, train_dev[int(bi)], sched.lr,
+                                   gens)
             loss_sum += torch.where(ok, loss, torch.zeros_like(loss))
             n_bad += (~ok).long()
         n_bad = int(n_bad.item())  # the epoch's one read-back barrier
@@ -347,11 +370,31 @@ def run_training(
                        best_val, times, train_times)
 
 
+def _follow(value, device):
+    """fn(device) -> ``value`` (a tensor or a device ``PackedGraphs`` on
+    ``device``) there: itself on its own device, else a copy made once
+    per device. The DP loss functions read their query batch or
+    embeddings where a replica's batch lies."""
+    copies = {torch.device(device): value}
+
+    def on(dev):
+        if dev not in copies:
+            copies[dev] = (value.to(dev) if isinstance(value, torch.Tensor)
+                           else PackedGraphs(**{n: v.to(dev)
+                                                for n, v in value.fields()}))
+        return copies[dev]
+
+    return on
+
+
 # ----------------------------------------------------------- neighborhood
 def neighborhood_loss_fn(tgt_cfg, qry_cfg, query_batch):
+    qb_on = _follow(query_batch, query_batch.x.device)
+
     def f(params, batch, generator):
         return neigh_mod.train_loss(params, tgt_cfg, qry_cfg, batch,
-                                    query_batch, generator=generator)
+                                    qb_on(batch.x.device),
+                                    generator=generator)
 
     return f
 
@@ -377,7 +420,8 @@ def train_neighborhood(
     "cuda" train on the GPU (and raise when none is visible), "cpu" on
     the CPU. ``params`` move there and are updated in place.
     ``eval_tgt_cfg`` is the tower config of the val passes (default
-    ``tgt_cfg``)."""
+    ``tgt_cfg``). A ``mesh`` trains data-parallel with the ``"graphs"``
+    weighting (``run_training``)."""
     device = resolve_device(device)
     params = params.to(device)
     qb = query_batch.to(device)
@@ -387,14 +431,17 @@ def train_neighborhood(
         loss_fn=neighborhood_loss_fn(tgt_cfg, qry_cfg, qb),
         eval_fn=neighborhood_eval_fn(eval_tgt_cfg or tgt_cfg, qry_cfg, qb),
         epochs=epochs, lr=lr, ckpt_path=ckpt_path,
-        ckpt_config=ckpt_config, mesh=mesh, device=device, **kw)
+        ckpt_config=ckpt_config, mesh=mesh, weight_kind="graphs",
+        device=device, **kw)
 
 
 # ---------------------------------------------------------------- gossip
 def gossip_loss_fn(dropout: float, query_embs: torch.Tensor):
+    embs_on = _follow(query_embs, query_embs.device)
+
     def f(params, batch, generator):
-        return gossip_mod.gossip_loss(params, batch, query_embs, dropout,
-                                      True, generator)
+        return gossip_mod.gossip_loss(params, batch, embs_on(batch.x.device),
+                                      dropout, True, generator)
 
     return f
 
@@ -416,7 +463,8 @@ def train_gossip(
     ckpt_path=None, ckpt_config=None, mesh=None, device=None, **kw,
 ) -> TrainResult:
     """Train the gossip model against fixed query embeddings (``device``
-    as in ``train_neighborhood``)."""
+    as in ``train_neighborhood``; a ``mesh`` with the ``"sum"``
+    weighting)."""
     device = resolve_device(device)
     params = params.to(device)
     query_embs = query_embs.detach().to(device)
@@ -426,7 +474,8 @@ def train_gossip(
         loss_fn=gossip_loss_fn(dropout, query_embs),
         eval_fn=gossip_eval_fn(query_embs),
         epochs=epochs, lr=lr, ckpt_path=ckpt_path,
-        ckpt_config=ckpt_config, mesh=mesh, device=device, **kw)
+        ckpt_config=ckpt_config, mesh=mesh, weight_kind="sum",
+        device=device, **kw)
 
 
 # ------------------------------------------------------------- prediction
@@ -438,26 +487,15 @@ def _valid_rows(batches: List[PackedGraphs], preds: torch.Tensor,
     return np.concatenate(out, axis=0)
 
 
-def stage_batches_for_predict(batches: List[PackedGraphs],
-                              device) -> PackedGraphs:
-    """A request's packed batches, stacked and moved to ``device`` in one
-    transfer: the ``staged`` argument of ``predict_neighborhood_counts``,
-    which the members of an ensemble share."""
-    return stack_batches(batches).to(device)
-
-
 def predict_neighborhood_counts(params, tgt_cfg, query_embs: torch.Tensor,
                                 batches: List[PackedGraphs],
-                                device, staged: Optional[PackedGraphs] = None
-                                ) -> np.ndarray:
+                                device) -> np.ndarray:
     """(#valid graphs over all batches, Q) de-logged stage-1 counts.
     ``query_embs`` ([Q, H] on ``device``, ``embed_queries``) come from the
     query tower, which a service runs once: the query set is static.
-    ``staged``: ``batches`` already on the device
-    (``stage_batches_for_predict``)."""
+    Serving runs parallel/dp.py's counterpart, bit-equal to this."""
     with torch.inference_mode():
-        stacked = (staged if staged is not None
-                   else stage_batches_for_predict(batches, device))
+        stacked = stack_batches(batches).to(device)
         preds = torch.stack([
             neigh_mod.predict_counts_from_embs(params, tgt_cfg,
                                                stacked[bi], query_embs)

@@ -40,7 +40,7 @@ def test_flag_surface_matches_desco_tpu():
     assert set(tflags) - set(jflags) == {"device"}
     differ = {k for k in jflags if jflags[k] != tflags[k]}
     assert differ == {"train_dataset", "valid_dataset", "test_dataset",
-                      "neigh_model_path", "gossip_model_path", "n_devices"}
+                      "neigh_model_path", "gossip_model_path"}
     argv = ["--neigh_lr", "3e-4", "--gossip_dropout", "0.2", "--val_every",
             "2", "--seed", "5", "--query_ids", "6", "7", "--no-use_tconv"]
     jcfg = dataclasses.asdict(j_to_pipeline_config(jp.parse_args(argv)))
@@ -157,15 +157,36 @@ def test_cli_default_device_is_the_gpu(tmp_path):
                                  str(tmp_path)])
 
 
+MESH_2 = "data-parallel mesh: 2 devices"
+
+
 @pytest.mark.parametrize("flags,match", [
-    (["--n_devices", "2"], "M15"),
-    (["--n_devices", "0"], "M15"),
-    (["--compile_cache", "x"], "M17"),
-    (["--neigh_bf16_train", "--train_neigh", "--n_devices", "2"], "M15"),
+    pytest.param(["--n_devices", "2"], MESH_2, id="flags0-M15"),
+    pytest.param(["--n_devices", "0"], None, id="flags1-M15"),
+    pytest.param(["--compile_cache", "x"], None, id="flags2-M17"),
+    pytest.param(["--neigh_bf16_train", "--train_neigh", "--n_devices", "2"],
+                 MESH_2, id="flags3-M15"),
 ])
-def test_unported_options_raise_naming_the_roadmap(tmp_path, flags, match):
-    with pytest.raises(NotImplementedError, match=match):
-        tmain.main(TINY_FLAGS + flags + [
-            "--device", "cpu", "--data_root", str(tmp_path / "d"),
-            "--output_dir", str(tmp_path / "o"),
-            "--neigh_model_path", str(tmp_path / "n")])
+def test_unported_options_raise_naming_the_roadmap(tmp_path, capsys,
+                                                   monkeypatch, flags,
+                                                   match):
+    """desco_tpu's multi-device options run: ``--n_devices 2`` trains over
+    two data-parallel replicas on the CPU, ``--n_devices 0`` (every
+    device) is one CPU replica, and ``--compile_cache DIR`` points the
+    build directories into DIR."""
+    from desco_tpu_torch.ops import cuda_build
+    from desco_tpu_torch.truth import native
+
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", cuda_build.BUILD_DIR)
+    monkeypatch.setattr(native, "_BUILD_DIR", native._BUILD_DIR)
+    flags = [str(tmp_path / f) if f == "x" else f for f in flags]
+    rc = tmain.main(TINY_FLAGS + flags + [
+        "--device", "cpu", "--data_root", str(tmp_path / "d"),
+        "--output_dir", str(tmp_path / "o"), "--train_neigh",
+        "--neigh_model_path", str(tmp_path / "n")])
+    out = capsys.readouterr().out
+    assert rc == 0 and "done" in out
+    assert (match in out) if match else "data-parallel mesh" not in out
+    if "--compile_cache" in flags:
+        assert cuda_build.BUILD_DIR == str(tmp_path / "x" / "kernels")
+        assert native._BUILD_DIR == str(tmp_path / "x" / "native")

@@ -798,3 +798,35 @@ def test_halo_gossip_step_on_gpu_is_bit_stable(rng, cuda_device):
     per_agg = sends + 4 + sum(int(sh.boundary is not None) for sh in shards)
     assert n["gather_segment_sum"] == (1 + 2 * 3) * per_agg
     assert n["gather_segment_sum_bwd"] == 3 * per_agg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_devices", [2, 4])
+def test_dp_serving_on_gpu_equals_one_device(cuda_device, n_devices):
+    """release/r4 served over 2 and 4 data-parallel replicas on the card:
+    every output bit-equal to one device, K2 eight times per padded
+    target batch, no backward kernel."""
+    from desco_tpu_torch.data.synthetic import generate_synthetic
+    from desco_tpu_torch.pipeline import prepare_stage_data
+    from desco_tpu_torch.serving import CountingService
+
+    graphs = generate_synthetic(12, min_size=10, max_size=28, seed=5)
+    r4 = ("release/r4/neigh.best", "release/r4/gossip.best")
+    one = CountingService(*r4, device=cuda_device)
+    many = CountingService(*r4, device=cuda_device, n_devices=n_devices)
+    want = one.count(graphs)
+    many._neigh_buckets.update(one._neigh_buckets)
+    many._gossip_buckets.update(one._gossip_buckets)
+    n_b = len(prepare_stage_data(many.cfg, graphs,
+                                 capacities=many._select_neigh_caps).batches)
+    cs.reset_launches()
+    got = many.count(graphs)
+    torch.cuda.synchronize()
+    n = cs.read_launches()
+    for f in dataclasses.fields(want):
+        np.testing.assert_array_equal(getattr(got, f.name),
+                                      getattr(want, f.name), err_msg=f.name)
+    padded = -(-n_b // n_devices) * n_devices
+    assert n["fused_typed_transform_aggregate"] == 8 * padded
+    assert n["typed_aggregate_bwd"] == n["segment_sum_vjp"] == 0
+    assert n["gather_segment_sum_bwd"] == 0

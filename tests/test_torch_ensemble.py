@@ -255,13 +255,33 @@ def test_daemon_tcp_round_trip(ckpts, graphs):
                                       want.graphlet_counts)
 
 
-def test_daemon_flags_of_unported_features_raise(ckpts):
-    from desco_tpu_torch.serve import main
+def test_daemon_flags_of_unported_features_raise(ckpts, graphs, tmp_path,
+                                                  monkeypatch, capsys):
+    """The daemon's ``--n_devices 2`` (two data-parallel replicas) and
+    ``--compile_cache`` run now: an ensemble request answers as one
+    device does."""
+    import io
+    import sys
 
-    members, _, _ = ckpts
-    with pytest.raises(NotImplementedError, match="M15"):
-        main(["--neigh_ckpt", members[0], "--device", "cpu",
-              "--n_devices", "2"])
-    with pytest.raises(NotImplementedError, match="M17"):
-        main(["--neigh_ckpt", members[0], "--device", "cpu",
-              "--compile_cache", "x"])
+    from desco_tpu_torch.ops import cuda_build
+    from desco_tpu_torch.serve import main
+    from desco_tpu_torch.truth import native
+
+    members, gpath, _ = ckpts
+    _, tg = graphs
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", cuda_build.BUILD_DIR)
+    monkeypatch.setattr(native, "_BUILD_DIR", native._BUILD_DIR)
+    req = {"id": 3, "graphs": [{"n": g.n_nodes, "edges": g.edges.tolist()}
+                               for g in tg]}
+    monkeypatch.setattr(sys, "stdin", io.StringIO(json.dumps(req)
+                                                  + "\nquit\n"))
+    assert main(["--neigh_ckpt", *members, "--gossip_ckpt", gpath,
+                 "--device", "cpu", "--n_devices", "2",
+                 "--compile_cache", str(tmp_path / "c")]) == 0
+    reply = json.loads(capsys.readouterr().out.strip())
+    assert cuda_build.BUILD_DIR == str(tmp_path / "c" / "kernels")
+    want = CountingService(members, gpath, device="cpu").count(tg)
+    assert reply["id"] == 3 and reply["refined"]
+    assert reply["verified"] == len(want.verified_rows)
+    np.testing.assert_array_equal(reply["graphlet_counts"],
+                                  want.graphlet_counts)

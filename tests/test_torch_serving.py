@@ -200,13 +200,33 @@ def test_device_functions_take_no_default_device(fn):
 
 
 @pytest.mark.parametrize("override", [["--compile_cache", "x"]])
-def test_unported_options_raise(override):
-    from desco_tpu_torch.serve import main
+def test_unported_options_raise(override, tmp_path, monkeypatch):
+    """The daemon's ``--compile_cache`` points the build directories into
+    its directory and serves."""
+    import sys
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["--neigh_ckpt", NEIGH, "--device", "cpu"] + override)
+    from desco_tpu_torch.ops import cuda_build
+    from desco_tpu_torch.serve import main
+    from desco_tpu_torch.truth import native
+
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", cuda_build.BUILD_DIR)
+    monkeypatch.setattr(native, "_BUILD_DIR", native._BUILD_DIR)
+    monkeypatch.setattr(sys, "stdin", io.StringIO("quit\n"))
+    override = [str(tmp_path / a) if a == "x" else a for a in override]
+    assert main(["--neigh_ckpt", NEIGH, "--device", "cpu"] + override) == 0
+    assert cuda_build.BUILD_DIR == str(tmp_path / "x" / "kernels")
 
 
 def test_unported_entry_points_raise(port_service, graphs):
-    with pytest.raises(NotImplementedError, match="M15"):
-        CountingService(NEIGH, device="cpu", n_devices=2)
+    """``n_devices=2`` serves over two data-parallel replicas, bit-equal
+    to one device on the same batches."""
+    _, tgraphs = graphs
+    svc = CountingService(NEIGH, device="cpu", n_devices=2)
+    assert svc.mesh.size == 2
+    svc._neigh_buckets.update(port_service._neigh_buckets)
+    got = svc.count(tgraphs)
+    want = port_service.count(tgraphs, refine=False)
+    assert not got.refined
+    np.testing.assert_array_equal(got.neighborhood_counts,
+                                  want.neighborhood_counts)
+    np.testing.assert_array_equal(got.graphlet_counts, want.graphlet_counts)

@@ -372,18 +372,27 @@ def test_dropout_keeps_one_minus_rate_and_rescales():
 
 
 def test_unported_training_options_raise(tiny_cfg, tiny_data):
+    """A ``mesh`` trains both stages over its data-parallel replicas, the
+    bf16 tower too: the train batches pad to a multiple of D, one step
+    per group, and the losses fall."""
+    from desco_tpu_torch.parallel.dp import make_mesh
+
     train, val, _ = tiny_data
     qb = build_query_batch(tiny_cfg)
-    with pytest.raises(NotImplementedError, match="M15"):
-        train_neighborhood_stage(
-            dataclasses.replace(tiny_cfg, train_bf16=True), train, val, qb,
-            mesh=object(), **QUIET)
-    with pytest.raises(NotImplementedError, match="M15"):
-        train_neighborhood_stage(tiny_cfg, train, val, qb, mesh=object(),
-                                 **QUIET)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_gossip_stage(tiny_cfg, None, None, None, qb, [], [],
-                           mesh=object(), **QUIET)
+    mesh = make_mesh(2, "cpu")
+    assert len(train.batches) % 2 == 1  # a pad batch in the last group
+    short = dataclasses.replace(tiny_cfg, neigh_epochs=3, gossip_epochs=3)
+    for cfg in (dataclasses.replace(short, train_bf16=True), short):
+        res, tt, tq = train_neighborhood_stage(cfg, train, val, qb,
+                                               mesh=mesh, **QUIET)
+        assert np.isfinite(res.train_losses).all()
+        assert np.isfinite(res.val_losses).all()
+        assert res.train_losses[-1] < res.train_losses[0]
+    counts = train.truth[train.nindex.indicator]
+    gb = prepare_gossip_batches(short, train, counts, need_bwd_perm=True)
+    gres, _ = train_gossip_stage(short, res.best_params, tt, tq, qb, gb, gb,
+                                 mesh=make_mesh(4, "cpu"), **QUIET)
+    assert np.isfinite(gres.train_losses).all()
     if not torch.cuda.is_available():  # the default device is the GPU
         with pytest.raises(RuntimeError, match="CUDA"):
             train_neighborhood_stage(tiny_cfg, train, val, qb,
