@@ -213,13 +213,37 @@ nonzero on a failed check (no phase catches its own failure):
      and ``enable_compilation_cache`` on a fresh directory: one process
      builds every library there (started first, it runs beside the rest
      of the phase), a second one loads them without nvcc or g++.
+ 15. the analysis and experimental tools (run before the record), each
+     through its ``run`` on the card at the paper width: (a)
+     ``tools/serving_bench`` in modes raw, service and latency at the
+     script's defaults (64 graphs of 30-120 nodes, seed 7, verify 0.001,
+     fresh weights), stream at 4 requests (cut from 8), and service over
+     ``--n_devices 2``, bit-equal to one device; (b)
+     ``compute_groundtruth --query_sizes 6`` (112 queries) on
+     Syn_1827_test_max15, every count >= 0, every size 6, seven ids
+     recounted alone and equal; (c) ``verify_sweep`` of release/r4 on
+     the replay set at budgets 0, 1e-3, 1e-2, 3e-2: rows verified rise,
+     normed MSE falls or stays level, and at r4's budget it is within
+     rtol 1e-2 of the stored replay's (tests/data); (d) ``scaling`` at
+     its defaults (20,000 nodes, degree 8, 4 layers, hidden 64, metis)
+     for ``er`` and ``comm`` at D = 1, 2, 4 shards on the one card (cut
+     from 1, 2, 4, 8), D = 4 within 1e-4 of max|out| of D = 1; (e)
+     ``large_graph_serving --nodes 20000 --devices 4``, a fresh service;
+     (f) ``runtime``, (g) ``dataset_statistics --sample 2000`` with
+     release/r4's embeddings and t-SNE on the card (CSV, ``.npy`` and
+     SVG written, KL finite) and (h) ``downstream_task`` and
+     ``complexity_analysis``, all on Syn_64. Launches zeroed before and
+     read after each tool: K1, the gather-fused K1 (K1' on scaling's
+     halo streams) and K2 launched, no backward kernel.
  12. one JSON line of kernels (K2' and K3' at T = 33 and at T = 1 in
      rows of their own, launched by the order-4 run and the DIAMNet
      driver; every other row's launches count the ablation path, labeled
-     serving and the ensembles, the halo path and data parallelism too,
-     the gather-fused K1's the baseline entry points as well; K1, K4 and
-     the gather-fused K1 carry their halo use sites), the card line, then
-     the final ok line.
+     serving and the ensembles, the halo path, data parallelism and the
+     tools too, the gather-fused K1's the baseline entry points as well;
+     K1, K4 and the gather-fused K1 carry their halo use sites; the
+     tools' entry is the last of ``launches_per_path`` in every row, 0
+     where they do not run the row's shape), the card line, then the
+     final ok line.
 """
 
 from __future__ import annotations
@@ -2863,6 +2887,221 @@ def dp_phase(torch, cs, dev, seed: int, svc, main_req, res_main,
             "graft": graft, "seconds": took}
 
 
+# ------------------------------------------------------- phase 15: tools
+# the verify budgets of desco_tpu's analysis/verify_sweep.py
+VERIFY_BUDGETS = (0.0, 1e-3, 1e-2, 3e-2)
+# seven size-6 atlas ids from 77-208 (the star, a path-like tree, cycles
+# with chords, K6), each recounted alone by the per-query truth
+GT_RECOUNT = (77, 100, 130, 150, 180, 200, 208)
+# the kernels every tool run of the phase adds up to: K1 (pooling), the
+# gather-fused K1 (query tower, gossip; on the halo streams it is K1')
+# and K2 (the target tower)
+TOOL_KERNELS = ("sorted_segment_sum", "gather_segment_sum",
+                "fused_typed_transform_aggregate")
+
+
+def tools_phase(torch, cs, card: str, gen_root: str,
+                replay_root: str) -> dict:
+    """Phase 15: the analysis and experimental tools through their
+    ``run`` at the paper width on the card (see the module docstring).
+    Launches are zeroed before and read after each tool run; the
+    phase's are their sum."""
+    from desco_tpu_torch.analysis import norm_mse
+    from desco_tpu_torch.data.datasets import load_data
+    from desco_tpu_torch.data.workload import Workload
+    from desco_tpu_torch.pipeline import PipelineConfig, pipeline_query_groups
+    from desco_tpu_torch.tools import (
+        complexity_analysis, compute_groundtruth, dataset_statistics,
+        downstream_task, large_graph_serving, runtime, scaling,
+        serving_bench, verify_sweep)
+
+    t15 = time.perf_counter()
+    work = tempfile.TemporaryDirectory(prefix="desco_smoke_tools_")
+    syn_root = os.path.join(work.name, "data")
+    launches, secs, total = {}, {}, {}
+
+    def tool_run(label, tool, argv, **kw):
+        cs.reset_launches()
+        t0 = time.perf_counter()
+        out = tool.run(tool.build_parser().parse_args(
+            [str(a) for a in argv]),
+            log=lambda line: print(f"  [{label}] {line}", flush=True), **kw)
+        torch.cuda.synchronize()
+        secs[label] = time.perf_counter() - t0
+        launches[label] = cs.read_launches()
+        for k, v in launches[label].items():
+            total[k] = total.get(k, 0) + v
+        check(out.get("device", "cuda") != "cpu",
+              f"{label} ran on the CPU, not the card")
+        return out
+
+    print(f"phase 15 (tools) on {card}", flush=True)
+    # (a) serving_bench: each mode its own fresh service
+    sb = {mode: tool_run(f"serving_bench {mode}", serving_bench,
+                         ["--mode", mode])
+          for mode in ("raw", "service", "latency")}
+    sb["stream"] = tool_run("serving_bench stream", serving_bench,
+                            ["--mode", "stream", "--requests", 4])
+    sb["dp2"] = tool_run("serving_bench service --n_devices 2",
+                         serving_bench, ["--mode", "service", "--n_devices",
+                                         2])
+    check(np.isfinite(sb["raw"]["graphlet_counts"]).all(),
+          "serving_bench raw: graphlet counts not finite")
+    for f in dataclasses.fields(sb["service"]["result"]):
+        check(np.array_equal(getattr(sb["dp2"]["result"], f.name),
+                             getattr(sb["service"]["result"], f.name)),
+              f"serving_bench service: --n_devices 2 {f.name} differs "
+              f"from --n_devices 1")
+    for res in sb["stream"]["results"]:
+        check(np.isfinite(res.graphlet_counts).all()
+              and (res.graphlet_counts >= 0).all(),
+              "serving_bench stream: counts not finite and >= 0")
+    lat = sb["latency"]["latency_ms"]
+    print(f"serving_bench on {card}: raw {sb['raw']['graphs_per_s']:.1f} "
+          f"graphs/s, {sb['raw']['nodes_per_s']:.0f} nodes/s warm (host "
+          f"{sb['raw']['host_s']:.2f} s, stage 1 cold / warm "
+          f"{sb['raw']['stage1_s'][0]:.2f} / {sb['raw']['stage1_s'][1]:.2f}"
+          f" s, gossip {sb['raw']['gossip_s'][0]:.2f} / "
+          f"{sb['raw']['gossip_s'][1]:.2f} s); service "
+          f"{sb['service']['graphs_per_s']:.1f} graphs/s "
+          f"({sb['service']['warm_s']:.2f} s), --n_devices 2 "
+          f"{sb['dp2']['graphs_per_s']:.1f} graphs/s, bit-equal; stream "
+          f"{sb['stream']['graphs_per_s']:.1f} graphs/s, overlap gain "
+          f"{sb['stream']['overlap_gain']:.2f}x; latency p50 / p90 / p99 "
+          f"{lat[50]:.1f} / {lat[90]:.1f} / {lat[99]:.1f} ms", flush=True)
+
+    # (b) compute_groundtruth: the 112 connected size-6 queries
+    gt = tool_run("compute_groundtruth", compute_groundtruth, [
+        "--dataset", ORDER4_SET, "--query_sizes", 6, "--data_root",
+        gen_root])
+    check(len(gt["query_ids"]) == 112 and set(gt["sizes"].tolist()) == {6},
+          f"compute_groundtruth: {len(gt['query_ids'])} queries of sizes "
+          f"{sorted(set(gt['sizes'].tolist()))}, not 112 of size 6")
+    check(np.isfinite(gt["truth"]).all() and (gt["truth"] >= 0).all(),
+          "compute_groundtruth: a count is negative or not finite")
+    wl = Workload(gt["graphs"])
+    t0 = time.perf_counter()
+    for qid in GT_RECOUNT:
+        one = wl.compute_groundtruth([qid])
+        check(np.array_equal(
+            one[:, 0], gt["truth"][:, gt["query_ids"].index(qid)]),
+            f"compute_groundtruth: id {qid} differs from its own recount")
+    print(f"compute_groundtruth on {ORDER4_SET} ({len(gt['graphs'])} "
+          f"graphs): 112 size-6 queries in {secs['compute_groundtruth']:.2f}"
+          f" s, totals {gt['total'].min()}-{gt['total'].max()}; ids "
+          f"{list(GT_RECOUNT)} recounted alone, equal "
+          f"({time.perf_counter() - t0:.2f} s)", flush=True)
+
+    # (c) verify_sweep: release/r4 on the replay set
+    vs = tool_run("verify_sweep", verify_sweep, [
+        "--dataset", REPLAY_SET, "--neigh_checkpoint", R4_NEIGH,
+        "--data_root", replay_root, "--budgets", *VERIFY_BUDGETS])
+    rows = vs["rows"]
+    for a, b in zip(rows, rows[1:]):
+        check(b["rows_verified"] > a["rows_verified"],
+              f"verify_sweep: rows verified {a['rows_verified']} at "
+              f"{a['budget']} -> {b['rows_verified']} at {b['budget']}")
+        check(all(y <= x for x, y in zip(a["norm_mse"], b["norm_mse"])),
+              f"verify_sweep: normed MSE rose from {a['norm_mse']} at "
+              f"{a['budget']} to {b['norm_mse']} at {b['budget']}")
+    with open(R4_NEIGH + ".json") as f:
+        r4_budget = json.load(f)["config"]["verify_budget"]
+    stored = np.load(os.path.join(REPO, "tests", "data",
+                                  f"replay_r4_{REPLAY_SET}.npz"))
+    want = norm_mse(stored["neighborhood"], stored["truth"],
+                    pipeline_query_groups(PipelineConfig()))
+    [at_r4] = [r["norm_mse"] for r in rows if r["budget"] == r4_budget]
+    vs_rel = max(abs(g - w) / w for g, w in zip(at_r4, want))
+    check(vs_rel <= REPLAY_RTOL,
+          f"verify_sweep at r4's budget {r4_budget}: normed MSE {at_r4} vs "
+          f"the stored replay's {want} (rtol {REPLAY_RTOL})")
+    print(f"verify_sweep on {card}: " + "; ".join(
+        f"budget {r['budget']:g}: {r['rows_verified']} rows, "
+        f"{r['verify_s']:.2f} s, normed MSE "
+        + " / ".join(f"{v:.4e}" for v in r["norm_mse"]) for r in rows)
+        + f"; forward {vs['forward_s']:.2f} s; at r4's budget within "
+        f"{vs_rel:.2e} of the stored replay", flush=True)
+
+    # (d) scaling: the script's defaults at D = 1, 2, 4 on the one card
+    sc = {}
+    for kind in ("er", "comm"):
+        sc[kind] = tool_run(f"scaling {kind}", scaling,
+                            ["--graph", kind, "--devices", 1, 2, 4])
+        o1, o4 = sc[kind]["out"][1], sc[kind]["out"][4]
+        err = float(np.abs(o4 - o1).max() / np.abs(o1).max())
+        check(err <= 1e-4, f"scaling {kind}: D = 4 vs D = 1 {err:.2e} of "
+                           f"max|out| (1e-4)")
+        print(f"scaling {kind} on {card} ({sc[kind]['n_edges']} directed "
+              f"edges, D = 4 vs 1 {err:.2e} of max|out|): " + "; ".join(
+                  f"D={r['d']} {r['ms_fwd']:.2f} ms/fwd, "
+                  f"{r['edge_layers_per_s'] / 1e6:.1f}M edge-layers/s, "
+                  f"comm {r['comm'] * 100:.1f}%, pull/push per pair "
+                  f"{r['pull_pair']}/{r['push_pair']}"
+                  for r in sc[kind]["rows"]), flush=True)
+
+    # (e) large_graph_serving with a fresh service
+    lg = tool_run("large_graph_serving", large_graph_serving,
+                  ["--nodes", 20000, "--devices", 4])
+    check(np.isfinite(lg["result"].node_counts).all(),
+          "large_graph_serving: counts not finite")
+    print(f"large_graph_serving on {card}: {lg['nodes']} nodes, wall "
+          f"{lg['wall_s']:.2f} s: stage 1 {lg['stage1_s']:.2f} s "
+          f"({lg['stage1_batches']} batches), partition "
+          f"{lg['partition_s']:.2f} s, halo gossip {lg['gossip_s']:.2f} s, "
+          f"n_loc {lg['n_loc']}", flush=True)
+
+    # (f)-(h) on Syn_64
+    rt = tool_run("runtime", runtime, ["--dataset", "Syn_64", "--data_root",
+                                       syn_root])
+    print(f"runtime on {card}: {rt['ms']:.3f} ms per forward, "
+          f"{rt['edges_per_s'] / 1e6:.2f}M valid edges/s, "
+          f"{rt['graphs_per_s']:.0f} graphs/s ({rt['valid_edges']} valid "
+          f"edges, {rt['graphs']} graphs)", flush=True)
+    out_dir = os.path.join(work.name, "stats")
+    st = tool_run("dataset_statistics", dataset_statistics, [
+        "--datasets", "Syn_64", "--sample", 2000, "--checkpoint", R4_NEIGH,
+        "--data_root", syn_root, "--out", out_dir])
+    for tag in ("neighborhood_features", "trained_embeddings"):
+        check(np.isfinite(st[tag]["kl"]), f"dataset_statistics: t-SNE of "
+                                          f"{tag} KL not finite")
+        for ext in ("svg", "npy"):
+            check(os.path.exists(os.path.join(out_dir, f"tsne_{tag}.{ext}")),
+                  f"dataset_statistics wrote no tsne_{tag}.{ext}")
+    check(os.path.exists(os.path.join(out_dir,
+                                      "neighborhood_features.csv")),
+          "dataset_statistics wrote no features CSV")
+    print(f"dataset_statistics on {card}: {len(st['feat_rows'])} "
+          f"neighborhoods, t-SNE KL {st['neighborhood_features']['kl']:.4f} "
+          f"(features) / {st['trained_embeddings']['kl']:.4f} (r4 "
+          f"embeddings), {secs['dataset_statistics']:.1f} s", flush=True)
+    dt = tool_run("downstream_task", downstream_task,
+                  ["--dataset", "Syn_64", "--data_root", syn_root])
+    ca = tool_run("complexity_analysis", complexity_analysis,
+                  ["--dataset", "Syn_64", "--data_root", syn_root])
+    print(f"downstream_task: accuracy with exact counts "
+          f"{dt['acc_exact']:.4f}; complexity_analysis ratios "
+          + ", ".join(f"{k} {w / max(p, 1):.3g}"
+                      for k, (w, p) in ca["sums"].items()), flush=True)
+    work.cleanup()
+
+    halo_k1 = (launches["scaling er"]["gather_segment_sum"]
+               + launches["scaling comm"]["gather_segment_sum"])
+    print(f"phase 15 (tools) launches: {json.dumps(total)}; per tool "
+          f"{json.dumps({k: {n: v[n] for n in TOOL_KERNELS} for k, v in launches.items()})}; "
+          f"K1' (the halo streams of scaling) {halo_k1}", flush=True)
+    for name in TOOL_KERNELS:
+        check(total[name] > 0, f"phase 15: {name} never launched")
+    check(halo_k1 > 0, "phase 15: K1' never launched on the halo streams")
+    check(total["typed_aggregate_bwd"] == total["segment_sum_vjp"]
+          == total["gather_segment_sum_bwd"] == 0,
+          "phase 15: a backward kernel launched in the tools")
+    took = time.perf_counter() - t15
+    print(f"phase 15 (tools) took {took:.1f} s: "
+          f"{json.dumps({k: round(v, 2) for k, v in secs.items()})}",
+          flush=True)
+    return {"launches": total, "per_tool": launches, "seconds": took}
+
+
 def prepare_gossip_batches_for(svc, stage, counts):
     """The gossip batches ``svc`` serves for ``stage`` (its pinned
     buckets)."""
@@ -3725,7 +3964,6 @@ def main() -> int:
                               replay_root, data_dir.name, svc,
                               main_req[:32], second_member,
                               main_stage.batches[0])
-    data_dir.cleanup()
     keep_dir.cleanup()
 
     # ----------------------------------------------- 11. bench and probe
@@ -3781,6 +4019,10 @@ def main() -> int:
                    main_stage, train_stage, tcfg, qb, gbatches, best,
                    tgt_cfg, qry_cfg)
 
+    # ------------------------------------------------------- 15. tools
+    tools = tools_phase(torch, cs, card, gen_root, replay_root)
+    data_dir.cleanup()
+
     # ----------------------------------------------------- 12. the record
     seg_src = "desco_tpu_torch/csrc/segment_sum.cu"
     typed_src = "desco_tpu_torch/csrc/typed_aggregate.cu"
@@ -3795,13 +4037,15 @@ def main() -> int:
                 ("f32", "", (launches, train_launches, launches_bf,
                              bf_launches, replay_launches, abl_launches,
                              serving_rest, hal["launches"],
-                             dpr["launches"])),
-                ("bf16", "_bf16", (launches_bf, bf_launches))):
-            # f32 rows: every launch of the nine paths (serving,
+                             dpr["launches"], tools["launches"])),
+                ("bf16", "_bf16", (launches_bf, bf_launches,
+                                   tools["launches"]))):
+            # f32 rows: every launch of the ten paths (serving,
             # training, their bf16 runs, the r4 replay, the ablations
             # but the order-4 run, labeled serving and the ensembles, the
-            # halo path, data parallelism) that was not on bf16 rows;
-            # bf16 rows: the bf16 launches of the bf16 paths
+            # halo path, data parallelism, the tools) that was not on bf16
+            # rows; bf16 rows: the bf16 launches of the bf16 paths and of
+            # the tools (none: they run the f32 tower)
             if d == "f32":
                 per_path = [p[wrapper] - p[wrapper + "_bf16"] for p in paths]
             else:
@@ -3827,7 +4071,8 @@ def main() -> int:
     # timed in phase 2 and reported beside the f32 one
     paths = (launches, train_launches, launches_bf, bf_launches,
              replay_launches, abl_launches, serving_rest,
-             rest["driver_launches"], hal["launches"], dpr["launches"])
+             rest["driver_launches"], hal["launches"], dpr["launches"],
+             tools["launches"])
     for key, wrapper, line_no in (("k1g", "gather_segment_sum", 310),
                                   ("k1g_bwd", "gather_segment_sum_bwd", 464)):
         per_path = [p[wrapper] - p[wrapper + "_bf16"] for p in paths]
@@ -3861,7 +4106,8 @@ def main() -> int:
             name=f"{wrapper} (K{key[1]}', f32, T = 33 in type chunks)",
             route="cuda", source=typed_src,
             replaces=f"desco_tpu/ops/pallas_segment.py:{line_no}",
-            launches=n, launches_per_path=[n], **t33_rows[key, "f32"],
+            # the tools run T = 6 only: their entry is 0
+            launches=n, launches_per_path=[n, 0], **t33_rows[key, "f32"],
             bf16_rows={"launches": 0, **t33_rows[key, "bf16"]},
             at_serving_shape={d: t33_serving[key, d]
                               for d in ("f32", "bf16")}))
@@ -3878,7 +4124,8 @@ def main() -> int:
             name=f"{wrapper} (K{key[1]}', f32, T = 1, DIAMNet graph tower)",
             route="cuda", source=typed_src,
             replaces=f"desco_tpu/ops/pallas_segment.py:{line_no}",
-            launches=n, launches_per_path=[n], **rest["t1_rows"][key, "f32"],
+            launches=n, launches_per_path=[n, 0],
+            **rest["t1_rows"][key, "f32"],
             bf16_rows={"launches": 0, **rest["t1_rows"][key, "bf16"]},
             at_serving_shape={d: rest["t1_serving"][key, d]
                               for d in ("f32", "bf16")}))
@@ -3888,6 +4135,7 @@ def main() -> int:
             source="desco_tpu_torch/csrc/segment_sum_probe.cu",
             replaces="analysis/segsum_inner_ablation.py:178",
             launches=probe_launches[name],
+            launches_per_path=[probe_launches[name], 0],
             max_abs_err=k5_rows[name]["max_abs_err"],
             ms=r["cold_us"] / 1e3, hot_ms=r["hot_us"] / 1e3,
             plain_ms=k5_rows[name]["plain_ms"],

@@ -79,9 +79,9 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--gossip_weight_decay", type=float, default=0.0)
 
     o = p.add_argument_group("optimizer arguments")
-    o.add_argument("--train_dataset", type=str, default="SynNp_1827")
-    o.add_argument("--valid_dataset", type=str, default="SynNp_1827")
-    o.add_argument("--test_dataset", type=str, default="SynNp_256_1")
+    o.add_argument("--train_dataset", type=str, default="Syn_1827")
+    o.add_argument("--valid_dataset", type=str, default="Syn_1827")
+    o.add_argument("--test_dataset", type=str, default="MUTAG")
     o.add_argument("--query_sizes", type=int, nargs="+", default=[3, 4, 5])
     o.add_argument("--query_ids", type=int, nargs="+", default=None,
                    help="explicit atlas query ids (overrides "

@@ -22,6 +22,9 @@ Copied from networkx 3.6.1:
   ``watts_strogatz_graph`` :388-465, ``connected_watts_strogatz_graph``
   :468-521, ``_random_subset`` :644-656, ``barabasi_albert_graph``
   :659-732, ``powerlaw_cluster_graph`` :1006-1096;
+- ``generators/geometric.py``: ``random_geometric_graph`` :114-205 with
+  the scipy path of ``_geometric_edges`` :89-111 (2-D, p = 2, default
+  positions), for the halo scaling tool's ``rgg`` graphs;
 - ``generators/classic.py``: ``empty_graph``, ``complete_graph``,
   ``star_graph``;
 - ``algorithms/tree/coding.py``: ``from_prufer_sequence`` :318-413;
@@ -427,6 +430,20 @@ def is_connected(g: Graph) -> bool:
         raise NetworkXException(
             "Connectivity is undefined for the null graph.")
     return len(next(connected_components(g))) == n
+
+
+def random_geometric_graph(n, radius, seed=None) -> Graph:
+    """n nodes at uniform positions in the unit square, node by node, x
+    then y, from ``random.Random(seed)``; an edge between every pair at
+    Euclidean distance <= ``radius``, found by scipy's KD-tree and added
+    in sorted pair order."""
+    from scipy.spatial import cKDTree
+
+    seed = _rng(seed)
+    g = empty_graph(n)
+    pos = [[seed.random() for _ in range(2)] for _ in g]
+    g.add_edges_from(sorted(cKDTree(pos).query_pairs(radius, 2)))
+    return g
 
 
 # ------------------------------------------------------------ convert

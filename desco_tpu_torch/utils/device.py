@@ -22,3 +22,10 @@ def resolve_device(device=None) -> torch.device:
             "desco_tpu_torch runs on a CUDA device by default and none is "
             "visible; pass device='cpu' to run on the CPU")
     return dev
+
+
+def device_label(device) -> str:
+    """What a tool prints beside its numbers: the card's name, or "cpu"."""
+    dev = torch.device(device)
+    return (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+            else dev.type)

@@ -31,7 +31,7 @@ TINY_FLAGS = [
 
 def test_flag_surface_matches_desco_tpu():
     """Every flag of desco_tpu's parser parses here with the same default
-    (dataset names and checkpoint paths aside), and the resulting
+    (the checkpoint paths aside), and the resulting
     PipelineConfig agrees field by field."""
     jp, tp = j_build_parser(), build_parser()
     jflags = {a.dest: a.default for a in jp._actions if a.dest != "help"}
@@ -39,8 +39,7 @@ def test_flag_surface_matches_desco_tpu():
     assert set(jflags) <= set(tflags)
     assert set(tflags) - set(jflags) == {"device"}
     differ = {k for k in jflags if jflags[k] != tflags[k]}
-    assert differ == {"train_dataset", "valid_dataset", "test_dataset",
-                      "neigh_model_path", "gossip_model_path"}
+    assert differ == {"neigh_model_path", "gossip_model_path"}
     argv = ["--neigh_lr", "3e-4", "--gossip_dropout", "0.2", "--val_every",
             "2", "--seed", "5", "--query_ids", "6", "7", "--no-use_tconv"]
     jcfg = dataclasses.asdict(j_to_pipeline_config(jp.parse_args(argv)))

@@ -830,3 +830,152 @@ def test_dp_serving_on_gpu_equals_one_device(cuda_device, n_devices):
     assert n["fused_typed_transform_aggregate"] == 8 * padded
     assert n["typed_aggregate_bwd"] == n["segment_sum_vjp"] == 0
     assert n["gather_segment_sum_bwd"] == 0
+
+
+# ----------------------------------------------------------------- tools
+def tool_pair(tool, argv, device, **kw):
+    """One tool's ``run`` on ``device`` and on the CPU, same arguments."""
+    quiet = dict(log=lambda *a: None, **kw)
+    argv = [str(a) for a in argv]
+    p = tool.build_parser()
+    return (tool.run(p.parse_args(argv + ["--device", str(device)]),
+                     **quiet),
+            tool.run(p.parse_args(argv + ["--device", "cpu"]), **quiet))
+
+
+def close_counts(got, want):
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-2)
+
+
+def close_scale(got, want, tol=1e-4):
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=tol * np.abs(want).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["raw", "service"])
+def test_tool_serving_bench_on_gpu_matches_cpu(cuda_device, mode):
+    from desco_tpu_torch.tools import serving_bench
+
+    got, want = tool_pair(serving_bench, ["--graphs", 4, "--mode", mode],
+                          cuda_device)
+    assert got["device"] == torch.cuda.get_device_name(0)
+    if mode == "raw":
+        close_counts(got["graphlet_counts"], want["graphlet_counts"])
+    else:
+        close_counts(got["result"].node_counts, want["result"].node_counts)
+        np.testing.assert_array_equal(got["result"].verified_rows,
+                                      want["result"].verified_rows)
+
+
+@pytest.mark.cuda
+def test_tool_compute_groundtruth_on_gpu_matches_cpu(cuda_device,
+                                                     tmp_path):
+    from desco_tpu_torch.tools import compute_groundtruth
+
+    got, want = tool_pair(compute_groundtruth, [
+        "--dataset", "syn_6", "--query_sizes", 6, "--data_root", tmp_path],
+        cuda_device)
+    np.testing.assert_array_equal(got["total"], want["total"])
+    assert len(got["query_ids"]) == 112
+
+
+@pytest.mark.cuda
+def test_tool_verify_sweep_on_gpu_matches_cpu(cuda_device, tmp_path):
+    from desco_tpu_torch.tools import verify_sweep
+
+    got, want = tool_pair(verify_sweep, [
+        "--dataset", "syn_8", "--neigh_checkpoint",
+        "release/r4/neigh.best", "--data_root", tmp_path], cuda_device)
+    for a, b in zip(got["rows"], want["rows"]):
+        assert a["rows_verified"] == b["rows_verified"]
+        np.testing.assert_allclose(a["norm_mse"], b["norm_mse"], rtol=1e-3,
+                                   atol=1e-12)
+        close_counts(a["counts"], b["counts"])
+
+
+@pytest.mark.cuda
+def test_tool_scaling_on_gpu_matches_cpu(cuda_device):
+    from desco_tpu_torch.tools import scaling
+
+    cs.reset_launches()
+    got, want = tool_pair(scaling, ["--nodes", 2000, "--devices", 1, 2,
+                                    "--reps", 1, "--graph", "comm"],
+                          cuda_device)
+    assert cs.read_launches()["gather_segment_sum"] > 0
+    for d in (1, 2):
+        close_scale(got["out"][d], want["out"][d])
+    close_scale(got["out"][2], got["out"][1])
+
+
+@pytest.mark.cuda
+def test_tool_large_graph_serving_on_gpu_matches_cpu(cuda_device):
+    from desco_tpu_torch.tools import large_graph_serving
+
+    got, want = tool_pair(large_graph_serving,
+                          ["--nodes", 500, "--devices", 2], cuda_device)
+    close_counts(got["result"].node_counts, want["result"].node_counts)
+    assert got["n_loc"] == want["n_loc"]
+
+
+@pytest.mark.cuda
+def test_tool_runtime_on_gpu_matches_cpu(cuda_device, tmp_path):
+    from desco_tpu_torch.tools import runtime
+
+    cs.reset_launches()
+    got, want = tool_pair(runtime, ["--dataset", "Syn_8", "--reps", 1,
+                                    "--data_root", tmp_path], cuda_device)
+    n = cs.read_launches()
+    assert n["fused_typed_transform_aggregate"] > 0
+    assert n["sorted_segment_sum"] > 0
+    assert (got["valid_edges"], got["graphs"]) == (want["valid_edges"],
+                                                   want["graphs"])
+    close_scale(got["out"], want["out"])
+
+
+@pytest.mark.cuda
+def test_tool_complexity_analysis_on_gpu_matches_cpu(cuda_device,
+                                                     tmp_path):
+    from desco_tpu_torch.tools import complexity_analysis
+
+    got, want = tool_pair(complexity_analysis, [
+        "--dataset", "Syn_8", "--data_root", tmp_path], cuda_device)
+    assert got == want
+
+
+@pytest.mark.cuda
+def test_tool_downstream_task_on_gpu_matches_cpu(cuda_device, tmp_path):
+    """The labels and features are the host's truth; the MLP trains on
+    each device (cuBLAS against the CPU's matmuls), so the test accuracy
+    may differ by a few test nodes."""
+    from desco_tpu_torch.tools import downstream_task
+
+    got, want = tool_pair(downstream_task, [
+        "--dataset", "Syn_8", "--data_root", tmp_path, "--epochs", 60],
+        cuda_device)
+    np.testing.assert_array_equal(got["labels"], want["labels"])
+    np.testing.assert_array_equal(got["features"], want["features"])
+    assert abs(got["acc_exact"] - want["acc_exact"]) <= 0.02
+
+
+@pytest.mark.cuda
+def test_tool_dataset_statistics_on_gpu_matches_cpu(cuda_device, tmp_path):
+    from desco_tpu_torch.tools import dataset_statistics
+
+    common = ["--datasets", "Syn_8", "--sample", 200, "--data_root",
+              tmp_path, "--checkpoint", "release/r4/neigh.best"]
+    quiet = dict(log=lambda *a: None)
+    p = dataset_statistics.build_parser()
+    got = dataset_statistics.run(p.parse_args([str(a) for a in common] + [
+        "--out", str(tmp_path / "g"), "--device", str(cuda_device)]),
+        **quiet)
+    want = dataset_statistics.run(p.parse_args([str(a) for a in common] + [
+        "--out", str(tmp_path / "c"), "--device", "cpu", "--projection",
+        "pca"]), **quiet)
+    np.testing.assert_array_equal(got["features"], want["features"])
+    close_scale(got["embeddings"], want["embeddings"])
+    kl = got["neighborhood_features"]["kl"]
+    assert np.isfinite(kl) and kl > 0
+    x = got["features"]
+    close_scale(dataset_statistics.pca(x, 2, cuda_device),
+                want["neighborhood_features"]["proj"], 1e-5)

@@ -44,10 +44,12 @@ def test_query_table_equals_atlas(sizes):
 
 
 def test_query_table_is_the_29_standard_queries():
-    assert list(ATLAS) == j_gen_query_ids([3, 4, 5])
-    assert len(ATLAS) == 29 and min(ATLAS) == 6 and max(ATLAS) == 52
-    with pytest.raises(NotImplementedError):
-        gen_query_ids([6])
+    ids = gen_query_ids([3, 4, 5])
+    assert ids == j_gen_query_ids([3, 4, 5])
+    assert len(ids) == 29 and min(ids) == 6 and max(ids) == 52
+    # the table is the whole atlas; size 6 scans past the standard set
+    assert len(ATLAS) == 1253
+    assert gen_query_ids([6]) == j_gen_query_ids([6])
 
 
 def test_extended_ids_equal_graph_atlas_plus():

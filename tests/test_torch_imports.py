@@ -1,7 +1,9 @@
 """desco_tpu_torch stands alone: no file of it (nor chip_smoke.py) imports
-jax, flax, optax or desco_tpu, and networkx only inside a function (the
-test-only ``Graph.to_networkx``). Checked on the source: this process
-has jax preloaded, so sys.modules cannot tell."""
+jax, flax, optax, desco_tpu, sklearn or matplotlib (the port runs where
+none of them is installed), and networkx only inside a function (the
+test-only ``Graph.to_networkx``, the ground-truth tool's pickle of
+networkx graphs). Checked on the source: this process has jax
+preloaded, so sys.modules cannot tell."""
 
 import ast
 import pathlib
@@ -11,7 +13,8 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "desco_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "desco_tpu", "sklearn",
+             "matplotlib"}
 SOURCES = sorted((ROOT / "desco_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
@@ -55,6 +58,16 @@ def test_every_module_is_checked():
                  "desco_tpu_torch/tools/segsum_inner_ablation.py",
                  "desco_tpu_torch/tools/serving_profile.py",
                  "desco_tpu_torch/graph/atlas.py",
+                 "desco_tpu_torch/graph/atlas_data.py",
+                 "desco_tpu_torch/tools/serving_bench.py",
+                 "desco_tpu_torch/tools/compute_groundtruth.py",
+                 "desco_tpu_torch/tools/verify_sweep.py",
+                 "desco_tpu_torch/tools/scaling.py",
+                 "desco_tpu_torch/tools/large_graph_serving.py",
+                 "desco_tpu_torch/tools/runtime.py",
+                 "desco_tpu_torch/tools/complexity_analysis.py",
+                 "desco_tpu_torch/tools/downstream_task.py",
+                 "desco_tpu_torch/tools/dataset_statistics.py",
                  "desco_tpu_torch/data/nx_subset.py",
                  "desco_tpu_torch/data/tu_proxy.py",
                  "desco_tpu_torch/data/datasets.py",
