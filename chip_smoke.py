@@ -79,8 +79,11 @@ nonzero on a failed check (no phase catches its own failure):
      (batch 256, lr 1e-3, dropout 0.01: two steps per epoch; the summed
      loss wanders by a few percent from epoch to epoch and falls by as
      much only over tens of epochs) through ``train_neighborhood_stage``
-     / ``train_gossip_stage``. Counters zeroed before, read after: K3 = 8 x
-     neighborhood train steps, K2 = 8 x (train steps + val batches +
+     / ``train_gossip_stage``, on the compiled steps (the neighborhood
+     train and eval steps and the gossip eval step replayed as CUDA
+     graphs, train/graphed.py; the gossip train step eager). Counters
+     zeroed before, read after (a replay adds what its capture counted):
+     K3 = 8 x neighborhood train steps, K2 = 8 x (train steps + val batches +
      predict batches), K1 and K4 > 0 in the neighborhood stage, the
      gather-fused K1 at its count in both stages (the query tower; in the
      gossip stage 1 + 4 x 29 per train step and 1 + 2 x 29 per val batch,
@@ -235,6 +238,21 @@ nonzero on a failed check (no phase catches its own failure):
      ``complexity_analysis``, all on Syn_64. Launches zeroed before and
      read after each tool: K1, the gather-fused K1 (K1' on scaling's
      halo streams) and K2 launched, no backward kernel.
+ 16. the compiled steps (run before the record), on the phase-6 training
+     set from the same weights and seed: (a) a read-back under the guard
+     the graphed loops run under (``set_sync_debug_mode("error")``)
+     raises; (b) 2 neighborhood epochs in f32 and with ``train_bf16``,
+     and 3 at a learning rate of 1e-9 with patience 0 (a plateau decay
+     reaches the last epoch through the device learning rate), and 2
+     with dropout 0.1 (the masks' generator registered with the graph),
+     each with
+     the eager steps and with the graphed ones: train and val losses,
+     final parameters and Adam's ``.last`` state bit-equal, launches
+     equal, the graphed loops run under the guard; launches per epoch
+     and epoch ms both ways printed; (c) the gossip eval pass over phase
+     6's gossip batches and trained model, graphed against eager,
+     bit-equal, launches equal (the gather-fused K1 1 + 2 x 29 per
+     batch), ms both ways.
  12. one JSON line of kernels (K2' and K3' at T = 33 and at T = 1 in
      rows of their own, launched by the order-4 run and the DIAMNet
      driver; every other row's launches count the ablation path, labeled
@@ -3102,6 +3120,171 @@ def tools_phase(torch, cs, card: str, gen_root: str,
     return {"launches": total, "per_tool": launches, "seconds": took}
 
 
+# ------------------------------------------- phase 16: compiled steps
+def graphed_run(torch, cs, train_neighborhood_stage, dev, cfg, train_stage,
+                qb, ckpt: str, graphed: bool, **kw) -> dict:
+    """One neighborhood run through ``train_neighborhood_stage`` (eager or
+    graphed steps): its result, final parameters, ``.last`` Adam state,
+    launches, wall seconds and log lines."""
+    from desco_tpu_torch.train.checkpoint import flatten_params
+
+    lines = []
+    cs.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res, _, _ = train_neighborhood_stage(
+        cfg, train_stage, train_stage, qb, ckpt_path=ckpt, log_every=1,
+        log_fn=lines.append, graphed=graphed, snapshot_every=1, device=dev,
+        **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return dict(res=res, params=flatten_params(res.params),
+                opt=dict(np.load(ckpt + ".last.opt.npz")),
+                launches=cs.read_launches(), wall=wall, lines=lines)
+
+
+def graphed_phase(torch, cs, dev, tcfg, train_stage, qb, gbatches,
+                  gossip_params, q_embs, workdir: str) -> dict:
+    """Phase 16: the compiled steps (train/graphed.py) against the eager
+    ones on the phase-6 training set, from the same weights and seed, on
+    the card: (a) the guard the graphed loops run under raises on a
+    read-back; (b) 2 neighborhood epochs in f32 and with ``train_bf16``,
+    and 3 at a learning rate of 1e-9 with patience 0 (a plateau decay
+    after every epoch past the first), each eager and graphed: train and
+    val losses, final parameters and Adam's ``.last`` state bit-equal,
+    the same launches, epoch ms both ways; (c) the gossip eval pass over
+    phase 6's gossip batches and trained model, graphed against eager,
+    bit-equal, with its ms. Returns the figures."""
+    from desco_tpu_torch.batch.packed import stack_batches
+    from desco_tpu_torch.pipeline import train_neighborhood_stage
+    from desco_tpu_torch.train import graphed as graphed_mod
+    from desco_tpu_torch.train import loop
+
+    t16 = time.perf_counter()
+    probe_t = torch.ones((), device=dev)
+    try:
+        with graphed_mod.no_sync(dev):
+            probe_t.item()
+    except RuntimeError:
+        pass
+    else:
+        fail("phase 16: a read-back under set_sync_debug_mode('error') did "
+             "not raise")
+    check(torch.cuda.get_sync_debug_mode() == 0,
+          "phase 16: the sync debug mode was not put back")
+    cases = (
+        ("f32", dataclasses.replace(tcfg, neigh_epochs=2), {}),
+        ("train_bf16", dataclasses.replace(tcfg, neigh_epochs=2,
+                                           train_bf16=True), {}),
+        ("f32, plateau decay", dataclasses.replace(
+            tcfg, neigh_epochs=3, neigh_lr=1e-9),
+         dict(patience=0, min_lr=1e-12)),
+        # masks drawn from the run's generator, registered with the graph
+        ("f32, dropout 0.1", dataclasses.replace(
+            tcfg, neigh_epochs=2, neigh_dropout=0.1), {}))
+    out = {"cases": {}}
+    for name, cfg, kw in cases:
+        runs = {}
+        for graphed in (False, True):
+            runs[graphed] = graphed_run(
+                torch, cs, train_neighborhood_stage, dev, cfg, train_stage, qb,
+                os.path.join(workdir, f"g16_{len(out['cases'])}_{graphed}"),
+                graphed, **kw)
+        e, g = runs[False], runs[True]
+        check(torch.cuda.get_sync_debug_mode() == 0,
+              f"phase 16 ({name}): the sync debug mode was not put back")
+        check(e["res"].train_losses == g["res"].train_losses
+              and e["res"].val_losses == g["res"].val_losses,
+              f"phase 16 ({name}): losses differ, eager "
+              f"{e['res'].train_losses} / {e['res'].val_losses}, graphed "
+              f"{g['res'].train_losses} / {g['res'].val_losses}")
+        differ = [k for k, v in e["params"].items()
+                  if not np.array_equal(v, g["params"][k])]
+        differ += [k for k, v in e["opt"].items()
+                   if not np.array_equal(v, g["opt"][k])]
+        check(not differ, f"phase 16 ({name}): parameters or Adam state "
+              f"differ: {differ[:5]}")
+        check(e["launches"] == g["launches"],
+              f"phase 16 ({name}): launches differ, eager {e['launches']}, "
+              f"graphed {g['launches']}")
+        lrs = [ln.split(" lr ")[1].split()[0] for ln in g["lines"]
+               if " lr " in ln]
+        if "patience" in kw:
+            # the last epoch runs at the rate the schedule left after the
+            # one before it
+            check(float(lrs[-2]) < cfg.neigh_lr,
+                  f"phase 16: no plateau decay reached a later epoch's "
+                  f"device learning rate: {lrs}")
+        epochs = cfg.neigh_epochs
+        row = {"epochs": epochs, "lr_per_epoch": lrs,
+               "launches_per_epoch": {
+                   k: v / epochs for k, v in g["launches"].items() if v},
+               "capture_lines": [ln for ln in g["lines"]
+                                 if ln.startswith("compiled steps")]}
+        for tag, r in (("eager", e), ("graphed", g)):
+            res = r["res"]
+            row[tag] = {"epoch_ms": [1e3 * t for t in res.epoch_times],
+                        "train_ms": [1e3 * t for t in res.train_times],
+                        "wall_s": r["wall"]}
+        out["cases"][name] = row
+        print(f"phase 16 ({name}): graphed == eager bit for bit over "
+              f"{epochs} epochs (losses {g['res'].train_losses}, val "
+              f"{g['res'].val_losses}, lr {lrs}); launches per epoch "
+              f"{json.dumps(row['launches_per_epoch'])}; epoch ms eager "
+              f"{[round(x, 1) for x in row['eager']['epoch_ms']]} (train "
+              f"{[round(x, 1) for x in row['eager']['train_ms']]}), graphed "
+              f"{[round(x, 1) for x in row['graphed']['epoch_ms']]} (train "
+              f"{[round(x, 1) for x in row['graphed']['train_ms']]}); wall "
+              f"{e['wall']:.2f} / {g['wall']:.2f} s; "
+              f"{row['capture_lines']}", flush=True)
+
+    # (c) the gossip eval pass, graphed against eager
+    stacked = stack_batches(gbatches).to(dev, training=True)
+    gdev = [stacked[i] for i in range(len(gbatches))]
+    embs = q_embs.clone()
+    lr_dev = torch.tensor(1e-3, device=dev)
+    passes = {}
+    for graphed in (False, True):
+        p = copy.deepcopy(gossip_params).to(dev)
+        steps = loop.Steps(
+            p, loop.make_adam(p), loop.gossip_loss_fn(0.0, embs),
+            loop.gossip_eval_fn(embs), gdev, gdev, lr_dev, None, dev,
+            graphed=graphed, prepare=loop.gossip_prepare)
+        check(isinstance(steps.eval, graphed_mod.GraphedStep) == graphed
+              and not isinstance(steps.train, graphed_mod.GraphedStep),
+              "phase 16: the gossip stage's steps are not eager train, "
+              "graphed eval")
+        cs.reset_launches()
+        ms = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            val = steps.val_loss(gdev)
+            ms.append(1e3 * (time.perf_counter() - t0))
+        passes[graphed] = dict(val=val, ms=ms,
+                               carry=[t.clone() for t in steps.eval_carry],
+                               launches=cs.read_launches())
+    e, g = passes[False], passes[True]
+    check(all(torch.equal(a, b) for a, b in zip(e["carry"], g["carry"])),
+          f"phase 16: the graphed gossip eval pass differs: {e['val']} / "
+          f"{g['val']}")
+    check(e["launches"] == g["launches"]
+          and g["launches"]["gather_segment_sum"]
+          == 4 * len(gdev) * GOSSIP_FWD_PER_EVAL,
+          f"phase 16: gossip eval launches eager {e['launches']}, graphed "
+          f"{g['launches']}")
+    out["gossip_eval"] = {"batches": len(gdev), "val": g["val"],
+                          "eager_ms": e["ms"], "graphed_ms": g["ms"]}
+    print(f"phase 16 gossip eval pass ({len(gdev)} batches): graphed == "
+          f"eager bit for bit ({g['val']}); ms eager "
+          f"{[round(x, 2) for x in e['ms']]}, graphed "
+          f"{[round(x, 2) for x in g['ms']]}", flush=True)
+    out["seconds"] = time.perf_counter() - t16
+    print(f"phase 16 (compiled steps) took {out['seconds']:.1f} s",
+          flush=True)
+    return out
+
+
 def prepare_gossip_batches_for(svc, stage, counts):
     """The gossip batches ``svc`` serves for ``stage`` (its pinned
     buckets)."""
@@ -4022,6 +4205,11 @@ def main() -> int:
     # ------------------------------------------------------- 15. tools
     tools = tools_phase(torch, cs, card, gen_root, replay_root)
     data_dir.cleanup()
+
+    # ---------------------------------------------- 16. compiled steps
+    with tempfile.TemporaryDirectory(prefix="desco_smoke_g16_") as g16_dir:
+        graphed_phase(torch, cs, dev, tcfg, train_stage, qb, gbatches,
+                      gres.best_params, q_embs, g16_dir)
 
     # ----------------------------------------------------- 12. the record
     seg_src = "desco_tpu_torch/csrc/segment_sum.cu"

@@ -55,6 +55,7 @@ it survives the bf16 casts (the mask is 0 or 1 in either type).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import NamedTuple, Optional, Tuple
 
@@ -206,6 +207,43 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
     keep = torch.rand(x.shape, generator=generator, device=x.device,
                       dtype=x.dtype) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+# the attributes in which a batch object keeps its derived state
+# (``batch_typed_streams``, ``batch_pool_offsets``); a captured step's
+# static buffers copy them (train/graphed.py)
+BATCH_STATE = ("_typed_streams", "_pool_offsets")
+
+
+def batch_pool_offsets(batch: PackedGraphs) -> torch.Tensor:
+    """The CSR offsets [g_cap + 1] of the batch's graph pooling (its nodes
+    are packed graph by graph, so ``node_graph`` is sorted), derived at
+    first use and kept on the batch object as its streams are."""
+    from ..ops.cuda_segment import segment_offsets
+
+    offs = getattr(batch, "_pool_offsets", None)
+    if offs is None:
+        offs = segment_offsets(batch.node_graph.int(), batch.g_cap)
+        batch._pool_offsets = offs
+    return offs
+
+
+def prepare_batch(batch: PackedGraphs, n_edge_types: int,
+                  backward: bool, pooling: bool = True) -> None:
+    """Derive, ahead of a loop over a resident batch, the per-batch state
+    a tower would otherwise derive at its first step: the
+    ``TypedStreams`` for ``n_edge_types``, their source-sorted backward
+    streams (``backward``) and the pooling offsets (``pooling``). A
+    captured step (train/graphed.py) must find them ready: deriving the
+    streams checks the batch's permutation with a read-back."""
+    from ..ops.cuda_segment import ensure_backward_streams
+
+    with torch.no_grad():
+        st = batch_typed_streams(batch, n_edge_types)
+    if backward:
+        ensure_backward_streams(st)
+    if pooling:
+        batch_pool_offsets(batch)
 
 
 def batch_typed_streams(batch: PackedGraphs, n_edge_types: int):
@@ -453,18 +491,11 @@ def run_shmp_layers_sharded(shard_params, cfg: SHMPConfig, xs, ntypes,
     ``nmasks`` and ``generators`` (or None) are per shard, on its device.
     Returns the list of the shards' concat-skip embeddings."""
     generators = generators or [None] * len(xs)
-    by_ntype = {}
-    for p, x in zip(shard_params, xs):
-        if x.device not in by_ntype:
-            # per-dst-type conv bias: bias_by_ntype[t_n] = sum of the
-            # conv biases of the edge types whose dst node type is t_n (a
-            # sum per node type, not an atomic index_add_: the same bits
-            # every run)
-            by_ntype[x.device] = [
-                torch.tensor([t for t, d in enumerate(cfg.edge_dst_type)
-                              if d == nt], dtype=torch.long,
-                             device=x.device)
-                for nt in range(cfg.n_node_types)]
+    # per-dst-type conv bias: bias_by_ntype[t_n] = sum of the conv biases
+    # of the edge types whose dst node type is t_n (a sum per node type,
+    # not an atomic index_add_: the same bits every run)
+    by_ntype = {x.device: _bias_types(cfg.edge_dst_type, cfg.n_node_types,
+                                      x.device) for x in xs}
     embs = [[x] for x in xs]
     for l in range(cfg.layer_num):
         x_neighs = aggregate_fn(xs, [p["conv"].w[l] for p in shard_params],
@@ -476,6 +507,21 @@ def run_shmp_layers_sharded(shard_params, cfg: SHMPConfig, xs, ntypes,
         for e, x in zip(embs, xs):
             e.append(x)
     return [torch.cat(e, dim=-1) for e in embs]
+
+
+@functools.lru_cache(maxsize=None)
+def _bias_types(edge_dst_type: Tuple[int, ...], n_node_types: int,
+                device: torch.device) -> Tuple[torch.Tensor, ...]:
+    """Per node type, the [k] int64 ids on ``device`` of the edge types
+    whose destination has that type. Made once per config and device: a
+    forward makes no host-to-device copy, which a captured step
+    (train/graphed.py) could not hold. Made outside inference mode, so a
+    training forward can save them whichever forward made them first."""
+    with torch.inference_mode(False):
+        return tuple(
+            torch.tensor([t for t, d in enumerate(edge_dst_type) if d == nt],
+                         dtype=torch.long, device=device)
+            for nt in range(n_node_types))
 
 
 def _layer_body(params, cfg: SHMPConfig, l: int, x, x_neigh, ntype, nmask,
@@ -549,7 +595,8 @@ def apply_shmp(params, cfg: SHMPConfig, batch: PackedGraphs,
         return _apply_post(params["post"], emb, cfg.dropout, train,
                            generator) * nmask
     emb = emb * nmask
-    pooled = graph_pool_sum(emb, batch.node_graph, batch.g_cap)
+    pooled = graph_pool_sum(emb, batch.node_graph, batch.g_cap,
+                            batch_pool_offsets(batch))
     return _apply_post(params["post"], pooled, cfg.dropout, train, generator)
 
 

@@ -81,7 +81,12 @@ is plain XLA there.
 Each wrapper takes its plain version only for CPU tensors; a CUDA tensor
 launches the kernel or raises. Each counts its calls that launch a kernel
 in a plain int attribute (``sorted_segment_sum.launches``) so a run can
-show that the main path went through the kernel. The libraries are built
+show that the main path went through the kernel. A CUDA graph replay
+(train/graphed.py) runs no wrapper: ``LaunchRecord`` keeps what the
+wrappers counted while the graph was captured and adds it per replay.
+The launches themselves are capture-safe: they go to the current stream,
+the kernels neither allocate nor synchronize, and each kernel's
+shared-memory attribute is set at its first launch, before any capture. The libraries are built
 from ``csrc/*.cu`` with nvcc at first use (ops/cuda_build.py), into
 ``desco_tpu_torch/build/kernels/`` (listed in .gitignore); nothing here
 touches CUDA when the module is imported.
@@ -89,6 +94,7 @@ touches CUDA when the module is imported.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import threading
@@ -986,3 +992,34 @@ def read_launches() -> dict:
     out.update({kern.__name__ + "_bf16": kern.launches_bf16
                 for kern in KERNELS})
     return out
+
+
+def add_launches(counts: dict, times: int = 1) -> None:
+    """Add ``times`` x ``counts`` (``read_launches``' keys) to the
+    counters."""
+    for kern in KERNELS:
+        kern.launches += times * counts[kern.__name__]
+        kern.launches_bf16 += times * counts[kern.__name__ + "_bf16"]
+
+
+class LaunchRecord:
+    """The launches of a region captured into a CUDA graph: a capture
+    runs no kernel and a replay runs no wrapper, so ``capture()`` keeps
+    what the wrappers counted while it recorded and puts the counters
+    back, and every ``replayed()`` adds it, as an eager run of the region
+    would count."""
+
+    def __init__(self):
+        self.counts = {name: 0 for name in read_launches()}
+
+    @contextlib.contextmanager
+    def capture(self):
+        before = read_launches()
+        yield self
+        after = read_launches()
+        self.counts = {k: after[k] - before[k] for k in after}
+        reset_launches()
+        add_launches(before)
+
+    def replayed(self, times: int = 1) -> None:
+        add_launches(self.counts, times)

@@ -117,13 +117,16 @@ def graph_pool_sum(
     node_emb: torch.Tensor,    # [N, H]
     node_graph: torch.Tensor,  # [N] i32, sorted; pad nodes -> n_graphs
     n_graphs: int,
+    offs=None,                 # [n_graphs + 1] i32 offsets of node_graph
 ) -> torch.Tensor:
     """global_add_pool: [G, H] in node_emb's dtype. Nodes are packed graph
     by graph, so ``node_graph`` is sorted and K1 applies; pad nodes (id G)
-    drop."""
+    drop. ``offs`` (``models.shmp_gnn.batch_pool_offsets``) are derived
+    here when not given."""
     from .cuda_segment import segment_offsets, sorted_segment_sum
 
     seg = node_graph.int()
-    return sorted_segment_sum(node_emb.contiguous(), seg, n_graphs,
-                              segment_offsets(seg, n_graphs)
+    if offs is None:
+        offs = segment_offsets(seg, n_graphs)
+    return sorted_segment_sum(node_emb.contiguous(), seg, n_graphs, offs
                               ).to(node_emb.dtype)

@@ -23,6 +23,12 @@ Per stage, after one warm-up epoch:
    ``torch.profiler``: the device's busy time (union of its kernel and
    copy intervals), its idle share over the profiled wall time, the
    number of device operations and the kernels with the most device time.
+4. The compiled steps (train/loop.Steps, train/graphed.py), in the same
+   process after the eager ones: the steps the loop captures as CUDA
+   graphs (the neighborhood train and eval steps, the gossip eval step;
+   the gossip train step stays eager), their capture seconds, the epoch's
+   wall time twice, and the same profile: the eager epoch against the
+   graphed one on the same card and batches.
 
 Prints one JSON object (and writes it to ``--out``). Needs a CUDA device.
 """
@@ -42,11 +48,88 @@ import numpy as np
 from .serving_profile import _busy_us
 
 
-def _profile_stage(torch, params, opt, loss_fn, eval_fn, batches, lr,
-                   generator) -> dict:
+def _device_profile(torch, fn) -> dict:
+    """``fn()`` (ending in a synchronization) under ``torch.profiler``:
+    wall ms, the device's busy ms, idle share and operations, and the
+    kernels with the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    device, by_kernel = [], defaultdict(lambda: [0, 0.0])
+    for ev in prof.events():
+        if (ev.device_type != DeviceType.CUDA
+                or getattr(ev, "is_user_annotation", False)):
+            continue
+        device.append((ev.time_range.start, ev.time_range.end))
+        k = by_kernel[ev.name]
+        k[0] += 1
+        k[1] += ev.time_range.elapsed_us()
+    busy_ms = _busy_us(device) / 1e3
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:10]
+    return {
+        "profiled_epoch_ms": prof_ms,
+        "device_busy_ms": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / prof_ms,
+        "device_ops": len(device),
+        "top_kernels": [{"name": nm[:100], "calls": c, "ms": us / 1e3}
+                        for nm, (c, us) in top],
+    }
+
+
+def _graphed_stage(torch, params, opt, loss_fn, eval_fn, batches, lr,
+                   generator, prepare) -> dict:
+    """The epoch through the compiled steps of ``loop.Steps``: capture
+    seconds, wall ms of the train steps and of the val pass (each ending
+    in its read-back), twice, and the device profile of one epoch."""
+    from ..train import loop
+    from ..train.graphed import GraphedStep
+
+    dev = batches[0].x.device
+    lr_dev = torch.tensor(float(lr), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps = loop.Steps(params, opt, loss_fn, eval_fn, batches, batches,
+                       lr_dev, generator, dev, graphed=True,
+                       prepare=prepare)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    order = range(len(batches))
+
+    def epoch():
+        carry = steps.train_epoch(batches, order)
+        float(carry[0])
+        steps.val_loss(batches)
+
+    epoch()  # the first replays
+    train_ms, val_ms = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        float(steps.train_epoch(batches, order)[0])
+        t1 = time.perf_counter()
+        steps.val_loss(batches)
+        t2 = time.perf_counter()
+        train_ms.append((t1 - t0) * 1e3)
+        val_ms.append((t2 - t1) * 1e3)
+    n = len(batches)
+    return {
+        "train_step_graphed": isinstance(steps.train, GraphedStep),
+        "eval_step_graphed": isinstance(steps.eval, GraphedStep),
+        "prepare_and_capture_s": capture_s,
+        "train_epoch_ms": train_ms,
+        "train_step_ms": [t / n for t in train_ms],
+        "val_pass_ms": val_ms,
+        "epoch_ms": [a + b for a, b in zip(train_ms, val_ms)],
+        **_device_profile(torch, epoch),
+    }
+
+
+def _profile_stage(torch, params, opt, loss_fn, eval_fn, batches, lr,
+                   generator) -> dict:
     from ..train.loop import train_step
 
     sync = torch.cuda.synchronize
@@ -95,24 +178,11 @@ def _profile_stage(torch, params, opt, loss_fn, eval_fn, batches, lr,
     sync()
     val_ms = (time.perf_counter() - t0) * 1e3
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    def epoch():
         train_epoch()
         val_pass()
         sync()
-        prof_ms = (time.perf_counter() - t0) * 1e3
-    device, by_kernel = [], defaultdict(lambda: [0, 0.0])
-    for ev in prof.events():
-        if (ev.device_type != DeviceType.CUDA
-                or getattr(ev, "is_user_annotation", False)):
-            continue
-        device.append((ev.time_range.start, ev.time_range.end))
-        k = by_kernel[ev.name]
-        k[0] += 1
-        k[1] += ev.time_range.elapsed_us()
-    busy_ms = _busy_us(device) / 1e3
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:10]
+
     n = len(batches)
     return {
         "steps_per_epoch": n,
@@ -121,12 +191,7 @@ def _profile_stage(torch, params, opt, loss_fn, eval_fn, batches, lr,
         "train_step_ms": train_ms / n,
         "val_pass_ms": val_ms,
         "epoch_ms": train_ms + val_ms,
-        "profiled_epoch_ms": prof_ms,
-        "device_busy_ms": busy_ms,
-        "device_idle_share": 1.0 - busy_ms / prof_ms,
-        "device_ops": len(device),
-        "top_kernels": [{"name": nm[:100], "calls": c, "ms": us / 1e3}
-                        for nm, (c, us) in top],
+        **_device_profile(torch, epoch),
     }
 
 
@@ -144,6 +209,7 @@ def main(argv=None) -> int:
     from ..data.datasets import load_data
     from ..models import gossip as gossip_mod
     from ..models import neighborhood as neigh_mod
+    from ..models.shmp_gnn import prepare_batch
     from ..pipeline import (PipelineConfig, build_query_batch, model_configs,
                             prepare_gossip_batches, prepare_stage_data)
     from ..train import loop
@@ -183,14 +249,20 @@ def main(argv=None) -> int:
     params = neigh_mod.init_neighborhood_model(tgt_cfg, qry_cfg,
                                                gen_init).to(dev)
     b0 = stage.batches[0]
+    opt = loop.make_adam(params)
+    fns = (loop.neighborhood_loss_fn(tgt_cfg, qry_cfg, qb),
+           loop.neighborhood_eval_fn(tgt_cfg, qry_cfg, qb))
+    batches = resident(stage.batches)
     out["neighborhood"] = dict(
         n_cap=b0.n_cap, e_cap=b0.e_cap, g_cap=b0.g_cap,
         live_edges_per_epoch=live(stage.batches),
-        **_profile_stage(
-            torch, params, loop.make_adam(params),
-            loop.neighborhood_loss_fn(tgt_cfg, qry_cfg, qb),
-            loop.neighborhood_eval_fn(tgt_cfg, qry_cfg, qb),
-            resident(stage.batches), cfg.neigh_lr, generator))
+        **_profile_stage(torch, params, opt, *fns, batches, cfg.neigh_lr,
+                         generator))
+    prepare_batch(qb, qry_cfg.n_edge_types, backward=True)
+    out["neighborhood"]["graphed"] = _graphed_stage(
+        torch, params, opt, *fns, batches, cfg.neigh_lr, generator,
+        lambda b, backward: prepare_batch(b, tgt_cfg.n_edge_types,
+                                          backward))
 
     with torch.no_grad():
         q_embs = neigh_mod.embed_queries(params, qry_cfg, qb)
@@ -202,14 +274,18 @@ def main(argv=None) -> int:
         hidden_dim=cfg.gossip_hidden_dim, emb_channels=cfg.neigh_hidden_dim,
         layer_num=cfg.gossip_layer_num, generator=gen_init).to(dev)
     g0 = gbatches[0]
+    gopt = loop.make_adam(gparams)
+    fns = (loop.gossip_loss_fn(cfg.gossip_dropout, q_embs),
+           loop.gossip_eval_fn(q_embs))
+    batches = resident(gbatches)
     out["gossip"] = dict(
         n_cap=g0.n_cap, e_cap=g0.e_cap, g_cap=g0.g_cap,
         live_edges_per_epoch=live(gbatches),
-        **_profile_stage(
-            torch, gparams, loop.make_adam(gparams),
-            loop.gossip_loss_fn(cfg.gossip_dropout, q_embs),
-            loop.gossip_eval_fn(q_embs), resident(gbatches), cfg.gossip_lr,
-            generator))
+        **_profile_stage(torch, gparams, gopt, *fns, batches, cfg.gossip_lr,
+                         generator))
+    out["gossip"]["graphed"] = _graphed_stage(
+        torch, gparams, gopt, *fns, batches, cfg.gossip_lr, generator,
+        loop.gossip_prepare)
 
     line = json.dumps(out)
     print(line, flush=True)

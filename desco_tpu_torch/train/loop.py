@@ -4,11 +4,27 @@ host-side plateau schedule, val-monitored best-checkpoint selection,
 ``.last`` snapshots with resume, and the predict functions of serving.
 
 All batches of a run share one shape and live on the device for the whole
-run (one stacked copy); the epoch is a Python loop over eager steps. With
-a ``mesh`` a step takes a group of D batches, one per data-parallel
-replica (parallel/dp.py), and validation stays on the one device. What
-desco_tpu does inside its jitted, donated-carry step is kept on the device
-here too, so an epoch reads back once:
+run (one stacked copy). On one device the epoch replays compiled steps:
+the train step (``carried_step``) and the eval step (``carried_eval``) are
+captured once per run and shape as CUDA graphs (train/graphed.py, the
+counterpart of desco_tpu's ``step_jit`` and ``eval_jit``), every resident
+batch's index streams and pooling offsets derived before the first step
+(models/shmp_gnn.prepare_batch), and the graphed loops run under
+``set_sync_debug_mode("error")``. On the CPU, which only the tests ask
+for, the same static-buffer steps run without a capture;
+``graphed=False`` runs the eager steps instead. Two steps stay eager:
+
+  * the gossip train step: its loss recomputes each query under
+    ``torch.utils.checkpoint`` with a generator that ``train_step`` and
+    ``gossip_loss`` rewind through ``get_state`` / ``set_state``
+    (``loss_fn.rewinds_generator``), and those calls cannot be captured;
+    the gossip stage's eval step is graphed;
+  * the data-parallel step: with a ``mesh`` a step takes a group of D
+    batches, one per replica (parallel/dp.py), and validation stays
+    eager on the one device.
+
+What desco_tpu does inside its jitted, donated-carry step is kept on the
+device in both, so an epoch reads back once:
 
   * the loss sum and the count of rejected steps accumulate in device
     scalars; one ``.item()`` per epoch is the completion barrier that
@@ -43,6 +59,7 @@ dispatches every batch before the one read-back at the end.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import os
@@ -56,10 +73,11 @@ from torch import nn
 from ..batch.packed import PAD_EDGE_TYPE, PackedGraphs, stack_batches
 from ..models import gossip as gossip_mod
 from ..models import neighborhood as neigh_mod
-from ..models.shmp_gnn import SHMPConfig
+from ..models.shmp_gnn import SHMPConfig, prepare_batch
 from ..parallel import dp
 from ..utils.device import resolve_device
 from .checkpoint import jax_keys, load_checkpoint, save_checkpoint
+from .graphed import GraphedStep, no_sync
 from .schedule import ReduceLROnPlateau
 
 
@@ -88,6 +106,8 @@ class Adam:
         self.mu = torch.zeros_like(self.flat)
         self.nu = torch.zeros_like(self.flat)
         self.count = torch.zeros((), dtype=torch.float32, device=dev)
+        self._b1 = torch.tensor(b1, dtype=torch.float32, device=dev)
+        self._b2 = torch.tensor(b2, dtype=torch.float32, device=dev)
         self._slices: Dict[str, tuple] = {}
         self._params = [p for _, p in named]
         keys = jax_keys(params)
@@ -118,7 +138,11 @@ class Adam:
                     "view of the flat gradient buffer")
 
     @torch.no_grad()
-    def step(self, lr: float, ok: Optional[torch.Tensor] = None) -> None:
+    def step(self, lr, ok: Optional[torch.Tensor] = None) -> None:
+        """``lr``: a float, or a 0-d float32 tensor on the parameters'
+        device (the same product either way). Every state tensor is
+        updated in place, so a captured step (train/graphed.py) updates
+        the live ones."""
         self._check_grads()
         g = self.grad
         if self.weight_decay:
@@ -126,8 +150,8 @@ class Adam:
         count = self.count + 1.0
         mu = (1.0 - self.b1) * g + self.b1 * self.mu
         nu = (1.0 - self.b2) * (g * g) + self.b2 * self.nu
-        bc1 = 1.0 - torch.pow(count.new_tensor(self.b1), count)
-        bc2 = 1.0 - torch.pow(count.new_tensor(self.b2), count)
+        bc1 = 1.0 - torch.pow(self._b1, count)
+        bc2 = 1.0 - torch.pow(self._b2, count)
         new = self.flat - lr * ((mu / bc1) / (torch.sqrt(nu / bc2)
                                               + self.eps))
         if ok is not None:
@@ -135,8 +159,14 @@ class Adam:
             mu = torch.where(ok, mu, self.mu)
             nu = torch.where(ok, nu, self.nu)
             count = torch.where(ok, count, self.count)
-        self.flat.copy_(new)  # in place: the parameters are views of it
-        self.mu, self.nu, self.count = mu, nu, count
+        self.flat.copy_(new)  # the parameters are views of it
+        self.mu.copy_(mu)
+        self.nu.copy_(nu)
+        self.count.copy_(count)
+
+    def state_tensors(self) -> List[torch.Tensor]:
+        """Every tensor a step updates in place."""
+        return [self.flat, self.grad, self.mu, self.nu, self.count]
 
     def state_arrays(self) -> Dict[str, np.ndarray]:
         """The state in the ``.opt.npz`` layout (train/checkpoint.py)."""
@@ -148,7 +178,8 @@ class Adam:
         return out
 
     def load_state_arrays(self, state: Dict[str, np.ndarray]) -> None:
-        self.count = self.count.new_tensor(float(state["count"]))
+        """Load the ``.opt.npz`` layout into the state tensors, in place."""
+        self.count.fill_(float(state["count"]))
         for name in ("mu", "nu"):
             host = np.zeros(self.flat.numel(), np.float32)
             for key, (lo, hi, shape) in self._slices.items():
@@ -157,7 +188,7 @@ class Adam:
                     raise ValueError(f"optimizer state {name}/{key} has "
                                      f"shape {arr.shape}, not {shape}")
                 host[lo:hi] = arr.reshape(-1)
-            setattr(self, name, torch.from_numpy(host).to(self.flat.device))
+            getattr(self, name).copy_(torch.from_numpy(host))
 
 
 def make_adam(params: nn.Module, weight_decay: float = 0.0) -> Adam:
@@ -178,21 +209,122 @@ class TrainResult:
 
 
 def train_step(params, opt: Adam, loss_fn: Callable, batch: PackedGraphs,
-               lr: float, generator: Optional[torch.Generator]):
+               lr, generator: Optional[torch.Generator]):
     """One step: loss, backward, guarded Adam update. Returns the detached
     loss and the device flag of a finite loss. A checkpointed loss
-    (gossip) rewinds the generator while it recomputes, so its state
-    after the forward is put back after the backward."""
+    (gossip, ``loss_fn.rewinds_generator``) rewinds the generator while
+    it recomputes, so its state after the forward is put back after the
+    backward."""
     opt.zero_grad()
     loss = loss_fn(params, batch, generator)
-    end = generator.get_state() if generator is not None else None
+    rewind = generator is not None and rewinds_generator(loss_fn)
+    end = generator.get_state() if rewind else None
     loss.backward()
-    if generator is not None:
+    if rewind:
         generator.set_state(end)
     loss = loss.detach()
     ok = torch.isfinite(loss)
     opt.step(lr, ok)
     return loss, ok
+
+
+def rewinds_generator(loss_fn: Callable) -> bool:
+    """Whether ``loss_fn`` rewinds its generator in the backward (a step
+    with it cannot be captured)."""
+    return getattr(loss_fn, "rewinds_generator", False)
+
+
+def carried_step(params, opt: Adam, loss_fn: Callable, lr,
+                 generator: Optional[torch.Generator], carry):
+    """fn(batch): desco_tpu's ``carried_step``, a ``train_step`` that adds
+    its loss (0 where rejected) and its rejection to ``carry`` = (loss
+    sum, count of rejected steps), two device scalars, in place."""
+
+    def step(batch):
+        _carry(carry, *train_step(params, opt, loss_fn, batch, lr,
+                                  generator))
+
+    return step
+
+
+def _carry(carry, loss, ok) -> None:
+    carry[0].add_(torch.where(ok, loss, torch.zeros_like(loss)))
+    carry[1].add_((~ok).long())
+
+
+def carried_eval(params, eval_fn: Callable, carry):
+    """fn(batch): desco_tpu's ``eval_step``, ``eval_fn``'s (weighted loss,
+    weight) added to ``carry``, two device scalars, in place."""
+
+    def step(batch):
+        with torch.no_grad():
+            s_, w_ = eval_fn(params, batch)
+        carry[0].add_(s_)
+        carry[1].add_(w_)
+
+    return step
+
+
+class Steps:
+    """The train and eval steps of a single-device run over same-shape
+    resident batches, with their device carries. ``graphed``: the train
+    step (unless its loss rewinds its generator) and the eval step on
+    static buffers, captured once as CUDA graphs on a CUDA device
+    (train/graphed.py), after ``prepare(batch, backward)`` has derived
+    every batch's per-batch state; else the eager steps. ``lr``: the
+    device scalar the steps read."""
+
+    def __init__(self, params, opt: Adam, loss_fn: Callable,
+                 eval_fn: Callable, train_dev, val_dev, lr, generator,
+                 device, *, graphed: bool,
+                 prepare: Optional[Callable] = None):
+        device = torch.device(device)
+        self.train_carry = (torch.zeros((), device=device),
+                            torch.zeros((), dtype=torch.int64,
+                                        device=device))
+        self.eval_carry = (torch.zeros((), device=device),
+                           torch.zeros((), device=device))
+        self.train = carried_step(params, opt, loss_fn, lr, generator,
+                                  self.train_carry)
+        self.eval = carried_eval(params, eval_fn, self.eval_carry)
+        self.capture = graphed and device.type == "cuda"
+        if not graphed:
+            return
+        if prepare is not None:
+            for b in train_dev:
+                prepare(b, True)
+            for b in val_dev or ():
+                prepare(b, False)
+        if not rewinds_generator(loss_fn):
+            self.train = GraphedStep(
+                self.train, train_dev[0], capture=self.capture,
+                generator=generator,
+                state=opt.state_tensors() + list(self.train_carry))
+        if val_dev:
+            self.eval = GraphedStep(self.eval, val_dev[0],
+                                    capture=self.capture,
+                                    state=self.eval_carry)
+
+    def _run(self, step, carry, batches, order) -> None:
+        for t in carry:
+            t.zero_()
+        sync_free = self.capture and isinstance(step, GraphedStep)
+        with no_sync(carry[0].device) if sync_free else \
+                contextlib.nullcontext():
+            for bi in order:
+                step(batches[int(bi)])
+
+    def train_epoch(self, batches, order):
+        """The train steps over ``batches`` in ``order``: (loss sum, count
+        of rejected steps) on the device."""
+        self._run(self.train, self.train_carry, batches, order)
+        return self.train_carry
+
+    def val_loss(self, batches) -> float:
+        """The weighted mean eval loss over ``batches`` (one read-back)."""
+        self._run(self.eval, self.eval_carry, batches, range(len(batches)))
+        s_sum, w_sum = self.eval_carry
+        return float(s_sum) / max(float(w_sum), 1.0)
 
 
 def _epoch_seed(seed: int, epoch: int) -> int:
@@ -210,11 +342,19 @@ def run_training(
     log_every: int = 10, log_fn=print, mesh=None,
     weight_kind: str = "graphs",
     resume: bool = False, snapshot_every: int = 10,
-    val_every: int = 1,
+    val_every: int = 1, graphed: bool = True,
+    prepare: Optional[Callable] = None,
 ) -> TrainResult:
     """Generic loop: ``loss_fn(params, batch, generator) -> loss`` and
     ``eval_fn(params, batch) -> (loss_sum, weight)`` over batches on
     ``device``; ``params`` lie there and ``opt`` was made from them.
+
+    ``graphed`` (without a ``mesh``): the compiled steps of ``Steps``,
+    captured as CUDA graphs on a CUDA device, static-buffer steps without
+    a capture on the CPU; ``prepare(batch, backward)`` derives a resident
+    batch's per-batch state before the first step (the towers' streams
+    and pooling offsets, models/shmp_gnn.prepare_batch). ``graphed=False``
+    runs the eager steps, as the DP path always does.
 
     A ``mesh`` (parallel/dp.make_mesh) trains data-parallel: the train
     batches are padded to a multiple of its D replicas and grouped D at a
@@ -234,7 +374,8 @@ def run_training(
 
     # move the batches to the device ONCE (one stacked copy); the epoch
     # loops over resident batches, whose index streams
-    # (models/shmp_gnn.batch_typed_streams) are derived at first use
+    # (models/shmp_gnn.batch_typed_streams) are derived before the first
+    # graphed step, or at first use by an eager one
     def to_device_list(batches):
         stacked = stack_batches(batches).to(device, training=True)
         return [stacked[i] for i in range(len(batches))]
@@ -252,20 +393,11 @@ def run_training(
     val_dev = to_device_list(val_batches) if val_batches else None
     n_train = len(train_dev)
 
-    def val_loss() -> float:
-        if val_dev is None:
-            return float("nan")
-        with torch.no_grad():
-            s_sum = torch.zeros((), device=device)
-            w_sum = torch.zeros((), device=device)
-            for b in val_dev:
-                s_, w_ = eval_fn(params, b)
-                s_sum += s_
-                w_sum += w_
-        return float(s_sum) / max(float(w_sum), 1.0)
-
     sched = ReduceLROnPlateau(lr=lr, factor=factor, patience=patience,
                               min_lr=min_lr)
+    # the learning rate as data (desco_tpu's lr_dev): a plateau decay
+    # writes it in place and recaptures nothing
+    lr_dev = torch.tensor(float(lr), dtype=torch.float32, device=device)
     generator = torch.Generator(device=device)
     best_val = float("inf")
     best_params = copy.deepcopy(params)
@@ -290,6 +422,19 @@ def run_training(
         log_fn(f"resumed from epoch {start_epoch} (lr {sched.lr:.2e}, "
                f"best_val {best_val:.5f})")
 
+    t0 = time.time()
+    steps = Steps(params, opt, loss_fn, eval_fn, train_dev, val_dev, lr_dev,
+                  generator, device, graphed=graphed and mesh is None,
+                  prepare=prepare)
+    if steps.capture:
+        log_fn(f"compiled steps: batches prepared and the steps captured "
+               f"as CUDA graphs in {time.time() - t0:.2f}s")
+
+    def val_loss() -> float:
+        if val_dev is None:
+            return float("nan")
+        return steps.val_loss(val_dev)
+
     where = ckpt_path + ".last" if ckpt_path else "scratch"
     rng_np = np.random.default_rng(seed + 1)
     # a resumed run must CONTINUE the shuffle stream, not restart it:
@@ -304,18 +449,16 @@ def run_training(
         if mesh is not None:
             gens = dp.replica_generators(mesh, _epoch_seed(seed, epoch))
         order = rng_np.permutation(n_train)
-        loss_sum = torch.zeros((), device=device)
-        n_bad = torch.zeros((), dtype=torch.int64, device=device)
-        for bi in order:
-            if mesh is None:
-                loss, ok = train_step(params, opt, loss_fn,
-                                      train_dev[int(bi)], sched.lr,
-                                      generator)
-            else:
-                loss, ok = dp_step(params, train_dev[int(bi)], sched.lr,
-                                   gens)
-            loss_sum += torch.where(ok, loss, torch.zeros_like(loss))
-            n_bad += (~ok).long()
+        lr_dev.fill_(sched.lr)
+        if mesh is None:
+            loss_sum, n_bad = steps.train_epoch(train_dev, order)
+        else:
+            loss_sum, n_bad = steps.train_carry
+            for t in steps.train_carry:
+                t.zero_()
+            for bi in order:
+                _carry(steps.train_carry,
+                       *dp_step(params, train_dev[int(bi)], lr_dev, gens))
         n_bad = int(n_bad.item())  # the epoch's one read-back barrier
         if n_bad:
             msg = (f"epoch {epoch}: {n_bad}/{n_train} train steps "
@@ -425,6 +568,8 @@ def train_neighborhood(
     device = resolve_device(device)
     params = params.to(device)
     qb = query_batch.to(device)
+    # the query tower runs in every step: its batch's state too
+    prepare_batch(qb, qry_cfg.n_edge_types, backward=True)
     return run_training(
         params=params, opt=make_adam(params, weight_decay),
         train_batches=train_batches, val_batches=val_batches,
@@ -432,7 +577,8 @@ def train_neighborhood(
         eval_fn=neighborhood_eval_fn(eval_tgt_cfg or tgt_cfg, qry_cfg, qb),
         epochs=epochs, lr=lr, ckpt_path=ckpt_path,
         ckpt_config=ckpt_config, mesh=mesh, weight_kind="graphs",
-        device=device, **kw)
+        device=device, prepare=lambda b, backward: prepare_batch(
+            b, tgt_cfg.n_edge_types, backward), **kw)
 
 
 # ---------------------------------------------------------------- gossip
@@ -443,7 +589,13 @@ def gossip_loss_fn(dropout: float, query_embs: torch.Tensor):
         return gossip_mod.gossip_loss(params, batch, embs_on(batch.x.device),
                                       dropout, True, generator)
 
+    f.rewinds_generator = True  # each query recomputes under checkpoint
     return f
+
+
+def gossip_prepare(batch: PackedGraphs, backward: bool) -> None:
+    """A gossip batch's per-batch state: its direction streams (T = 2)."""
+    prepare_batch(batch, 2, backward, pooling=False)
 
 
 def gossip_eval_fn(query_embs: torch.Tensor):
@@ -475,7 +627,7 @@ def train_gossip(
         eval_fn=gossip_eval_fn(query_embs),
         epochs=epochs, lr=lr, ckpt_path=ckpt_path,
         ckpt_config=ckpt_config, mesh=mesh, weight_kind="sum",
-        device=device, **kw)
+        device=device, prepare=gossip_prepare, **kw)
 
 
 # ------------------------------------------------------------- prediction

@@ -979,3 +979,90 @@ def test_tool_dataset_statistics_on_gpu_matches_cpu(cuda_device, tmp_path):
     x = got["features"]
     close_scale(dataset_statistics.pca(x, 2, cuda_device),
                 want["neighborhood_features"]["proj"], 1e-5)
+
+
+def neighborhood_training_set(rng, cfg, n_graphs=24):
+    """Packed target batches (with labels and permutations) of random
+    graphs' neighborhoods at ``cfg``'s depth, several batches of one
+    shape, with random counts of ``cfg``'s queries as labels."""
+    from desco_tpu_torch.batch.packed import auto_capacities, pack_samples
+    from desco_tpu_torch.data.workload import Workload
+    from desco_tpu_torch.graph import Graph
+
+    graphs = []
+    for _ in range(n_graphs):
+        n = int(rng.integers(6, 14))
+        iu = np.triu_indices(n, k=1)
+        keep = rng.random(len(iu[0])) < 0.4
+        graphs.append(Graph(n, np.stack([iu[0][keep], iu[1][keep]],
+                                        axis=1).astype(np.int32)))
+    samples, _ = Workload(graphs).neighborhood_samples(cfg.depth)
+    n_q = len(cfg.query_ids)
+    for s in samples:
+        s.y = rng.uniform(0, 6, n_q).astype(np.float32)
+    return pack_samples(samples, *auto_capacities(samples, g_cap=32),
+                        n_queries=n_q, need_bwd_perm=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_graphed_epochs_equal_eager_on_gpu(rng, cuda_device, tmp_path,
+                                           bf16):
+    """Two neighborhood epochs through ``train_neighborhood``: the train
+    and eval steps captured as CUDA graphs (their loops under
+    ``set_sync_debug_mode("error")``) against the eager steps, the same
+    weights and seed: losses, parameters and Adam's state bit for bit,
+    and the same kernel launches."""
+    from desco_tpu_torch.models import neighborhood as nm
+    from desco_tpu_torch.pipeline import (PipelineConfig, build_query_batch,
+                                          model_configs)
+    from desco_tpu_torch.train import loop
+    from desco_tpu_torch.train.checkpoint import flatten_params
+
+    cfg = PipelineConfig(query_sizes=(3, 4), depth=2, neigh_layer_num=3,
+                         neigh_hidden_dim=32)
+    batches = neighborhood_training_set(rng, cfg)
+    assert len(batches) > 2
+    tt, tq = model_configs(cfg, cuda_device)
+    assert tt.agg_mode == "kernel"
+    train_tt = dataclasses.replace(tt, dtype=BF) if bf16 else tt
+    qb = build_query_batch(cfg)
+    runs = []
+    for graphed in (False, True):
+        params = nm.init_neighborhood_model(
+            tt, tq, torch.Generator().manual_seed(0))
+        path = str(tmp_path / f"run{int(graphed)}")
+        cs.reset_launches()
+        res = loop.train_neighborhood(
+            params, train_tt, tq, qb, batches, batches[:2], epochs=2,
+            lr=1e-3, ckpt_path=path, eval_tgt_cfg=tt, device=cuda_device,
+            graphed=graphed, log_fn=lambda *_: None)
+        torch.cuda.synchronize()
+        runs.append((res, flatten_params(res.params), cs.read_launches(),
+                     np.load(path + ".last.opt.npz")))
+    assert torch.cuda.get_sync_debug_mode() == 0
+    (a, pa, na, oa), (b, pb, nb, ob) = runs
+    assert a.train_losses == b.train_losses
+    assert a.val_losses == b.val_losses
+    for key, arr in pa.items():
+        np.testing.assert_array_equal(arr, pb[key], err_msg=key)
+    for key in oa.files:
+        np.testing.assert_array_equal(oa[key], ob[key], err_msg=key)
+    assert na == nb
+    steps = 2 * len(batches)
+    assert na["typed_aggregate_bwd"] == 3 * steps
+    assert na["fused_typed_transform_aggregate"] == 3 * (steps + 2 * 2)
+
+
+@pytest.mark.cuda
+def test_no_sync_refuses_a_read_back_on_gpu(cuda_device):
+    """The guard the graphed loops run under raises on a read-back, and
+    puts the debug mode back."""
+    from desco_tpu_torch.train.graphed import no_sync
+
+    t = torch.ones((), device=cuda_device)
+    with pytest.raises(RuntimeError):
+        with no_sync(cuda_device):
+            t.item()
+    assert torch.cuda.get_sync_debug_mode() == 0
+    assert float(t) == 1.0

@@ -1,0 +1,233 @@
+"""The compiled training step (desco_tpu_torch/train/graphed.py) on the
+CPU, where it runs on its static buffers without a capture.
+
+The static-buffer steps must equal the eager steps bit for bit (the same
+operations on copies of the same batches): train and val losses, the
+final parameters and Adam's mu / nu / count, f32 and bf16 target tower,
+also across a plateau decay, a rejected step and a resume. Against
+desco_tpu's ``run_training`` (its jitted ``carried_step`` and
+``eval_jit``) the static steps hold the losses to the loop tolerance of
+tests/test_torch_dp.py, rtol 1e-5 (same inputs and weights, dropout 0;
+only the summation order differs), and the parameters to rtol 1e-4 with
+atol 1e-5 of each tensor's scale: Adam divides each gradient by its own
+root mean square, so where a gradient is near zero its 1e-7 relative
+difference reaches the parameter in full, and over 14 steps one element
+of the query tower's last post linear lies 2.8e-6 of its tensor's scale
+from desco_tpu's, for the eager loop as for the static one (the DP test's
+1e-6 holds at D = 2 on these batches). A static step makes no read-back and no
+host-to-device copy, which a capture on the card could not hold; the
+launch counters add a capture's launches per replay."""
+
+import dataclasses
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from desco_tpu.train import loop as jloop
+from desco_tpu.train.checkpoint import _flatten
+from desco_tpu_torch.models import neighborhood as tneigh
+from desco_tpu_torch.models.shmp_gnn import prepare_batch
+from desco_tpu_torch.ops import cuda_segment as cs
+from desco_tpu_torch.pipeline import (build_query_batch,
+                                      train_neighborhood_stage)
+from desco_tpu_torch.pipeline import model_configs as t_model_configs
+from desco_tpu_torch.train import graphed
+from desco_tpu_torch.train import loop as tloop
+from desco_tpu_torch.train.checkpoint import flatten_params
+
+from test_torch_dp import dp_data, j_host  # noqa: F401
+from test_torch_grad import gossip_pair, neigh_pair
+from test_torch_shmp import jax_batch, one_torch_thread  # noqa: F401
+from test_torch_train import (QUIET, neigh_setup,  # noqa: F401
+                              tiny_cfg, tiny_data)
+
+
+def assert_runs_equal(a, b, paths):
+    """Two runs' TrainResults and their ``.last`` snapshots (parameters
+    and Adam's state), bit for bit."""
+    assert a.train_losses == b.train_losses
+    np.testing.assert_array_equal(a.val_losses, b.val_losses)
+    assert a.best_val == b.best_val
+    for x, y in ((a.params, b.params), (a.best_params, b.best_params)):
+        fx, fy = flatten_params(x), flatten_params(y)
+        for key, arr in fx.items():
+            np.testing.assert_array_equal(arr, fy[key], err_msg=key)
+    opts = [np.load(p + ".last.opt.npz") for p in paths]
+    assert sorted(opts[0].files) == sorted(opts[1].files)
+    assert any(k.startswith("mu/") for k in opts[0].files)
+    for key in opts[0].files:
+        np.testing.assert_array_equal(opts[0][key], opts[1][key],
+                                      err_msg=key)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_static_step_equals_eager_bit_for_bit(tiny_cfg, tiny_data, tmp_path,
+                                              bf16):
+    """2 epochs of the neighborhood stage: the static steps (train and
+    eval) against the eager ones, the same weights and seed."""
+    train, val, _ = tiny_data
+    cfg = dataclasses.replace(tiny_cfg, neigh_epochs=2, train_bf16=bf16)
+    qb = build_query_batch(cfg)
+    runs, paths = [], []
+    for g in (False, True):
+        paths.append(str(tmp_path / f"run{int(g)}"))
+        res, _, _ = train_neighborhood_stage(cfg, train, val, qb,
+                                             ckpt_path=paths[-1],
+                                             graphed=g, **QUIET)
+        runs.append(res)
+    assert runs[0].train_losses[1] != runs[0].train_losses[0]
+    assert_runs_equal(*runs, paths)
+
+
+def test_plateau_decay_moves_the_device_lr(tiny_cfg, tiny_data, tmp_path):
+    """Patience 0 and a learning rate too small to improve the val loss:
+    the plateau schedule halves the device learning rate after every
+    epoch past the first, and static still equals eager."""
+    train, val, _ = tiny_data
+    tt, tq, _, qb = neigh_setup(tiny_cfg)
+    runs, paths, logs = [], [], []
+    for g in (False, True):
+        lines = []
+        paths.append(str(tmp_path / f"pl{int(g)}"))
+        params = tneigh.init_neighborhood_model(
+            tt, tq, torch.Generator().manual_seed(0))
+        runs.append(tloop.train_neighborhood(
+            params, tt, tq, qb, train.batches, val.batches, epochs=4,
+            lr=1e-8, min_lr=1e-12, patience=0, ckpt_path=paths[-1],
+            snapshot_every=1, log_every=1, device="cpu", graphed=g,
+            log_fn=lines.append))
+        logs.append([ln.split(" lr ")[1].split()[0] for ln in lines])
+    assert logs[0] == logs[1] == ["1.00e-08", "5.00e-09", "2.50e-09",
+                                  "1.25e-09"]
+    assert_runs_equal(*runs, paths)
+
+
+@pytest.mark.parametrize("stage", ["neighborhood", "gossip"])
+def test_static_steps_match_desco_tpu_run_training(dp_data, stage):
+    """``run_training`` on one device with the static steps against
+    desco_tpu's jitted ``carried_step`` / ``eval_jit`` loop: 2 epochs,
+    the same weights, seed and batches (the gossip stage: its eval step
+    static, its train step eager), dropout 0."""
+    cfg, tbs, gbs, qb = dp_data
+    kw = dict(epochs=2, lr=1e-3, seed=4, log_fn=lambda *_: None)
+    if stage == "neighborhood":
+        batches = list(tbs)
+        (jt, jq, jparams), tparams = neigh_pair()
+        want = jloop.train_neighborhood(
+            jparams, jt, jq, jax_batch(qb), [j_host(b) for b in batches],
+            [j_host(b) for b in batches[:2]], **kw)
+        tt, tq = t_model_configs(cfg, "cpu")
+        got = tloop.train_neighborhood(
+            tparams, tt, tq, qb, batches, batches[:2], device="cpu",
+            graphed=True, **kw)
+    else:
+        batches = list(gbs[:5])
+        q_embs = np.random.default_rng(7).standard_normal(
+            (gbs[0].node_y.shape[1], 16)).astype(np.float32)
+        jp, tp = gossip_pair()
+        want = jloop.train_gossip(
+            jp, jnp.asarray(q_embs), [j_host(b) for b in batches],
+            [j_host(b) for b in batches[:2]], dropout=0.0, **kw)
+        got = tloop.train_gossip(
+            tp, torch.from_numpy(q_embs), batches, batches[:2], dropout=0.0,
+            device="cpu", graphed=True, **kw)
+    np.testing.assert_allclose(got.train_losses, want.train_losses, rtol=1e-5)
+    np.testing.assert_allclose(got.val_losses, want.val_losses, rtol=1e-5)
+    final = flatten_params(got.params)
+    for key, w in _flatten(want.params).items():
+        w = np.asarray(w)
+        np.testing.assert_allclose(final[key], w, rtol=1e-4,
+                                   atol=1e-5 * float(np.abs(w).max()),
+                                   err_msg=key)
+
+
+def test_static_step_makes_no_read_back(tiny_cfg, tiny_data, monkeypatch):
+    """After one step that sets up what a run keeps (the towers' bias ids),
+    a static train step and a static eval step run with every read-back
+    (``item``, ``__bool__``, ``tolist``, ``numpy``, ``cpu``, ``float``,
+    ``int``) and every host-to-device tensor (``torch.tensor``,
+    ``as_tensor``, ``new_tensor``) raising, and still update the
+    parameters and the carries."""
+    train, val, _ = tiny_data
+    tt, tq, params, qb = neigh_setup(tiny_cfg)
+    qb = qb.to("cpu")
+    dev = [b.to("cpu", training=True) for b in train.batches[:2]]
+    opt = tloop.make_adam(params)
+    lr = torch.tensor(1e-3)
+    steps = tloop.Steps(
+        params, opt, tloop.neighborhood_loss_fn(tt, tq, qb),
+        tloop.neighborhood_eval_fn(tt, tq, qb), dev, dev, lr, None, "cpu",
+        graphed=True,
+        prepare=lambda b, backward: prepare_batch(
+            b, tt.n_edge_types, backward))
+    prepare_batch(qb, tq.n_edge_types, backward=True)
+    assert isinstance(steps.train, graphed.GraphedStep)
+    assert isinstance(steps.eval, graphed.GraphedStep)
+    steps.train(dev[0])
+    before = opt.flat.clone()
+
+    def refuse(*_a, **_k):
+        raise AssertionError("a read-back or host copy in a static step")
+
+    for name in ("item", "__bool__", "tolist", "numpy", "cpu", "__float__",
+                 "__int__", "new_tensor"):
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+    monkeypatch.setattr(torch, "tensor", refuse)
+    monkeypatch.setattr(torch, "as_tensor", refuse)
+    steps.train(dev[1])
+    steps.eval(dev[1])
+    monkeypatch.undo()
+    assert not torch.equal(opt.flat, before)
+    assert float(steps.train_carry[0]) > 0
+    assert int(steps.train_carry[1]) == 0
+    assert float(steps.eval_carry[1]) == float(dev[1].graph_mask.sum())
+
+
+def test_static_batch_refuses_another_shape(tiny_data):
+    """The static buffers take batches of their shape only, and only
+    batches whose per-batch state was derived before the loop."""
+    b0, b1 = (b.to("cpu", training=True)
+              for b in tiny_data[0].batches[:2])
+    prepare_batch(b0, 6, backward=True)
+    static = graphed.static_like(b0)
+    assert static.x is not b0.x and torch.equal(static.x, b0.x)
+    assert static._typed_streams.bwd_rows is not None
+    with pytest.raises(ValueError, match="_typed_streams"):
+        graphed.copy_into(static, b1)
+    prepare_batch(b1, 6, backward=True)
+    graphed.copy_into(static, b1)
+    assert torch.equal(static._typed_streams.keys, b1._typed_streams.keys)
+    assert torch.equal(static._pool_offsets, b1._pool_offsets)
+    wide = dataclasses.replace(b1, x=torch.zeros(b1.n_cap + 1, 1))
+    with pytest.raises(ValueError, match="one shape"):
+        graphed.copy_into(static, wide)
+
+
+def test_launch_record_adds_the_capture_per_replay():
+    """A stub capture that counts as the wrappers count while a graph
+    records (no kernel launches on the CPU): the counters are put back
+    after the capture, and N replays add N times its counts."""
+    cs.reset_launches()
+    cs.sorted_segment_sum.launches = 5  # launches before the capture
+    rec = cs.LaunchRecord()
+    with rec.capture():
+        cs.fused_typed_transform_aggregate.launches += 8
+        cs.fused_typed_transform_aggregate.launches_bf16 += 8
+        cs.typed_aggregate_bwd.launches += 8
+        cs.sorted_segment_sum.launches += 2
+        cs.gather_segment_sum.launches += 8
+        cs.gather_segment_sum_bwd.launches += 8
+    captured = dict(rec.counts)
+    assert captured["fused_typed_transform_aggregate_bf16"] == 8
+    assert captured["sorted_segment_sum"] == 2
+    assert captured["segment_sum_vjp"] == 0
+    assert cs.read_launches() == {**{k: 0 for k in captured},
+                                  "sorted_segment_sum": 5}
+    for _ in range(7):
+        rec.replayed()
+    got = cs.read_launches()
+    for key, n in captured.items():
+        assert got[key] == 7 * n + (5 if key == "sorted_segment_sum" else 0)
+    cs.reset_launches()

@@ -199,9 +199,11 @@ def test_checkpoint_roundtrip_both_ways(tiny_cfg, tiny_data, tmp_path):
                                atol=1e-5)
 
 
-def test_nan_step_guard(tiny_cfg, tiny_data):
+@pytest.mark.parametrize("graphed", [False, True], ids=["eager", "static"])
+def test_nan_step_guard(tiny_cfg, tiny_data, graphed):
     """A batch with non-finite labels aborts training with a clear error,
-    and the poisoned update never touched parameters or Adam moments."""
+    and the poisoned update never touched parameters or Adam moments:
+    the eager step and the static-buffer step (train/graphed.py) alike."""
     train, val, _ = tiny_data
     tt, tq, params, qb = neigh_setup(tiny_cfg)
     before = {k: v.copy() for k, v in flatten_params(params).items()}
@@ -209,7 +211,7 @@ def test_nan_step_guard(tiny_cfg, tiny_data):
         train.batches[0], y=np.full_like(train.batches[0].y, np.nan))
     with pytest.raises(FloatingPointError, match="non-finite"):
         tloop.train_neighborhood(params, tt, tq, qb, [bad], val.batches,
-                                 epochs=1, lr=1e-3, **QUIET)
+                                 epochs=1, lr=1e-3, graphed=graphed, **QUIET)
     for key, arr in flatten_params(params).items():
         np.testing.assert_array_equal(arr, before[key])
 
@@ -264,12 +266,15 @@ def test_plateau_decays_the_learning_rate(tiny_cfg, tiny_data, tmp_path):
     assert "lr 1.25e-09" in lines[-1]
 
 
+@pytest.mark.parametrize("graphed", [False, True], ids=["eager", "static"])
 @pytest.mark.parametrize("stage_name", ["neighborhood", "gossip"])
 def test_resume_equals_uninterrupted(tiny_cfg, tiny_data, tmp_path,
-                                     stage_name):
+                                     stage_name, graphed):
     """3 epochs, stop, resume to 6: epoch, LR, best_val, the Adam state,
     the shuffle stream and the dropout masks all continue, so the resumed
-    run ends where an uninterrupted one does."""
+    run ends where an uninterrupted one does, with the eager steps and
+    with the static-buffer ones (train/graphed.py; the gossip train step
+    stays eager, its eval step is static)."""
     train, val, _ = tiny_data
     if stage_name == "neighborhood":
         cfg = dataclasses.replace(tiny_cfg, neigh_dropout=0.1)
@@ -282,7 +287,8 @@ def test_resume_equals_uninterrupted(tiny_cfg, tiny_data, tmp_path,
             return tloop.train_neighborhood(
                 params, tt, tq, qb, train.batches, val.batches,
                 epochs=epochs, lr=1e-3, ckpt_path=path, resume=resume,
-                snapshot_every=1, patience=1, seed=4, **QUIET)
+                snapshot_every=1, patience=1, seed=4, graphed=graphed,
+                **QUIET)
     else:
         rng = np.random.default_rng(0)
         counts = [s.truth[s.nindex.indicator]
@@ -301,7 +307,8 @@ def test_resume_equals_uninterrupted(tiny_cfg, tiny_data, tmp_path,
             return tloop.train_gossip(
                 params, q_embs, tb, vb, epochs=epochs, lr=1e-3,
                 dropout=0.1, ckpt_path=path, resume=resume,
-                snapshot_every=1, patience=1, seed=4, **QUIET)
+                snapshot_every=1, patience=1, seed=4, graphed=graphed,
+                **QUIET)
 
     whole = run(6, str(tmp_path / "whole"))
     run(3, str(tmp_path / "parts"))
