@@ -185,11 +185,14 @@ nonzero on a failed check (no phase catches its own failure):
      a PNA tower at width 64 on a ``force_pull`` partition against their
      packed towers, forward (1e-3 of max|out|) and backward (finite,
      error printed), launches exactly as ``expected_halo_conv`` predicts
-     (K1 sums, K4 behind them); (d) the halo gossip loss on a partition
-     with push pairs against the packed ``gossip_loss`` (gradients within
+     (K1 sums, K4 behind them); (d) the direction degrees of a partition
+     with push pairs, computed once and kept on its shards (one
+     gather-fused K1 per stream, none at the next call), the halo gossip
+     loss on it against the packed ``gossip_loss`` (gradients within
      phase 5's 1e-4 of a tensor's scale), launches (the gather-fused K1
-     forward and backward per stream), and two same-seed halo train steps
-     (dropout 0.01, Adam) bit-equal; ``python -m desco_tpu_torch.serve
+     forward and backward per stream, 2 x 29 forward: the degrees are
+     kept), and two same-seed halo train steps (dropout 0.01, Adam)
+     bit-equal; ``python -m desco_tpu_torch.serve
      --large_threshold 1000`` answering a 2,000-node graph as
      ``count_large_graph`` does; (e) every kernel of the path launched,
      and the gather-fused K1 (forward and backward) on a gossip shard's
@@ -206,8 +209,8 @@ nonzero on a failed check (no phase catches its own failure):
      losses (rtol 1e-5) and gradients (1e-4 of a tensor's scale), the
      same on the CPU, two same-seed steps bit-equal (the gossip's also
      with dropout), and 2 epochs of each stage at D = 1 and D = 2 through
-     ``train_*_stage(mesh=...)`` with launches per padded batch and the
-     epoch ms; (c) DP x halo on a 2 x 2 grid: phase 13's graph and a
+     ``train_*_stage(mesh=...)`` (the compiled DP steps) with launches per
+     padded batch and the epoch ms; (c) DP x halo on a 2 x 2 grid: phase 13's graph and a
      12,000-node one of the same recipe (seed 4), harmonized partitions,
      the composed gossip loss and gradients against the sum of the
      replicas' (rtol 1e-5, 1e-5 of a tensor's scale), two same-seed
@@ -245,14 +248,24 @@ nonzero on a failed check (no phase catches its own failure):
      and 3 at a learning rate of 1e-9 with patience 0 (a plateau decay
      reaches the last epoch through the device learning rate), and 2
      with dropout 0.1 (the masks' generator registered with the graph),
-     each with
-     the eager steps and with the graphed ones: train and val losses,
-     final parameters and Adam's ``.last`` state bit-equal, launches
-     equal, the graphed loops run under the guard; launches per epoch
-     and epoch ms both ways printed; (c) the gossip eval pass over phase
-     6's gossip batches and trained model, graphed against eager,
-     bit-equal, launches equal (the gather-fused K1 1 + 2 x 29 per
-     batch), ms both ways.
+     each with the eager steps and with the graphed ones: train and val
+     losses, final parameters and Adam's ``.last`` state bit-equal,
+     launches equal, every graphed loop under the guard (its debug mode
+     read inside) and no eager one; launches per epoch and epoch ms both
+     ways printed; (c) the gossip eval pass over phase 6's gossip
+     batches and trained model, graphed against eager, bit-equal,
+     launches equal (the gather-fused K1 1 + 2 x 29 per batch), ms both
+     ways; (d) the gossip train step: 2 epochs on phase 6's gossip
+     batches at dropout 0.01 and 0, the same checks as (b), launches the
+     gather-fused K1 1 + 4 x 29 forward and 29 backward per train batch
+     and 1 + 2 x 29 per val batch; (e) data parallelism at D = 2 on the
+     one card, 2 epochs of each stage (the gossip's at dropout 0.01), the
+     same checks, launches per padded batch; (f) phase 13's halo gossip
+     train step (4 shards) and phase 14's 2 x 2 DP x halo step, dropout
+     0.01, four calls each eager and graphed (the first graphed call
+     captures, the other three replay under the guard): losses, flags,
+     gradients, parameters and Adam's moments bit-equal after every
+     call, launches equal, ms per call both ways.
  12. one JSON line of kernels (K2' and K3' at T = 33 and at T = 1 in
      rows of their own, launched by the order-4 run and the DIAMNet
      driver; every other row's launches count the ablation path, labeled
@@ -278,6 +291,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Optional
 
 import numpy as np
 
@@ -2290,6 +2304,19 @@ def halo_phase(torch, cs, probe, dev, seed: int, svc) -> dict:
         s_tr.edge_type, HALO_SHARDS, node_y=truth, n_types=2)
     tshards = halo.place_shards(tpart, [dev])
     check(tpart.p_max > 0, "the gossip training partition has no push pair")
+    t_agg = per_aggregate(tshards)
+    # the direction degrees: once for the partition, kept on its shards;
+    # the loss and every step below read them
+    cs.reset_launches()
+    deg = halo.halo_direction_degrees(tshards)
+    got = cs.read_launches()
+    add(got)
+    check(got["gather_segment_sum"] == t_agg
+          and all(d is k for d, k in
+                  zip(deg, halo.halo_direction_degrees(tshards)))
+          and cs.read_launches() == got,
+          f"halo direction degrees: launches {got}, expected {t_agg} "
+          f"gather-fused K1 once for the partition")
     [tb] = pack_samples([s_tr], *auto_capacities([s_tr], g_cap=1),
                         n_queries=29, need_bwd_perm=True)
     tb_dev = tb.to(dev, training=True)
@@ -2314,8 +2341,7 @@ def halo_phase(torch, cs, probe, dev, seed: int, svc) -> dict:
                / max(float(r.abs().max()), 1e-30)
                for k, r in grads["packed"].items())
     lerr = abs(losses["halo"] - losses["packed"]) / abs(losses["packed"])
-    t_agg = per_aggregate(tshards)
-    want = {"gather_segment_sum": (1 + 2 * 29) * t_agg,
+    want = {"gather_segment_sum": 2 * 29 * t_agg,
             "gather_segment_sum_bwd": 29 * t_agg, "sorted_segment_sum": 0,
             "segment_sum_vjp": 0}
     add(step_launches)
@@ -2429,6 +2455,7 @@ def halo_phase(torch, cs, probe, dev, seed: int, svc) -> dict:
     print(f"phase 13 (halo) took {time.perf_counter() - t13:.1f} s",
           flush=True)
     return {"launches": halo_launches, "sites": sites,
+            "train_shards": tshards,
             "large_graph": {"wall_s": wall, **stats,
                             "graphlet_counts":
                                 res.graphlet_counts[0].tolist(),
@@ -2902,7 +2929,7 @@ def dp_phase(torch, cs, dev, seed: int, svc, main_req, res_main,
             "predict_ms": dp_ms, "neigh_step": neigh_rows,
             "gossip_step": gossip_rows, "epochs": epochs,
             "dp_halo": {"loss_rel": lerr, "grad_err": gerr, "ms": halo_ms},
-            "graft": graft, "seconds": took}
+            "grid": replicas, "graft": graft, "seconds": took}
 
 
 # ------------------------------------------------------- phase 15: tools
@@ -3121,30 +3148,175 @@ def tools_phase(torch, cs, card: str, gen_root: str,
 
 
 # ------------------------------------------- phase 16: compiled steps
-def graphed_run(torch, cs, train_neighborhood_stage, dev, cfg, train_stage,
-                qb, ckpt: str, graphed: bool, **kw) -> dict:
-    """One neighborhood run through ``train_neighborhood_stage`` (eager or
-    graphed steps): its result, final parameters, ``.last`` Adam state,
-    launches, wall seconds and log lines."""
+@contextlib.contextmanager
+def guard_watch(torch, loop):
+    """Record the sync debug mode inside every ``no_sync`` block the
+    training loop enters: a graphed loop must run under mode 2
+    ("error")."""
+    modes, orig = [], loop.no_sync
+
+    @contextlib.contextmanager
+    def watched(device):
+        with orig(device):
+            modes.append(torch.cuda.get_sync_debug_mode())
+            yield
+
+    loop.no_sync = watched
+    try:
+        yield modes
+    finally:
+        loop.no_sync = orig
+
+
+def graphed_run(torch, cs, loop, train, ckpt: str, graphed: bool) -> dict:
+    """One run of ``train(ckpt_path, graphed, **logging) -> TrainResult``
+    (eager or graphed steps): its result, final parameters, ``.last`` Adam
+    state, launches, wall seconds, log lines and the sync debug modes of
+    its guarded loops."""
     from desco_tpu_torch.train.checkpoint import flatten_params
 
     lines = []
     cs.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res, _, _ = train_neighborhood_stage(
-        cfg, train_stage, train_stage, qb, ckpt_path=ckpt, log_every=1,
-        log_fn=lines.append, graphed=graphed, snapshot_every=1, device=dev,
-        **kw)
+    with guard_watch(torch, loop) as modes:
+        res = train(ckpt_path=ckpt, graphed=graphed, log_every=1,
+                    log_fn=lines.append, snapshot_every=1)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return dict(res=res, params=flatten_params(res.params),
                 opt=dict(np.load(ckpt + ".last.opt.npz")),
-                launches=cs.read_launches(), wall=wall, lines=lines)
+                launches=cs.read_launches(), wall=wall, lines=lines,
+                guard=modes)
+
+
+def compare_runs(torch, cs, loop, name: str, train, epochs: int,
+                 workdir: str, want: Optional[dict] = None,
+                 lr_decays: bool = False) -> dict:
+    """Run ``train`` eager and graphed from the same weights and seed:
+    train and val losses, final parameters and Adam's ``.last`` state
+    bit-equal, launches equal (and equal to ``want`` where given), every
+    graphed loop under the guard and no eager one; prints and returns the
+    launches per epoch and the epoch ms both ways."""
+    runs = {g: graphed_run(torch, cs, loop, train,
+                           os.path.join(workdir, f"{name}_{g}"), g)
+            for g in (False, True)}
+    e, g = runs[False], runs[True]
+    check(torch.cuda.get_sync_debug_mode() == 0,
+          f"phase 16 ({name}): the sync debug mode was not put back")
+    check(not e["guard"] and len(g["guard"]) >= epochs
+          and all(m == 2 for m in g["guard"]),
+          f"phase 16 ({name}): guarded loops eager {e['guard']}, graphed "
+          f"{g['guard']}")
+    check(e["res"].train_losses == g["res"].train_losses
+          and e["res"].val_losses == g["res"].val_losses,
+          f"phase 16 ({name}): losses differ, eager "
+          f"{e['res'].train_losses} / {e['res'].val_losses}, graphed "
+          f"{g['res'].train_losses} / {g['res'].val_losses}")
+    differ = [k for k, v in e["params"].items()
+              if not np.array_equal(v, g["params"][k])]
+    differ += [k for k, v in e["opt"].items()
+               if not np.array_equal(v, g["opt"][k])]
+    check(not differ, f"phase 16 ({name}): parameters or Adam state "
+          f"differ: {differ[:5]}")
+    check(e["launches"] == g["launches"],
+          f"phase 16 ({name}): launches differ, eager {e['launches']}, "
+          f"graphed {g['launches']}")
+    if want is not None:
+        check(launches_match(g["launches"], want),
+              f"phase 16 ({name}): launches {g['launches']}, expected "
+              f"{want}")
+    lrs = [ln.split(" lr ")[1].split()[0] for ln in g["lines"]
+           if " lr " in ln]
+    if lr_decays:
+        # the last epoch runs at the rate the schedule left after the one
+        # before it
+        check(float(lrs[-2]) < float(lrs[0]),
+              f"phase 16: no plateau decay reached a later epoch's device "
+              f"learning rate: {lrs}")
+    row = {"epochs": epochs, "lr_per_epoch": lrs,
+           "launches_per_epoch": {
+               k: v / epochs for k, v in g["launches"].items() if v},
+           "capture_lines": [ln for ln in g["lines"]
+                             if ln.startswith("compiled steps")
+                             or "runs eager" in ln]}
+    for tag, r in (("eager", e), ("graphed", g)):
+        res = r["res"]
+        row[tag] = {"epoch_ms": [1e3 * t for t in res.epoch_times],
+                    "train_ms": [1e3 * t for t in res.train_times],
+                    "wall_s": r["wall"]}
+    print(f"phase 16 ({name}): graphed == eager bit for bit over {epochs} "
+          f"epochs (losses {g['res'].train_losses}, val "
+          f"{g['res'].val_losses}, lr {lrs}); {len(g['guard'])} graphed "
+          f"loops under the guard; launches per epoch "
+          f"{json.dumps(row['launches_per_epoch'])}; epoch ms eager "
+          f"{[round(x, 1) for x in row['eager']['epoch_ms']]} (train "
+          f"{[round(x, 1) for x in row['eager']['train_ms']]}), graphed "
+          f"{[round(x, 1) for x in row['graphed']['epoch_ms']]} (train "
+          f"{[round(x, 1) for x in row['graphed']['train_ms']]}); wall "
+          f"{e['wall']:.2f} / {g['wall']:.2f} s; {row['capture_lines']}",
+          flush=True)
+    return row
+
+
+def placed_steps(torch, cs, loop, name: str, make_step, params, place,
+                 q_embs, seed: int) -> dict:
+    """A halo-style train step (``make_step(opt, graphed)``: the halo
+    gossip step or the DP x halo step over ``place``) eager against
+    graphed from the same weights: four calls each (seeds seed, seed + 1,
+    seed, seed + 1; the graphed form's first call captures, the other
+    three replay under the guard), losses, flags, gradients, parameters
+    and Adam's moments bit-equal after every call, launches equal; ms per
+    call both ways."""
+    from desco_tpu_torch.train import graphed as graphed_mod
+
+    lr = torch.tensor(1e-3, device=q_embs.device)
+    runs = {}
+    for graphed in (False, True):
+        p = copy.deepcopy(params)
+        opt = loop.make_adam(p)
+        step = make_step(opt, graphed)
+        calls, ms = [], []
+        cs.reset_launches()
+        for i, sd in enumerate((seed, seed + 1, seed, seed + 1)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with (graphed_mod.no_sync(q_embs.device) if graphed and i
+                  else contextlib.nullcontext()):
+                loss, ok = step(p, place, q_embs, lr, seed=sd)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            calls.append((loss, ok, opt.grad.clone(), opt.flat.clone(),
+                          opt.mu.clone(), opt.nu.clone()))
+        runs[graphed] = dict(calls=calls, ms=ms,
+                             launches=cs.read_launches())
+    e, g = runs[False], runs[True]
+    check(torch.cuda.get_sync_debug_mode() == 0,
+          f"phase 16 ({name}): the sync debug mode was not put back")
+    check(all(all(torch.equal(a, b) for a, b in zip(x, y))
+              for x, y in zip(e["calls"], g["calls"]))
+          and all(bool(c[1]) for c in g["calls"]),
+          f"phase 16 ({name}): graphed differs from eager: losses "
+          f"{[float(c[0]) for c in e['calls']]} / "
+          f"{[float(c[0]) for c in g['calls']]}")
+    check(e["launches"] == g["launches"],
+          f"phase 16 ({name}): launches eager {e['launches']}, graphed "
+          f"{g['launches']}")
+    check(not torch.equal(e["calls"][0][0], e["calls"][2][0]),
+          f"phase 16 ({name}): the steps did not move the loss")
+    print(f"phase 16 ({name}): graphed == eager bit for bit over 4 calls "
+          f"(losses {[float(c[0]) for c in g['calls']]}), launches "
+          f"{json.dumps({k: v for k, v in g['launches'].items() if v})}; ms "
+          f"per call eager {[round(x, 2) for x in e['ms']]}, graphed "
+          f"{[round(x, 2) for x in g['ms']]} (the first captures)",
+          flush=True)
+    return {"eager_ms": e["ms"], "graphed_ms": g["ms"],
+            "launches": g["launches"]}
 
 
 def graphed_phase(torch, cs, dev, tcfg, train_stage, qb, gbatches,
-                  gossip_params, q_embs, workdir: str) -> dict:
+                  gossip_params, q_embs, halo_shards, grid,
+                  workdir: str) -> dict:
     """Phase 16: the compiled steps (train/graphed.py) against the eager
     ones on the phase-6 training set, from the same weights and seed, on
     the card: (a) the guard the graphed loops run under raises on a
@@ -3152,10 +3324,17 @@ def graphed_phase(torch, cs, dev, tcfg, train_stage, qb, gbatches,
     and 3 at a learning rate of 1e-9 with patience 0 (a plateau decay
     after every epoch past the first), each eager and graphed: train and
     val losses, final parameters and Adam's ``.last`` state bit-equal,
-    the same launches, epoch ms both ways; (c) the gossip eval pass over
-    phase 6's gossip batches and trained model, graphed against eager,
-    bit-equal, with its ms. Returns the figures."""
+    the same launches, the graphed loops under the guard, epoch ms both
+    ways; (c) the gossip eval pass over phase 6's gossip batches and
+    trained model, graphed against eager, bit-equal, with its ms; (d) 2
+    gossip epochs at dropout 0.01 and 0, the same checks, launches as
+    counted per batch; (e) 2 epochs of each stage data-parallel at D = 2
+    on the one card, the same checks; (f) the halo gossip step on phase
+    13's training shards and the DP x halo step on phase 14's 2 x 2
+    grid, eager against graphed, bit-equal, with ms. Returns the
+    figures."""
     from desco_tpu_torch.batch.packed import stack_batches
+    from desco_tpu_torch.parallel import dp, halo, topology
     from desco_tpu_torch.pipeline import train_neighborhood_stage
     from desco_tpu_torch.train import graphed as graphed_mod
     from desco_tpu_torch.train import loop
@@ -3172,71 +3351,26 @@ def graphed_phase(torch, cs, dev, tcfg, train_stage, qb, gbatches,
              "not raise")
     check(torch.cuda.get_sync_debug_mode() == 0,
           "phase 16: the sync debug mode was not put back")
+
+    def neigh(cfg, **kw):
+        return lambda **run: train_neighborhood_stage(
+            cfg, train_stage, train_stage, qb, device=dev, **kw, **run)[0]
+
     cases = (
-        ("f32", dataclasses.replace(tcfg, neigh_epochs=2), {}),
-        ("train_bf16", dataclasses.replace(tcfg, neigh_epochs=2,
-                                           train_bf16=True), {}),
-        ("f32, plateau decay", dataclasses.replace(
-            tcfg, neigh_epochs=3, neigh_lr=1e-9),
-         dict(patience=0, min_lr=1e-12)),
+        ("f32", 2, neigh(dataclasses.replace(tcfg, neigh_epochs=2))),
+        ("train_bf16", 2, neigh(dataclasses.replace(
+            tcfg, neigh_epochs=2, train_bf16=True))),
+        ("f32, plateau decay", 3, neigh(dataclasses.replace(
+            tcfg, neigh_epochs=3, neigh_lr=1e-9), patience=0,
+            min_lr=1e-12)),
         # masks drawn from the run's generator, registered with the graph
-        ("f32, dropout 0.1", dataclasses.replace(
-            tcfg, neigh_epochs=2, neigh_dropout=0.1), {}))
+        ("f32, dropout 0.1", 2, neigh(dataclasses.replace(
+            tcfg, neigh_epochs=2, neigh_dropout=0.1))))
     out = {"cases": {}}
-    for name, cfg, kw in cases:
-        runs = {}
-        for graphed in (False, True):
-            runs[graphed] = graphed_run(
-                torch, cs, train_neighborhood_stage, dev, cfg, train_stage, qb,
-                os.path.join(workdir, f"g16_{len(out['cases'])}_{graphed}"),
-                graphed, **kw)
-        e, g = runs[False], runs[True]
-        check(torch.cuda.get_sync_debug_mode() == 0,
-              f"phase 16 ({name}): the sync debug mode was not put back")
-        check(e["res"].train_losses == g["res"].train_losses
-              and e["res"].val_losses == g["res"].val_losses,
-              f"phase 16 ({name}): losses differ, eager "
-              f"{e['res'].train_losses} / {e['res'].val_losses}, graphed "
-              f"{g['res'].train_losses} / {g['res'].val_losses}")
-        differ = [k for k, v in e["params"].items()
-                  if not np.array_equal(v, g["params"][k])]
-        differ += [k for k, v in e["opt"].items()
-                   if not np.array_equal(v, g["opt"][k])]
-        check(not differ, f"phase 16 ({name}): parameters or Adam state "
-              f"differ: {differ[:5]}")
-        check(e["launches"] == g["launches"],
-              f"phase 16 ({name}): launches differ, eager {e['launches']}, "
-              f"graphed {g['launches']}")
-        lrs = [ln.split(" lr ")[1].split()[0] for ln in g["lines"]
-               if " lr " in ln]
-        if "patience" in kw:
-            # the last epoch runs at the rate the schedule left after the
-            # one before it
-            check(float(lrs[-2]) < cfg.neigh_lr,
-                  f"phase 16: no plateau decay reached a later epoch's "
-                  f"device learning rate: {lrs}")
-        epochs = cfg.neigh_epochs
-        row = {"epochs": epochs, "lr_per_epoch": lrs,
-               "launches_per_epoch": {
-                   k: v / epochs for k, v in g["launches"].items() if v},
-               "capture_lines": [ln for ln in g["lines"]
-                                 if ln.startswith("compiled steps")]}
-        for tag, r in (("eager", e), ("graphed", g)):
-            res = r["res"]
-            row[tag] = {"epoch_ms": [1e3 * t for t in res.epoch_times],
-                        "train_ms": [1e3 * t for t in res.train_times],
-                        "wall_s": r["wall"]}
-        out["cases"][name] = row
-        print(f"phase 16 ({name}): graphed == eager bit for bit over "
-              f"{epochs} epochs (losses {g['res'].train_losses}, val "
-              f"{g['res'].val_losses}, lr {lrs}); launches per epoch "
-              f"{json.dumps(row['launches_per_epoch'])}; epoch ms eager "
-              f"{[round(x, 1) for x in row['eager']['epoch_ms']]} (train "
-              f"{[round(x, 1) for x in row['eager']['train_ms']]}), graphed "
-              f"{[round(x, 1) for x in row['graphed']['epoch_ms']]} (train "
-              f"{[round(x, 1) for x in row['graphed']['train_ms']]}); wall "
-              f"{e['wall']:.2f} / {g['wall']:.2f} s; "
-              f"{row['capture_lines']}", flush=True)
+    for name, epochs, train in cases:
+        out["cases"][name] = compare_runs(
+            torch, cs, loop, name, train, epochs, workdir,
+            lr_decays="plateau" in name)
 
     # (c) the gossip eval pass, graphed against eager
     stacked = stack_batches(gbatches).to(dev, training=True)
@@ -3251,9 +3385,9 @@ def graphed_phase(torch, cs, dev, tcfg, train_stage, qb, gbatches,
             loop.gossip_eval_fn(embs), gdev, gdev, lr_dev, None, dev,
             graphed=graphed, prepare=loop.gossip_prepare)
         check(isinstance(steps.eval, graphed_mod.GraphedStep) == graphed
-              and not isinstance(steps.train, graphed_mod.GraphedStep),
-              "phase 16: the gossip stage's steps are not eager train, "
-              "graphed eval")
+              and isinstance(steps.train, graphed_mod.GraphedStep)
+              == graphed,
+              "phase 16: the gossip stage's steps are not both graphed")
         cs.reset_launches()
         ms = []
         for _ in range(4):
@@ -3264,6 +3398,7 @@ def graphed_phase(torch, cs, dev, tcfg, train_stage, qb, gbatches,
         passes[graphed] = dict(val=val, ms=ms,
                                carry=[t.clone() for t in steps.eval_carry],
                                launches=cs.read_launches())
+        del steps
     e, g = passes[False], passes[True]
     check(all(torch.equal(a, b) for a, b in zip(e["carry"], g["carry"])),
           f"phase 16: the graphed gossip eval pass differs: {e['val']} / "
@@ -3279,6 +3414,55 @@ def graphed_phase(torch, cs, dev, tcfg, train_stage, qb, gbatches,
           f"eager bit for bit ({g['val']}); ms eager "
           f"{[round(x, 2) for x in e['ms']]}, graphed "
           f"{[round(x, 2) for x in g['ms']]}", flush=True)
+    del stacked, gdev
+
+    # (d) the gossip train step: 2 epochs (train and val over the same
+    # batches) at dropout 0.01, the paper's, and at 0
+    n_gb = len(gbatches)
+
+    def gossip(rate, mesh=None):
+        return lambda **run: loop.train_gossip(
+            copy.deepcopy(gossip_params), embs, gbatches, gbatches,
+            epochs=2, lr=1e-3, dropout=rate, seed=16, device=dev, mesh=mesh,
+            **run)
+
+    for rate in (0.01, 0.0):
+        name = f"gossip, dropout {rate}"
+        out["cases"][name] = compare_runs(
+            torch, cs, loop, name, gossip(rate), 2, workdir,
+            want={"gather_segment_sum": 2 * n_gb * (GOSSIP_FWD_PER_STEP
+                                                    + GOSSIP_FWD_PER_EVAL),
+                  "gather_segment_sum_bwd": 2 * n_gb * GOSSIP_BWD_PER_STEP,
+                  "fused_typed_transform_aggregate": 0,
+                  "sorted_segment_sum": 0})
+
+    # (e) data parallelism at D = 2 on the one card, both stages
+    mesh2 = dp.make_mesh(2, dev)
+    n_b = len(train_stage.batches)
+    pad_b, pad_g = -(-n_b // 2) * 2, -(-n_gb // 2) * 2
+    out["cases"]["DP D = 2, neighborhood"] = compare_runs(
+        torch, cs, loop, "DP D = 2, neighborhood",
+        neigh(dataclasses.replace(tcfg, neigh_epochs=2), mesh=mesh2), 2,
+        workdir, want={"typed_aggregate_bwd": 8 * 2 * pad_b,
+                       "fused_typed_transform_aggregate":
+                           8 * 2 * (pad_b + n_b)})
+    out["cases"]["DP D = 2, gossip, dropout 0.01"] = compare_runs(
+        torch, cs, loop, "DP D = 2, gossip, dropout 0.01",
+        gossip(0.01, mesh2), 2, workdir,
+        want={"gather_segment_sum": 2 * (pad_g * GOSSIP_FWD_PER_STEP
+                                         + n_gb * GOSSIP_FWD_PER_EVAL),
+              "gather_segment_sum_bwd": 2 * pad_g * GOSSIP_BWD_PER_STEP})
+
+    # (f) the halo steps of phases 13 and 14, dropout 0.01
+    out["halo_step"] = placed_steps(
+        torch, cs, loop, f"halo gossip step, {len(halo_shards)} shards",
+        lambda opt, g: halo.halo_gossip_step_fn(opt, 0.01, graphed=g),
+        gossip_params, halo_shards, embs, 16)
+    out["dp_halo_step"] = placed_steps(
+        torch, cs, loop, "DP x halo step, 2 x 2",
+        lambda opt, g: topology.dp_halo_gossip_step_fn(opt, 0.01,
+                                                       graphed=g),
+        gossip_params, grid, embs, 16)
     out["seconds"] = time.perf_counter() - t16
     print(f"phase 16 (compiled steps) took {out['seconds']:.1f} s",
           flush=True)
@@ -4209,7 +4393,8 @@ def main() -> int:
     # ---------------------------------------------- 16. compiled steps
     with tempfile.TemporaryDirectory(prefix="desco_smoke_g16_") as g16_dir:
         graphed_phase(torch, cs, dev, tcfg, train_stage, qb, gbatches,
-                      gres.best_params, q_embs, g16_dir)
+                      gres.best_params, q_embs, hal.pop("train_shards"),
+                      dpr.pop("grid"), g16_dir)
 
     # ----------------------------------------------------- 12. the record
     seg_src = "desco_tpu_torch/csrc/segment_sum.cu"

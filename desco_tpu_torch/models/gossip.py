@@ -17,16 +17,18 @@ residual correction:
 desco_tpu scans over the queries (``lax.scan``); here it is a loop. The
 training loss runs each query under ``torch.utils.checkpoint``
 (desco_tpu: ``jax.checkpoint`` around the scan body), so one query's
-activations live at a time. The recomputation must redraw the query's
-dropout masks: the generator's state is snapshot before each query and
-restored when the query runs again, which leaves the generator rewound
-after a backward pass — the training step puts it back
-(``train/loop.train_step``).
+activations live at a time. A query's dropout masks are drawn before its
+checkpointed call (``draw_keep_masks``, in the order and at the shapes
+the forward applies them) and go in as arguments, so the recomputation
+reuses them and draws nothing: the generator ends a step where the
+forward left it, and a captured step (train/graphed.py) holds the draws.
+The checkpoint keeps the masks, 3 x N x hidden bools per query, until the
+backward.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -36,8 +38,7 @@ from torch.utils.checkpoint import checkpoint
 from ..batch.packed import PackedGraphs
 from ..ops.segment import typed_edge_aggregate
 from .init import linear_params, mlp_params
-from .shmp_gnn import batch_typed_streams
-from .shmp_gnn import dropout as _dropout
+from .shmp_gnn import apply_keep, batch_typed_streams, keep_mask
 
 
 def init_gossip_model(input_dim: int = 1, hidden_dim: int = 64,
@@ -86,19 +87,36 @@ def direction_degrees(batch: PackedGraphs) -> torch.Tensor:
         batch.edge_type, 2, streams=batch_typed_streams(batch, 2))[..., 0]
 
 
+def draw_keep_masks(params, n: int, rate: float,
+                    generator: torch.Generator, device) -> tuple:
+    """One query's dropout keep masks, bool [n, width] each, drawn from
+    ``generator`` in the order the forward applies them: the relu of every
+    conv layer, then the first post linear (``models/shmp_gnn.keep_mask``,
+    the draws ``dropout`` makes)."""
+    widths = [conv["upd"].w.shape[-1] for conv in params["convs"]]
+    widths.append(params["post"][0].w.shape[-1])
+    return tuple(keep_mask((n, w), rate, generator, device) for w in widths)
+
+
 def apply_gossip_single(params, batch: PackedGraphs, x_col: torch.Tensor,
                         query_emb: torch.Tensor,
                         deg: Optional[torch.Tensor] = None,
-                        dropout: float = 0.0, train: bool = False,
-                        generator: Optional[torch.Generator] = None
+                        dropout: float = 0.0,
+                        keep: Optional[Sequence[torch.Tensor]] = None
                         ) -> torch.Tensor:
     """Per-node residual [N] for ONE query. x_col: [N] stage-1 counts for
     this query; query_emb: [H_emb]; deg: ``direction_degrees(batch)``,
     computed here when not given. The input cat(query_emb, pre(x)) is
     detached, as desco_tpu stops its gradient: ``pre`` gets no gradient.
-    Dropout (training, with a generator) follows the relu of each layer
-    and the first post linear."""
+    ``keep`` (training with dropout): the query's masks from
+    ``draw_keep_masks``, applied after the relu of each layer and after
+    the first post linear with inverted-dropout scaling by ``dropout``."""
     nmask = batch.node_mask[:, None]
+    keep = list(keep or ())
+
+    def drop(x):
+        return apply_keep(x, keep.pop(0), dropout) if keep else x
+
     x = params["pre"](x_col[:, None])
     qe = query_emb[None, :].expand(x.shape[0], query_emb.shape[0])
     x = torch.cat([qe, x], dim=-1).detach() * nmask
@@ -114,12 +132,12 @@ def apply_gossip_single(params, batch: PackedGraphs, x_col: torch.Tensor,
         wdeg = (g * deg[:, 0] + (1.0 - g) * deg[:, 1])[:, None]
         aggr = mixed @ conv["com"].w + conv["com"].b * wdeg
         x = conv["upd"](torch.cat([aggr, x], dim=-1))
-        x = _dropout(torch.relu(x), dropout, train, generator) * nmask
+        x = drop(torch.relu(x)) * nmask
         embs.append(x)
 
     # per-node post MLP (no pooling, no anchor)
     post = params["post"]
-    h = _dropout(post[0](torch.cat(embs, dim=-1)), dropout, train, generator)
+    h = drop(post[0](torch.cat(embs, dim=-1)))
     h = F.leaky_relu(h, negative_slope=0.1)
     h = torch.relu(post[1](h))
     h = torch.relu(post[2](h))
@@ -140,22 +158,23 @@ def gossip_loss(params, batch: PackedGraphs, query_embs: torch.Tensor,
                 dropout: float = 0.0, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Sum over queries and valid nodes of log2(|gossip + neigh - truth|
-    + 1). batch.x: [N, Q] stage-1 counts; batch.node_y: [N, Q] truth."""
+    + 1). batch.x: [N, Q] stage-1 counts; batch.node_y: [N, Q] truth.
+    Training with dropout and a generator: each query's masks are drawn
+    ahead of its checkpointed call and passed into it."""
     deg = direction_degrees(batch)
-    use_gen = generator if (train and dropout > 0.0) else None
+    draws = train and dropout > 0.0 and generator is not None
 
-    def one_query(state, q_emb, x_col, y_col):
-        if use_gen is not None:
-            use_gen.set_state(state)  # a recomputation redraws its masks
+    def one_query(q_emb, x_col, y_col, *keep):
         res = apply_gossip_single(params, batch, x_col, q_emb, deg,
-                                  dropout, train, use_gen)
+                                  dropout, keep)
         loss = torch.log2((res + x_col - y_col).abs() + 1.0)
         return (loss * batch.node_mask).sum()
 
     total = batch.x.new_zeros(())
     for q, q_emb in enumerate(query_embs):
-        state = use_gen.get_state() if use_gen is not None else None
-        args = (state, q_emb, batch.x[:, q], batch.node_y[:, q])
+        keep = (draw_keep_masks(params, batch.x.shape[0], dropout, generator,
+                                batch.x.device) if draws else ())
+        args = (q_emb, batch.x[:, q], batch.node_y[:, q], *keep)
         if torch.is_grad_enabled():
             total = total + checkpoint(one_query, *args,
                                        use_reentrant=False,

@@ -196,6 +196,22 @@ def _per_type_linear(x, w, b, node_type, n_types):
     return out
 
 
+def keep_mask(shape, rate: float, generator: torch.Generator, device,
+              dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """A dropout keep mask: bool, true with probability 1 - rate, drawn
+    from ``generator`` (on ``device``) as one uniform of ``dtype`` per
+    entry."""
+    return torch.rand(shape, generator=generator, device=device,
+                      dtype=dtype) >= rate
+
+
+def apply_keep(x: torch.Tensor, keep: torch.Tensor,
+               rate: float) -> torch.Tensor:
+    """Inverted dropout with a drawn mask: kept entries rescaled by
+    1 / (1 - rate), the rest zero."""
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
 def dropout(x: torch.Tensor, rate: float, train: bool,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     """Inverted dropout: keep each entry with probability 1 - rate and
@@ -204,9 +220,8 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
     ``rng=None``: the validation pass of the training loss)."""
     if not train or rate <= 0.0 or generator is None:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device,
-                      dtype=x.dtype) >= rate
-    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+    return apply_keep(x, keep_mask(x.shape, rate, generator, x.device,
+                                   x.dtype), rate)
 
 
 # the attributes in which a batch object keeps its derived state

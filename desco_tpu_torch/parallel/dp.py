@@ -19,6 +19,12 @@ reduction:
      master's device use the master module itself. No gradient crosses
      devices through autograd, whose order of accumulation is not fixed.
 
+The training loop (train/loop.Steps) captures a whole DP step, the
+replicas' forwards and gradients and the sum, as one CUDA graph where
+the replicas share one card; the replica generators are made once per
+run and reseeded (``reseed_replica_generators``), so the graph keeps
+reading them. A mesh over several cards trains with the eager step.
+
 Gradient semantics are desco_tpu's:
   * ``"graphs"`` (neighborhood, a mean loss): the objective is
     sum_d loss_d * w_d / max(sum_d w_d, 1), w_d the replica's valid
@@ -119,8 +125,18 @@ def replica_seed(seed: int, d: int) -> int:
 def replica_generators(mesh: DataMesh, seed: int) -> List[torch.Generator]:
     """One dropout generator per replica, on its device, seeded with
     ``replica_seed(seed, d)``."""
-    return [torch.Generator(device=dev).manual_seed(replica_seed(seed, d))
-            for d, dev in enumerate(mesh.devices)]
+    return reseed_replica_generators(
+        [torch.Generator(device=dev) for dev in mesh.devices], seed)
+
+
+def reseed_replica_generators(generators: List[torch.Generator],
+                              seed: int) -> List[torch.Generator]:
+    """Seed replica d's generator with ``replica_seed(seed, d)`` in place:
+    the state ``replica_generators(mesh, seed)`` starts from, on the same
+    objects (a captured step keeps them registered)."""
+    for d, gen in enumerate(generators):
+        gen.manual_seed(replica_seed(seed, d))
+    return generators
 
 
 class ReplicaParams:
@@ -161,21 +177,15 @@ def _flat_grad(params, objective: torch.Tensor) -> torch.Tensor:
 
 def replica_loss_and_grads(
     losses: Callable[[int], torch.Tensor], replicas: list,
-    generators: Optional[list], home: torch.device,
+    home: torch.device,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The explicit ``psum``: for replica d, ``losses(d)`` is its scalar
-    objective term; its gradient is taken alone (a checkpointed loss
-    rewinds ``generators[d]`` while it recomputes, so its state after the
-    forward is put back after the backward), then the terms and the
+    objective term; its gradient is taken alone, then the terms and the
     gradients are summed on ``home`` in replica order."""
     total, flat = None, None
     for d, params in enumerate(replicas):
         obj = losses(d)
-        gen = generators[d] if generators is not None else None
-        end = gen.get_state() if gen is not None else None
         g = _flat_grad(params, obj).to(home)
-        if gen is not None:
-            gen.set_state(end)
         obj = obj.detach().to(home)
         total = obj if total is None else total + obj
         flat = g if flat is None else flat + g
@@ -211,7 +221,7 @@ def dp_loss_and_grads(loss_fn: Callable, params, group: Sequence,
     else:
         def losses(d):
             return loss_fn(reps[d], group[d], gens[d])
-    return replica_loss_and_grads(losses, reps, generators, home)
+    return replica_loss_and_grads(losses, reps, home)
 
 
 def apply_reduced(opt, loss: torch.Tensor, flat: torch.Tensor, lr):

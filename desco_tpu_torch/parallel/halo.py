@@ -88,6 +88,7 @@ from ..ops.cuda_segment import (
     typed_streams,
 )
 from ..ops.segment import graph_pool_sum, segment_max
+from ..train.graphed import placed_step_fn
 
 
 # ------------------------------------------------ host partitioner (numpy)
@@ -542,6 +543,9 @@ class HaloShard:
     boundary: Optional[TypedStreams]
     # node_graph ascends (pooling runs K1 over it)
     graph_sorted: bool
+    # [n_loc, 2]: the in-degrees per direction bit of a gossip partition,
+    # kept by ``halo_direction_degrees`` at its first call
+    direction_deg: Optional[torch.Tensor] = None
 
     @property
     def n_loc(self) -> int:
@@ -720,10 +724,18 @@ def halo_typed_aggregate(xs: List[torch.Tensor], shards: List[HaloShard],
 def halo_direction_degrees(shards: List[HaloShard]) -> List[torch.Tensor]:
     """Per shard [n_loc, 2]: the in-degrees per direction bit of a gossip
     partition (tag ``_L100``, as desco_tpu's), through the same halo
-    aggregation on 1-column rows."""
-    aggs = halo_typed_aggregate([sh.node_mask[:, None] for sh in shards],
-                                shards, tag="_L100")
-    return [a[..., 0] for a in aggs]
+    aggregation on 1-column rows. They depend on the partition alone: the
+    first call computes them, outside autograd and inference mode, and
+    keeps them on the shards (``HaloShard.direction_deg``); later calls,
+    training and serving alike, read those."""
+    if any(sh.direction_deg is None for sh in shards):
+        with torch.inference_mode(False), torch.no_grad():
+            aggs = halo_typed_aggregate(
+                [sh.node_mask[:, None] for sh in shards], shards,
+                tag="_L100")
+        for sh, a in zip(shards, aggs):
+            sh.direction_deg = a[..., 0]
+    return [sh.direction_deg for sh in shards]
 
 
 # ------------------------------------------------------------ SHMP tower
@@ -883,9 +895,26 @@ def shard_generators(shards: List[HaloShard], seed: int) -> list:
     """One dropout generator per shard, on its device, seeded from the
     step's seed and the shard index (desco_tpu folds the mesh position
     into its key: the two match in distribution only)."""
-    return [torch.Generator(device=sh.device).manual_seed(
-        (int(seed) * 1_000_003 + sh.index) % (2 ** 63 - 1))
-        for sh in shards]
+    return ShardGenerators().seed(shards, seed)
+
+
+class ShardGenerators:
+    """The dropout generators of a train step over shards: made at the
+    first ``seed`` call and reseeded in place (``manual_seed``) at every
+    later one, as ``shard_generators`` seeds them, so a captured step
+    (train/graphed.py) keeps them registered. ``gens``: the current
+    ones."""
+
+    def __init__(self):
+        self.gens: List[torch.Generator] = []
+
+    def seed(self, shards: List[HaloShard], seed: int) -> list:
+        devices = [sh.device for sh in shards]
+        if [g.device for g in self.gens] != devices:
+            self.gens = [torch.Generator(device=d) for d in devices]
+        for g, sh in zip(self.gens, shards):
+            g.manual_seed((int(seed) * 1_000_003 + sh.index) % (2 ** 63 - 1))
+        return self.gens
 
 
 def halo_shmp_core(params, cfg: SHMPConfig, shards: List[HaloShard],
@@ -1001,24 +1030,33 @@ def halo_gossip_loss(params, shards: List[HaloShard],
     return total
 
 
-def halo_gossip_step_fn(opt, dropout: float = 0.0):
+def halo_gossip_step_fn(opt, dropout: float = 0.0, graphed: bool = False):
     """A gossip train step over a halo-partitioned graph:
     ``step(params, shards, query_embs, lr, seed) -> (loss, ok)``.
     Gradients flow through the exchanges; ``opt`` is the port's Adam
     (train/loop.py) over ``params``, applied with the finite-loss guard of
-    ``train_step``. ``dropout`` > 0 draws masks from
-    ``shard_generators(shards, seed)``."""
-    def step(params, shards, query_embs, lr, seed=0):
+    ``train_step``. ``dropout`` > 0 draws masks from one generator per
+    shard, made once and reseeded from ``seed`` at every call
+    (``ShardGenerators``). ``graphed``: the step is captured as a CUDA
+    graph at its first call, for that call's ``params`` and ``shards``,
+    and replayed at every later one (train/graphed.placed_step_fn)."""
+    gens = ShardGenerators()
+
+    def reseed(shards, seed):
+        return gens.seed(shards, seed) if dropout > 0.0 else []
+
+    def body(params, shards, query_embs, lr):
         opt.zero_grad()
-        gens = shard_generators(shards, seed) if dropout > 0.0 else None
         loss = halo_gossip_loss(params, shards, query_embs, dropout,
-                                train=dropout > 0.0, generators=gens)
+                                train=dropout > 0.0,
+                                generators=gens.gens or None)
         loss.backward()
         loss = loss.detach()
         ok = torch.isfinite(loss)
         opt.step(lr, ok)
         return loss, ok
-    return step
+
+    return placed_step_fn(body, reseed, opt, graphed=graphed)
 
 
 # --------------------------------------------------------------- serving

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from . import halo as halo_mod
+from ..train.graphed import placed_step_fn
 from .dp import (ReplicaParams, apply_reduced, replica_loss_and_grads,
                  replica_seed)
 
@@ -111,40 +112,52 @@ def _row_devices(replicas) -> list:
 
 
 def dp_halo_gossip_loss_and_grads(params, replicas, query_embs: torch.Tensor,
-                                  dropout: float = 0.0, seed: int = 0,
-                                  copies: Optional[ReplicaParams] = None):
+                                  dropout: float = 0.0,
+                                  copies: Optional[ReplicaParams] = None,
+                                  generators: Optional[list] = None):
     """(loss, flat gradient) on the master device: the sum over replicas of
     each replica's ``halo_gossip_loss`` (desco_tpu's ``"sum"`` weighting)
     on its own parameter copy (``copies`` keeps them between steps),
-    each replica's gradient taken alone and summed in replica order."""
+    each replica's gradient taken alone and summed in replica order.
+    Dropout above 0 draws replica d's masks from ``generators[d]``, one
+    generator per shard."""
     home = next(params.parameters()).device
     reps = (copies or ReplicaParams()).sync(params, _row_devices(replicas))
     train = dropout > 0.0
 
     def losses(d):
-        gens = (halo_mod.shard_generators(replicas[d], replica_seed(seed, d))
-                if train else None)
-        return halo_mod.halo_gossip_loss(reps[d], replicas[d], query_embs,
-                                         dropout, train=train,
-                                         generators=gens)
+        return halo_mod.halo_gossip_loss(
+            reps[d], replicas[d], query_embs, dropout, train=train,
+            generators=generators[d] if train else None)
 
-    return replica_loss_and_grads(losses, reps, None, home)
+    return replica_loss_and_grads(losses, reps, home)
 
 
-def dp_halo_gossip_step_fn(opt, dropout: float = 0.0):
+def dp_halo_gossip_step_fn(opt, dropout: float = 0.0, graphed: bool = False):
     """The composed gossip train step: ``step(params, replicas, query_embs,
     lr, seed=0) -> (loss, ok)``, ``replicas`` from ``place_replicas``;
     ``opt`` the port's Adam over ``params`` with ``train_step``'s
     finite-loss guard. Dropout masks come from generators per (replica,
-    shard)."""
+    shard), made once and reseeded at every call. ``graphed``: captured
+    at the first call and replayed (``halo.halo_gossip_step_fn``)."""
     copies = ReplicaParams()
+    gens: List[halo_mod.ShardGenerators] = []
 
-    def step(params, replicas, query_embs, lr, seed=0):
+    def reseed(replicas, seed):
+        if dropout <= 0.0:
+            return []
+        while len(gens) < len(replicas):
+            gens.append(halo_mod.ShardGenerators())
+        return [g for d, shards in enumerate(replicas)
+                for g in gens[d].seed(shards, replica_seed(seed, d))]
+
+    def body(params, replicas, query_embs, lr):
         loss, flat = dp_halo_gossip_loss_and_grads(
-            params, replicas, query_embs, dropout, seed, copies)
+            params, replicas, query_embs, dropout, copies=copies,
+            generators=[g.gens for g in gens] if dropout > 0.0 else None)
         return apply_reduced(opt, loss, flat, lr)
 
-    return step
+    return placed_step_fn(body, reseed, opt, graphed=graphed)
 
 
 def dp_halo_shmp_forward(cfg):

@@ -24,11 +24,15 @@ Per stage, after one warm-up epoch:
    copy intervals), its idle share over the profiled wall time, the
    number of device operations and the kernels with the most device time.
 4. The compiled steps (train/loop.Steps, train/graphed.py), in the same
-   process after the eager ones: the steps the loop captures as CUDA
-   graphs (the neighborhood train and eval steps, the gossip eval step;
-   the gossip train step stays eager), their capture seconds, the epoch's
-   wall time twice, and the same profile: the eager epoch against the
-   graphed one on the same card and batches.
+   process after the eager ones: the train and eval steps the loop
+   captures as CUDA graphs (the gossip train step with its dropout masks
+   drawn ahead), their capture seconds, the epoch's wall time twice, and
+   the same profile: the eager epoch against the graphed one on the same
+   card and batches.
+5. Data parallelism at D = 2 on the one card (parallel/dp.py, the two
+   replicas in turn): the epoch through ``loop.Steps`` with a mesh, eager
+   and then graphed (the group's step captured as one graph), its wall
+   time twice and its device profile each way.
 
 Prints one JSON object (and writes it to ``--out``). Needs a CUDA device.
 """
@@ -126,6 +130,51 @@ def _graphed_stage(torch, params, opt, loss_fn, eval_fn, batches, lr,
         "epoch_ms": [a + b for a, b in zip(train_ms, val_ms)],
         **_device_profile(torch, epoch),
     }
+
+
+def _dp_stage(torch, params, opt, loss_fn, eval_fn, host_batches, batches,
+              lr, prepare, d: int = 2) -> dict:
+    """A data-parallel epoch at ``d`` replicas on the one card through
+    ``loop.Steps`` with a mesh, eager and then graphed: the train epoch's
+    and the val pass's wall ms twice (each ending in its read-back) and
+    the device profile of one epoch, each way."""
+    from ..parallel import dp
+    from ..train import loop
+
+    dev = batches[0].x.device
+    mesh = dp.make_mesh(d, dev)
+    groups = dp.reshape_for_dp(dp.place_batches(
+        dp.pad_batches_to_multiple(list(host_batches), d), mesh,
+        training=True), d)
+    lr_dev = torch.tensor(float(lr), device=dev)
+    out = {"replicas": d, "groups": len(groups)}
+    for graphed in (False, True):
+        steps = loop.Steps(params, opt, loss_fn, eval_fn, groups, batches,
+                           lr_dev, None, dev, graphed=graphed,
+                           prepare=prepare, mesh=mesh)
+        steps.reseed(0)
+        order = range(len(groups))
+
+        def epoch():
+            float(steps.train_epoch(groups, order)[0])
+            steps.val_loss(batches)
+
+        epoch()  # warm-up (the graphed steps' first replays)
+        train_ms, val_ms = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            float(steps.train_epoch(groups, order)[0])
+            t1 = time.perf_counter()
+            steps.val_loss(batches)
+            t2 = time.perf_counter()
+            train_ms.append((t1 - t0) * 1e3)
+            val_ms.append((t2 - t1) * 1e3)
+        out["graphed" if graphed else "eager"] = {
+            "train_epoch_ms": train_ms, "val_pass_ms": val_ms,
+            "epoch_ms": [a + b for a, b in zip(train_ms, val_ms)],
+            **_device_profile(torch, epoch)}
+        del steps
+    return out
 
 
 def _profile_stage(torch, params, opt, loss_fn, eval_fn, batches, lr,
@@ -259,10 +308,14 @@ def main(argv=None) -> int:
         **_profile_stage(torch, params, opt, *fns, batches, cfg.neigh_lr,
                          generator))
     prepare_batch(qb, qry_cfg.n_edge_types, backward=True)
+    neigh_prepare = (lambda b, backward: prepare_batch(
+        b, tgt_cfg.n_edge_types, backward))
     out["neighborhood"]["graphed"] = _graphed_stage(
         torch, params, opt, *fns, batches, cfg.neigh_lr, generator,
-        lambda b, backward: prepare_batch(b, tgt_cfg.n_edge_types,
-                                          backward))
+        neigh_prepare)
+    out["neighborhood"]["dp"] = _dp_stage(
+        torch, params, opt, *fns, stage.batches, batches, cfg.neigh_lr,
+        neigh_prepare)
 
     with torch.no_grad():
         q_embs = neigh_mod.embed_queries(params, qry_cfg, qb)
@@ -285,6 +338,9 @@ def main(argv=None) -> int:
                          generator))
     out["gossip"]["graphed"] = _graphed_stage(
         torch, gparams, gopt, *fns, batches, cfg.gossip_lr, generator,
+        loop.gossip_prepare)
+    out["gossip"]["dp"] = _dp_stage(
+        torch, gparams, gopt, *fns, gbatches, batches, cfg.gossip_lr,
         loop.gossip_prepare)
 
     line = json.dumps(out)

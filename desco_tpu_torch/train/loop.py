@@ -4,24 +4,23 @@ host-side plateau schedule, val-monitored best-checkpoint selection,
 ``.last`` snapshots with resume, and the predict functions of serving.
 
 All batches of a run share one shape and live on the device for the whole
-run (one stacked copy). On one device the epoch replays compiled steps:
-the train step (``carried_step``) and the eval step (``carried_eval``) are
-captured once per run and shape as CUDA graphs (train/graphed.py, the
-counterpart of desco_tpu's ``step_jit`` and ``eval_jit``), every resident
-batch's index streams and pooling offsets derived before the first step
-(models/shmp_gnn.prepare_batch), and the graphed loops run under
-``set_sync_debug_mode("error")``. On the CPU, which only the tests ask
-for, the same static-buffer steps run without a capture;
-``graphed=False`` runs the eager steps instead. Two steps stay eager:
-
-  * the gossip train step: its loss recomputes each query under
-    ``torch.utils.checkpoint`` with a generator that ``train_step`` and
-    ``gossip_loss`` rewind through ``get_state`` / ``set_state``
-    (``loss_fn.rewinds_generator``), and those calls cannot be captured;
-    the gossip stage's eval step is graphed;
-  * the data-parallel step: with a ``mesh`` a step takes a group of D
-    batches, one per replica (parallel/dp.py), and validation stays
-    eager on the one device.
+run (one stacked copy). The epoch replays compiled steps: the train step
+(``carried_step``) and the eval step (``carried_eval``) of both stages
+are captured once per run and shape as CUDA graphs (train/graphed.py,
+the counterpart of desco_tpu's ``step_jit`` and ``eval_jit``), every
+resident batch's index streams and pooling offsets derived before the
+first step (models/shmp_gnn.prepare_batch), and the graphed loops run
+under ``set_sync_debug_mode("error")``. The gossip train step is one of
+them: its loss draws each query's dropout masks ahead of the query's
+checkpointed call (models/gossip.py), so no step rewinds a generator.
+With a ``mesh`` (parallel/dp.py) a train step takes a group of D
+batches, one per replica: it is captured as one graph, the group in
+static buffers and every replica's generator registered, where the
+replicas share one card; a mesh over several cards trains with the
+eager DP step (a capture records one device), and the run's log says so.
+Validation runs the single-device eval step, graphed, on either path. On
+the CPU, which only the tests ask for, the same static-buffer steps run
+without a capture; ``graphed=False`` runs the eager steps instead.
 
 What desco_tpu does inside its jitted, donated-carry step is kept on the
 device in both, so an epoch reads back once:
@@ -45,9 +44,11 @@ and all gradients as views of one flat buffer each: every parameter
 always has a gradient (zero when autograd wrote none), and the update is
 a handful of elementwise kernels whatever the number of tensors.
 
-Dropout masks come from one ``torch.Generator`` on the device, reseeded
-from (seed, epoch) at the start of every epoch, so a resumed run draws
-the masks an uninterrupted run would. The batch order comes from
+Dropout masks come from one ``torch.Generator`` on the device (one per
+replica with a ``mesh``), made once per run and reseeded from (seed,
+epoch) at the start of every epoch, so a resumed run draws the masks an
+uninterrupted run would and a captured step keeps reading the same
+generators. The batch order comes from
 ``np.random.default_rng(seed + 1).permutation``, the same numpy stream as
 desco_tpu's: both packages visit the batches in the same order, and a
 resumed run replays the draws of the epochs it skips.
@@ -211,27 +212,14 @@ class TrainResult:
 def train_step(params, opt: Adam, loss_fn: Callable, batch: PackedGraphs,
                lr, generator: Optional[torch.Generator]):
     """One step: loss, backward, guarded Adam update. Returns the detached
-    loss and the device flag of a finite loss. A checkpointed loss
-    (gossip, ``loss_fn.rewinds_generator``) rewinds the generator while
-    it recomputes, so its state after the forward is put back after the
-    backward."""
+    loss and the device flag of a finite loss."""
     opt.zero_grad()
     loss = loss_fn(params, batch, generator)
-    rewind = generator is not None and rewinds_generator(loss_fn)
-    end = generator.get_state() if rewind else None
     loss.backward()
-    if rewind:
-        generator.set_state(end)
     loss = loss.detach()
     ok = torch.isfinite(loss)
     opt.step(lr, ok)
     return loss, ok
-
-
-def rewinds_generator(loss_fn: Callable) -> bool:
-    """Whether ``loss_fn`` rewinds its generator in the backward (a step
-    with it cannot be captured)."""
-    return getattr(loss_fn, "rewinds_generator", False)
 
 
 def carried_step(params, opt: Adam, loss_fn: Callable, lr,
@@ -243,6 +231,17 @@ def carried_step(params, opt: Adam, loss_fn: Callable, lr,
     def step(batch):
         _carry(carry, *train_step(params, opt, loss_fn, batch, lr,
                                   generator))
+
+    return step
+
+
+def carried_dp_step(params, dp_step: Callable, lr, generators: list,
+                    carry):
+    """fn(group): ``carried_step`` for a DP step (``dp.dp_step_fn``) over
+    a group of D batches, one per replica, drawing from ``generators``."""
+
+    def step(group):
+        _carry(carry, *dp_step(params, group, lr, generators))
 
     return step
 
@@ -266,44 +265,70 @@ def carried_eval(params, eval_fn: Callable, carry):
 
 
 class Steps:
-    """The train and eval steps of a single-device run over same-shape
-    resident batches, with their device carries. ``graphed``: the train
-    step (unless its loss rewinds its generator) and the eval step on
-    static buffers, captured once as CUDA graphs on a CUDA device
-    (train/graphed.py), after ``prepare(batch, backward)`` has derived
-    every batch's per-batch state; else the eager steps. ``lr``: the
-    device scalar the steps read."""
+    """The train and eval steps of a run over same-shape resident batches,
+    with their device carries. ``graphed``: both steps on static buffers,
+    captured once as CUDA graphs on a CUDA device (train/graphed.py),
+    after ``prepare(batch, backward)`` has derived every batch's
+    per-batch state; else the eager steps. ``lr``: the device scalar the
+    steps read. With a ``mesh`` (parallel/dp.py) ``train_dev`` holds
+    groups of D batches and the train step is the DP step, its replica
+    generators made here (``generators``); it is captured where the
+    replicas share one device, and stays eager, saying so through
+    ``log_fn``, where they do not. ``reseed`` seeds the generators."""
 
     def __init__(self, params, opt: Adam, loss_fn: Callable,
                  eval_fn: Callable, train_dev, val_dev, lr, generator,
                  device, *, graphed: bool,
-                 prepare: Optional[Callable] = None):
+                 prepare: Optional[Callable] = None, mesh=None,
+                 weight_kind: str = "graphs", log_fn=print):
         device = torch.device(device)
+        self.mesh = mesh
         self.train_carry = (torch.zeros((), device=device),
                             torch.zeros((), dtype=torch.int64,
                                         device=device))
         self.eval_carry = (torch.zeros((), device=device),
                            torch.zeros((), device=device))
-        self.train = carried_step(params, opt, loss_fn, lr, generator,
-                                  self.train_carry)
+        if mesh is None:
+            self.generators = [generator] if generator is not None else []
+            self.train = carried_step(params, opt, loss_fn, lr, generator,
+                                      self.train_carry)
+        else:
+            self.generators = dp.replica_generators(mesh, 0)
+            self.train = carried_dp_step(
+                params, dp.dp_step_fn(loss_fn, opt, mesh, weight_kind), lr,
+                self.generators, self.train_carry)
         self.eval = carried_eval(params, eval_fn, self.eval_carry)
         self.capture = graphed and device.type == "cuda"
         if not graphed:
             return
         if prepare is not None:
             for b in train_dev:
-                prepare(b, True)
+                for one in (b if mesh is not None else [b]):
+                    prepare(one, True)
             for b in val_dev or ():
                 prepare(b, False)
-        if not rewinds_generator(loss_fn):
+        if mesh is None or len(set(mesh.devices)) == 1:
             self.train = GraphedStep(
                 self.train, train_dev[0], capture=self.capture,
-                generator=generator,
+                generators=self.generators,
                 state=opt.state_tensors() + list(self.train_carry))
+        else:
+            log_fn(f"the DP train step over {len(set(mesh.devices))} "
+                   f"devices runs eager: a captured step records one "
+                   f"device")
         if val_dev:
             self.eval = GraphedStep(self.eval, val_dev[0],
                                     capture=self.capture,
                                     state=self.eval_carry)
+
+    def reseed(self, seed: int) -> None:
+        """Seed the dropout generators in place (one per replica with a
+        mesh, ``dp.replica_seed``), as a captured step reads them."""
+        if self.mesh is None:
+            for g in self.generators:
+                g.manual_seed(seed)
+        else:
+            dp.reseed_replica_generators(self.generators, seed)
 
     def _run(self, step, carry, batches, order) -> None:
         for t in carry:
@@ -315,8 +340,8 @@ class Steps:
                 step(batches[int(bi)])
 
     def train_epoch(self, batches, order):
-        """The train steps over ``batches`` in ``order``: (loss sum, count
-        of rejected steps) on the device."""
+        """The train steps over ``batches`` (groups with a mesh) in
+        ``order``: (loss sum, count of rejected steps) on the device."""
         self._run(self.train, self.train_carry, batches, order)
         return self.train_carry
 
@@ -325,7 +350,6 @@ class Steps:
         self._run(self.eval, self.eval_carry, batches, range(len(batches)))
         s_sum, w_sum = self.eval_carry
         return float(s_sum) / max(float(w_sum), 1.0)
-
 
 def _epoch_seed(seed: int, epoch: int) -> int:
     return (int(seed) * 1_000_003 + int(epoch)) % (2 ** 63 - 1)
@@ -349,12 +373,12 @@ def run_training(
     ``eval_fn(params, batch) -> (loss_sum, weight)`` over batches on
     ``device``; ``params`` lie there and ``opt`` was made from them.
 
-    ``graphed`` (without a ``mesh``): the compiled steps of ``Steps``,
-    captured as CUDA graphs on a CUDA device, static-buffer steps without
-    a capture on the CPU; ``prepare(batch, backward)`` derives a resident
-    batch's per-batch state before the first step (the towers' streams
-    and pooling offsets, models/shmp_gnn.prepare_batch). ``graphed=False``
-    runs the eager steps, as the DP path always does.
+    ``graphed``: the compiled steps of ``Steps``, captured as CUDA graphs
+    on a CUDA device, static-buffer steps without a capture on the CPU;
+    ``prepare(batch, backward)`` derives a resident batch's per-batch
+    state before the first step (the towers' streams and pooling
+    offsets, models/shmp_gnn.prepare_batch). ``graphed=False`` runs the
+    eager steps.
 
     A ``mesh`` (parallel/dp.make_mesh) trains data-parallel: the train
     batches are padded to a multiple of its D replicas and grouped D at a
@@ -389,7 +413,6 @@ def run_training(
         train_dev = dp.reshape_for_dp(dp.place_batches(
             dp.pad_batches_to_multiple(list(train_batches), d_n), mesh,
             training=True), d_n)
-        dp_step = dp.dp_step_fn(loss_fn, opt, mesh, weight_kind)
     val_dev = to_device_list(val_batches) if val_batches else None
     n_train = len(train_dev)
 
@@ -398,7 +421,6 @@ def run_training(
     # the learning rate as data (desco_tpu's lr_dev): a plateau decay
     # writes it in place and recaptures nothing
     lr_dev = torch.tensor(float(lr), dtype=torch.float32, device=device)
-    generator = torch.Generator(device=device)
     best_val = float("inf")
     best_params = copy.deepcopy(params)
     train_losses, val_losses, times, train_times = [], [], [], []
@@ -424,8 +446,9 @@ def run_training(
 
     t0 = time.time()
     steps = Steps(params, opt, loss_fn, eval_fn, train_dev, val_dev, lr_dev,
-                  generator, device, graphed=graphed and mesh is None,
-                  prepare=prepare)
+                  torch.Generator(device=device), device, graphed=graphed,
+                  prepare=prepare, mesh=mesh, weight_kind=weight_kind,
+                  log_fn=log_fn)
     if steps.capture:
         log_fn(f"compiled steps: batches prepared and the steps captured "
                f"as CUDA graphs in {time.time() - t0:.2f}s")
@@ -445,20 +468,10 @@ def run_training(
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         t0 = time.time()
-        generator.manual_seed(_epoch_seed(seed, epoch))
-        if mesh is not None:
-            gens = dp.replica_generators(mesh, _epoch_seed(seed, epoch))
+        steps.reseed(_epoch_seed(seed, epoch))
         order = rng_np.permutation(n_train)
         lr_dev.fill_(sched.lr)
-        if mesh is None:
-            loss_sum, n_bad = steps.train_epoch(train_dev, order)
-        else:
-            loss_sum, n_bad = steps.train_carry
-            for t in steps.train_carry:
-                t.zero_()
-            for bi in order:
-                _carry(steps.train_carry,
-                       *dp_step(params, train_dev[int(bi)], lr_dev, gens))
+        loss_sum, n_bad = steps.train_epoch(train_dev, order)
         n_bad = int(n_bad.item())  # the epoch's one read-back barrier
         if n_bad:
             msg = (f"epoch {epoch}: {n_bad}/{n_train} train steps "
@@ -589,7 +602,6 @@ def gossip_loss_fn(dropout: float, query_embs: torch.Tensor):
         return gossip_mod.gossip_loss(params, batch, embs_on(batch.x.device),
                                       dropout, True, generator)
 
-    f.rewinds_generator = True  # each query recomputes under checkpoint
     return f
 
 

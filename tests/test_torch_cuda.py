@@ -1066,3 +1066,112 @@ def test_no_sync_refuses_a_read_back_on_gpu(cuda_device):
             t.item()
     assert torch.cuda.get_sync_debug_mode() == 0
     assert float(t) == 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [0.0, 0.01])
+@pytest.mark.parametrize("d", [1, 2], ids=["one", "dp2"])
+def test_graphed_gossip_epochs_equal_eager_on_gpu(rng, cuda_device, tmp_path,
+                                                  dropout, d):
+    """Two gossip epochs through ``train_gossip`` (one device, or a D = 2
+    mesh on the one card): the train step (masks drawn ahead of each
+    query's checkpointed call; with a mesh the group of two batches and
+    both replicas' generators) and the eval step captured as CUDA graphs
+    against the eager steps: losses, parameters and Adam's state bit for
+    bit, the same launches."""
+    from desco_tpu_torch.batch.packed import auto_capacities, pack_samples
+    from desco_tpu_torch.models import gossip as gm
+    from desco_tpu_torch.parallel import dp
+    from desco_tpu_torch.train import loop
+    from desco_tpu_torch.train.checkpoint import flatten_params
+
+    samples = gossip_samples(rng, n_graphs=12, n_queries=5)
+    batches = pack_samples(samples, *auto_capacities(samples, g_cap=4),
+                           n_queries=5, need_bwd_perm=True)
+    assert len(batches) > 2
+    embs = torch.randn(5, 16, generator=torch.Generator().manual_seed(3))
+    runs = []
+    for graphed in (False, True):
+        params = gm.init_gossip_model(
+            hidden_dim=16, emb_channels=16,
+            generator=torch.Generator().manual_seed(1))
+        path = str(tmp_path / f"run{int(graphed)}")
+        cs.reset_launches()
+        res = loop.train_gossip(
+            params, embs, batches, batches[:2], epochs=2, lr=1e-3,
+            dropout=dropout, ckpt_path=path, device=cuda_device,
+            mesh=dp.make_mesh(2, cuda_device) if d == 2 else None,
+            graphed=graphed, log_fn=lambda *_: None)
+        torch.cuda.synchronize()
+        runs.append((res, flatten_params(res.params), cs.read_launches(),
+                     np.load(path + ".last.opt.npz")))
+    assert torch.cuda.get_sync_debug_mode() == 0
+    (a, pa, na, oa), (b, pb, nb, ob) = runs
+    assert a.train_losses == b.train_losses
+    assert a.val_losses == b.val_losses
+    for key, arr in pa.items():
+        np.testing.assert_array_equal(arr, pb[key], err_msg=key)
+    for key in oa.files:
+        np.testing.assert_array_equal(oa[key], ob[key], err_msg=key)
+    assert na == nb
+    steps = 2 * (-(-len(batches) // d) * d)
+    assert na["gather_segment_sum_bwd"] == 5 * steps
+    assert na["gather_segment_sum"] == (1 + 4 * 5) * steps + \
+        (1 + 2 * 5) * 2 * 2
+
+
+@pytest.mark.cuda
+def test_graphed_halo_steps_equal_eager_on_gpu(rng, cuda_device):
+    """The halo gossip step (4 shards, push pairs) and the DP x halo step
+    (2 x 2) captured as CUDA graphs at their first call and replayed,
+    dropout 0.01, three calls each: losses, gradients, parameters and
+    Adam's moments bit-equal to the eager steps', the same launches."""
+    import copy
+
+    from desco_tpu_torch.batch.build import gossip_sample
+    from desco_tpu_torch.models import gossip as gm
+    from desco_tpu_torch.parallel import halo, topology
+    from desco_tpu_torch.train.loop import make_adam
+
+    specs = []
+    for n in (200, 160):
+        g, _ = halo_typed_graph(rng, n=n, p=0.03)
+        x = rng.random((n, 3)).astype(np.float32) * 5
+        y = x * rng.uniform(0.5, 1.5, (n, 1)).astype(np.float32)
+        s = gossip_sample(g, x, y)
+        specs.append(dict(n_nodes=n, node_type=s.node_type, x=x,
+                          edge_src=s.edge_src, edge_dst=s.edge_dst,
+                          edge_type=s.edge_type, node_y=y))
+    part = halo.partition_typed_graph(n_devices=4, n_types=2, **specs[0])
+    assert part.p_max > 0
+    shards = halo.place_shards(part, [cuda_device])
+    grid = topology.place_replicas(
+        topology.stack_partitions(
+            topology.harmonized_partitions(specs, 2, n_types=2)),
+        topology.make_mesh2d(2, 2, devices=[cuda_device]))
+    params = gm.init_gossip_model(hidden_dim=16, emb_channels=16,
+                                  generator=torch.Generator().manual_seed(5))
+    embs = torch.randn(3, 16, generator=torch.Generator().manual_seed(6))
+    embs, lr = embs.to(cuda_device), torch.tensor(1e-3, device=cuda_device)
+    # the direction degrees, kept on the shards, before either way counts
+    for sh in [shards, *grid]:
+        halo.halo_direction_degrees(sh)
+    for make, place in ((halo.halo_gossip_step_fn, shards),
+                        (topology.dp_halo_gossip_step_fn, grid)):
+        runs = []
+        for graphed in (False, True):
+            p = copy.deepcopy(params).to(cuda_device)
+            opt = make_adam(p)
+            step = make(opt, 0.01, graphed=graphed)
+            cs.reset_launches()
+            calls = []
+            for seed in (7, 8, 7):
+                loss, ok = step(p, place, embs, lr, seed=seed)
+                calls.append((loss, ok, opt.grad.clone(), opt.flat.clone(),
+                              opt.mu.clone(), opt.nu.clone()))
+            torch.cuda.synchronize()
+            runs.append((calls, cs.read_launches()))
+        (ca, na), (cb, nb) = runs
+        for x, y in zip(ca, cb):
+            assert all(torch.equal(u, v) for u, v in zip(x, y))
+        assert na == nb and na["gather_segment_sum_bwd"] > 0

@@ -260,8 +260,8 @@ def test_all_masked_gossip_batch_weighs_nothing(dp_data, rng):
 def test_dp_steps_repeat_and_rewind_their_generators(dp_data, rng):
     """Two same-seed DP gossip steps with dropout give the same bits; each
     replica's generator ends where a forward alone leaves it (the
-    checkpointed recompute rewinds it), and the step's loss is the sum of
-    those forwards."""
+    checkpointed recompute draws nothing: the masks are drawn ahead), and
+    the step's loss is the sum of those forwards."""
     _, _, gbs, _ = dp_data
     mesh = dp.make_mesh(2, "cpu")
     group = dp.place_batches(list(gbs[:2]), mesh, training=True)
@@ -291,6 +291,55 @@ def test_dp_steps_repeat_and_rewind_their_generators(dp_data, rng):
     # the replicas draw different masks
     assert not torch.equal(dp.replica_generators(mesh, 5)[0].get_state(),
                            dp.replica_generators(mesh, 5)[1].get_state())
+
+
+def test_reseeded_replica_generators_equal_fresh_ones():
+    """Reseeding a run's replica generators in place gives the state of
+    fresh ones from the same seed (a captured DP step keeps its
+    generators and reseeds them every epoch)."""
+    mesh = dp.make_mesh(3, "cpu")
+    gens = dp.replica_generators(mesh, 1)
+    for g in gens:
+        torch.rand(5, generator=g)
+    again = dp.reseed_replica_generators(gens, 9)
+    assert again is gens
+    for g, fresh in zip(gens, dp.replica_generators(mesh, 9)):
+        assert torch.equal(g.get_state(), fresh.get_state())
+
+
+@pytest.mark.parametrize("stage,dropout", [("neighborhood", 0.0),
+                                           ("gossip", 0.0),
+                                           ("gossip", 0.01)])
+def test_dp_static_step_equals_eager_bit_for_bit(dp_data, tmp_path, stage,
+                                                 dropout):
+    """``run_training`` over a D = 2 mesh, 2 epochs: the static DP train
+    step (the group of two batches in static buffers, both replicas'
+    generators) and the static eval step against the eager steps, the
+    same weights and seed: losses, parameters and Adam's state bit for
+    bit."""
+    from test_torch_graphed_step import assert_runs_equal
+
+    cfg, tbs, gbs, qb = dp_data
+    kw = dict(epochs=2, lr=1e-3, seed=4, log_fn=lambda *_: None,
+              mesh=dp.make_mesh(2, "cpu"), device="cpu")
+    runs, paths = [], []
+    for g in (False, True):
+        paths.append(str(tmp_path / f"dp{int(g)}"))
+        if stage == "neighborhood":
+            _, tparams = neigh_pair()
+            tt, tq = t_model_configs(cfg, "cpu")
+            runs.append(tloop.train_neighborhood(
+                tparams, tt, tq, qb, list(tbs), list(tbs[:2]),
+                ckpt_path=paths[-1], graphed=g, **kw))
+        else:
+            _, tp = gossip_pair()
+            q = torch.from_numpy(np.random.default_rng(7).standard_normal(
+                (gbs[0].node_y.shape[1], 16)).astype(np.float32))
+            runs.append(tloop.train_gossip(
+                tp, q, list(gbs[:5]), list(gbs[:2]), dropout=dropout,
+                ckpt_path=paths[-1], graphed=g, **kw))
+    assert runs[0].train_losses[1] != runs[0].train_losses[0]
+    assert_runs_equal(*runs, paths)
 
 
 # ------------------------------------------------------------ prediction

@@ -4,7 +4,11 @@ CPU, where it runs on its static buffers without a capture.
 The static-buffer steps must equal the eager steps bit for bit (the same
 operations on copies of the same batches): train and val losses, the
 final parameters and Adam's mu / nu / count, f32 and bf16 target tower,
-also across a plateau decay, a rejected step and a resume. Against
+also across a plateau decay, a rejected step and a resume; the gossip
+stage with and without dropout. The gossip loss draws each query's
+dropout masks ahead of its checkpointed call: its steps equal, bit for
+bit, the scheme that drew them inside the forward and rewound the
+generator for the recomputation (kept here as a plain reference). Against
 desco_tpu's ``run_training`` (its jitted ``carried_step`` and
 ``eval_jit``) the static steps hold the losses to the loop tolerance of
 tests/test_torch_dp.py, rtol 1e-5 (same inputs and weights, dropout 0;
@@ -18,17 +22,22 @@ from desco_tpu's, for the eager loop as for the static one (the DP test's
 host-to-device copy, which a capture on the card could not hold; the
 launch counters add a capture's launches per replay."""
 
+import copy
 import dataclasses
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from desco_tpu.train import loop as jloop
 from desco_tpu.train.checkpoint import _flatten
+from desco_tpu_torch.models import gossip as tgossip
 from desco_tpu_torch.models import neighborhood as tneigh
-from desco_tpu_torch.models.shmp_gnn import prepare_batch
+from desco_tpu_torch.models.shmp_gnn import batch_typed_streams, prepare_batch
+from desco_tpu_torch.ops.segment import typed_edge_aggregate
 from desco_tpu_torch.ops import cuda_segment as cs
 from desco_tpu_torch.pipeline import (build_query_batch,
                                       train_neighborhood_stage)
@@ -108,8 +117,8 @@ def test_plateau_decay_moves_the_device_lr(tiny_cfg, tiny_data, tmp_path):
 def test_static_steps_match_desco_tpu_run_training(dp_data, stage):
     """``run_training`` on one device with the static steps against
     desco_tpu's jitted ``carried_step`` / ``eval_jit`` loop: 2 epochs,
-    the same weights, seed and batches (the gossip stage: its eval step
-    static, its train step eager), dropout 0."""
+    the same weights, seed and batches (both steps static in both
+    stages), dropout 0."""
     cfg, tbs, gbs, qb = dp_data
     kw = dict(epochs=2, lr=1e-3, seed=4, log_fn=lambda *_: None)
     if stage == "neighborhood":
@@ -231,3 +240,154 @@ def test_launch_record_adds_the_capture_per_replay():
     for key, n in captured.items():
         assert got[key] == 7 * n + (5 if key == "sorted_segment_sum" else 0)
     cs.reset_launches()
+
+
+# ------------------------------------------------------------ gossip stage
+def rewinding_gossip_loss(params, batch, query_embs, rate, generator):
+    """The gossip training loss as the port computed it before the masks
+    were drawn ahead: each query draws its masks inside the forward, the
+    generator's state is snapshot before the query and restored when the
+    checkpoint recomputes it."""
+    deg = tgossip.direction_degrees(batch)
+    nmask = batch.node_mask[:, None]
+
+    def drop(x):
+        keep = torch.rand(x.shape, generator=generator, device=x.device,
+                          dtype=x.dtype) >= rate
+        return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+    def one_query(state, q_emb, x_col, y_col):
+        generator.set_state(state)
+        x = params["pre"](x_col[:, None])
+        qe = q_emb[None, :].expand(x.shape[0], q_emb.shape[0])
+        x = torch.cat([qe, x], dim=-1).detach() * nmask
+        embs = [x]
+        for conv in params["convs"]:
+            g = tgossip._gate(conv, q_emb)
+            agg = typed_edge_aggregate(
+                x, batch.edge_src, batch.edge_dst, batch.edge_type, 2,
+                streams=batch_typed_streams(batch, 2))
+            mixed = g * agg[:, 0] + (1.0 - g) * agg[:, 1]
+            wdeg = (g * deg[:, 0] + (1.0 - g) * deg[:, 1])[:, None]
+            aggr = mixed @ conv["com"].w + conv["com"].b * wdeg
+            x = conv["upd"](torch.cat([aggr, x], dim=-1))
+            x = drop(torch.relu(x)) * nmask
+            embs.append(x)
+        post = params["post"]
+        h = F.leaky_relu(drop(post[0](torch.cat(embs, dim=-1))), 0.1)
+        h = torch.relu(post[2](torch.relu(post[1](h))))
+        res = post[3](h)[:, 0] * batch.node_mask
+        loss = torch.log2((res + x_col - y_col).abs() + 1.0)
+        return (loss * batch.node_mask).sum()
+
+    total = batch.x.new_zeros(())
+    for q, q_emb in enumerate(query_embs):
+        total = total + checkpoint(
+            one_query, generator.get_state(), q_emb, batch.x[:, q],
+            batch.node_y[:, q], use_reentrant=False,
+            preserve_rng_state=False)
+    return total
+
+
+def gossip_query_embs(gbs):
+    return torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (gbs[0].node_y.shape[1], 16)).astype(np.float32))
+
+
+def test_gossip_masks_drawn_ahead_equal_the_rewinding_scheme(dp_data):
+    """Two gossip train steps at dropout 0.01 from the same weights and
+    generator seed: ``train_step`` with the masks drawn ahead against the
+    rewinding scheme (the generator put back after the backward): the
+    losses, the gradients, the parameters and the generator's state after
+    each step, bit for bit; the masks drop entries."""
+    _, _, gbs, _ = dp_data
+    q = gossip_query_embs(gbs)
+    batches = [b.to("cpu", training=True) for b in gbs[:2]]
+    _, p0 = gossip_pair()
+    rate, lr = 0.01, 1e-3
+    runs = []
+    for ahead in (True, False):
+        p = copy.deepcopy(p0)
+        opt = tloop.make_adam(p)
+        gen = torch.Generator().manual_seed(5)
+        steps = []
+        for b in batches:
+            if ahead:
+                loss, _ = tloop.train_step(
+                    p, opt, tloop.gossip_loss_fn(rate, q), b, lr, gen)
+            else:
+                opt.zero_grad()
+                loss = rewinding_gossip_loss(p, b, q, rate, gen)
+                end = gen.get_state()
+                loss.backward()
+                gen.set_state(end)
+                loss = loss.detach()
+                opt.step(lr, torch.isfinite(loss))
+            steps.append((loss, opt.grad.clone(), opt.flat.clone(),
+                          gen.get_state()))
+        runs.append(steps)
+    for (la, ga, pa, sa), (lb, gb_, pb, sb) in zip(*runs):
+        assert torch.equal(la, lb)
+        assert torch.equal(ga, gb_) and float(ga.abs().max()) > 0
+        assert torch.equal(pa, pb)
+        assert torch.equal(sa, sb)
+    with torch.no_grad():
+        plain = tgossip.gossip_loss(p0, batches[0], q)
+    assert not torch.equal(runs[0][0][0], plain)
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.01])
+def test_gossip_static_step_equals_eager_bit_for_bit(dp_data, tmp_path,
+                                                     dropout):
+    """2 epochs of the gossip stage: the static train and eval steps
+    against the eager ones, the same weights and seed."""
+    _, _, gbs, _ = dp_data
+    q = gossip_query_embs(gbs)
+    runs, paths = [], []
+    for g in (False, True):
+        paths.append(str(tmp_path / f"g{int(g)}"))
+        _, tp = gossip_pair()
+        runs.append(tloop.train_gossip(
+            tp, q, list(gbs[:5]), list(gbs[:2]), epochs=2, lr=1e-3, seed=4,
+            dropout=dropout, ckpt_path=paths[-1], device="cpu", graphed=g,
+            log_fn=lambda *_: None))
+    assert runs[0].train_losses[1] != runs[0].train_losses[0]
+    assert_runs_equal(*runs, paths)
+
+
+def test_gossip_static_step_makes_no_read_back(dp_data, monkeypatch):
+    """The static gossip train step with dropout (the masks drawn ahead,
+    the checkpoint's recomputation in the backward) and its eval step
+    make no read-back and no host-to-device tensor (as
+    ``test_static_step_makes_no_read_back`` patches them)."""
+    _, _, gbs, _ = dp_data
+    q = gossip_query_embs(gbs)
+    _, params = gossip_pair()
+    dev = [b.to("cpu", training=True) for b in gbs[:2]]
+    opt = tloop.make_adam(params)
+    gen = torch.Generator().manual_seed(3)
+    steps = tloop.Steps(
+        params, opt, tloop.gossip_loss_fn(0.01, q), tloop.gossip_eval_fn(q),
+        dev, dev, torch.tensor(1e-3), gen, "cpu", graphed=True,
+        prepare=tloop.gossip_prepare)
+    assert isinstance(steps.train, graphed.GraphedStep)
+    assert isinstance(steps.eval, graphed.GraphedStep)
+    steps.train(dev[0])
+    before, state = opt.flat.clone(), gen.get_state()
+
+    def refuse(*_a, **_k):
+        raise AssertionError("a read-back or host copy in a static step")
+
+    for name in ("item", "__bool__", "tolist", "numpy", "cpu", "__float__",
+                 "__int__", "new_tensor"):
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+    monkeypatch.setattr(torch, "tensor", refuse)
+    monkeypatch.setattr(torch, "as_tensor", refuse)
+    steps.train(dev[1])
+    steps.eval(dev[1])
+    monkeypatch.undo()
+    assert not torch.equal(opt.flat, before)
+    assert not torch.equal(gen.get_state(), state)
+    assert float(steps.train_carry[0]) > 0
+    assert int(steps.train_carry[1]) == 0
+    assert float(steps.eval_carry[1]) == float(dev[1].node_mask.sum())

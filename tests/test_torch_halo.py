@@ -412,6 +412,78 @@ def test_halo_gossip_step_updates_and_repeats(dropout):
     assert torch.equal(runs[0][1], runs[1][1])
 
 
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+def test_graphed_halo_gossip_step_equals_eager(dropout):
+    """Three calls (seeds 11, 12, 11) of the halo train step's graphed
+    form (static buffers for the query embeddings and the learning rate,
+    no capture on the CPU) against the eager step from the same weights:
+    losses, flags, gradients, parameters and Adam's moments bit for bit.
+    The graphed form replays over its first call's shards only."""
+    g, s, counts, truth, jp, _, q_embs = gossip_case(seed=7, n=30, p=0.2)
+    part = halo.partition_typed_graph(g.n_nodes, s.node_type, counts,
+                                      s.edge_src, s.edge_dst, s.edge_type,
+                                      N_DEV, node_y=truth, n_types=2)
+    shards = halo.place_shards(part, CPU)
+    q = torch.from_numpy(q_embs)
+    runs = []
+    for graphed in (False, True):
+        tp = params_from_jax(_flatten(jp))
+        opt = make_adam(tp)
+        step = halo.halo_gossip_step_fn(opt, dropout=dropout,
+                                        graphed=graphed)
+        calls = []
+        for seed in (11, 12, 11):
+            loss, ok = step(tp, shards, q, 1e-3, seed=seed)
+            calls.append((loss, ok, opt.grad.clone(), opt.flat.clone(),
+                          opt.mu.clone(), opt.nu.clone()))
+        runs.append(calls)
+    for a, b in zip(*runs):
+        assert bool(a[1]) and np.isfinite(float(a[0]))
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert not torch.equal(runs[0][0][0], runs[0][2][0])
+    with pytest.raises(ValueError, match="first call"):
+        step(tp, halo.place_shards(part, CPU), q, 1e-3)
+
+
+def test_direction_degrees_are_computed_once_per_partition(monkeypatch):
+    """The direction degrees equal the halo aggregation of the node masks,
+    are kept on the shards at the first call (a loss then runs 2 halo
+    aggregations per query, none for the degrees), are no inference
+    tensors when the first call ran in inference mode, and a loss and
+    its gradients on shards with kept degrees equal those on fresh
+    shards bit for bit."""
+    g, s, counts, truth, jp, tp, q_embs = gossip_case(seed=5)
+    part = halo.partition_typed_graph(g.n_nodes, s.node_type, counts,
+                                      s.edge_src, s.edge_dst, s.edge_type,
+                                      N_DEV, node_y=truth, n_types=2)
+    shards = halo.place_shards(part, CPU)
+    want = [a[..., 0] for a in halo.halo_typed_aggregate(
+        [sh.node_mask[:, None] for sh in shards], shards)]
+    with torch.inference_mode():
+        first = halo.halo_direction_degrees(shards)
+    assert all(torch.equal(a, b) and not a.is_inference()
+               for a, b in zip(first, want))
+    assert all(a is b for a, b in
+               zip(first, halo.halo_direction_degrees(shards)))
+    calls = []
+    agg = halo.halo_typed_aggregate
+    monkeypatch.setattr(halo, "halo_typed_aggregate",
+                        lambda *a, **k: calls.append(1) or agg(*a, **k))
+    q = torch.from_numpy(q_embs)
+    kept = halo.halo_gossip_loss(tp, shards, q)
+    assert len(calls) == 2 * len(q_embs)
+    kept.backward()
+    g_kept = torch.cat([p.grad.reshape(-1) for p in tp.parameters()
+                        if p.grad is not None])
+    tp2 = params_from_jax(_flatten(jp))
+    fresh = halo.halo_gossip_loss(tp2, halo.place_shards(part, CPU), q)
+    fresh.backward()
+    g_fresh = torch.cat([p.grad.reshape(-1) for p in tp2.parameters()
+                         if p.grad is not None])
+    assert torch.equal(kept.detach(), fresh.detach())
+    assert torch.equal(g_kept, g_fresh)
+
+
 def test_serve_gossip_counts_matches_packed_gossip_predict():
     g, s, counts, _, jp, tp, _ = gossip_case(seed=9, n=60, p=0.1, n_q=3)
     q_embs = np.random.default_rng(9).standard_normal((3, 8)).astype(

@@ -190,6 +190,35 @@ def test_dp_halo_step_updates_and_repeats(dropout):
     assert float(one) == float(alone)
 
 
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+def test_graphed_dp_halo_step_equals_eager(dropout):
+    """Two calls (seeds 4, 5) of the composed step's graphed form (static
+    buffers, no capture on the CPU) against the eager step from the same
+    weights: losses, flags, gradients, parameters and Adam's moments bit
+    for bit."""
+    specs = replica_specs(seed=2)
+    jp, q = gossip_weights(seed=3)
+    mesh = topology.make_mesh2d(N_DATA, N_GRAPH, devices=CPU)
+    replicas = topology.place_replicas(topology.stack_partitions(
+        topology.harmonized_partitions(specs, N_GRAPH, n_types=2)), mesh)
+    runs = []
+    for graphed in (False, True):
+        tp = params_from_jax(_flatten(jp))
+        opt = make_adam(tp)
+        step = topology.dp_halo_gossip_step_fn(opt, dropout=dropout,
+                                               graphed=graphed)
+        calls = []
+        for seed in (4, 5):
+            loss, ok = step(tp, replicas, torch.from_numpy(q), 1e-3,
+                            seed=seed)
+            calls.append((loss, ok, opt.grad.clone(), opt.flat.clone(),
+                          opt.mu.clone(), opt.nu.clone()))
+        runs.append(calls)
+    for a, b in zip(*runs):
+        assert bool(a[1]) and np.isfinite(float(a[0]))
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
 @pytest.mark.parametrize("conv", ["SAGE", "GAT"])
 def test_dp_halo_shmp_forward_matches(conv):
     """The composed SHMP forward per replica against desco_tpu's
