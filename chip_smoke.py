@@ -81,7 +81,7 @@ nonzero on a failed check (no phase catches its own failure):
      much only over tens of epochs) through ``train_neighborhood_stage``
      / ``train_gossip_stage``, on the compiled steps (the neighborhood
      train and eval steps and the gossip eval step replayed as CUDA
-     graphs, train/graphed.py; the gossip train step eager). Counters
+     graphs, utils/cuda_graphs.py; the gossip train step eager). Counters
      zeroed before, read after (a replay adds what its capture counted):
      K3 = 8 x neighborhood train steps, K2 = 8 x (train steps + val batches +
      predict batches), K1 and K4 > 0 in the neighborhood stage, the
@@ -266,6 +266,29 @@ nonzero on a failed check (no phase catches its own failure):
      captures, the other three replay under the guard): losses, flags,
      gradients, parameters and Adam's moments bit-equal after every
      call, launches equal, ms per call both ways.
+ 17. the compiled serving forwards (run before the record; every earlier
+     phase already serves, predicts, benches and trains the baselines
+     through them, as the port does by default), each against
+     ``graphed=False`` on the card: (a) phase 3's 256-graph request
+     through phase 3's service (its second, warm request timed) and an
+     eager service with the same buckets: counts, verified rows and every
+     field equal to phase 3's result, launches equal, the stage ms both
+     ways (tools/serving_profile.stage_clock), the service's compiled
+     forwards and the bytes of their memory pool; every target batch's
+     bounds through the compiled ``_batch_bounds`` (one capture, replays
+     under the guard) against the eager ones: bit-equal where under
+     2^24, within rtol 1e-6 above (``index_add_`` adds in no fixed
+     order); (b) a ``serve_bf16`` request of 32 graphs, a two-member
+     ensemble request and phase 10's labeled request (784 queries) both
+     ways; (c) D = 2 DP serving on the one
+     card both ways; (d) ``count_large_graph`` on phase 13's 20,000-node
+     graph, fresh services both ways, the halo serve's capture and gossip
+     seconds; (e) ``bench.main`` both ways in this process (forward and
+     train-step ms, launches per forward equal); (f) one epoch of the
+     DIAMNet driver both ways, its printed losses and figures equal.
+     Results are bit-equal both ways except counts of 2^24 and more that
+     a bound over 2^24 clamped (rtol 1e-6; the count of such entries is
+     printed); about 90 s.
  12. one JSON line of kernels (K2' and K3' at T = 33 and at T = 1 in
      rows of their own, launched by the order-4 run and the DIAMNet
      driver; every other row's launches count the ablation path, labeled
@@ -286,6 +309,7 @@ import dataclasses
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -3268,7 +3292,7 @@ def placed_steps(torch, cs, loop, name: str, make_step, params, place,
     three replay under the guard), losses, flags, gradients, parameters
     and Adam's moments bit-equal after every call, launches equal; ms per
     call both ways."""
-    from desco_tpu_torch.train import graphed as graphed_mod
+    from desco_tpu_torch.utils import cuda_graphs as graphed_mod
 
     lr = torch.tensor(1e-3, device=q_embs.device)
     runs = {}
@@ -3317,7 +3341,7 @@ def placed_steps(torch, cs, loop, name: str, make_step, params, place,
 def graphed_phase(torch, cs, dev, tcfg, train_stage, qb, gbatches,
                   gossip_params, q_embs, halo_shards, grid,
                   workdir: str) -> dict:
-    """Phase 16: the compiled steps (train/graphed.py) against the eager
+    """Phase 16: the compiled steps (utils/cuda_graphs.py) against the eager
     ones on the phase-6 training set, from the same weights and seed, on
     the card: (a) the guard the graphed loops run under raises on a
     read-back; (b) 2 neighborhood epochs in f32 and with ``train_bf16``,
@@ -3336,7 +3360,7 @@ def graphed_phase(torch, cs, dev, tcfg, train_stage, qb, gbatches,
     from desco_tpu_torch.batch.packed import stack_batches
     from desco_tpu_torch.parallel import dp, halo, topology
     from desco_tpu_torch.pipeline import train_neighborhood_stage
-    from desco_tpu_torch.train import graphed as graphed_mod
+    from desco_tpu_torch.utils import cuda_graphs as graphed_mod
     from desco_tpu_torch.train import loop
 
     t16 = time.perf_counter()
@@ -3466,6 +3490,283 @@ def graphed_phase(torch, cs, dev, tcfg, train_stage, qb, gbatches,
     out["seconds"] = time.perf_counter() - t16
     print(f"phase 16 (compiled steps) took {out['seconds']:.1f} s",
           flush=True)
+    return out
+
+
+# ----------------------------------------- phase 17: compiled serving
+# the bounds are integer-valued f32 sums that ``index_add_`` adds in no
+# fixed order on the card: every order gives the same bits where the sums
+# stay integers below 2^24, and agrees to rtol 1e-6 above
+EXACT_F32 = 2.0 ** 24
+BOUNDS_RTOL = 1e-6
+
+
+def same_result(a, b, what: str) -> int:
+    """Two ``CountResult``s field by field: bit-equal, except counts of
+    2^24 and more, which a bound at or above 2^24 may have clamped to
+    values that differ within rtol 1e-6. Returns how many such entries
+    differ."""
+    loose = 0
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, np.ndarray) and x.dtype.kind == "f":
+            check(x.shape == y.shape, f"{what}: {f.name} shapes differ")
+            diff = x != y
+            big = np.abs(y) >= EXACT_F32
+            rel = np.abs(x - y) / np.maximum(np.abs(y), 1.0)
+            check(not (diff & ~big).any()
+                  and (rel[diff] <= BOUNDS_RTOL).all(),
+                  f"{what}: {f.name} differs graphed vs eager in "
+                  f"{int(diff.sum())} entries ({int((diff & ~big).sum())} "
+                  f"below 2^24)")
+            loose += int(diff.sum())
+        else:
+            check(np.array_equal(x, y), f"{what}: {f.name} differs")
+    return loose
+
+
+def both_ways(torch, cs, run, what: str) -> dict:
+    """``run(graphed)`` eager, then graphed: their results compared
+    (``same_result``), launches equal; {way: (result, seconds,
+    launches)}."""
+    out = {}
+    for graphed in (False, True):
+        cs.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run(graphed)
+        torch.cuda.synchronize()
+        out[graphed] = (res, time.perf_counter() - t0, cs.read_launches())
+    loose = same_result(out[True][0], out[False][0], what)
+    check(out[True][2] == out[False][2], f"{what}: launches graphed "
+          f"{out[True][2]} != eager {out[False][2]}")
+    print(f"{what}: graphed {out[True][1]:.2f} s, eager {out[False][1]:.2f} "
+          f"s (the graphed one's first request captures); results "
+          f"{'bit-equal' if not loose else f'equal but {loose} counts over 2^24 within rtol 1e-6'}; launches equal", flush=True)
+    return out
+
+
+def compiled_serving_phase(torch, cs, dev, seed: int, svc, main_req,
+                           res_main, main_stage, phase3_buckets,
+                           gen_root: str, replay_root: str,
+                           work_dir: str) -> dict:
+    """Phase 17: the compiled serving forwards against the eager ones on
+    the card. (a) phase 3's 256-graph request through a fresh graphed
+    service and a fresh eager one, both with phase 3's buckets, twice
+    each in the order graphed, eager, eager, graphed: every result
+    bit-equal to phase 3's, and the second request of each service (both
+    warm, the graphed one's captures made by its first) timed per stage;
+    the device stages' difference is the change's effect, the rest of the
+    wall (host VF2 above all) no graph touches; the forwards' pool; every
+    target batch's bounds through
+    the compiled ``_batch_bounds`` against the eager one (bit-equal under
+    2^24, rtol 1e-6 above); (b) a ``serve_bf16`` request, a two-member
+    ensemble request and phase 10's labeled request (784 queries) both
+    ways; (c) D = 2 DP serving
+    both ways; (d) ``count_large_graph`` on phase 13's 20,000-node graph,
+    fresh services both ways, the halo serve's capture and replay
+    seconds; (e) the bench both ways in this process; (f) one epoch of
+    the DIAMNet driver both ways. Launches equal both ways throughout."""
+    from desco_tpu_torch import baseline as base_mod
+    from desco_tpu_torch import bench as bench_mod
+    from desco_tpu_torch.data.datasets import load_data
+    from desco_tpu_torch.graph import Graph
+    from desco_tpu_torch.pipeline import pipeline_queries
+    from desco_tpu_torch.serving import CountingService
+    from desco_tpu_torch.tools.serving_profile import stage_clock
+    from desco_tpu_torch.utils.cuda_graphs import ForwardCache, no_sync
+    from desco_tpu_torch.truth.bounds import (_batch_bounds,
+                                              _hashable_schedules)
+
+    t17 = time.perf_counter()
+    out = {}
+
+    def service(graphed, *a, **k):
+        s = CountingService(*(a or (R4_NEIGH, R4_GOSSIP)), device=dev,
+                            graphed=graphed, **k)
+        s._neigh_buckets, s._gossip_buckets = (dict(b) for b in
+                                               phase3_buckets)
+        return s
+
+    # (a) the 256-graph request: a fresh service each way, two requests
+    # each (graphed, eager, eager, graphed); the second of each is timed,
+    # both services then warm (the graphed one's captures made by its
+    # first request)
+    services = {"graphed": service(True), "eager": service(False)}
+    ways, captured = {}, []
+    for name in ("graphed", "eager", "eager", "graphed"):
+        cs.reset_launches()
+        with stage_clock(torch) as stages:
+            t0 = time.perf_counter()
+            res = services[name].count(main_req)
+            wall = time.perf_counter() - t0
+        same_result(res, res_main, f"256-graph request {name} vs phase 3")
+        ways[name] = (res, wall, dict(stages), cs.read_launches())
+        if name == "graphed":
+            captured.append(services[name].graphs.stats()["captures"])
+    check(ways["graphed"][3] == ways["eager"][3],
+          f"256-graph request launches graphed {ways['graphed'][3]} != "
+          f"eager {ways['eager'][3]}")
+    pool = services["graphed"].graphs.stats()
+    check(captured[0] == captured[1],
+          f"the graphed service's second request captured "
+          f"{captured[1] - captured[0]} forwards again")
+    for name, (res, wall, stages, _) in ways.items():
+        print(f"256-graph request {name} (second request): "
+              f"{wall * 1e3:.1f} ms; stage ms "
+              f"{json.dumps({k: round(v * 1e3, 2) for k, v in stages.items()})}"
+              f"; {len(res.verified_rows)} verified rows", flush=True)
+    device_stages = ("neighborhood forward", "bounds", "gossip forward",
+                     "guards")
+    delta = {k: (ways["graphed"][2][k] - ways["eager"][2][k]) * 1e3
+             for k in device_stages}
+    rest = ((ways["graphed"][1] - sum(ways["graphed"][2][k]
+                                      for k in device_stages))
+            - (ways["eager"][1] - sum(ways["eager"][2][k]
+                                      for k in device_stages))) * 1e3
+    print(f"256-graph request, graphed minus eager: device stages ms "
+          f"{json.dumps({k: round(v, 2) for k, v in delta.items()})} "
+          f"(sum {sum(delta.values()):.2f}, the change's effect); the rest "
+          f"of the wall {rest:.1f} ms (host VF2, preparation and packing, "
+          f"which no graph touches: run-to-run noise)", flush=True)
+    print(f"the graphed service: {pool['forwards']} compiled forwards "
+          f"held, {pool['captures']} captured in {pool['capture_s']:.2f} s; "
+          f"their memory pool {pool['pool_bytes']} bytes", flush=True)
+    out["request"] = {name: {"ms": w * 1e3,
+                             "stage_ms": {k: v * 1e3 for k, v in st.items()}}
+                      for name, (_, w, st, _) in ways.items()}
+    out["request"]["device_stage_delta_ms"] = delta
+    out["pool"] = pool
+
+    # the bounds of every target batch, compiled against eager
+    sched = _hashable_schedules(pipeline_queries(svc.cfg))
+    cache = ForwardCache()
+    stacked = [b.to(dev) for b in main_stage.batches]
+    n_big = n_diff = 0
+    with torch.inference_mode():
+        for b in stacked:
+            ref = _batch_bounds(b, sched, 1)
+            got = cache(lambda x: _batch_bounds(x, sched, 1), (b,),
+                        static="bounds")
+            with no_sync(dev):
+                again = cache(lambda x: _batch_bounds(x, sched, 1), (b,),
+                              static="bounds")
+            for g in (got, again):
+                big = ref >= EXACT_F32
+                diff = g != ref
+                check(not (diff & ~big).any(), "bounds under 2^24 differ "
+                      "graphed vs eager")
+                rel = ((g - ref).abs() / ref.abs().clamp(min=1.0))[diff]
+                check(rel.numel() == 0 or float(rel.max()) <= BOUNDS_RTOL,
+                      "bounds over 2^24 differ by more than rtol 1e-6")
+                n_diff += int(diff.sum())
+            n_big += int(big.sum())
+    check(cache.captures == 1, f"{cache.captures} captures of one shape")
+    print(f"bounds of {len(stacked)} target batches, compiled (one "
+          f"capture, replays under no_sync) vs eager: bit-equal under "
+          f"2^24; {n_big} values at or over 2^24, {n_diff} differing "
+          f"within rtol {BOUNDS_RTOL}", flush=True)
+
+    # (b) a bf16 request, an ensemble request and the labeled request
+    small = main_req[:32]
+    both_ways(torch, cs, lambda g: service(
+        g, config_overrides={"serve_bf16": True}).count(small),
+        "serve_bf16, 32 graphs")
+    both_ways(torch, cs, lambda g: service(g, [R4_NEIGH, R4_NEIGH],
+                                           R4_GOSSIP).count(small),
+              "two-member ensemble, 32 graphs")
+    eye = np.eye(N_LABELS, dtype=np.float32)
+    lrng = np.random.default_rng(seed + 10)
+    labeled = [Graph(g.n_nodes, g.edges, eye[lrng.integers(0, N_LABELS,
+                                                           g.n_nodes)])
+               for g in load_data(LABELED_SET, gen_root)]
+    lab_ckpt = os.path.join(work_dir, "labeled", "neigh.best")
+
+    def labeled_request(graphed):
+        s = CountingService(lab_ckpt, device=dev, graphed=graphed)
+        check(tuple(s.member_embs[0].shape) == (784, 64),
+              "the labeled service's query set is not 784")
+        return s.count(labeled)
+
+    both_ways(torch, cs, labeled_request,
+              f"labeled request (784 queries, {len(labeled)} graphs)")
+
+    # (c) D = 2 DP serving on one card
+    both_ways(torch, cs, lambda g: service(g, n_devices=2).count(
+        main_req[:64]), "D = 2 DP serving, 64 graphs")
+
+    # (d) count_large_graph on the 20,000-node graph, fresh services
+    big_g = ba_graph(Graph, HALO_NODES, HALO_DEGREE, HALO_GRAPH_SEED)
+    large_stats = {}
+
+    def large(graphed):
+        s = CountingService(R4_NEIGH, R4_GOSSIP, device=dev,
+                            graphed=graphed)
+        st = large_stats[graphed] = {}
+        return s.count_large_graph(big_g, n_devices=HALO_SHARDS, stats=st)
+
+    lg = both_ways(torch, cs, large, f"count_large_graph ({HALO_NODES} "
+                   f"nodes, {HALO_SHARDS} shards)")
+    check(large_stats[True]["graphed"] and not large_stats[False]["graphed"],
+          "the halo serve did not run graphed / eager as asked")
+    for g in (True, False):
+        st = large_stats[g]
+        print(f"count_large_graph {'graphed' if g else 'eager'}: "
+              f"{lg[g][1]:.2f} s wall, stage 1 {st['stage1_s']:.2f} s, "
+              f"partition {st['partition_s']:.2f} s, halo gossip "
+              f"{st['gossip_s']:.3f} s (of it capture "
+              f"{st['capture_s']:.3f} s)", flush=True)
+    out["large"] = {("graphed" if g else "eager"):
+                    {k: v for k, v in large_stats[g].items()
+                     if k.endswith("_s")} | {"wall_s": lg[g][1]}
+                    for g in (True, False)}
+
+    # (e) the bench both ways, in this process
+    bench_lines = {}
+    for g in (False, True):
+        rc, text = run_teed(bench_mod.main, [] if g else ["--eager"])
+        check(rc == 0, f"bench {'graphed' if g else '--eager'} returned {rc}")
+        bench_lines[g] = json.loads([ln for ln in text.splitlines()
+                                     if ln.startswith("{")][-1])
+    check(bench_lines[True]["launches"] == bench_lines[False]["launches"],
+          "bench: launches per forward differ graphed vs eager")
+    out["bench"] = {("graphed" if g else "eager"):
+                    {k: bench_lines[g][k] for k in
+                     ("forward_ms", "train_step_ms", "value",
+                      "sol_fraction")} for g in (True, False)}
+    print(f"bench (f32, this process): forward "
+          f"{bench_lines[True]['forward_ms']} ms graphed, "
+          f"{bench_lines[False]['forward_ms']} ms eager; train step "
+          f"{bench_lines[True]['train_step_ms']} ms graphed, "
+          f"{bench_lines[False]['train_step_ms']} ms eager; launches per "
+          f"forward equal", flush=True)
+
+    # (f) one epoch of the DIAMNet driver both ways
+    texts, walls, dl = {}, {}, {}
+    for g in (False, True):
+        cs.reset_launches()
+        t0 = time.perf_counter()
+        rc, text = run_teed(base_mod.main, [
+            "--baseline", "DIAMNET", "--train_dataset", REPLAY_SET,
+            "--test_dataset", REPLAY_SET, "--epoch_num", "1", "--seed",
+            str(seed), "--data_root", replay_root] + ([] if g else
+                                                      ["--eager"]))
+        walls[g] = time.perf_counter() - t0
+        dl[g] = cs.read_launches()
+        check(rc == 0, f"baseline DIAMNET {'graphed' if g else 'eager'} "
+              f"returned {rc}")
+        texts[g] = [re.sub(r" [0-9.]+s$", "", ln)
+                    for ln in text.splitlines()]
+    check(texts[True] == texts[False], "baseline DIAMNET: printed losses "
+          "or figures differ graphed vs eager")
+    check(dl[True] == dl[False], f"baseline DIAMNET launches graphed "
+          f"{dl[True]} != eager {dl[False]}")
+    out["baseline_s"] = {"graphed": walls[True], "eager": walls[False]}
+    print(f"baseline DIAMNET, 1 epoch on {REPLAY_SET}: graphed "
+          f"{walls[True]:.1f} s, eager {walls[False]:.1f} s (captures "
+          f"included); losses and figures equal, launches equal", flush=True)
+    print(f"phase 17 (compiled serving) took "
+          f"{time.perf_counter() - t17:.1f} s", flush=True)
     return out
 
 
@@ -4388,13 +4689,19 @@ def main() -> int:
 
     # ------------------------------------------------------- 15. tools
     tools = tools_phase(torch, cs, card, gen_root, replay_root)
-    data_dir.cleanup()
 
     # ---------------------------------------------- 16. compiled steps
     with tempfile.TemporaryDirectory(prefix="desco_smoke_g16_") as g16_dir:
         graphed_phase(torch, cs, dev, tcfg, train_stage, qb, gbatches,
                       gres.best_params, q_embs, hal.pop("train_shards"),
                       dpr.pop("grid"), g16_dir)
+
+    # -------------------------------------------- 17. compiled serving
+    compiled = compiled_serving_phase(
+        torch, cs, dev, args.seed, svc, main_req, res_main, main_stage,
+        phase3_buckets, gen_root, replay_root, data_dir.name)
+    print(f"compiled serving summary: {json.dumps(compiled)}", flush=True)
+    data_dir.cleanup()
 
     # ----------------------------------------------------- 12. the record
     seg_src = "desco_tpu_torch/csrc/segment_sum.cu"

@@ -17,6 +17,13 @@ with the port's Adam (optax.adam's defaults), keeps the weights of the
 best validation loss, and prints each test set's normed MSE and MAE per
 query size, then one JSON line. It runs on the card unless ``--device
 cpu`` is given.
+
+As desco_tpu jits them, the train step, the validation loss and the
+predict replay compiled graphs (utils/cuda_graphs.py), one per batch shape
+(a split's batches share their caps; LRP's permutation arrays are
+inputs, their padded count part of the shape), captured at their first
+call with every batch's streams derived before; the losses are read
+back once per epoch. ``--eager`` runs them eagerly.
 """
 
 from __future__ import annotations
@@ -59,6 +66,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default=None,
                    help="torch device; default CUDA (raises when no GPU "
                         "is visible unless 'cpu' is given)")
+    p.add_argument("--eager", action="store_true",
+                   help="run the train step, validation and predict "
+                        "eagerly instead of replaying CUDA graphs")
     return p
 
 
@@ -75,25 +85,59 @@ def init_params(kind: str, cfgs: tuple, seed: int):
     return init_diamnet_pipeline(*cfgs, generator=gen)
 
 
-def _train(params, loss_fn, train_items, val_items, epochs: int, lr: float):
+def _train(params, loss_fn, train_items, val_items, epochs: int, lr: float,
+           graphed: bool = True):
     """Adam over the train items each epoch, the validation loss after
-    each; returns the weights of the best validation loss."""
+    each; returns the weights of the best validation loss. ``graphed``:
+    the step (``GraphedStep``) and the validation loss (``ForwardCache``)
+    replay compiled graphs, one per item shape (an item's per-batch state
+    derived before); else both run eagerly. The losses are read back once
+    per epoch."""
+    from .utils.cuda_graphs import ForwardCache, GraphedStep, signature
     from .train.loop import make_adam
 
     opt = make_adam(params)
+    dev = opt.flat.device
+    loss = torch.zeros((), device=dev)
+
+    def step_on(item):
+        opt.zero_grad()
+        out = loss_fn(params, item)
+        out.backward()
+        opt.step(lr)
+        loss.copy_(out.detach())
+
+    def val_on(item):
+        return loss_fn(params, item)
+
+    steps, vals = {}, ForwardCache()
+
+    def train_step(item):
+        if not graphed:
+            step_on(item)
+        else:
+            key = signature(item)
+            if key not in steps:
+                steps[key] = GraphedStep(
+                    step_on, item, capture=dev.type == "cuda",
+                    state=opt.state_tensors() + [loss])
+            steps[key](item)
+        return loss.clone()
+
+    def val_loss(item):
+        if graphed:
+            return vals(val_on, (item,), static="val")
+        with torch.no_grad():
+            return val_on(item)
+
+    def read(values):
+        return [float(v) for v in torch.stack(values).tolist()]
+
     best_val, best_params = float("inf"), params
     for epoch in range(epochs):
         t0 = time.time()
-        losses = []
-        for item in train_items:
-            opt.zero_grad()
-            loss = loss_fn(params, item)
-            loss.backward()
-            opt.step(lr)
-            losses.append(float(loss.detach()))
-        with torch.no_grad():
-            vl = float(np.mean([float(loss_fn(params, it))
-                                for it in val_items]))
+        losses = read([train_step(item) for item in train_items])
+        vl = float(np.mean(read([val_loss(it) for it in val_items])))
         if vl < best_val:
             best_val, best_params = vl, copy.deepcopy(params)
         if epoch % 10 == 0 or epoch == epochs - 1:
@@ -173,7 +217,9 @@ def main(argv=None) -> int:
     from .models.baseline_diamnet import (
         DIAMNetConfig, diamnet_forward, diamnet_tower_config,
         diamnet_train_loss, node_positions)
+    from .models.shmp_gnn import prepare_batch
     from .ops.cuda_segment import default_agg_mode
+    from .utils.cuda_graphs import ForwardCache
 
     qs = [query_sample(q, use_tconv=False) for q in gen_queries(qids)]
     [qb] = pack_samples(qs, *auto_capacities(qs, g_cap=len(qs)))
@@ -199,24 +245,39 @@ def main(argv=None) -> int:
             np.asarray(b.node_mask) > 0]).max())
         for bs in [train_b, val_b] + [t for _, t in test_sets] for b in bs)
 
-    def on_device(batches, training):
-        return [(b.to(device, training=training),
-                 torch.as_tensor(node_positions(b), device=device))
-                for b in batches]
+    # the towers' streams, derived before any step or forward (a compiled
+    # one cannot hold the read-back of their derivation)
+    prepare_batch(q_dev, pattern_cfg.n_edge_types, backward=True)
+
+    def on_device(batches, training, backward):
+        out = []
+        for b in batches:
+            b_dev = b.to(device, training=training)
+            prepare_batch(b_dev, graph_cfg.n_edge_types, backward)
+            out.append((b_dev, torch.as_tensor(node_positions(b),
+                                               device=device)))
+        return out
 
     def loss_fn(p, item):
         b, pos = item
         return diamnet_train_loss(p, graph_cfg, pattern_cfg, dn_cfg, b, pos,
                                   seq_len, q_dev, q_pos, q_seq_len)
 
-    params = _train(params, loss_fn, on_device(train_b, True),
-                    on_device(val_b, True), args.epoch_num, args.lr)
+    graphed = not args.eager
+    params = _train(params, loss_fn, on_device(train_b, True, True),
+                    on_device(val_b, True, False), args.epoch_num, args.lr,
+                    graphed)
+    forwards = ForwardCache()
+
+    def forward(b, pos):
+        return diamnet_forward(params, graph_cfg, pattern_cfg, dn_cfg, b,
+                               pos, seq_len, q_dev, q_pos, q_seq_len)
 
     def predict(name, i, b):
-        pos = torch.as_tensor(node_positions(b), device=device)
-        return diamnet_forward(params, graph_cfg, pattern_cfg, dn_cfg,
-                               b.to(device), pos, seq_len, q_dev, q_pos,
-                               q_seq_len)
+        [(b_dev, pos)] = on_device([b], False, False)
+        if graphed:
+            return forwards(forward, (b_dev, pos), static="predict")
+        return forward(b_dev, pos)
 
     _evaluate("DIAMNET", test_sets, predict, groups)
     return 0
@@ -225,6 +286,7 @@ def main(argv=None) -> int:
 def run_lrp(args, qids, train_b, val_b, test_sets, groups, device) -> int:
     from .models.lrp import LRPConfig, apply_lrp_batch, lrp_arrays_for_batch
     from .models.neighborhood import smooth_l1
+    from .utils.cuda_graphs import ForwardCache
 
     cfg = LRPConfig(hid_dim=args.hidden_dim, num_layers=args.layer_num,
                     num_tasks=len(qids))
@@ -250,14 +312,21 @@ def run_lrp(args, qids, train_b, val_b, test_sets, groups, device) -> int:
             m.sum().clamp(min=1.0)
         return per_q.mean()
 
+    graphed = not args.eager
     params = _train(params, loss_fn, prep(train_b), prep(val_b),
-                    args.epoch_num, args.lr)
+                    args.epoch_num, args.lr, graphed)
     prepped = {name: prep(batches, training=False)
                for name, batches in test_sets}
+    forwards = ForwardCache()
+
+    def forward(b_dev, arrs):
+        return apply_lrp_batch(params, cfg, b_dev, *arrs)
 
     def predict(name, i, b):
-        b_dev, arrs = prepped[name][i]
-        return apply_lrp_batch(params, cfg, b_dev, *arrs)
+        item = prepped[name][i]
+        if graphed:
+            return forwards(forward, item, static="predict")
+        return forward(*item)
 
     _evaluate("LRP", test_sets, predict, groups)
     return 0

@@ -2,7 +2,7 @@
 port of the repo's root ``bench.py``.
 
     python -m desco_tpu_torch.bench [--dtype float32|bfloat16]
-        [--hbm_gbps 3350] [--device cuda]
+        [--hbm_gbps 3350] [--device cuda] [--eager]
 
 Prints ONE JSON line:
   {"metric": "...", "value": N, "unit": "edges/s", "vs_baseline": N, ...}
@@ -15,6 +15,13 @@ the same batch. ``value`` counts *valid directed edges* per second of
 steady-state forward. ``--dtype bfloat16`` switches the FORWARD's target
 tower only (``serve_bf16`` semantics); the train step always runs the f32
 config, as in ``bench.py``.
+
+As the root ``bench.py`` times jitted functions, the forward and the
+train step replay compiled ones (``utils/cuda_graphs.GraphedStep``, the
+forward with ``inference``), each captured once as a CUDA graph with the
+batch's streams and pooling offsets derived before; ``--eager`` runs
+both eagerly instead (a comparison: such a run reads the baseline file
+but never writes it).
 
 Timing: warm up, calibrate the iteration count to a window of at least one
 second, take the median of three windows; every window ends with
@@ -37,7 +44,8 @@ The line also anchors the number to the card's memory rate:
     ``--hbm_gbps`` says otherwise;
   * ``graphs_per_s`` — whole neighborhoods per second of the same forward;
   * ``train_edges_per_s``, ``train_step_ms`` — the train step;
-  * ``launches`` — kernel launches of ONE forward (K2 = 8: once per layer).
+  * ``launches`` — kernel launches of ONE forward (K2 = 8: once per layer;
+    a replay adds what its capture counted).
 
 With ``--device cpu`` the same code runs on the kernels' plain versions
 and prints ``"device": "cpu"``: such a line checks the script, it is no
@@ -144,6 +152,40 @@ def _device_name(device) -> str:
     ).stdout.strip().splitlines()[device.index or 0]
 
 
+def timed_forward(forward, batch, qb, *, graphed: bool, capture: bool):
+    """fwd() -> ``forward(batch, qb)``: the compiled forward
+    (utils/cuda_graphs.GraphedStep with ``inference``, captured once as a
+    CUDA graph where ``capture``, static buffers otherwise; it returns the
+    static outputs), or with ``graphed=False`` the eager one, both under
+    inference mode."""
+    import torch
+
+    from .utils.cuda_graphs import GraphedStep
+
+    if not graphed:
+        def fwd():
+            with torch.inference_mode():
+                return forward(batch, qb)
+        return fwd
+    compiled = GraphedStep(lambda xs: forward(*xs), (batch, qb),
+                           capture=capture, inference=True)
+    return lambda: compiled((batch, qb))
+
+
+def timed_step(step_on, tb, state, generator, *, graphed: bool,
+               capture: bool):
+    """step() -> ``step_on(tb)``, which updates ``state`` in place: the
+    compiled step (utils/cuda_graphs.GraphedStep), or with ``graphed=False``
+    the eager one."""
+    from .utils.cuda_graphs import GraphedStep
+
+    if not graphed:
+        return lambda: step_on(tb)
+    compiled = GraphedStep(step_on, tb, capture=capture, state=state,
+                           generators=[generator])
+    return lambda: compiled(tb)
+
+
 def _timed(fn, sync, min_iters: int, min_window_s: float):
     """(seconds of the median of three windows, iterations per window)."""
     fn()
@@ -175,12 +217,16 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without a "
                          "GPU unless 'cpu' is given)")
+    ap.add_argument("--eager", action="store_true",
+                    help="run the forward and the train step eagerly "
+                         "instead of replaying CUDA graphs")
     args = ap.parse_args(argv)
 
     import torch
 
     from .models import neighborhood as neigh_mod
-    from .models.shmp_gnn import neighborhood_target_config, query_config
+    from .models.shmp_gnn import (
+        neighborhood_target_config, prepare_batch, query_config)
     from .ops import cuda_segment as cs
     from .train import loop as train_loop
     from .utils.device import resolve_device
@@ -206,11 +252,22 @@ def main(argv=None) -> int:
     train_params = copy.deepcopy(params)
     params.requires_grad_(False)
 
-    def fwd():
-        with torch.inference_mode():
-            return neigh_mod.predict_counts(params, tgt_cfg, qry_cfg, batch,
-                                            qb)
+    # the train step's batch: the bench batch carries no labels, so attach
+    # synthetic integer counts (shape and dtype of the real path)
+    labels = np.random.default_rng(0).integers(
+        0, 50, (batch.g_cap, N_QUERIES)).astype(np.float32)
+    tb = dataclasses.replace(batch, y=torch.from_numpy(labels).to(device))
+    # every batch's streams (forward and backward) and pooling offsets,
+    # derived before the compiled forward and step are captured
+    for b in (batch, tb):
+        prepare_batch(b, train_cfg.n_edge_types, backward=True)
+    prepare_batch(qb, qry_cfg.n_edge_types, backward=True)
 
+    def forward(b, q):
+        return neigh_mod.predict_counts(params, tgt_cfg, qry_cfg, b, q)
+
+    fwd = timed_forward(forward, batch, qb, graphed=not args.eager,
+                        capture=on_gpu)
     out = fwd()
     sync()
     if out.dtype != torch.float32 or not bool(
@@ -236,7 +293,7 @@ def main(argv=None) -> int:
         if os.path.exists(BASELINE_PATH):
             with open(BASELINE_PATH) as f:
                 base = json.load(f)["edges_per_s"]
-        else:
+        elif not args.eager:
             with open(BASELINE_PATH, "w") as f:
                 json.dump({"edges_per_s": edges_per_s,
                            "graphs_per_s": graphs_per_s,
@@ -254,22 +311,20 @@ def main(argv=None) -> int:
             f"sol_fraction {sol:.3f} > 1.05: the bytes model counts more "
             f"than the forward can have moved")
 
-    # ---- one full TRAIN step (forward + backward + Adam), same workload.
-    # The training loss needs labels; the bench batch carries none, so
-    # attach synthetic integer counts (shape and dtype of the real path).
-    # Training is always f32: --dtype benches the serving tower only.
-    labels = np.random.default_rng(0).integers(
-        0, 50, (batch.g_cap, N_QUERIES)).astype(np.float32)
-    tb = dataclasses.replace(batch, y=torch.from_numpy(labels).to(device))
+    # ---- one full TRAIN step (forward + backward + Adam) on the labelled
+    # batch. Training is always f32: --dtype benches the serving tower only.
     opt = train_loop.make_adam(train_params, 0.0)
     loss_fn = train_loop.neighborhood_loss_fn(train_cfg, qry_cfg, qb)
     gen = torch.Generator(device=device).manual_seed(1)
+    loss = torch.zeros((), device=device)
 
-    def step():
-        return train_loop.train_step(train_params, opt, loss_fn, tb, 1e-4,
-                                     gen)
+    def step_on(b):
+        loss.copy_(train_loop.train_step(train_params, opt, loss_fn, b,
+                                         1e-4, gen)[0])
 
-    loss, _ = step()
+    step = timed_step(step_on, tb, opt.state_tensors() + [loss], gen,
+                      graphed=not args.eager, capture=on_gpu)
+    step()
     if not bool(torch.isfinite(loss)):
         raise RuntimeError("the train step's loss is not finite")
     sync()

@@ -27,7 +27,10 @@ their ensemble. The two ablation drivers (``ablation_gnns``,
 every visible GPU) above 1 trains both stages and predicts over that many
 data-parallel replicas (parallel/dp.py); the count is clamped to the
 visible GPUs, and on the CPU it is taken as given. ``--compile_cache
-DIR`` builds the kernels into DIR once for every later run.
+DIR`` builds the kernels into DIR once for every later run. The training
+steps and the stage-1, bounds and gossip predict forwards replay CUDA
+graphs, as desco_tpu jits them; the predicts share one set of caches
+(``utils/cuda_graphs.ServingGraphs``), as a service's requests do.
 """
 
 from __future__ import annotations
@@ -64,6 +67,7 @@ from .pipeline import (
 )
 from .train.checkpoint import load_checkpoint
 from .utils.compile_cache import enable_compilation_cache
+from .utils.cuda_graphs import ServingGraphs
 from .utils.device import resolve_device
 
 # checkpoint config fields an eval-only run adopts (see main)
@@ -211,22 +215,26 @@ def main(argv=None) -> int:
                        for p in members]
     # gossip conditions on one query tower: the first member's
     neigh_params, query_embs = members[0], member_embs[0]
+    # the predicts' compiled forwards, kept across the test, train and
+    # val predicts and the gossip stage
+    graphs = ServingGraphs(len(members))
 
     # stage-1 predictions (verified rows carry EXACT counts)
     with _phase("stage-1 predict+verify (test)"):
         counts_test, verified_rows = neighborhood_predictions(
-            members, tgt_cfg, member_embs, test_stage, cfg, device, mesh)
+            members, tgt_cfg, member_embs, test_stage, cfg, device, mesh,
+            graphs=graphs)
     counts = {"test": counts_test}
     # train/val stage-1 predictions feed ONLY gossip training
     if args.train_gossip:
         counts["train"] = neighborhood_predictions(
             members, tgt_cfg, member_embs, train_stage, cfg, device,
-            mesh)[0]
+            mesh, graphs=graphs)[0]
         counts["val"] = (
             counts["train"] if val_stage is train_stage
             else neighborhood_predictions(
                 members, tgt_cfg, member_embs, val_stage, cfg, device,
-                mesh)[0])
+                mesh, graphs=graphs)[0])
 
     # ---------------------------------------------------- gossip stage
     gossip_node_counts = None
@@ -260,13 +268,15 @@ def main(argv=None) -> int:
 
         with _phase("gossip predict (test)"):
             gossip_node_counts = dp_predict_gossip_counts(
-                gossip_params, query_embs, test_gbatches, mesh)
+                gossip_params, query_embs, test_gbatches, mesh,
+                cache=graphs.gossip)
         if cfg.clamp_counts:
             # same combinatorial bound as stage 1, applied to the refined
             # per-node counts; verified-exact rows are restored after
             gossip_node_counts = clamp_node_counts(
                 gossip_node_counts, test_stage, cfg,
-                canonical_type=tgt_cfg.canonical_type, device=device)
+                canonical_type=tgt_cfg.canonical_type, device=device,
+                cache=graphs.bounds)
         gossip_node_counts = apply_verified_override(
             gossip_node_counts, counts["test"], verified_rows,
             test_stage.nindex)

@@ -133,8 +133,9 @@ def gated_mha(p, q, k, v, k_mask, num_heads: int):
     hk = (ln_k @ p["k"]).reshape(b, -1, num_heads, hd)
     hv = (ln_v @ p["v"]).reshape(b, -1, num_heads, hd)
     logits = torch.einsum("bmnd,blnd->bnml", hq, hk) / math.sqrt(hd)
-    logits = torch.where(k_mask[:, None, None, :] > 0, logits,
-                         logits.new_tensor(-1e30))
+    # a Python scalar, not a tensor made from one: a compiled step
+    # (utils/cuda_graphs.py) holds no host-to-device copy
+    logits = torch.where(k_mask[:, None, None, :] > 0, logits, -1e30)
     attn = torch.softmax(logits, dim=-1)
     vec = torch.einsum("bnml,blnd->bmnd", attn, hv).reshape(b, m, h)
     out = vec @ p["o"]
@@ -174,8 +175,7 @@ def _mem_mask(lens, m: int, dtype):
 def _masked_max(g, member):
     """Max over a window's members ([B, M, L] membership), 0 where a
     window has none."""
-    neg = g.new_tensor(-math.inf)
-    masked = torch.where(member[..., None], g[:, None, :, :], neg)
+    masked = torch.where(member[..., None], g[:, None, :, :], -math.inf)
     mx = masked.amax(dim=2)
     return torch.where(torch.isfinite(mx), mx, torch.zeros_like(mx))
 

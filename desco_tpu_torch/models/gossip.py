@@ -21,7 +21,7 @@ activations live at a time. A query's dropout masks are drawn before its
 checkpointed call (``draw_keep_masks``, in the order and at the shapes
 the forward applies them) and go in as arguments, so the recomputation
 reuses them and draws nothing: the generator ends a step where the
-forward left it, and a captured step (train/graphed.py) holds the draws.
+forward left it, and a captured step (utils/cuda_graphs.py) holds the draws.
 The checkpoint keeps the masks, 3 x N x hidden bools per query, until the
 backward.
 """

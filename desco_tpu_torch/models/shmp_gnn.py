@@ -224,12 +224,6 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
                                    x.dtype), rate)
 
 
-# the attributes in which a batch object keeps its derived state
-# (``batch_typed_streams``, ``batch_pool_offsets``); a captured step's
-# static buffers copy them (train/graphed.py)
-BATCH_STATE = ("_typed_streams", "_pool_offsets")
-
-
 def batch_pool_offsets(batch: PackedGraphs) -> torch.Tensor:
     """The CSR offsets [g_cap + 1] of the batch's graph pooling (its nodes
     are packed graph by graph, so ``node_graph`` is sorted), derived at
@@ -249,7 +243,7 @@ def prepare_batch(batch: PackedGraphs, n_edge_types: int,
     a tower would otherwise derive at its first step: the
     ``TypedStreams`` for ``n_edge_types``, their source-sorted backward
     streams (``backward``) and the pooling offsets (``pooling``). A
-    captured step (train/graphed.py) must find them ready: deriving the
+    captured step (utils/cuda_graphs.py) must find them ready: deriving the
     streams checks the batch's permutation with a read-back."""
     from ..ops.cuda_segment import ensure_backward_streams
 
@@ -530,7 +524,7 @@ def _bias_types(edge_dst_type: Tuple[int, ...], n_node_types: int,
     """Per node type, the [k] int64 ids on ``device`` of the edge types
     whose destination has that type. Made once per config and device: a
     forward makes no host-to-device copy, which a captured step
-    (train/graphed.py) could not hold. Made outside inference mode, so a
+    (utils/cuda_graphs.py) could not hold. Made outside inference mode, so a
     training forward can save them whichever forward made them first."""
     with torch.inference_mode(False):
         return tuple(

@@ -82,7 +82,7 @@ Each wrapper takes its plain version only for CPU tensors; a CUDA tensor
 launches the kernel or raises. Each counts its calls that launch a kernel
 in a plain int attribute (``sorted_segment_sum.launches``) so a run can
 show that the main path went through the kernel. A CUDA graph replay
-(train/graphed.py) runs no wrapper: ``LaunchRecord`` keeps what the
+(utils/cuda_graphs.py) runs no wrapper: ``LaunchRecord`` keeps what the
 wrappers counted while the graph was captured and adds it per replay.
 The launches themselves are capture-safe: they go to the current stream,
 the kernels neither allocate nor synchronize, and each kernel's

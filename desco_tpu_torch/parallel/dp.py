@@ -36,7 +36,8 @@ multiple of D with all-masked copies of batch 0 (which run too, as in
 desco_tpu), and stitches the valid rows back in batch order before the
 one read-back: the result is bit-equal to the single-device predict
 functions of train/loop.py. Serving and the CLI always predict here, on
-a one-replica mesh when there is no data parallelism.
+a one-replica mesh when there is no data parallelism, and replay each
+replica's compiled forward (desco_tpu jits its DP predicts).
 """
 
 from __future__ import annotations
@@ -49,6 +50,7 @@ import numpy as np
 import torch
 
 from ..batch.packed import PackedGraphs, stack_batches
+from ..utils.cuda_graphs import ForwardCache
 from ..utils.device import resolve_device
 from .halo import shard_devices
 
@@ -261,21 +263,28 @@ def stage_batches_for_dp(batches: List[PackedGraphs],
                          mesh)
 
 
-def _dp_predict(forward: Callable, params, query_embs: torch.Tensor,
+def _dp_predict(make_forward: Callable, params, query_embs: torch.Tensor,
                 batches: List[PackedGraphs], mesh: DataMesh,
-                mask_field: str, staged) -> np.ndarray:
+                mask_field: str, staged, graphed: bool, cache):
     from ..train.loop import _valid_rows
 
     home = query_embs.device
+    if graphed and cache is None:
+        cache = ForwardCache()
     with torch.inference_mode():
         if staged is None:
             staged = stage_batches_for_dp(batches, mesh)
-        reps = ReplicaParams().sync(params, mesh.devices)
+        # a cache keeps its replicas' copies: its graphs read their storage
+        if cache is not None and cache.replicas is None:
+            cache.replicas = ReplicaParams()
+        reps = (cache.replicas if cache is not None
+                else ReplicaParams()).sync(params, mesh.devices)
+        forwards = [make_forward(p, graphed, cache) for p in reps]
         embs = {dev: query_embs.to(dev) for dev in mesh.devices}
         preds = []
         for i, b in enumerate(staged):  # the pad batches run too
             d = i % mesh.size
-            preds.append(forward(reps[d], b, embs[mesh.devices[d]]))
+            preds.append(forwards[d](b, embs[mesh.devices[d]]))
         stitched = torch.stack([p.to(home) for p in preds[:len(batches)]])
         return _valid_rows(batches, stitched, mask_field)
 
@@ -283,32 +292,42 @@ def _dp_predict(forward: Callable, params, query_embs: torch.Tensor,
 def dp_predict_neighborhood_counts(params, tgt_cfg, query_embs: torch.Tensor,
                                    batches: List[PackedGraphs],
                                    mesh: DataMesh,
-                                   staged: Optional[list] = None
+                                   staged: Optional[list] = None,
+                                   graphed: bool = True,
+                                   cache: Optional[ForwardCache] = None
                                    ) -> np.ndarray:
     """Stage-1 serving over the replicas: what the single-device
     ``predict_neighborhood_counts`` returns, bit for bit (valid rows of
     every batch, in batch order). ``query_embs`` lie on the master device;
-    ``staged``: ``stage_batches_for_dp(batches, mesh)``."""
-    from ..models import neighborhood as neigh_mod
+    ``staged``: ``stage_batches_for_dp(batches, mesh)``. ``graphed``: each
+    replica replays its compiled forward (``loop.neighborhood_forward``)
+    from ``cache`` (a fresh one if None), which keeps the replicas'
+    parameter copies: a replica's forward crosses no device, so replicas
+    on several cards each get a graph on their own card, and replicas on
+    one card share one."""
+    from ..train.loop import neighborhood_forward
 
     if not batches:
         return np.zeros((0, int(query_embs.shape[0])), np.float32)
 
-    def forward(p, b, e):
-        return neigh_mod.predict_counts_from_embs(p, tgt_cfg, b, e)
+    def make(p, g, c):
+        return neighborhood_forward(p, tgt_cfg, g, c)
 
-    return _dp_predict(forward, params, query_embs, batches, mesh,
-                       "graph_mask", staged)
+    return _dp_predict(make, params, query_embs, batches, mesh,
+                       "graph_mask", staged, graphed, cache)
 
 
 def dp_predict_gossip_counts(params, query_embs: torch.Tensor,
                              batches: List[PackedGraphs],
-                             mesh: DataMesh) -> np.ndarray:
+                             mesh: DataMesh, graphed: bool = True,
+                             cache: Optional[ForwardCache] = None
+                             ) -> np.ndarray:
     """Stage-3 serving over the replicas (one gossip batch per replica
-    per group), bit-equal to the single-device ``predict_gossip_counts``."""
-    from ..models import gossip as gossip_mod
+    per group), bit-equal to the single-device ``predict_gossip_counts``
+    (``graphed`` and ``cache`` as in ``dp_predict_neighborhood_counts``)."""
+    from ..train.loop import gossip_forward
 
     if not batches:
         return np.zeros((0, int(query_embs.shape[0])), np.float32)
-    return _dp_predict(gossip_mod.gossip_predict, params, query_embs,
-                       batches, mesh, "node_mask", None)
+    return _dp_predict(gossip_forward, params, query_embs, batches, mesh,
+                       "node_mask", None, graphed, cache)

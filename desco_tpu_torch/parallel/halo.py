@@ -61,6 +61,7 @@ is structural here (no interior op reads a pull result), not measured.
 from __future__ import annotations
 
 import dataclasses
+import sys
 import time
 from typing import List, Optional
 
@@ -88,7 +89,7 @@ from ..ops.cuda_segment import (
     typed_streams,
 )
 from ..ops.segment import graph_pool_sum, segment_max
-from ..train.graphed import placed_step_fn
+from ..utils.cuda_graphs import GraphedStep, clone_outputs, placed_step_fn
 
 
 # ------------------------------------------------ host partitioner (numpy)
@@ -902,7 +903,7 @@ class ShardGenerators:
     """The dropout generators of a train step over shards: made at the
     first ``seed`` call and reseeded in place (``manual_seed``) at every
     later one, as ``shard_generators`` seeds them, so a captured step
-    (train/graphed.py) keeps them registered. ``gens``: the current
+    (utils/cuda_graphs.py) keeps them registered. ``gens``: the current
     ones."""
 
     def __init__(self):
@@ -1039,7 +1040,7 @@ def halo_gossip_step_fn(opt, dropout: float = 0.0, graphed: bool = False):
     shard, made once and reseeded from ``seed`` at every call
     (``ShardGenerators``). ``graphed``: the step is captured as a CUDA
     graph at its first call, for that call's ``params`` and ``shards``,
-    and replayed at every later one (train/graphed.placed_step_fn)."""
+    and replayed at every later one (utils/cuda_graphs.placed_step_fn)."""
     gens = ShardGenerators()
 
     def reseed(shards, seed):
@@ -1063,7 +1064,8 @@ def halo_gossip_step_fn(opt, dropout: float = 0.0, graphed: bool = False):
 def serve_gossip_counts(gparams, graph, x_all: np.ndarray,
                         query_embs: torch.Tensor, n_devices: int = 0,
                         locality: str = "metis",
-                        return_stats: bool = False, *, device):
+                        return_stats: bool = False, *, device,
+                        graphed: bool = True):
     """Gossip-refined per-node counts for ONE large graph, halo-sharded
     (the entry for P2P/Astro-scale inputs). ``x_all``: [n_nodes, Q]
     stage-1 counts scattered to node rows (zeros for skipped nodes).
@@ -1072,10 +1074,21 @@ def serve_gossip_counts(gparams, graph, x_all: np.ndarray,
     ``gparams`` and ``query_embs``; the shards go to ``shard_devices
     (n_devices, device)``. The partition is uploaded once and every query
     reads it; the residuals come back once. ``return_stats`` adds
-    {"n_loc", "n_devices", "partition_s", "gossip_s"}: the most nodes a
-    shard holds, the shards, and the host seconds of ordering and
-    partitioning and of the sharded forward (upload and read-back
-    included).
+    {"n_loc", "n_devices", "partition_s", "gossip_s", "capture_s",
+    "graphed"}: the most nodes a shard holds, the shards, the host seconds
+    of ordering and partitioning and of the sharded forward (upload,
+    capture and read-back included), the seconds of the capture within
+    it, and whether the queries replayed a graph.
+
+    ``graphed``: one query's forward over the placed shards
+    (``halo_gossip_single``) is captured once per call, as desco_tpu makes
+    ``jax.jit(run_one)`` per call (the partition is the graph's), its
+    static inputs the query's stage-1 columns and embedding, the
+    direction degrees computed before; every query replays it. Where the
+    shards span several cards the exchanges copy across devices inside
+    the forward, which one graph cannot record: it runs eagerly there and
+    says so on standard error. On the CPU the
+    same static buffers run without a capture.
 
     Direction bits are computed on ORIGINAL node ids (src < dst) before
     the locality relabeling, as the packed path has them."""
@@ -1097,11 +1110,28 @@ def serve_gossip_counts(gparams, graph, x_all: np.ndarray,
     with torch.inference_mode():
         shards = place_shards(part, devices)
         deg = halo_direction_degrees(shards)
+
+        def one_query(x_cols, q_emb):
+            return halo_gossip_single(gparams, shards, x_cols, q_emb, deg)
+
+        run, capture_s = one_query, 0.0
+        one_card = len({sh.device for sh in shards}) == 1
+        if graphed and not one_card:
+            print(f"the halo gossip serve over {len(set(devices))} devices "
+                  f"runs eager: a captured forward records one device",
+                  file=sys.stderr, flush=True)
+        elif graphed:
+            compiled = GraphedStep(
+                lambda xs: one_query(*xs),
+                ([sh.x[:, 0] for sh in shards], query_embs[0]),
+                capture=shards[0].device.type == "cuda", inference=True)
+            capture_s = compiled.capture_s
+
+            def run(x_cols, q_emb):
+                return clone_outputs(compiled((x_cols, q_emb)))
         cols = [[] for _ in shards]
         for qi, q_emb in enumerate(query_embs):
-            res = halo_gossip_single(gparams, shards,
-                                     [sh.x[:, qi] for sh in shards],
-                                     q_emb, deg)
+            res = run([sh.x[:, qi] for sh in shards], q_emb)
             for c, r in zip(cols, res):
                 c.append(r)
         resid = np.stack([torch.stack(c, dim=1).cpu().numpy()
@@ -1113,5 +1143,7 @@ def serve_gossip_counts(gparams, graph, x_all: np.ndarray,
     if return_stats:
         return out, {"n_loc": int(part.n_loc), "n_devices": d,
                      "partition_s": t1 - t0,
-                     "gossip_s": time.perf_counter() - t1}
+                     "gossip_s": time.perf_counter() - t1,
+                     "capture_s": capture_s,
+                     "graphed": run is not one_query}
     return out

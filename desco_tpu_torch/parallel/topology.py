@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from . import halo as halo_mod
-from ..train.graphed import placed_step_fn
+from ..utils.cuda_graphs import placed_step_fn
 from .dp import (ReplicaParams, apply_reduced, replica_loss_and_grads,
                  replica_seed)
 

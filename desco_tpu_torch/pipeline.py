@@ -22,11 +22,15 @@ and verifies under label-preserving matching. A list of neighborhood
 models (a checkpoint ensemble) averages their stage-1 predictions in
 log2(count + 1) space. A ``mesh`` (parallel/dp.make_mesh) trains both
 stages data-parallel and shards the stage-1 forward over its replicas,
-bit-equal to one device.
+bit-equal to one device. The stage-1 forward and the bounds replay
+compiled forwards (utils/cuda_graphs.py; ``graphed=False`` runs them eagerly),
+from a service's ``ServingGraphs`` where one is given, else from caches
+made for the call.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 from typing import Dict, List, Optional, Sequence
@@ -304,7 +308,7 @@ def train_neighborhood_stage(
 
 def neighborhood_predictions(params, tgt_cfg, query_embs,
                              stage: StageData, cfg: PipelineConfig, device,
-                             mesh=None):
+                             mesh=None, graphed: bool = True, graphs=None):
     """(counts, verified): (#neighborhoods, Q) de-logged stage-1 counts,
     clamped to the combinatorial neighborhood bound when cfg.clamp_counts
     and exact-recounted on the top tail when cfg.verify_budget > 0, and
@@ -319,7 +323,12 @@ def neighborhood_predictions(params, tgt_cfg, query_embs,
     go to the device once and every member reads them. A one-member list
     is the single path. The forward runs over ``mesh`` (default: one
     replica on ``device``), batch i on replica i % D (parallel/dp.py), bit
-    for bit what one device gives."""
+    for bit what one device gives.
+
+    ``graphed``: the forward and the bounds replay compiled forwards, from
+    ``graphs`` (a service's ``utils/cuda_graphs.ServingGraphs``: one cache per
+    member, one for the bounds, all under its lock, which is held over
+    these device stages) or from caches made for this call."""
 
     if cfg.serve_bf16:
         tgt_cfg = dataclasses.replace(tgt_cfg, dtype=torch.bfloat16)
@@ -330,25 +339,35 @@ def neighborhood_predictions(params, tgt_cfg, query_embs,
         raise ValueError(f"{len(members)} ensemble members but "
                          f"{len(embs)} query embeddings")
     mesh = mesh or dp.make_mesh(1, device)
-    staged = (dp.stage_batches_for_dp(stage.batches, mesh)
-              if len(members) > 1 else None)
+    device_stage = (graphs.lock if graphs is not None
+                    else contextlib.nullcontext())
+    caches = (graphs.members if graphs is not None
+              else [None] * len(members))
+    with device_stage:
+        staged = (dp.stage_batches_for_dp(stage.batches, mesh)
+                  if len(members) > 1 else None)
 
-    def forward(p, e):
-        return dp.dp_predict_neighborhood_counts(
-            p, tgt_cfg, e, stage.batches, mesh, staged=staged)
-    if len(members) == 1:
-        counts = forward(members[0], embs[0])
-    else:
-        logs = np.mean([np.log2(np.maximum(forward(p, e), 0.0) + 1.0)
-                        for p, e in zip(members, embs)], axis=0)
-        counts = np.exp2(logs) - 1.0
+        def forward(p, e, cache):
+            return dp.dp_predict_neighborhood_counts(
+                p, tgt_cfg, e, stage.batches, mesh, staged=staged,
+                graphed=graphed, cache=cache)
+        if len(members) == 1:
+            counts = forward(members[0], embs[0], caches[0])
+        else:
+            logs = np.mean([np.log2(np.maximum(forward(p, e, c), 0.0) + 1.0)
+                            for p, e, c in zip(members, embs, caches)],
+                           axis=0)
+            counts = np.exp2(logs) - 1.0
     verified = np.zeros(0, np.int64)
     if cfg.clamp_counts:
         from .truth.bounds import clamp_counts
 
-        ubs = stage_bounds(stage, cfg,
-                           canonical_type=tgt_cfg.canonical_type,
-                           device=device)
+        with device_stage:
+            ubs = stage_bounds(stage, cfg,
+                               canonical_type=tgt_cfg.canonical_type,
+                               device=device, graphed=graphed,
+                               cache=(graphs.bounds if graphs is not None
+                                      else None))
         counts = clamp_counts(counts, ubs)
     if cfg.exact_size > 0:
         # exact small-query columns BEFORE the tail ranking, so the
@@ -460,35 +479,39 @@ def apply_exact_column_override(gossip_node_counts: np.ndarray,
 
 
 def stage_bounds(stage: StageData, cfg: PipelineConfig,
-                 canonical_type: int = 1, *, device) -> np.ndarray:
+                 canonical_type: int = 1, *, device, graphed: bool = True,
+                 cache=None) -> np.ndarray:
     """(#neighborhoods, Q) combinatorial upper bounds of a request,
     computed once and memoized on the StageData (the stage-1 clamp and
-    the stage-3 node clamp use the same bounds)."""
+    the stage-3 node clamp use the same bounds); ``graphed`` and ``cache``
+    as in ``truth/bounds.neighborhood_count_bounds``."""
     key = (canonical_type, cfg.use_node_feature, tuple(cfg.query_ids),
            cfg.neigh_input_dim)
-    cache = getattr(stage, "_bounds_cache", None)
-    if cache is None or cache[0] != key:
+    memo = getattr(stage, "_bounds_cache", None)
+    if memo is None or memo[0] != key:
         from .truth.bounds import neighborhood_count_bounds
 
         # labeled mode divides by the label-preserving |Aut|
         cached = neighborhood_count_bounds(
             stage.batches, pipeline_queries(cfg),
             canonical_type=canonical_type, labeled=cfg.use_node_feature,
-            device=device)
+            device=device, graphed=graphed, cache=cache)
         object.__setattr__(stage, "_bounds_cache", (key, cached))
         return cached
-    return cache[1]
+    return memo[1]
 
 
 def clamp_node_counts(node_counts: np.ndarray, stage: StageData,
                       cfg: PipelineConfig, canonical_type: int = 1,
-                      *, device) -> np.ndarray:
+                      *, device, graphed: bool = True,
+                      cache=None) -> np.ndarray:
     """Clamp per-node (canonical) counts — the gossip-refined stage-3
     output — to [0, UB(v)], UB(v) the bound of v's canonical
     neighborhood; nodes whose neighborhood was dropped as edgeless get
-    exactly 0. Returns a copy."""
+    exactly 0 (the bounds as ``stage_bounds`` gives them). Returns a
+    copy."""
     ubs = stage_bounds(stage, cfg, canonical_type=canonical_type,
-                       device=device)
+                       device=device, graphed=graphed, cache=cache)
     out = np.zeros_like(node_counts)
     node_rows = np.nonzero(np.asarray(stage.nindex.indicator))[0]
     out[node_rows] = np.clip(node_counts[node_rows], 0.0,

@@ -20,7 +20,8 @@ on CUDA unless ``--device cpu`` is given; ``--bf16`` runs the target
 tower in bfloat16; several ``--neigh_ckpt`` paths serve their ensemble;
 ``--n_devices`` above 1 serves over that many data-parallel replicas (-1:
 one per visible GPU), and ``--compile_cache DIR`` builds the kernels into
-DIR once for every later start.
+DIR once for every later start. The service replays its compiled
+forwards (CUDA graphs).
 
 Usage:
   python -m desco_tpu_torch.serve --neigh_ckpt release/r4/neigh.best \\

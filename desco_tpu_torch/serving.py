@@ -26,6 +26,17 @@ shards both device stages over that many data-parallel replicas
 built kernels in a directory a restarted service reuses
 (utils/compile_cache.py).
 
+The device stages replay compiled forwards, as desco_tpu jits them: the
+service holds ``utils/cuda_graphs.ServingGraphs``, one cache per ensemble
+member and one each for the bounds and the gossip forward, in one memory
+pool; a forward is captured as a CUDA graph at the first request of its
+bucket's shape (the pinned buckets below keep shapes stable; a grown
+bucket captures anew and drops the graphs of the caps it replaced) and
+replayed after that. Its lock is held over the device stages, so two
+threads calling ``count`` never replay one graph's buffers at once;
+``count_stream``'s producer thread touches no CUDA. ``graphed=False``
+runs the forwards eagerly (for comparisons; nothing falls back to it).
+
 Typical use::
 
     svc = CountingService("release/r4/neigh.best", "release/r4/gossip.best")
@@ -35,6 +46,7 @@ Typical use::
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import queue
 import threading
@@ -61,6 +73,7 @@ from .pipeline import (
     prepare_stage_data,
 )
 from .train.checkpoint import load_checkpoint
+from .utils.cuda_graphs import ServingGraphs
 from .utils.device import resolve_device
 
 
@@ -108,6 +121,7 @@ class CountingService:
         n_devices: int = 1,
         compile_cache: Optional[str] = None,
         device=None,
+        graphed: bool = True,
     ) -> None:
         """``neigh_checkpoint``: a path, or a sequence of paths for an
         ensemble. ``device``: None or "cuda" serve on the GPU (and raise
@@ -116,7 +130,9 @@ class CountingService:
         CPU) runs every device forward over that many data-parallel
         replicas (parallel/dp.py): the same bits, D batches per group.
         ``compile_cache``: the directory the kernels are built into and
-        loaded from (utils/compile_cache.py)."""
+        loaded from (utils/compile_cache.py). ``graphed``: replay the
+        compiled forwards (captured on a CUDA device, static buffers on the
+        CPU); False runs them eagerly."""
         if compile_cache:
             from .utils.compile_cache import enable_compilation_cache
 
@@ -144,6 +160,8 @@ class CountingService:
         self.gossip_params = None
         if gossip_checkpoint is not None:
             self.gossip_params, _ = self._load(gossip_checkpoint)
+        self.graphed = graphed
+        self.graphs = ServingGraphs(len(self.members)) if graphed else None
         # capacity buckets keyed by pow2 graph-slot count; each bucket's
         # (n_cap, e_cap) grows monotonically. count_stream's producer
         # thread and count() both reach _pin_caps, so growth is locked.
@@ -243,9 +261,7 @@ class CountingService:
                                    capacities=self._select_neigh_caps)
         if not stage.samples:
             return self._empty_result(stage)
-        counts, verified = neighborhood_predictions(
-            self.members, self.tgt_cfg, self.member_embs, stage,
-            self.cfg, self.device, mesh=self.mesh)
+        counts, verified = self._stage1(stage)
         if stats is not None:
             stats["stage1_s"] = time.perf_counter() - t0
             stats["stage1_batches"] = len(stage.batches)
@@ -254,9 +270,11 @@ class CountingService:
         x_all = np.zeros((graph.n_nodes, counts.shape[1]), np.float32)
         x_all[np.asarray(stage.nindex.indicator)] = counts.astype(
             np.float32)
-        node_counts, gossip_stats = serve_gossip_counts(
-            self.gossip_params, graph, x_all, self.member_embs[0],
-            n_devices=n_devices, return_stats=True, device=self.device)
+        with self._device_stage():
+            node_counts, gossip_stats = serve_gossip_counts(
+                self.gossip_params, graph, x_all, self.member_embs[0],
+                n_devices=n_devices, return_stats=True, device=self.device,
+                graphed=self.graphed)
         if stats is not None:
             stats.update(gossip_stats)
         return self._guard_and_package(stage, node_counts, counts, verified)
@@ -273,21 +291,36 @@ class CountingService:
             refined=False,
         )
 
+    def _device_stage(self):
+        """The lock over the device stages (none when eager)."""
+        return (self.graphs.lock if self.graphs is not None
+                else contextlib.nullcontext())
+
+    def _stage1(self, stage):
+        """(counts, verified rows) of stage 1: forward, bounds, clamp,
+        verification."""
+        return neighborhood_predictions(
+            self.members, self.tgt_cfg, self.member_embs, stage,
+            self.cfg, self.device, mesh=self.mesh, graphed=self.graphed,
+            graphs=self.graphs)
+
     def _finish_request(self, stage, refine: bool) -> CountResult:
         """Device stages + guards for one prepared request."""
         if not stage.samples:
             return self._empty_result(stage)
-        counts, verified = neighborhood_predictions(
-            self.members, self.tgt_cfg, self.member_embs, stage,
-            self.cfg, self.device, mesh=self.mesh)
+        counts, verified = self._stage1(stage)
         if not refine:
             return self._package_unrefined(stage, counts, verified)
         gb = prepare_gossip_batches(
             self.cfg, stage, counts,
             capacities=lambda samples: self._pin_caps(
                 self._gossip_buckets, samples, self.cfg.gossip_batch_size))
-        node_counts = dp_predict_gossip_counts(
-            self.gossip_params, self.member_embs[0], gb, self.mesh)
+        with self._device_stage():
+            node_counts = dp_predict_gossip_counts(
+                self.gossip_params, self.member_embs[0], gb, self.mesh,
+                graphed=self.graphed,
+                cache=self.graphs.gossip if self.graphs is not None
+                else None)
         return self._guard_and_package(stage, node_counts, counts, verified)
 
     def _guard_and_package(self, stage, node_counts, counts,
@@ -296,10 +329,13 @@ class CountingService:
         exact-verified row override -> exact-small-query column
         override -> graphlet aggregation."""
         if self.cfg.clamp_counts:
-            node_counts = clamp_node_counts(
-                node_counts, stage, self.cfg,
-                canonical_type=self.tgt_cfg.canonical_type,
-                device=self.device)
+            with self._device_stage():
+                node_counts = clamp_node_counts(
+                    node_counts, stage, self.cfg,
+                    canonical_type=self.tgt_cfg.canonical_type,
+                    device=self.device, graphed=self.graphed,
+                    cache=self.graphs.bounds if self.graphs is not None
+                    else None)
         node_counts = apply_verified_override(
             node_counts, counts, verified, stage.nindex)
         if self.cfg.exact_size > 0:

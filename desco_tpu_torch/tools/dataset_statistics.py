@@ -17,7 +17,9 @@ from the script), prints describe tables and writes
 the standardized features to 2-D, and with ``--checkpoint`` also every
 sampled neighborhood's pooled embedding from the trained SHMP tower
 (``models/neighborhood.embed_targets``, the checkpoint's typing
-settings).
+settings), which replays one compiled forward over a dataset's
+same-shape batches (a CUDA graph, utils/cuda_graphs.ForwardCache, as
+desco_tpu jits it).
 
 The projections run in torch on the device, without sklearn:
 
@@ -324,9 +326,11 @@ def trained_embeddings(args, neighs_by_ds, device):
                                neighborhood_sample)
     from ..batch.packed import auto_capacities, pack_samples
     from ..models import neighborhood as neigh_mod
+    from ..models.shmp_gnn import prepare_batch
     from ..pipeline import apply_degree_feature, model_configs
     from ..serving import _rehydrate_config
     from ..train.checkpoint import load_checkpoint
+    from ..utils.cuda_graphs import ForwardCache
 
     params, meta = load_checkpoint(args.checkpoint)
     cfg = _rehydrate_config(meta, None)
@@ -341,6 +345,12 @@ def trained_embeddings(args, neighs_by_ds, device):
                                    f_dim=cfg.neigh_input_dim, x=feat,
                                    order=cfg.order)
 
+    def forward(b):
+        return neigh_mod.embed_targets(params, tgt_cfg, b)
+
+    # a dataset's batches share one set of caps: one compiled forward
+    # each (desco_tpu jits embed_targets)
+    cache = ForwardCache()
     out, labels = [], []
     for name, neighs in neighs_by_ds.items():
         samples = [one_sample(nb) for nb in neighs]
@@ -349,7 +359,9 @@ def trained_embeddings(args, neighs_by_ds, device):
         caps = auto_capacities(samples, g_cap=256)
         for b in pack_samples(samples, *caps):
             with torch.inference_mode():
-                emb = neigh_mod.embed_targets(params, tgt_cfg, b.to(device))
+                b_dev = b.to(device)
+                prepare_batch(b_dev, tgt_cfg.n_edge_types, backward=False)
+                emb = cache(forward, (b_dev,), static="embed_targets")
             valid = np.asarray(b.graph_mask) > 0
             out.append(emb.float().cpu().numpy()[valid])
             labels += [name] * int(valid.sum())

@@ -11,7 +11,9 @@ size-3/4/5 canonical counts (log2(count + 1)): with the exact counts,
 and with ``main``'s predicted node counts when ``--pred_csv`` names the
 node CSV ``main`` writes. Full-batch training on the device with the
 port's Adam (lr 1e-3) on the softmax cross-entropy, a 70 / 30 split
-from numpy seed 0, the MLP's weights from ``torch.Generator`` seed 0.
+from numpy seed 0, the MLP's weights from ``torch.Generator`` seed 0. As
+desco_tpu jits it, the step, which repeats on one input, replays a CUDA
+graph captured once (utils/cuda_graphs.GraphedStep).
 """
 
 from __future__ import annotations
@@ -37,11 +39,13 @@ def build_parser() -> argparse.ArgumentParser:
 def classify(features: np.ndarray, y: np.ndarray, epochs: int, device,
              init=None) -> float:
     """Test accuracy of the MLP on ``features`` (counts). ``init``: the
-    MLP's initial [(w, b), ...] as numpy arrays."""
+    MLP's initial [(w, b), ...] as numpy arrays. The step replays a
+    compiled one (a CUDA graph on the card, static buffers on the CPU)."""
     import torch
     import torch.nn.functional as F
 
     from ..models.init import Linear, mlp_params
+    from ..utils.cuda_graphs import GraphedStep
     from ..train.loop import make_adam
 
     x = np.log2(features.astype(np.float64) + 1).astype(np.float32)
@@ -68,10 +72,18 @@ def classify(features: np.ndarray, y: np.ndarray, epochs: int, device,
     opt = make_adam(params)
     xt = torch.as_tensor(x[tr], device=device)
     yt = torch.as_tensor(y[tr], dtype=torch.long, device=device)
-    for _ in range(epochs):
+
+    def step(inputs):
+        h, target = inputs
         opt.zero_grad()
-        F.cross_entropy(forward(xt), yt).backward()
+        F.cross_entropy(forward(h), target).backward()
         opt.step(1e-3)
+
+    step = GraphedStep(step, (xt, yt),
+                       capture=torch.device(device).type == "cuda",
+                       state=opt.state_tensors())
+    for _ in range(epochs):
+        step((xt, yt))
     with torch.no_grad():
         pred = forward(torch.as_tensor(x[te], device=device)).argmax(-1)
     return float((pred.cpu().numpy() == y[te]).mean())

@@ -29,7 +29,12 @@ sets. ``er`` and ``comm`` draw desco_tpu's numpy stream; ``ba`` and
 
 Each time is the median of three windows, each of enough forwards for
 half a second, and each window ends with a synchronize (the CUDA queue
-drained), so it times device work done, not work enqueued.
+drained), so it times device work done, not work enqueued. As desco_tpu
+times a jitted forward, a partition whose shards lie on one device
+replays its forward as a CUDA graph captured once
+(utils/cuda_graphs.GraphedStep); shards over several cards copy across
+devices inside the forward, which one graph cannot record, and run
+eagerly (the tool says so).
 """
 
 from __future__ import annotations
@@ -147,6 +152,7 @@ def run(args, params=None, log=print) -> dict:
 
     from ..models.shmp_gnn import init_shmp, neighborhood_target_config
     from ..parallel import halo
+    from ..utils.cuda_graphs import GraphedStep, clone_outputs
     from ..utils.device import device_label, resolve_device
 
     device = resolve_device(args.device)
@@ -163,9 +169,21 @@ def run(args, params=None, log=print) -> dict:
             torch.cuda.synchronize()
 
     def timed(shards):
-        def f():
+        def forward():
             return halo.halo_shmp_core(params, cfg, shards)
-        out = f()
+
+        on = {sh.device for sh in shards}
+        if len(on) > 1:
+            f = forward
+        else:
+            [dev] = on
+            compiled = GraphedStep(lambda _: forward(), (),
+                                   capture=dev.type == "cuda",
+                                   inference=True, device=dev)
+
+            def f():
+                return compiled(())
+        out = clone_outputs(f())
         sync()
         t0 = time.perf_counter()
         for _ in range(args.reps):
@@ -187,6 +205,9 @@ def run(args, params=None, log=print) -> dict:
     noted = False
     for d in args.devices:
         devices = halo.shard_devices(d, device)
+        if len(set(devices)) > 1:
+            log(f"D={d}: the forward over {len(set(devices))} devices runs "
+                f"eager: a captured forward records one device")
         if len(set(devices)) < d and not noted:
             log(f"{d} shards share {len(set(devices))} device(s): the "
                 f"shards run in turn, so strong efficiency is bounded "

@@ -23,7 +23,7 @@ Per stage, after one warm-up epoch:
    ``torch.profiler``: the device's busy time (union of its kernel and
    copy intervals), its idle share over the profiled wall time, the
    number of device operations and the kernels with the most device time.
-4. The compiled steps (train/loop.Steps, train/graphed.py), in the same
+4. The compiled steps (train/loop.Steps, utils/cuda_graphs.py), in the same
    process after the eager ones: the train and eval steps the loop
    captures as CUDA graphs (the gossip train step with its dropout masks
    drawn ahead), their capture seconds, the epoch's wall time twice, and
@@ -91,7 +91,7 @@ def _graphed_stage(torch, params, opt, loss_fn, eval_fn, batches, lr,
     seconds, wall ms of the train steps and of the val pass (each ending
     in its read-back), twice, and the device profile of one epoch."""
     from ..train import loop
-    from ..train.graphed import GraphedStep
+    from ..utils.cuda_graphs import GraphedStep
 
     dev = batches[0].x.device
     lr_dev = torch.tensor(float(lr), device=dev)

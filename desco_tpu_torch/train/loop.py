@@ -6,7 +6,7 @@ host-side plateau schedule, val-monitored best-checkpoint selection,
 All batches of a run share one shape and live on the device for the whole
 run (one stacked copy). The epoch replays compiled steps: the train step
 (``carried_step``) and the eval step (``carried_eval``) of both stages
-are captured once per run and shape as CUDA graphs (train/graphed.py,
+are captured once per run and shape as CUDA graphs (utils/cuda_graphs.py,
 the counterpart of desco_tpu's ``step_jit`` and ``eval_jit``), every
 resident batch's index streams and pooling offsets derived before the
 first step (models/shmp_gnn.prepare_batch), and the graphed loops run
@@ -55,7 +55,12 @@ resumed run replays the draws of the epochs it skips.
 
 A request's packed batches are consecutive views of one host block
 (``pack_samples``), so they move to the device in one copy; prediction
-dispatches every batch before the one read-back at the end.
+dispatches every batch before the one read-back at the end. The predict
+functions replay compiled forwards (desco_tpu's ``_jit_predict_from_embs``
+and ``_jit_gossip_predict``): a ``graphed.ForwardCache`` keyed by the
+parameters, the config and the batch shape, each batch's streams and
+pooling offsets derived before its replay; ``graphed=False`` runs them
+eagerly.
 """
 
 from __future__ import annotations
@@ -78,7 +83,7 @@ from ..models.shmp_gnn import SHMPConfig, prepare_batch
 from ..parallel import dp
 from ..utils.device import resolve_device
 from .checkpoint import jax_keys, load_checkpoint, save_checkpoint
-from .graphed import GraphedStep, no_sync
+from ..utils.cuda_graphs import ForwardCache, GraphedStep, no_sync
 from .schedule import ReduceLROnPlateau
 
 
@@ -142,7 +147,7 @@ class Adam:
     def step(self, lr, ok: Optional[torch.Tensor] = None) -> None:
         """``lr``: a float, or a 0-d float32 tensor on the parameters'
         device (the same product either way). Every state tensor is
-        updated in place, so a captured step (train/graphed.py) updates
+        updated in place, so a captured step (utils/cuda_graphs.py) updates
         the live ones."""
         self._check_grads()
         g = self.grad
@@ -267,7 +272,7 @@ def carried_eval(params, eval_fn: Callable, carry):
 class Steps:
     """The train and eval steps of a run over same-shape resident batches,
     with their device carries. ``graphed``: both steps on static buffers,
-    captured once as CUDA graphs on a CUDA device (train/graphed.py),
+    captured once as CUDA graphs on a CUDA device (utils/cuda_graphs.py),
     after ``prepare(batch, backward)`` has derived every batch's
     per-batch state; else the eager steps. ``lr``: the device scalar the
     steps read. With a ``mesh`` (parallel/dp.py) ``train_dev`` holds
@@ -651,29 +656,84 @@ def _valid_rows(batches: List[PackedGraphs], preds: torch.Tensor,
     return np.concatenate(out, axis=0)
 
 
+def neighborhood_forward(params, tgt_cfg, graphed: bool = True,
+                         cache: Optional[ForwardCache] = None) -> Callable:
+    """fn(batch, query_embs) -> [g_cap, Q] de-logged stage-1 counts of a
+    device batch, desco_tpu's ``_jit_predict_from_embs``. ``graphed``: the
+    forward replays from ``cache`` (a fresh one if None), keyed by
+    ``params``, ``tgt_cfg`` and the shapes, each batch's streams and
+    pooling offsets derived first (``prepare_batch``; deriving reads back,
+    which no capture holds); else it runs eagerly."""
+
+    def forward(b, e):
+        return neigh_mod.predict_counts_from_embs(params, tgt_cfg, b, e)
+
+    return _compiled(
+        forward, lambda b: prepare_batch(b, tgt_cfg.n_edge_types, False),
+        ("neighborhood", id(params), tgt_cfg), graphed, cache)
+
+
+def gossip_forward(params, graphed: bool = True,
+                   cache: Optional[ForwardCache] = None) -> Callable:
+    """fn(batch, query_embs) -> [n_cap, Q] refined counts of a device
+    gossip batch, desco_tpu's ``_jit_gossip_predict``: the 29-query loop
+    and the direction degrees inside one forward (``graphed`` as in
+    ``neighborhood_forward``; the batch's direction streams derived
+    first)."""
+
+    def forward(b, e):
+        return gossip_mod.gossip_predict(params, b, e)
+
+    return _compiled(forward, lambda b: gossip_prepare(b, False),
+                     ("gossip", id(params)), graphed, cache)
+
+
+def _compiled(forward: Callable, prepare: Callable, static, graphed: bool,
+              cache: Optional[ForwardCache]) -> Callable:
+    """fn(batch, query_embs): ``forward`` replayed from ``cache`` under
+    ``static``, ``prepare(batch)`` first, one forward per bucket (the
+    batch's graph slots and the query count); ``forward`` itself when not
+    ``graphed``."""
+    if not graphed:
+        return forward
+    cache = cache if cache is not None else ForwardCache()
+
+    def run(b, e):
+        prepare(b)
+        return cache(forward, (b, e), static=static,
+                     group=(b.g_cap, e.shape[0]))
+
+    return run
+
+
 def predict_neighborhood_counts(params, tgt_cfg, query_embs: torch.Tensor,
-                                batches: List[PackedGraphs],
-                                device) -> np.ndarray:
+                                batches: List[PackedGraphs], device,
+                                graphed: bool = True,
+                                cache: Optional[ForwardCache] = None
+                                ) -> np.ndarray:
     """(#valid graphs over all batches, Q) de-logged stage-1 counts.
     ``query_embs`` ([Q, H] on ``device``, ``embed_queries``) come from the
     query tower, which a service runs once: the query set is static.
-    Serving runs parallel/dp.py's counterpart, bit-equal to this."""
+    Serving runs parallel/dp.py's counterpart, bit-equal to this.
+    ``graphed`` and ``cache``: ``neighborhood_forward``."""
+    run = neighborhood_forward(params, tgt_cfg, graphed, cache)
     with torch.inference_mode():
         stacked = stack_batches(batches).to(device)
-        preds = torch.stack([
-            neigh_mod.predict_counts_from_embs(params, tgt_cfg,
-                                               stacked[bi], query_embs)
-            for bi in range(len(batches))])  # [B, g_cap, Q]
+        preds = torch.stack([run(stacked[bi], query_embs)
+                             for bi in range(len(batches))])  # [B, g_cap, Q]
         return _valid_rows(batches, preds, "graph_mask")
 
 
 def predict_gossip_counts(params, query_embs: torch.Tensor,
-                          batches: List[PackedGraphs],
-                          device) -> np.ndarray:
-    """(#total_nodes, Q) refined per-node counts in node order."""
+                          batches: List[PackedGraphs], device,
+                          graphed: bool = True,
+                          cache: Optional[ForwardCache] = None
+                          ) -> np.ndarray:
+    """(#total_nodes, Q) refined per-node counts in node order
+    (``gossip_forward``)."""
+    run = gossip_forward(params, graphed, cache)
     with torch.inference_mode():
         stacked = stack_batches(batches).to(device)
-        preds = torch.stack([
-            gossip_mod.gossip_predict(params, stacked[bi], query_embs)
-            for bi in range(len(batches))])  # [B, n_cap, Q]
+        preds = torch.stack([run(stacked[bi], query_embs)
+                             for bi in range(len(batches))])  # [B, n_cap, Q]
         return _valid_rows(batches, preds, "node_mask")

@@ -13,20 +13,30 @@ serving time:
 
 The tree DP's only primitive is an adjacency SpMV over the packed edge
 stream (``index_add_``), run in f32 on the batch's device. Queries whose
-BFS spanning trees coincide share one DP.
+BFS spanning trees coincide share one DP. A batch's bounds are one
+compiled forward per batch shape (desco_tpu's
+``@partial(jax.jit, static_argnums=(1, 2))``): a request's batches move to
+the device once and each replays it (utils/cuda_graphs.ForwardCache, keyed by
+the schedules and the canonical type).
+
+The bounds are sums of integer-valued f32 values whose order
+``index_add_`` does not fix on the card (atomic adds): where every partial
+sum is an integer below 2^24 each order gives the same bits; above it
+they may differ in the last places.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..batch.packed import PackedGraphs
+from ..batch.packed import PackedGraphs, stack_batches
 from ..graph.container import Graph
 from ..ops.segment import segment_sum
+from ..utils.cuda_graphs import ForwardCache
 from .vf2 import symmetric_factor
 
 
@@ -128,10 +138,13 @@ def _batch_bounds(batch: PackedGraphs, schedules,
 def neighborhood_count_bounds(
     batches: List[PackedGraphs], queries: Sequence[Graph],
     canonical_type: int = 1, labeled: bool = False, *, device,
+    graphed: bool = True, cache: Optional[ForwardCache] = None,
 ) -> np.ndarray:
     """(#neighborhoods, Q) f32 upper bounds, rows in the same valid-graph
     order as ``predict_neighborhood_counts``. Host batches are moved to
-    ``device``.
+    ``device`` in one copy. ``graphed``: each batch replays the compiled
+    ``_batch_bounds`` from ``cache`` (a fresh one if None); else it runs
+    eagerly.
 
     ``labeled``: divide by the label-preserving |Aut(q)| (queries carry
     one-hot node_feat). The structural divisor is larger (a
@@ -143,14 +156,24 @@ def neighborhood_count_bounds(
         symmetric_factor(q, (q.node_feat.argmax(-1).astype(np.int32)
                              if labeled else None))
         for q in queries], dtype=np.float32)
-    outs, valids = [], []
+
+    def forward(b):
+        return _batch_bounds(b, schedules, canonical_type)
+
+    if graphed and cache is None:
+        cache = ForwardCache()
     with torch.inference_mode():
-        for b in batches:
-            outs.append(_batch_bounds(b.to(device), schedules,
-                                      canonical_type))
-            valids.append(np.asarray(b.graph_mask) > 0)
+        stacked = stack_batches(batches).to(device)
+        outs = []
+        for i in range(len(batches)):
+            b = stacked[i]
+            outs.append(cache(forward, (b,),
+                              static=("bounds", schedules, canonical_type),
+                              group=b.g_cap)
+                        if graphed else forward(b))
         ubs = torch.cat(outs).cpu().numpy()
-    ubs = ubs[np.concatenate(valids)]
+    ubs = ubs[np.concatenate([np.asarray(b.graph_mask) > 0
+                              for b in batches])]
     return ubs / auts[None, :]
 
 

@@ -1058,7 +1058,7 @@ def test_graphed_epochs_equal_eager_on_gpu(rng, cuda_device, tmp_path,
 def test_no_sync_refuses_a_read_back_on_gpu(cuda_device):
     """The guard the graphed loops run under raises on a read-back, and
     puts the debug mode back."""
-    from desco_tpu_torch.train.graphed import no_sync
+    from desco_tpu_torch.utils.cuda_graphs import no_sync
 
     t = torch.ones((), device=cuda_device)
     with pytest.raises(RuntimeError):
@@ -1175,3 +1175,144 @@ def test_graphed_halo_steps_equal_eager_on_gpu(rng, cuda_device):
         for x, y in zip(ca, cb):
             assert all(torch.equal(u, v) for u, v in zip(x, y))
         assert na == nb and na["gather_segment_sum_bwd"] > 0
+
+
+# ------------------------------------------------- compiled serving forwards
+@pytest.mark.cuda
+def test_graphed_forwards_equal_eager_on_gpu(cuda_device):
+    """release/r4's neighborhood (f32 and bf16 tower), gossip and bounds
+    forwards captured as CUDA graphs: replays under ``no_sync`` (a
+    read-back raises) equal the eager forwards bit for bit (these bounds'
+    sums are integers below 2^24, which every order sums exactly) with
+    the same launches; the service serves the same ``CountResult``
+    graphed and eager, and a repeated request captures nothing."""
+    from desco_tpu_torch.data.synthetic import generate_synthetic
+    from desco_tpu_torch.models import gossip as gm
+    from desco_tpu_torch.models import neighborhood as nm
+    from desco_tpu_torch.models.shmp_gnn import prepare_batch
+    from desco_tpu_torch.pipeline import (pipeline_queries,
+                                          prepare_gossip_batches,
+                                          prepare_stage_data)
+    from desco_tpu_torch.serving import CountingService
+    from desco_tpu_torch.utils import cuda_graphs as graphed
+    from desco_tpu_torch.train.loop import gossip_prepare
+    from desco_tpu_torch.truth.bounds import (_batch_bounds,
+                                              _hashable_schedules)
+
+    graphs = generate_synthetic(12, min_size=10, max_size=28, seed=5)
+    r4 = ("release/r4/neigh.best", "release/r4/gossip.best")
+    svc = CountingService(*r4, device=cuda_device)
+    eager = CountingService(*r4, device=cuda_device, graphed=False)
+    want = eager.count(graphs)
+    got = svc.count(graphs)
+    for f in dataclasses.fields(want):
+        np.testing.assert_array_equal(getattr(got, f.name),
+                                      getattr(want, f.name), err_msg=f.name)
+    before = svc.graphs.stats()
+    assert before["captures"] == before["forwards"] == 3
+    svc.count(graphs)
+    assert svc.graphs.stats()["captures"] == 3
+
+    stage = prepare_stage_data(svc.cfg, graphs,
+                               capacities=svc._select_neigh_caps)
+    b = stage.batches[0].to(cuda_device)
+    gb = prepare_gossip_batches(svc.cfg, stage, np.ones(
+        (len(stage.samples), 29)))[0].to(cuda_device)
+    prepare_batch(b, svc.tgt_cfg.n_edge_types, backward=False)
+    gossip_prepare(gb, backward=False)
+    sched = _hashable_schedules(pipeline_queries(svc.cfg))
+    p, e = svc.members[0], svc.member_embs[0]
+    bf16 = dataclasses.replace(svc.tgt_cfg, dtype=torch.bfloat16)
+    cases = [
+        (lambda x, q: nm.predict_counts_from_embs(p, svc.tgt_cfg, x, q),
+         (b, e)),
+        (lambda x, q: nm.predict_counts_from_embs(p, bf16, x, q), (b, e)),
+        (lambda x, q: gm.gossip_predict(svc.gossip_params, x, q), (gb, e)),
+        (lambda x: _batch_bounds(x, sched, 1), (b,))]
+    for fn, inputs in cases:
+        with torch.inference_mode():
+            cs.reset_launches()
+            ref = fn(*inputs)
+            torch.cuda.synchronize()
+            n_eager = cs.read_launches()
+        fwd = graphed.GraphedStep(lambda xs, fn=fn: fn(*xs), inputs,
+                                  capture=True, inference=True)
+        cs.reset_launches()
+        with graphed.no_sync(cuda_device):
+            out = fwd(inputs)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref)
+        assert cs.read_launches() == n_eager
+
+
+@pytest.mark.cuda
+def test_graphed_halo_serve_and_bench_on_gpu(rng, cuda_device):
+    """The halo serve over 4 shards on the card replays one query's
+    captured forward for every query, bit-equal to the eager serve; the
+    bench's forward and train step captured equal their eager runs bit
+    for bit (two steps: losses, parameters, Adam's moments)."""
+    import copy
+
+    from desco_tpu_torch import bench
+    from desco_tpu_torch.models import gossip as gm
+    from desco_tpu_torch.models import neighborhood as nm
+    from desco_tpu_torch.models.shmp_gnn import (neighborhood_target_config,
+                                                 prepare_batch, query_config)
+    from desco_tpu_torch.parallel import halo
+    from desco_tpu_torch.train import loop
+
+    g, _ = halo_typed_graph(rng, n=300, p=0.02)
+    x = (rng.random((300, 5)) * 4).astype(np.float32)
+    gp = gm.init_gossip_model(hidden_dim=16, emb_channels=16,
+                              generator=torch.Generator().manual_seed(5))
+    gp = gp.to(cuda_device).requires_grad_(False)
+    embs = torch.randn(5, 16, generator=torch.Generator().manual_seed(6))
+    embs = embs.to(cuda_device)
+    outs = [halo.serve_gossip_counts(gp, g, x, embs, n_devices=4,
+                                     return_stats=True, device=cuda_device,
+                                     graphed=gr) for gr in (False, True)]
+    assert outs[1][1]["graphed"] and not outs[0][1]["graphed"]
+    np.testing.assert_array_equal(outs[1][0], outs[0][0])
+
+    host, host_q = bench.build_workload(n_graphs=4)
+    batch, qb = host.to(cuda_device, training=True), host_q.to(cuda_device)
+    tt = neighborhood_target_config(layer_num=3, hidden_dim=32,
+                                    output_dim=32, agg_mode="kernel")
+    tq = query_config(layer_num=3, hidden_dim=32, output_dim=32)
+    params = nm.init_neighborhood_model(
+        tt, tq, torch.Generator().manual_seed(0)).to(cuda_device)
+    for b, c in ((batch, tt), (qb, tq)):
+        prepare_batch(b, c.n_edge_types, backward=True)
+    fixed = copy.deepcopy(params).requires_grad_(False)
+
+    def forward(b, q):
+        return nm.predict_counts(fixed, tt, tq, b, q)
+
+    fwds = [bench.timed_forward(forward, batch, qb, graphed=gr,
+                                capture=True)() for gr in (False, True)]
+    assert torch.equal(fwds[0], fwds[1])
+    tb = dataclasses.replace(batch, y=torch.rand(
+        batch.g_cap, 29, device=cuda_device) * 20)
+    prepare_batch(tb, tt.n_edge_types, backward=True)
+    runs = []
+    for gr in (False, True):
+        p = copy.deepcopy(params)
+        opt = loop.make_adam(p)
+        loss = torch.zeros((), device=cuda_device)
+        loss_fn = loop.neighborhood_loss_fn(tt, tq, qb)
+        gen = torch.Generator(device=cuda_device).manual_seed(1)
+
+        def step_on(b, p=p, opt=opt, loss=loss, loss_fn=loss_fn, gen=gen):
+            loss.copy_(loop.train_step(p, opt, loss_fn, b, 1e-4, gen)[0])
+
+        step = bench.timed_step(step_on, tb, opt.state_tensors() + [loss],
+                                gen, graphed=gr, capture=True)
+        losses = []
+        for _ in range(2):
+            step()
+            losses.append(loss.clone())
+        torch.cuda.synchronize()
+        runs.append((losses, opt.flat.clone(), opt.mu.clone()))
+    assert all(torch.equal(u, v) for u, v in zip(runs[0][0], runs[1][0]))
+    assert torch.equal(runs[0][1], runs[1][1])
+    assert torch.equal(runs[0][2], runs[1][2])

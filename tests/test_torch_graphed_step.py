@@ -1,4 +1,4 @@
-"""The compiled training step (desco_tpu_torch/train/graphed.py) on the
+"""The compiled training step (desco_tpu_torch/utils/cuda_graphs.py) on the
 CPU, where it runs on its static buffers without a capture.
 
 The static-buffer steps must equal the eager steps bit for bit (the same
@@ -42,7 +42,7 @@ from desco_tpu_torch.ops import cuda_segment as cs
 from desco_tpu_torch.pipeline import (build_query_batch,
                                       train_neighborhood_stage)
 from desco_tpu_torch.pipeline import model_configs as t_model_configs
-from desco_tpu_torch.train import graphed
+from desco_tpu_torch.utils import cuda_graphs as graphed
 from desco_tpu_torch.train import loop as tloop
 from desco_tpu_torch.train.checkpoint import flatten_params
 

@@ -203,7 +203,7 @@ def test_checkpoint_roundtrip_both_ways(tiny_cfg, tiny_data, tmp_path):
 def test_nan_step_guard(tiny_cfg, tiny_data, graphed):
     """A batch with non-finite labels aborts training with a clear error,
     and the poisoned update never touched parameters or Adam moments:
-    the eager step and the static-buffer step (train/graphed.py) alike."""
+    the eager step and the static-buffer step (utils/cuda_graphs.py) alike."""
     train, val, _ = tiny_data
     tt, tq, params, qb = neigh_setup(tiny_cfg)
     before = {k: v.copy() for k, v in flatten_params(params).items()}
@@ -273,7 +273,7 @@ def test_resume_equals_uninterrupted(tiny_cfg, tiny_data, tmp_path,
     """3 epochs, stop, resume to 6: epoch, LR, best_val, the Adam state,
     the shuffle stream and the dropout masks all continue, so the resumed
     run ends where an uninterrupted one does, with the eager steps and
-    with the static-buffer ones (train/graphed.py; the gossip train step
+    with the static-buffer ones (utils/cuda_graphs.py; the gossip train step
     stays eager, its eval step is static)."""
     train, val, _ = tiny_data
     if stage_name == "neighborhood":
