@@ -289,11 +289,30 @@ nonzero on a failed check (no phase catches its own failure):
      Results are bit-equal both ways except counts of 2^24 and more that
      a bound over 2^24 clamped (rtol 1e-6; the count of such entries is
      printed); about 90 s.
+ 18. data parallelism across processes (run before the record): two
+     ranks of a gloo process group on the one card (this script with
+     ``--dist_rank``, started by ``file://`` rendezvous, every child
+     killed past its timeout): (a) each rank runs the D = 2 DP steps of
+     both stages (paper config, phase 6's batches, three groups, the
+     gossip's at its dropout), eager and graphed (its part and the sum
+     with Adam as two CUDA graphs, the gather between them), both DP
+     predicts (phase 6's models, 8 batches each) and phase 14's 2 x 2 DP
+     x halo step (four calls each way); every result on both ranks, and
+     the D = 2 DP steps graphed in this process, bit-equal to the eager
+     D = 2 in this process (its predicts and DP x halo step run eager
+     alone); each rank's launches printed, K1, K1', K2, K3 and K4
+     launched on both; the step ms of both ways and the gather's ms; (b) ``python -m torch.distributed.run --standalone
+     --nproc_per_node 2 -m desco_tpu_torch.main --n_devices 2
+     --train_neigh --train_gossip --test_gossip`` at the paper width, 2
+     epochs per stage on SynNp_32_3 (test SynNp_16_4): exit 0, the mesh
+     line printed once (rank 0), one set of checkpoints, finite normed
+     MSE; the phase's seconds.
  12. one JSON line of kernels (K2' and K3' at T = 33 and at T = 1 in
      rows of their own, launched by the order-4 run and the DIAMNet
      driver; every other row's launches count the ablation path, labeled
-     serving and the ensembles, the halo path, data parallelism and the
-     tools too, the gather-fused K1's the baseline entry points as well;
+     serving and the ensembles, the halo path, data parallelism in one
+     process and across processes (phase 18, both ranks) and the tools
+     too, the gather-fused K1's the baseline entry points as well;
      K1, K4 and the gather-fused K1 carry their halo use sites; the
      tools' entry is the last of ``launches_per_path`` in every row, 0
      where they do not run the row's shape), the card line, then the
@@ -2563,7 +2582,7 @@ def dp_step_checks(torch, cs, add, dp, params, loss_fn, loss_fn_cpu,
     for _ in range(2):
         p = copy.deepcopy(params)
         opt = make_adam(p)
-        step = dp.dp_step_fn(loss_fn, opt, mesh, kind)
+        step = dp.DPStep(loss_fn, opt, mesh, kind)
         gens = dp.replica_generators(mesh, 14)
         cs.reset_launches()
         s_loss, ok = step(p, group, 1e-3, gens)
@@ -2741,7 +2760,7 @@ def dp_phase(torch, cs, dev, seed: int, svc, main_req, res_main,
     for _ in range(2):
         p = copy.deepcopy(p_gossip)
         opt = make_adam(p)
-        step = dp.dp_step_fn(
+        step = dp.DPStep(
             train_loop.gossip_loss_fn(tcfg.gossip_dropout, q_embs), opt,
             mesh2, "sum")
         cs.reset_launches()
@@ -2953,7 +2972,8 @@ def dp_phase(torch, cs, dev, seed: int, svc, main_req, res_main,
             "predict_ms": dp_ms, "neigh_step": neigh_rows,
             "gossip_step": gossip_rows, "epochs": epochs,
             "dp_halo": {"loss_rel": lerr, "grad_err": gerr, "ms": halo_ms},
-            "grid": replicas, "graft": graft, "seconds": took}
+            "grid": replicas, "grid_parts": parts, "graft": graft,
+            "seconds": took}
 
 
 # ------------------------------------------------------- phase 15: tools
@@ -3781,6 +3801,384 @@ def prepare_gossip_batches_for(svc, stage, counts):
                                            svc.cfg.gossip_batch_size))
 
 
+# ------------------------------ phase 18: data parallelism across processes
+# the ranks of phase 18 (two on the one card, gloo), the group's timeout
+# and the children's (every child is killed past it and the phase fails)
+DIST_WORLD = 2
+DIST_GROUP_TIMEOUT_S = 240.0
+DIST_JOIN_TIMEOUT_S = 300.0
+# phase 18's torchrun run of ``main``: paper width, 2 epochs per stage
+DIST_MAIN_FLAGS = ["--train_dataset", "SynNp_32_3", "--valid_dataset",
+                   "SynNp_32_3", "--test_dataset", "SynNp_16_4",
+                   "--neigh_epoch_num", "2", "--gossip_epoch_num", "2"]
+# the kernels of the path, by counter name
+PATH_KERNELS = ("sorted_segment_sum", "gather_segment_sum",
+                "fused_typed_transform_aggregate", "typed_aggregate_bwd",
+                "segment_sum_vjp")
+
+
+def dist_steps(torch, dp, step_fn, params, group_of, n_steps, gens=None):
+    """``n_steps`` calls of a DP step (``dp.DPStep``) over the groups
+    ``group_of(i)``, the replica generators reseeded per step: (losses,
+    flags, the first step's reduced gradient, the final parameters,
+    Adam's first moment, ms per step after the first)."""
+    opt = step_fn.opt
+    losses, oks, grad1, ms = [], [], None, []
+    for i in range(n_steps):
+        if gens is not None:
+            dp.reseed_replica_generators(gens, 18 + i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, ok = step_fn(params, group_of(i), 1e-3, gens)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        oks.append(bool(ok))
+        if grad1 is None:
+            grad1 = opt.grad.cpu().numpy().copy()
+    return {"losses": losses, "oks": oks, "grad1": grad1,
+            "flat": opt.flat.cpu().numpy().copy(),
+            "mu": opt.mu.cpu().numpy().copy(), "ms": ms[1:]}
+
+
+def dist_workload(torch, job, dev, reference: bool = False):
+    """Phase 18's work on one process: the D = 2 DP neighborhood and
+    gossip steps (eager and graphed), both DP predicts and the 2 x 2
+    DP x halo step, over ``dp.make_mesh(2)`` and ``make_mesh2d(2, 2)``:
+    across the ranks in a rank, in one process in the parent. Returns
+    numpy results, ms and the gather's ms. ``reference`` (the parent):
+    the predicts and the DP x halo step eager alone, no gather timed."""
+    from desco_tpu_torch.models.shmp_gnn import prepare_batch
+    from desco_tpu_torch.parallel import dp, topology
+    from desco_tpu_torch.pipeline import model_configs
+    from desco_tpu_torch.train import loop as train_loop
+    from desco_tpu_torch.train.checkpoint import params_from_jax
+    from desco_tpu_torch.utils import distributed
+
+    tgt_cfg, qry_cfg = model_configs(job["tcfg"], dev)
+    mesh = dp.make_mesh(2, dev)
+    q_dev = job["qb"].to(dev)
+    prepare_batch(q_dev, qry_cfg.n_edge_types, backward=True)
+    q_embs = torch.from_numpy(job["q_embs"]).to(dev)
+    out = {"local": list(mesh.local)}
+
+    def groups(batches, prep):
+        placed = dp.reshape_for_dp(dp.place_batches(
+            dp.pad_batches_to_multiple(list(batches), 2), mesh,
+            training=True), 2)
+        for g in placed:
+            for b in g:
+                if not isinstance(b, dp.RemoteBatch):
+                    prep(b)
+        return placed
+
+    stages = {
+        "neighborhood": (
+            groups(job["tbs"], lambda b: prepare_batch(
+                b, tgt_cfg.n_edge_types, True)),
+            train_loop.neighborhood_loss_fn(tgt_cfg, qry_cfg, q_dev),
+            job["neigh"], "graphs"),
+        "gossip": (
+            groups(job["gbs"], lambda b: train_loop.gossip_prepare(b, True)),
+            train_loop.gossip_loss_fn(job["dropout"], q_embs),
+            job["gossip"], "sum")}
+    for name, (grs, loss_fn, flat0, kind) in stages.items():
+        for graphed in (False, True):
+            params = params_from_jax(flat0).to(dev)
+            opt = train_loop.make_adam(params)
+            step = dp.DPStep(loss_fn, opt, mesh, kind, graphed=graphed)
+            gens = dp.replica_generators(mesh, 18)
+            out[name, graphed] = dist_steps(
+                torch, dp, step, params, lambda i: grs[i % len(grs)],
+                job["n_steps"], gens)
+    if not reference:
+        # the gather of one step's terms (a [1, n + 1] row per rank)
+        n = sum(p.numel()
+                for p in params_from_jax(job["neigh"]).parameters())
+        row = torch.zeros((len(mesh.local), n + 1), device=dev)
+        ms = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            distributed.gather_in_rank_order(row)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out["gather_ms"] = ms[5:]
+        out["gather_bytes"] = 4 * (n + 1)
+    # both DP predicts
+    best = params_from_jax(job["best"]).to(dev).requires_grad_(False)
+    gbest = params_from_jax(job["gbest"]).to(dev).requires_grad_(False)
+    out["predict_neigh"] = dp.dp_predict_neighborhood_counts(
+        best, tgt_cfg, q_embs, job["pred_tbs"], mesh, graphed=not reference)
+    out["predict_gossip"] = dp.dp_predict_gossip_counts(
+        gbest, q_embs, job["pred_gbs"], mesh, graphed=not reference)
+    # the 2 x 2 DP x halo step, four calls each way
+    grid = topology.make_mesh2d(2, 2, devices=[dev])
+    replicas = topology.place_replicas(
+        topology.stack_partitions(job["parts"]), grid)
+    hq = torch.from_numpy(job["halo_q"]).to(dev)
+    for graphed in (False,) if reference else (False, True):
+        params = params_from_jax(job["halo_gossip"]).to(dev)
+        opt = train_loop.make_adam(params)
+        step = topology.dp_halo_gossip_step_fn(opt, dropout=job["dropout"],
+                                               graphed=graphed)
+        calls, ms = [], []
+        for seed in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, ok = step(params, replicas, hq, 1e-3, seed=seed)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            calls.append([float(loss), bool(ok)] + [
+                t.cpu().numpy().copy()
+                for t in (opt.grad, opt.flat, opt.mu, opt.nu)])
+        out["halo", graphed] = {"calls": calls, "ms": ms[1:]}
+    return out
+
+
+def dist_rank_main(args) -> int:
+    """One rank of phase 18 (``--dist_rank``): start the gloo group on the
+    card, run ``dist_workload`` eager and graphed with the launch counters
+    zeroed first, and write the results and the counts."""
+    import pickle
+
+    import torch
+
+    from desco_tpu_torch.ops import cuda_segment as cs
+    from desco_tpu_torch.utils import distributed
+
+    if not torch.cuda.is_available():
+        fail("a phase-18 rank needs a CUDA device")
+    with open(args.dist_job, "rb") as f:
+        job = pickle.load(f)
+    backend = distributed.init(
+        "cuda", init_method=job["init_method"], rank=args.dist_rank,
+        world_size=DIST_WORLD, timeout_s=DIST_GROUP_TIMEOUT_S)
+    try:
+        dev = distributed.rank_device("cuda")
+        cs.reset_launches()
+        t0 = time.perf_counter()
+        out = dist_workload(torch, job, dev)
+        out["seconds"] = time.perf_counter() - t0
+        out["launches"] = cs.read_launches()
+        out["backend"] = backend
+    finally:
+        distributed.shutdown()
+    with open(os.path.join(job["out_dir"], f"rank{args.dist_rank}.pkl"),
+              "wb") as f:
+        pickle.dump(out, f)
+    return 0
+
+
+def run_children(cmds, timeout: float, env=None) -> list:
+    """Start every command in a session of its own from the repository
+    root, wait for all of them for at most ``timeout`` s, kill them all
+    on a timeout, and fail unless each exits 0; return their (stdout,
+    stderr)."""
+    import signal
+
+    procs = [subprocess.Popen(c, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True,
+                              start_new_session=True) for c in cmds]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout))
+    except subprocess.TimeoutExpired:
+        fail(f"a child process did not finish in {timeout:.0f} s: "
+             f"{cmds}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait(timeout=30)
+    for c, p, (out, err) in zip(cmds, procs, outs):
+        check(p.returncode == 0, f"{' '.join(c[:6])} ... exited "
+              f"{p.returncode}:\n{out[-4000:]}\n{err[-4000:]}")
+    return outs
+
+
+def strip_ms(result: dict) -> dict:
+    """A result without its timings."""
+    return {k: v for k, v in result.items() if k != "ms"}
+
+
+def equal_results(a, b) -> bool:
+    """Nested results (dicts, lists, arrays, floats) equal bit for bit."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(equal_results(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(equal_results(x, y)
+                                        for x, y in zip(a, b))
+    if isinstance(a, np.ndarray):
+        return np.array_equal(a, b)
+    return a == b
+
+
+def dist_phase(torch, cs, dev, seed: int, tcfg, qb, train_stage, gbatches,
+               best, gbest, q_embs, grid_parts, halo_gossip,
+               halo_q) -> dict:
+    """Phase 18: data parallelism across processes, two ranks of a gloo
+    group on the one card. (a) Each rank (``chip_smoke.py --dist_rank``)
+    runs the D = 2 DP steps of both stages (paper config, phase 6's
+    batches, three groups; the gossip's at its dropout), eager and
+    graphed, both DP predicts and phase 14's 2 x 2 DP x halo step (four
+    calls each way): every result bit-equal on both ranks, graphed to
+    eager and to the same D = 2 in this process (eager; the in-process
+    graphed steps timed beside). Each rank's launches are printed; K1, K1',
+    K2, K3 and K4 must have launched on both. (b) ``python -m
+    torch.distributed.run --nproc_per_node 2 -m desco_tpu_torch.main
+    --n_devices 2 --train_neigh --train_gossip --test_gossip`` at the
+    paper width, 2 epochs per stage: exit 0, one set of checkpoints,
+    finite normed MSE. Returns the launches (both ranks) and figures."""
+    import pickle
+
+    from desco_tpu_torch.train.checkpoint import flatten_params
+
+    t18 = time.perf_counter()
+    work = tempfile.TemporaryDirectory(prefix="desco_smoke_dist_")
+    host = lambda m: {k: np.asarray(v)  # noqa: E731
+                      for k, v in flatten_params(m).items()}
+    p_neigh = neigh_init(torch, tcfg, seed)
+    p_gossip = gossip_init(torch, tcfg, seed)
+    job = dict(
+        init_method=f"file://{os.path.join(work.name, 'rendezvous')}",
+        out_dir=work.name, tcfg=tcfg, qb=qb, n_steps=3,
+        tbs=list(train_stage.batches[:6]), gbs=list(gbatches[:6]),
+        pred_tbs=list(train_stage.batches[:8]), pred_gbs=list(gbatches[:8]),
+        neigh=host(p_neigh), gossip=host(p_gossip), best=host(best),
+        gbest=host(gbest), q_embs=q_embs.detach().cpu().numpy(),
+        dropout=tcfg.gossip_dropout, parts=grid_parts,
+        halo_gossip=host(halo_gossip),
+        halo_q=halo_q.detach().cpu().numpy())
+    path = os.path.join(work.name, "job.pkl")
+    with open(path, "wb") as f:
+        pickle.dump(job, f)
+    # the same D = 2 in this process: the reference (eager; the DP steps
+    # graphed too, timed)
+    t0 = time.perf_counter()
+    ref = dist_workload(torch, job, dev, reference=True)
+    ref_s = time.perf_counter() - t0
+    # (a) the two ranks
+    t0 = time.perf_counter()
+    run_children([[sys.executable, os.path.join(REPO, "chip_smoke.py"),
+                   "--dist_rank", str(r), "--dist_job", path]
+                  for r in range(DIST_WORLD)], DIST_JOIN_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(DIST_WORLD):
+        with open(os.path.join(work.name, f"rank{r}.pkl"), "rb") as f:
+            ranks.append(pickle.load(f))
+    compared = {}
+    for name in ("neighborhood", "gossip", "halo"):
+        want = strip_ms(ref[name, False])
+        for who, res in [("one process", ref)] + [
+                (f"rank {r}", x) for r, x in enumerate(ranks)]:
+            for graphed in (False, True):
+                if (name, graphed) in res:
+                    compared[f"{name}, {who}, "
+                             f"{'graphed' if graphed else 'eager'}"] = (
+                        equal_results(strip_ms(res[name, graphed]), want))
+    for key in ("predict_neigh", "predict_gossip"):
+        for r, res in enumerate(ranks):
+            compared[f"{key}, rank {r}"] = np.array_equal(res[key], ref[key])
+    print(f"phase 18 (data parallelism across {DIST_WORLD} processes, "
+          f"backend {ranks[0]['backend']}, one card): bit-equal to the "
+          f"eager D = 2 in one process: {json.dumps(compared)}", flush=True)
+    check(all(compared.values()), "phase 18: a result differs from the "
+          "eager D = 2 in one process")
+    check([res["local"] for res in ranks] == [[0], [1]],
+          "phase 18: rank r does not hold replica r")
+    check(all(res["backend"] == "gloo" for res in ranks),
+          "phase 18: two ranks on one card did not choose gloo")
+    for name in ("neighborhood", "gossip"):
+        check(all(ref[name, False]["oks"])
+              and ref[name, False]["losses"][0]
+              != ref[name, False]["losses"][-1],
+              f"phase 18: the {name} steps did not move the loss")
+    figures = {
+        "neigh_step_ms": {"one_process": ref["neighborhood", True]["ms"],
+                          "ranks": [r["neighborhood", True]["ms"]
+                                    for r in ranks]},
+        "gossip_step_ms": {"one_process": ref["gossip", True]["ms"],
+                           "ranks": [r["gossip", True]["ms"]
+                                     for r in ranks]},
+        "halo_step_ms": {"one_process_eager": ref["halo", False]["ms"],
+                         "ranks": [r["halo", True]["ms"] for r in ranks]},
+        "gather_ms": [float(np.median(r["gather_ms"])) for r in ranks],
+        "gather_bytes": ranks[0]["gather_bytes"],
+        "rank_seconds": [r["seconds"] for r in ranks],
+        "one_process_s": ref_s, "ranks_wall_s": ranks_s}
+    print(f"phase 18 figures (graphed steps after the first, ms): "
+          f"{json.dumps(figures)}", flush=True)
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ranks[0]["launches"]}
+    for r, res in enumerate(ranks):
+        print(f"phase 18 rank {r} launches: {json.dumps(res['launches'])}",
+              flush=True)
+        for name in PATH_KERNELS + ("gather_segment_sum_bwd",):
+            check(res["launches"][name] > 0,
+                  f"phase 18: {name} never launched on rank {r}")
+    # (b) main under torchrun, rank 0 writing
+    t0 = time.perf_counter()
+    [(out, err)] = run_children([[
+        sys.executable, "-m", "torch.distributed.run", "--standalone",
+        "--nproc_per_node", str(DIST_WORLD), "-m", "desco_tpu_torch.main",
+        "--n_devices", str(DIST_WORLD), "--train_neigh", "--train_gossip",
+        "--test_gossip", *DIST_MAIN_FLAGS,
+        "--data_root", os.path.join(work.name, "data"),
+        "--output_dir", os.path.join(work.name, "out"),
+        "--neigh_model_path", os.path.join(work.name, "ck", "neigh"),
+        "--gossip_model_path", os.path.join(work.name, "ck", "gossip")]],
+        DIST_JOIN_TIMEOUT_S)
+    main_s = time.perf_counter() - t0
+    mesh_line = (f"data-parallel mesh: {DIST_WORLD} devices over "
+                 f"{DIST_WORLD} processes (backend gloo)")
+    check(out.count(mesh_line) == 1, f"torchrun main printed no "
+          f"'{mesh_line}' once:\n{out[-3000:]}")
+    ckpts = sorted(os.listdir(os.path.join(work.name, "ck")))
+    check(ckpts == sorted(f"{s}.{x}" for s in ("gossip", "neigh")
+                          for x in ("best.params.npz", "best.json",
+                                    "last.params.npz", "last.opt.npz",
+                                    "last.json")),
+          f"torchrun main wrote checkpoints {ckpts}")
+    mse = finite_figures(out, "graphlet_norm_mse_gossip")
+    check(len(mse) == 3, f"torchrun main: normed MSE not finite: "
+          f"{out[-2000:]}")
+    print(f"torchrun main (2 ranks on the one card, paper width, "
+          f"{' '.join(DIST_MAIN_FLAGS)}): exit 0 in {main_s:.1f} s, "
+          f"checkpoints {ckpts}, gossip normed MSE {mse}", flush=True)
+    work.cleanup()
+    took = time.perf_counter() - t18
+    print(f"phase 18 (data parallelism across processes) launches (both "
+          f"ranks): {json.dumps(launches)}", flush=True)
+    print(f"phase 18 (data parallelism across processes) took {took:.1f} s",
+          flush=True)
+    return {"launches": launches, "figures": figures, "main_s": main_s,
+            "seconds": took}
+
+
+def neigh_init(torch, tcfg, seed: int):
+    """Fresh neighborhood weights of ``tcfg`` from ``seed`` (on the CPU)."""
+    from desco_tpu_torch.models import neighborhood as neigh_mod
+    from desco_tpu_torch.pipeline import model_configs
+
+    tgt_cfg, qry_cfg = model_configs(tcfg, "cpu")
+    return neigh_mod.init_neighborhood_model(
+        tgt_cfg, qry_cfg, torch.Generator().manual_seed(seed))
+
+
+def gossip_init(torch, tcfg, seed: int):
+    """Fresh gossip weights of ``tcfg`` from ``seed + 1`` (on the CPU)."""
+    from desco_tpu_torch.models import gossip as gossip_mod
+
+    return gossip_mod.init_gossip_model(
+        hidden_dim=tcfg.gossip_hidden_dim,
+        emb_channels=tcfg.neigh_hidden_dim,
+        generator=torch.Generator().manual_seed(seed + 1))
+
+
 # --------------------------------------------------------- phase 3 checks
 def check_counts(res, n_graphs: int, what: str) -> None:
     check(res.graphlet_counts.shape == (n_graphs, 29),
@@ -3806,7 +4204,13 @@ def close_counts(a, b, what: str) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
+    # one rank of phase 18 (the script starts them itself)
+    ap.add_argument("--dist_rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--dist_job", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.dist_rank is not None:
+        return dist_rank_main(args)
 
     import torch
 
@@ -4703,6 +5107,12 @@ def main() -> int:
     print(f"compiled serving summary: {json.dumps(compiled)}", flush=True)
     data_dir.cleanup()
 
+    # ------------------------- 18. data parallelism across processes
+    dist = dist_phase(torch, cs, dev, args.seed, tcfg, qb, train_stage,
+                      gbatches, best, gres.best_params, q_embs,
+                      dpr.pop("grid_parts"), svc.gossip_params,
+                      svc.member_embs[0])
+
     # ----------------------------------------------------- 12. the record
     seg_src = "desco_tpu_torch/csrc/segment_sum.cu"
     typed_src = "desco_tpu_torch/csrc/typed_aggregate.cu"
@@ -4717,13 +5127,15 @@ def main() -> int:
                 ("f32", "", (launches, train_launches, launches_bf,
                              bf_launches, replay_launches, abl_launches,
                              serving_rest, hal["launches"],
-                             dpr["launches"], tools["launches"])),
+                             dpr["launches"], dist["launches"],
+                             tools["launches"])),
                 ("bf16", "_bf16", (launches_bf, bf_launches,
                                    tools["launches"]))):
-            # f32 rows: every launch of the ten paths (serving,
+            # f32 rows: every launch of the eleven paths (serving,
             # training, their bf16 runs, the r4 replay, the ablations
             # but the order-4 run, labeled serving and the ensembles, the
-            # halo path, data parallelism, the tools) that was not on bf16
+            # halo path, data parallelism in one process and across
+            # processes (both ranks), the tools) that was not on bf16
             # rows; bf16 rows: the bf16 launches of the bf16 paths and of
             # the tools (none: they run the f32 tower)
             if d == "f32":
@@ -4752,7 +5164,7 @@ def main() -> int:
     paths = (launches, train_launches, launches_bf, bf_launches,
              replay_launches, abl_launches, serving_rest,
              rest["driver_launches"], hal["launches"], dpr["launches"],
-             tools["launches"])
+             dist["launches"], tools["launches"])
     for key, wrapper, line_no in (("k1g", "gather_segment_sum", 310),
                                   ("k1g_bwd", "gather_segment_sum_bwd", 464)):
         per_path = [p[wrapper] - p[wrapper + "_bf16"] for p in paths]

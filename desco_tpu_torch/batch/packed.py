@@ -260,7 +260,7 @@ def stack_batches(batches: List[PackedGraphs]) -> PackedGraphs:
     def stack(xs):
         base = xs[0].base
         if (
-            base is not None
+            isinstance(base, np.ndarray)  # not an unpickled array's buffer
             and base.ndim == xs[0].ndim + 1
             and all(x.base is base for x in xs)
         ):

@@ -107,8 +107,8 @@ def dryrun_multichip(n_devices: int, device=None) -> dict:
                            n_queries=n_q, need_bwd_perm=True)
     batches = dp.pad_batches_to_multiple(batches, n_devices)[:n_devices]
     opt = loop.make_adam(params)
-    step = dp.dp_step_fn(loop.neighborhood_loss_fn(tgt_cfg, qry_cfg, qb_dev),
-                         opt, mesh, weight_kind="graphs")
+    step = dp.DPStep(loop.neighborhood_loss_fn(tgt_cfg, qry_cfg, qb_dev),
+                     opt, mesh, weight_kind="graphs")
     loss, _ = step(params, dp.place_batches(batches, mesh, training=True),
                    1e-3, dp.replica_generators(mesh, 0))
     out["neighborhood_loss"] = float(loss)
@@ -129,8 +129,8 @@ def dryrun_multichip(n_devices: int, device=None) -> dict:
         hidden_dim=16, emb_channels=16,
         generator=torch.Generator().manual_seed(1)).to(device)
     gopt = loop.make_adam(gparams)
-    gstep = dp.dp_step_fn(loop.gossip_loss_fn(0.01, query_embs), gopt, mesh,
-                          weight_kind="sum")
+    gstep = dp.DPStep(loop.gossip_loss_fn(0.01, query_embs), gopt, mesh,
+                      weight_kind="sum")
     gloss, _ = gstep(gparams, dp.place_batches(gbatches, mesh,
                                                training=True),
                      1e-3, dp.replica_generators(mesh, 2))

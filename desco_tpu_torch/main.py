@@ -26,7 +26,17 @@ their ensemble. The two ablation drivers (``ablation_gnns``,
 ``ablation_wo_canonical``) sit beside it. ``--n_devices`` (default 0,
 every visible GPU) above 1 trains both stages and predicts over that many
 data-parallel replicas (parallel/dp.py); the count is clamped to the
-visible GPUs, and on the CPU it is taken as given. ``--compile_cache
+visible GPUs, and on the CPU it is taken as given. Launched by torchrun,
+as desco_tpu's ``main.py`` runs on every host of a slice, the ranks form
+a process group first (utils/distributed.py) and the replicas span them,
+``--n_devices`` counting every rank's (a multiple of the ranks; each
+rank computes on one card, so two ranks on one card are two replicas):
+
+    python -m torch.distributed.run --standalone --nproc_per_node 2 \\
+        -m desco_tpu_torch.main --n_devices 2 --train_neigh ...
+
+Every rank trains both stages and predicts the same arrays; rank 0 alone
+writes the output files and checkpoints and prints. ``--compile_cache
 DIR`` builds the kernels into DIR once for every later run. The training
 steps and the stage-1, bounds and gossip predict forwards replay CUDA
 graphs, as desco_tpu jits them; the predicts share one set of caches
@@ -35,6 +45,7 @@ graphs, as desco_tpu jits them; the predicts share one set of caches
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import json
@@ -67,6 +78,7 @@ from .pipeline import (
 )
 from .train.checkpoint import load_checkpoint
 from .utils.compile_cache import enable_compilation_cache
+from .utils import distributed
 from .utils.cuda_graphs import ServingGraphs
 from .utils.device import resolve_device
 
@@ -120,22 +132,47 @@ def _adopt_checkpoint_config(cfg, path: str):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if distributed.launched_world() == 1:
+        return _run(args)
+    # under torchrun: the process group first, then the run; the ranks
+    # but 0 print nothing
+    distributed.init(resolve_device(args.device))
+    try:
+        with contextlib.ExitStack() as stack:
+            if distributed.rank() != 0:
+                stack.enter_context(contextlib.redirect_stdout(
+                    stack.enter_context(open(os.devnull, "w"))))
+            return _run(args)
+    finally:
+        distributed.shutdown()
+
+
+def _run(args) -> int:
     cfg = to_pipeline_config(args)
     if args.compile_cache:
         enable_compilation_cache(args.compile_cache)
     device = resolve_device(args.device)
+    world = distributed.world()
+    lead = distributed.rank() == 0  # writes the output files
+    if world > 1:
+        device = distributed.rank_device(device)
     # the data-parallel mesh: 0 = every visible GPU, a count clamped to
-    # the visible GPUs (desco_tpu clamps to its devices); on the CPU the
-    # count as given stands in for desco_tpu's fake host devices
-    n_avail = (torch.cuda.device_count() if device.type == "cuda"
-               else max(args.n_devices, 1))
+    # the visible GPUs (desco_tpu clamps to its devices), every rank's
+    # card in a process group; on the CPU the count as given stands in
+    # for desco_tpu's fake host devices
+    if device.type == "cuda":
+        n_avail = world if world > 1 else torch.cuda.device_count()
+    else:
+        n_avail = max(args.n_devices, world)
     n_dev = min(args.n_devices if args.n_devices > 0 else n_avail, n_avail)
     # the forwards run over ``mesh``; one replica trains with the
     # single-device step
     mesh = make_mesh(n_dev, device)
     train_mesh = mesh if mesh.size > 1 else None
     if train_mesh is not None:
-        print(f"data-parallel mesh: {mesh.size} devices")
+        print(f"data-parallel mesh: {mesh.size} devices"
+              + (f" over {world} processes (backend "
+                 f"{distributed.backend()})" if world > 1 else ""))
 
     if not args.train_neigh and args.neigh_checkpoint:
         cfg = _adopt_checkpoint_config(cfg, args.neigh_checkpoint[0])
@@ -143,11 +180,12 @@ def main(argv=None) -> int:
     output_dir = args.output_dir or os.path.join(
         "output", args.test_dataset,
         datetime.datetime.now().strftime("%Y%m%d_%H%M%S"))
-    os.makedirs(output_dir, exist_ok=True)
-    with open(os.path.join(output_dir,
-                           f"config_{args.test_dataset}.txt"), "w") as f:
-        json.dump({"args": vars(args),
-                   "pipeline": dataclasses.asdict(cfg)}, f, indent=2)
+    if lead:
+        os.makedirs(output_dir, exist_ok=True)
+        with open(os.path.join(output_dir,
+                               f"config_{args.test_dataset}.txt"), "w") as f:
+            json.dump({"args": vars(args),
+                       "pipeline": dataclasses.asdict(cfg)}, f, indent=2)
 
     # ---------------------------------------------------------- datasets
     print(f"loading datasets: train={args.train_dataset} "
@@ -162,21 +200,24 @@ def main(argv=None) -> int:
         return load_data(name, cfg.data_root,
                          with_labels=cfg.use_node_feature)
 
-    if args.train_neigh or args.train_gossip:
-        with _phase(f"load+truth+stage {args.train_dataset}"):
-            train_stage = prepare_stage_data(
-                cfg, load(args.train_dataset), name=args.train_dataset,
-                need_truth=True)
-        val_stage = (
-            train_stage if args.valid_dataset == args.train_dataset
-            else prepare_stage_data(cfg, load(args.valid_dataset),
-                                    name=args.valid_dataset,
-                                    need_truth=True))
-    with _phase(f"load+truth+stage {args.test_dataset}"):
-        test_graphs = load(args.test_dataset)
-        test_stage = prepare_stage_data(cfg, test_graphs,
-                                        name=args.test_dataset,
-                                        need_truth=True)
+    # in a process group rank 0 fills the datasets' disk caches (truth,
+    # samples) first and the other ranks read them
+    with distributed.rank_zero_first():
+        if args.train_neigh or args.train_gossip:
+            with _phase(f"load+truth+stage {args.train_dataset}"):
+                train_stage = prepare_stage_data(
+                    cfg, load(args.train_dataset), name=args.train_dataset,
+                    need_truth=True)
+            val_stage = (
+                train_stage if args.valid_dataset == args.train_dataset
+                else prepare_stage_data(cfg, load(args.valid_dataset),
+                                        name=args.valid_dataset,
+                                        need_truth=True))
+        with _phase(f"load+truth+stage {args.test_dataset}"):
+            test_graphs = load(args.test_dataset)
+            test_stage = prepare_stage_data(cfg, test_graphs,
+                                            name=args.test_dataset,
+                                            need_truth=True)
     print(f"{args.test_dataset}: {len(test_graphs)} graphs, "
           f"{test_stage.workload.total_nodes} nodes, "
           f"{len(test_stage.samples)} neighborhoods in "
@@ -288,50 +329,59 @@ def main(argv=None) -> int:
         # gossip gate analysis
         with torch.inference_mode():
             gates = gate_values(gossip_params, query_embs).cpu().numpy()
-        _save_csv(output_dir, f"gossip_gate_{args.test_dataset}.csv", gates)
+        if lead:
+            _save_csv(output_dir, f"gossip_gate_{args.test_dataset}.csv",
+                      gates)
 
     # -------------------------------------------------------- outputs
+    metrics = evaluate_graphlet_counts(cfg, test_stage, counts["test"],
+                                       gossip_node_counts)
+    if lead:
+        _write_outputs(output_dir, args.test_dataset, test_stage,
+                       test_graphs, counts["test"], gossip_node_counts,
+                       metrics)
+    for k, v in metrics.items():
+        print(f"graphlet_{k}: {v}")
+    print("done")
+    return 0
+
+
+def _write_outputs(output_dir: str, name: str, test_stage, test_graphs,
+                   neigh_counts: np.ndarray, gossip_node_counts,
+                   metrics: dict) -> None:
+    """The CSV, npz and text outputs of a run (desco_tpu's names)."""
     wl = test_stage.workload
     graphlet_neigh = wl.aggregate_neighborhood_counts(
-        counts["test"], test_stage.nindex)
-    _save_csv(output_dir, f"neighborhood_graphlet_{args.test_dataset}.csv",
+        neigh_counts, test_stage.nindex)
+    _save_csv(output_dir, f"neighborhood_graphlet_{name}.csv",
               round_relu(graphlet_neigh))
-    _save_csv(output_dir, f"neighborhood_node_{args.test_dataset}_results.csv",
-              counts["test"])
-    _save_csv(output_dir, f"neighborhood_node_{args.test_dataset}_index.csv",
+    _save_csv(output_dir, f"neighborhood_node_{name}_results.csv",
+              neigh_counts)
+    _save_csv(output_dir, f"neighborhood_node_{name}_index.csv",
               test_stage.nindex.index)
     final_graphlet = graphlet_neigh
     if gossip_node_counts is not None:
         final_graphlet = wl.aggregate_node_counts(gossip_node_counts)
-        _save_csv(output_dir, f"gossip_graphlet_{args.test_dataset}.csv",
+        _save_csv(output_dir, f"gossip_graphlet_{name}.csv",
                   round_relu(final_graphlet))
-        _save_csv(output_dir, f"gossip_node_{args.test_dataset}_results.csv",
+        _save_csv(output_dir, f"gossip_node_{name}_results.csv",
                   gossip_node_counts)
     # the pipeline's final graphlet counts (gossip-refined when stage 3
     # ran, stage-1 otherwise) + exact truth, for external analysis
-    _save_csv(output_dir, f"graphlet_count_{args.test_dataset}.csv",
+    _save_csv(output_dir, f"graphlet_count_{name}.csv",
               round_relu(final_graphlet))
-    _save_csv(output_dir, f"graphlet_truth_{args.test_dataset}.csv",
+    _save_csv(output_dir, f"graphlet_truth_{name}.csv",
               wl.aggregate_node_counts(test_stage.truth))
     np.savez_compressed(
-        os.path.join(output_dir, f"test_graphs_{args.test_dataset}.npz"),
+        os.path.join(output_dir, f"test_graphs_{name}.npz"),
         edges=np.concatenate([g.edges for g in test_graphs], axis=0),
         edge_offsets=np.concatenate(
             [[0], np.cumsum([g.n_edges for g in test_graphs])]),
         n_nodes=np.array([g.n_nodes for g in test_graphs]))
-
-    # -------------------------------------------------------- analysis
-    metrics = evaluate_graphlet_counts(cfg, test_stage, counts["test"],
-                                       gossip_node_counts)
-    for k, v in metrics.items():
-        print(f"graphlet_{k}: {v}")
-    with open(os.path.join(
-            output_dir, f"analyze_results_{args.test_dataset}.txt"),
-            "w") as f:
+    with open(os.path.join(output_dir, f"analyze_results_{name}.txt"),
+              "w") as f:
         for k, v in metrics.items():
             f.write(f"graphlet_{k}: {v}\n")
-    print("done")
-    return 0
 
 
 def _save_csv(output_dir: str, name: str, arr: np.ndarray) -> None:

@@ -2,42 +2,59 @@
 ``desco_tpu/parallel/dp.py``.
 
 desco_tpu runs each device's batch under ``shard_map`` over a ``data``
-mesh axis and lets ``psum`` reduce the gradients. Here one controller
-holds the replicas as a list (the design of parallel/halo.py): replica d
-sits on ``mesh.devices[d]``, the devices cycling over the visible CUDA
-devices (``shard_devices``), so D replicas run on one card, and on the
-CPU all of them share it. ``psum`` over ``data`` is an explicit
+mesh axis and lets ``psum`` reduce the gradients; on a multi-host slice
+that axis spans processes (desco_tpu/parallel/topology.py:55-64). Here a
+process holds its replicas as a list (the design of parallel/halo.py):
+in one process replica d sits on ``mesh.devices[d]``, the devices
+cycling over the visible CUDA devices (``shard_devices``), so D replicas
+run on one card, and on the CPU all of them share it. In a
+``torch.distributed`` group of P ranks (utils/distributed.py) rank r
+holds the replicas [r D / P, (r + 1) D / P) on its own card, the data
+axis outermost as desco_tpu's hybrid mesh lays it out, and every rank
+holds the whole host dataset. ``psum`` over ``data`` is an explicit
 reduction:
 
-  1. each replica computes its gradients with ``torch.autograd.grad`` on
-     its own batch;
-  2. the gradients are summed on the master device (the parameters')
-     in replica order, so the result is the same bits every run;
-  3. one Adam step runs on the master parameters;
+  1. each replica this process holds computes its objective term and
+     its gradient with ``torch.autograd.grad`` on its own batch, one row
+     [flat gradient, term] each (``local_loss_terms``);
+  2. across ranks the rows are gathered in replica order
+     (``gather_in_rank_order``; never ``all_reduce``, whose order is the
+     backend's), and every rank sums all D rows in replica order on its
+     master device, so every rank holds the bits one process holding the
+     D replicas would;
+  3. every rank runs the same Adam step on its master parameters, which
+     therefore stay bit-identical across ranks (a first-step digest
+     checks it, ``DPStep``);
   4. a replica on another device gets the master parameters copied in
      before its next forward (``ReplicaParams``); replicas on the
      master's device use the master module itself. No gradient crosses
      devices through autograd, whose order of accumulation is not fixed.
 
-The training loop (train/loop.Steps) captures a whole DP step, the
-replicas' forwards and gradients and the sum, as one CUDA graph where
-the replicas share one card; the replica generators are made once per
-run and reseeded (``reseed_replica_generators``), so the graph keeps
-reading them. A mesh over several cards trains with the eager step.
+Where a process's replicas share one card, in one process as across
+ranks, the training loop (train/loop.Steps) captures the step as two
+CUDA graphs, the process's replicas' forwards and gradients and the sum
+with Adam, and runs the exchange between them (``DPStep(graphed=True)``:
+the gather across ranks, the terms themselves in one process; no graph
+holds a collective). The replica generators are made once per run and
+reseeded (``reseed_replica_generators``), so the graphs keep reading
+them. A mesh over several cards in one process trains with the eager
+step.
 
 Gradient semantics are desco_tpu's:
   * ``"graphs"`` (neighborhood, a mean loss): the objective is
     sum_d loss_d * w_d / max(sum_d w_d, 1), w_d the replica's valid
-    graph count, so all-masked pad batches weigh exactly 0;
+    graph count (summed on every rank from every replica's batch), so
+    all-masked pad batches weigh exactly 0;
   * ``"sum"`` (gossip, a sum loss): the objective is sum_d loss_d.
 
 Prediction runs batch i on replica i % D, pads the batch list to a
 multiple of D with all-masked copies of batch 0 (which run too, as in
-desco_tpu), and stitches the valid rows back in batch order before the
-one read-back: the result is bit-equal to the single-device predict
-functions of train/loop.py. Serving and the CLI always predict here, on
-a one-replica mesh when there is no data parallelism, and replay each
-replica's compiled forward (desco_tpu jits its DP predicts).
+desco_tpu), gathers every replica's predictions across ranks and
+stitches the valid rows back in batch order with one read-back: every
+rank returns the array the single-device predict functions of
+train/loop.py return, bit for bit. Serving and the CLI always predict
+here, on a one-replica mesh when there is no data parallelism, and
+replay each replica's compiled forward (desco_tpu jits its DP predicts).
 """
 
 from __future__ import annotations
@@ -50,20 +67,34 @@ import numpy as np
 import torch
 
 from ..batch.packed import PackedGraphs, stack_batches
-from ..utils.cuda_graphs import ForwardCache
+from ..utils import distributed
+from ..utils.cuda_graphs import ExchangedStep, ForwardCache
 from ..utils.device import resolve_device
 from .halo import shard_devices
 
 
 @dataclasses.dataclass(frozen=True)
 class DataMesh:
-    """desco_tpu's ``data`` mesh: the device of every replica."""
+    """desco_tpu's ``data`` mesh: the device of every replica, None for a
+    replica another rank of the process group holds. ``ranks[d]``: the
+    rank holding replica d (empty: all of them in this process)."""
 
-    devices: Tuple[torch.device, ...]
+    devices: Tuple[Optional[torch.device], ...]
+    ranks: Tuple[int, ...] = ()
 
     @property
     def size(self) -> int:
         return len(self.devices)
+
+    @property
+    def world(self) -> int:
+        return max(self.ranks) + 1 if self.ranks else 1
+
+    @property
+    def local(self) -> Tuple[int, ...]:
+        """The replicas this process holds, in replica order."""
+        return tuple(d for d, dev in enumerate(self.devices)
+                     if dev is not None)
 
 
 def make_mesh(n_devices: int = 0, device=None) -> DataMesh:
@@ -71,11 +102,39 @@ def make_mesh(n_devices: int = 0, device=None) -> DataMesh:
     CPU) cycling over the visible CUDA devices, or all on the CPU for a
     CPU ``device`` (None means CUDA and raises without a GPU). The count
     is taken as given: 4 replicas on one card share it. One replica on a
-    numbered CUDA device sits on that device."""
+    numbered CUDA device sits on that device.
+
+    In a process group of P ranks (utils/distributed.py) ``n_devices``
+    counts the replicas of every rank, as desco_tpu's ``len(jax.devices())``
+    counts every process's devices (0: one per rank), and must be a
+    multiple of P. Rank r holds the replicas [r D / P, (r + 1) D / P),
+    contiguous with the data axis outermost as desco_tpu's hybrid mesh
+    lays them out, all on the rank's device (``rank_device``)."""
     device = resolve_device(device)
-    if n_devices == 1 and device.index is not None:
-        return DataMesh((device,))
-    return DataMesh(tuple(shard_devices(n_devices, device)))
+    world = distributed.world()
+    if world == 1:
+        if n_devices == 1 and device.index is not None:
+            return DataMesh((device,))
+        return DataMesh(tuple(shard_devices(n_devices, device)))
+    n = n_devices if n_devices > 0 else world
+    if n % world:
+        raise ValueError(f"{n} data-parallel replicas do not split over "
+                         f"{world} processes: the count must be a multiple "
+                         f"of the process count")
+    per, here = n // world, distributed.rank()
+    dev = (device if device.index is not None
+           else distributed.rank_device(device))
+    ranks = tuple(d // per for d in range(n))
+    return DataMesh(tuple(dev if r == here else None for r in ranks), ranks)
+
+
+@dataclasses.dataclass
+class RemoteBatch:
+    """The stand-in of a batch another rank holds: its graph mask alone,
+    on this rank's device, which the ``"graphs"`` weighting reads (every
+    rank weighs the step by every replica's valid graphs)."""
+
+    graph_mask: torch.Tensor
 
 
 def pad_batches_to_multiple(batches: list, d: int) -> list:
@@ -103,18 +162,27 @@ def reshape_for_dp(batches: list, d: int) -> List[list]:
 
 
 def place_batches(batches: Sequence[PackedGraphs], mesh: DataMesh,
-                  training: bool = False) -> List[PackedGraphs]:
+                  training: bool = False) -> list:
     """Batch i on replica i % D's device, each device's batches moved in
     one stacked copy (``training`` keeps labels and the backward
-    permutation)."""
+    permutation). A batch of a replica another rank holds becomes a
+    ``RemoteBatch``: every rank holds the whole host dataset, as every
+    desco_tpu process holds the global arrays, and places its own."""
     devs = [mesh.devices[i % mesh.size] for i in range(len(batches))]
-    out: List[Optional[PackedGraphs]] = [None] * len(batches)
-    for dev in dict.fromkeys(devs):
+    out: list = [None] * len(batches)
+    for dev in dict.fromkeys(d for d in devs if d is not None):
         idx = [i for i, d in enumerate(devs) if d == dev]
         stacked = stack_batches([batches[i] for i in idx]).to(
             dev, training=training)
         for j, i in enumerate(idx):
             out[i] = stacked[j]
+    remote = [i for i, d in enumerate(devs) if d is None]
+    if remote:
+        here = mesh.devices[mesh.local[0]]
+        masks = torch.from_numpy(np.stack(
+            [np.asarray(batches[i].graph_mask) for i in remote])).to(here)
+        for j, i in enumerate(remote):
+            out[i] = RemoteBatch(masks[j])
     return out
 
 
@@ -124,20 +192,21 @@ def replica_seed(seed: int, d: int) -> int:
     return (int(seed) * 1_000_003 + 7919 * (d + 1)) % (2 ** 63 - 1)
 
 
-def replica_generators(mesh: DataMesh, seed: int) -> List[torch.Generator]:
+def replica_generators(mesh: DataMesh, seed: int) -> list:
     """One dropout generator per replica, on its device, seeded with
-    ``replica_seed(seed, d)``."""
+    ``replica_seed(seed, d)``; None for a replica another rank holds."""
     return reseed_replica_generators(
-        [torch.Generator(device=dev) for dev in mesh.devices], seed)
+        [None if dev is None else torch.Generator(device=dev)
+         for dev in mesh.devices], seed)
 
 
-def reseed_replica_generators(generators: List[torch.Generator],
-                              seed: int) -> List[torch.Generator]:
+def reseed_replica_generators(generators: list, seed: int) -> list:
     """Seed replica d's generator with ``replica_seed(seed, d)`` in place:
     the state ``replica_generators(mesh, seed)`` starts from, on the same
     objects (a captured step keeps them registered)."""
     for d, gen in enumerate(generators):
-        gen.manual_seed(replica_seed(seed, d))
+        if gen is not None:
+            gen.manual_seed(replica_seed(seed, d))
     return generators
 
 
@@ -177,30 +246,39 @@ def _flat_grad(params, objective: torch.Tensor) -> torch.Tensor:
                       .reshape(-1) for g, p in zip(grads, ps)])
 
 
-def replica_loss_and_grads(
-    losses: Callable[[int], torch.Tensor], replicas: list,
-    home: torch.device,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The explicit ``psum``: for replica d, ``losses(d)`` is its scalar
-    objective term; its gradient is taken alone, then the terms and the
-    gradients are summed on ``home`` in replica order."""
-    total, flat = None, None
-    for d, params in enumerate(replicas):
-        obj = losses(d)
-        g = _flat_grad(params, obj).to(home)
-        obj = obj.detach().to(home)
-        total = obj if total is None else total + obj
-        flat = g if flat is None else flat + g
-    return total, flat
+def replica_terms(losses: Callable[[int], torch.Tensor], replicas: list,
+                  home: torch.device) -> torch.Tensor:
+    """[L, n + 1] on ``home``: for the j-th of the L replicas this process
+    holds, ``losses(j)`` is its scalar objective term; row j is the term's
+    gradient, taken alone, as one flat vector in parameter order, then
+    the term itself."""
+    rows = []
+    for j, params in enumerate(replicas):
+        obj = losses(j)
+        rows.append(torch.cat([_flat_grad(params, obj).to(home),
+                               obj.detach().to(home).reshape(1)]))
+    return torch.stack(rows)
 
 
-def dp_loss_and_grads(loss_fn: Callable, params, group: Sequence,
-                      mesh: DataMesh, weight_kind: str = "graphs",
-                      generators: Optional[list] = None,
-                      replicas: Optional[ReplicaParams] = None):
-    """(global loss, reduced flat gradient) of one DP step on the master
-    device. ``loss_fn(params, batch, generator) -> scalar``; ``group[d]``
-    lies on ``mesh.devices[d]``."""
+def reduce_terms(terms: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The explicit ``psum``: every replica's row of ``replica_terms``, in
+    replica order, summed one row after the other. Returns (the objective,
+    the flat gradient)."""
+    total = terms[0]
+    for row in terms[1:]:
+        total = total + row
+    return total[-1], total[:-1]
+
+
+def local_loss_terms(loss_fn: Callable, params, group: Sequence,
+                     mesh: DataMesh, weight_kind: str = "graphs",
+                     generators: Optional[list] = None,
+                     replicas: Optional[ReplicaParams] = None
+                     ) -> torch.Tensor:
+    """``replica_terms`` of the replicas this process holds, on the
+    master device. ``loss_fn(params, batch, generator) -> scalar``;
+    ``group[d]`` lies on ``mesh.devices[d]`` (a ``RemoteBatch`` where
+    another rank holds replica d)."""
     if weight_kind not in ("graphs", "sum"):
         raise ValueError(f"weight_kind must be 'graphs' or 'sum', "
                          f"got {weight_kind!r}")
@@ -208,22 +286,39 @@ def dp_loss_and_grads(loss_fn: Callable, params, group: Sequence,
         raise ValueError(f"a DP step takes {mesh.size} batches, got "
                          f"{len(group)}")
     home = next(params.parameters()).device
-    reps = (replicas or ReplicaParams()).sync(params, mesh.devices)
+    local = mesh.local
+    reps = (replicas or ReplicaParams()).sync(
+        params, [mesh.devices[d] for d in local])
     gens = generators or [None] * mesh.size
     if weight_kind == "graphs":
+        # every replica's valid graphs, in replica order, on every rank
         ws = [b.graph_mask.sum() for b in group]
         wsum = ws[0].to(home)
         for w in ws[1:]:
             wsum = wsum + w.to(home)
         wsum = torch.clamp(wsum, min=1.0)
 
-        def losses(d):
-            return (loss_fn(reps[d], group[d], gens[d]) * ws[d]
+        def losses(j):
+            d = local[j]
+            return (loss_fn(reps[j], group[d], gens[d]) * ws[d]
                     / wsum.to(ws[d].device))
     else:
-        def losses(d):
-            return loss_fn(reps[d], group[d], gens[d])
-    return replica_loss_and_grads(losses, reps, home)
+        def losses(j):
+            d = local[j]
+            return loss_fn(reps[j], group[d], gens[d])
+    return replica_terms(losses, reps, home)
+
+
+def dp_loss_and_grads(loss_fn: Callable, params, group: Sequence,
+                      mesh: DataMesh, weight_kind: str = "graphs",
+                      generators: Optional[list] = None,
+                      replicas: Optional[ReplicaParams] = None):
+    """(global loss, reduced flat gradient) of one DP step on the master
+    device: ``local_loss_terms``, gathered from every rank in replica
+    order (``gather_in_rank_order``, no ``all_reduce``), then
+    ``reduce_terms``; the same bits on every rank and as in one process."""
+    return reduce_terms(distributed.gather_in_rank_order(local_loss_terms(
+        loss_fn, params, group, mesh, weight_kind, generators, replicas)))
 
 
 def apply_reduced(opt, loss: torch.Tensor, flat: torch.Tensor, lr):
@@ -236,21 +331,73 @@ def apply_reduced(opt, loss: torch.Tensor, flat: torch.Tensor, lr):
     return loss, ok
 
 
-def dp_step_fn(loss_fn: Callable, opt, mesh: DataMesh,
-               weight_kind: str = "graphs"):
+class DPStep:
     """A DP train step: ``step(params, group, lr, generators=None) ->
     (loss, ok)``, ``params`` the master module ``opt`` (train/loop.Adam)
-    was made from, ``group`` one batch per replica on its device,
+    was made from, ``group`` one batch per replica (``place_batches``),
     ``generators`` one per replica (``replica_generators``). The reduced
-    gradient lands in ``opt.grad`` (``apply_reduced``)."""
-    replicas = ReplicaParams()
+    gradient lands in ``opt.grad`` (``apply_reduced``).
 
-    def step(params, group, lr, generators=None):
-        loss, flat = dp_loss_and_grads(loss_fn, params, group, mesh,
-                                       weight_kind, generators, replicas)
-        return apply_reduced(opt, loss, flat, lr)
+    Its parts: ``local`` (this process's replicas' terms), ``exchange``
+    (every replica's terms; across ranks the gather, whose first call
+    also checks that every rank holds the same parameters and raises if
+    not) and ``finish`` (the ordered sum and Adam). ``graphed``: ``local``
+    and ``finish`` are captured at the first call, for that call's
+    ``params`` and ``generators``, as two CUDA graphs with the exchange
+    between their replays (utils/cuda_graphs.ExchangedStep; static
+    buffers without a capture on the CPU), in one process as across
+    ranks; it needs this process's replicas on one device. ``prepare``
+    makes them ahead of the first call."""
 
-    return step
+    def __init__(self, loss_fn: Callable, opt, mesh: DataMesh,
+                 weight_kind: str = "graphs", graphed: bool = False):
+        devices = {mesh.devices[d] for d in mesh.local}
+        if graphed and len(devices) > 1:
+            raise ValueError(f"a graphed DP step records one device; the "
+                             f"replicas lie on {sorted(map(str, devices))}")
+        self.loss_fn, self.opt, self.mesh = loss_fn, opt, mesh
+        self.weight_kind, self.graphed = weight_kind, graphed
+        self.replicas = ReplicaParams()
+        self.checked = False
+        self.held = None
+
+    def local(self, params, group, generators=None) -> torch.Tensor:
+        return local_loss_terms(self.loss_fn, params, group, self.mesh,
+                                self.weight_kind, generators, self.replicas)
+
+    def exchange(self, terms: torch.Tensor) -> torch.Tensor:
+        if not self.checked:
+            distributed.check_replicated(self.opt.flat, "parameters")
+            self.checked = True
+        return distributed.gather_in_rank_order(terms)
+
+    def finish(self, terms: torch.Tensor, lr):
+        loss, flat = reduce_terms(terms)
+        return apply_reduced(self.opt, loss, flat, lr)
+
+    def prepare(self, params, group, generators=None) -> None:
+        """Make the graphed step (``graphed``) for ``params`` and
+        ``generators``, which every call must then pass, on the static
+        buffers of ``group``; the first call makes it where no one did."""
+        flat = self.opt.flat
+        self.held = (params, generators, ExchangedStep(
+            lambda g: self.local(params, g, generators), self.exchange,
+            self.finish, group,
+            flat.new_zeros((self.mesh.size, flat.numel() + 1)),
+            capture=flat.device.type == "cuda",
+            state=self.opt.state_tensors(),
+            generators=[g for g in generators or () if g is not None]))
+
+    def __call__(self, params, group, lr, generators=None):
+        if not self.graphed:
+            return self.finish(self.exchange(
+                self.local(params, group, generators)), lr)
+        if self.held is None:
+            self.prepare(params, group, generators)
+        elif params is not self.held[0] or generators is not self.held[1]:
+            raise ValueError("a graphed DP step replays over the parameters "
+                             "and generators of its first call")
+        return self.held[2](group, lr)
 
 
 # ------------------------------------------------------------ prediction
@@ -277,15 +424,24 @@ def _dp_predict(make_forward: Callable, params, query_embs: torch.Tensor,
         # a cache keeps its replicas' copies: its graphs read their storage
         if cache is not None and cache.replicas is None:
             cache.replicas = ReplicaParams()
+        local = mesh.local
+        devs = [mesh.devices[d] for d in local]
         reps = (cache.replicas if cache is not None
-                else ReplicaParams()).sync(params, mesh.devices)
+                else ReplicaParams()).sync(params, devs)
         forwards = [make_forward(p, graphed, cache) for p in reps]
-        embs = {dev: query_embs.to(dev) for dev in mesh.devices}
-        preds = []
-        for i, b in enumerate(staged):  # the pad batches run too
-            d = i % mesh.size
-            preds.append(forwards[d](b, embs[mesh.devices[d]]))
-        stitched = torch.stack([p.to(home) for p in preds[:len(batches)]])
+        embs = {dev: query_embs.to(dev) for dev in devs}
+        # replica d runs the batches d, d + D, ... (the pad batches too)
+        per = []
+        for fwd, d, dev in zip(forwards, local, devs):
+            per.append(torch.stack([
+                fwd(staged[i], embs[dev])
+                for i in range(d, len(staged), mesh.size)]).to(home))
+        shape = per[0].shape  # [batches per replica, rows, Q]
+        every = distributed.gather_in_rank_order(
+            torch.stack([p.reshape(-1) for p in per]), device="cpu"
+        ).reshape((mesh.size,) + tuple(shape))
+        stitched = torch.stack([every[i % mesh.size, i // mesh.size]
+                                for i in range(len(batches))])
         return _valid_rows(batches, stitched, mask_field)
 
 

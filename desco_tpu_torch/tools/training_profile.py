@@ -31,7 +31,8 @@ Per stage, after one warm-up epoch:
    card and batches.
 5. Data parallelism at D = 2 on the one card (parallel/dp.py, the two
    replicas in turn): the epoch through ``loop.Steps`` with a mesh, eager
-   and then graphed (the group's step captured as one graph), its wall
+   and then graphed (the group's step captured as two graphs, the
+   replicas' gradients and the sum with Adam, ``dp.DPStep``), its wall
    time twice and its device profile each way.
 
 Prints one JSON object (and writes it to ``--out``). Needs a CUDA device.

@@ -14,11 +14,18 @@ under ``set_sync_debug_mode("error")``. The gossip train step is one of
 them: its loss draws each query's dropout masks ahead of the query's
 checkpointed call (models/gossip.py), so no step rewinds a generator.
 With a ``mesh`` (parallel/dp.py) a train step takes a group of D
-batches, one per replica: it is captured as one graph, the group in
-static buffers and every replica's generator registered, where the
-replicas share one card; a mesh over several cards trains with the
-eager DP step (a capture records one device), and the run's log says so.
-Validation runs the single-device eval step, graphed, on either path. On
+batches, one per replica. Where a process's replicas share one card, in
+one process or on each rank of a process group (utils/distributed.py),
+it is ``dp.DPStep`` captured as two graphs, the process's replicas'
+forwards and gradients (the group in static buffers, every replica's
+generator registered) and the ordered sum with Adam, the exchange
+between them (the gather across ranks). A mesh over several cards in
+one process trains with the eager DP step (a capture records one
+device), and the run's log says so. Validation runs the single-device
+eval step, graphed, on every path; across ranks every rank runs it whole
+and holds the same val loss, so the plateau schedule moves in step.
+Rank 0 alone writes checkpoints and logs, the other ranks waiting at a
+barrier; a resumed run loads the same file on every rank. On
 the CPU, which only the tests ask for, the same static-buffer steps run
 without a capture; ``graphed=False`` runs the eager steps instead.
 
@@ -81,6 +88,7 @@ from ..models import gossip as gossip_mod
 from ..models import neighborhood as neigh_mod
 from ..models.shmp_gnn import SHMPConfig, prepare_batch
 from ..parallel import dp
+from ..utils import distributed
 from ..utils.device import resolve_device
 from .checkpoint import jax_keys, load_checkpoint, save_checkpoint
 from ..utils.cuda_graphs import ForwardCache, GraphedStep, no_sync
@@ -242,7 +250,7 @@ def carried_step(params, opt: Adam, loss_fn: Callable, lr,
 
 def carried_dp_step(params, dp_step: Callable, lr, generators: list,
                     carry):
-    """fn(group): ``carried_step`` for a DP step (``dp.dp_step_fn``) over
+    """fn(group): ``carried_step`` for a DP step (``dp.DPStep``) over
     a group of D batches, one per replica, drawing from ``generators``."""
 
     def step(group):
@@ -277,9 +285,10 @@ class Steps:
     per-batch state; else the eager steps. ``lr``: the device scalar the
     steps read. With a ``mesh`` (parallel/dp.py) ``train_dev`` holds
     groups of D batches and the train step is the DP step, its replica
-    generators made here (``generators``); it is captured where the
-    replicas share one device, and stays eager, saying so through
-    ``log_fn``, where they do not. ``reseed`` seeds the generators."""
+    generators made here (``generators``); it is ``dp.DPStep``, graphed
+    in two parts where this process's replicas share one device, eager,
+    saying so through ``log_fn``, where they lie on several. ``reseed``
+    seeds the generators."""
 
     def __init__(self, params, opt: Adam, loss_fn: Callable,
                  eval_fn: Callable, train_dev, val_dev, lr, generator,
@@ -288,6 +297,8 @@ class Steps:
                  weight_kind: str = "graphs", log_fn=print):
         device = torch.device(device)
         self.mesh = mesh
+        cards = 1 if mesh is None else len({mesh.devices[d]
+                                            for d in mesh.local})
         self.train_carry = (torch.zeros((), device=device),
                             torch.zeros((), dtype=torch.int64,
                                         device=device))
@@ -299,28 +310,34 @@ class Steps:
                                       self.train_carry)
         else:
             self.generators = dp.replica_generators(mesh, 0)
-            self.train = carried_dp_step(
-                params, dp.dp_step_fn(loss_fn, opt, mesh, weight_kind), lr,
-                self.generators, self.train_carry)
+            dp_step = dp.DPStep(loss_fn, opt, mesh, weight_kind,
+                                graphed=graphed and cards == 1)
+            self.train = carried_dp_step(params, dp_step, lr,
+                                         self.generators, self.train_carry)
         self.eval = carried_eval(params, eval_fn, self.eval_carry)
         self.capture = graphed and device.type == "cuda"
+        # a step with no exchange across ranks reads nothing back
+        self.train_sync_free = self.capture and cards == 1 and (
+            mesh is None or mesh.world == 1)
         if not graphed:
             return
         if prepare is not None:
             for b in train_dev:
                 for one in (b if mesh is not None else [b]):
-                    prepare(one, True)
+                    if isinstance(one, PackedGraphs):  # not another rank's
+                        prepare(one, True)
             for b in val_dev or ():
                 prepare(b, False)
-        if mesh is None or len(set(mesh.devices)) == 1:
+        if mesh is None:
             self.train = GraphedStep(
                 self.train, train_dev[0], capture=self.capture,
                 generators=self.generators,
                 state=opt.state_tensors() + list(self.train_carry))
+        elif cards == 1:
+            dp_step.prepare(params, train_dev[0], self.generators)
         else:
-            log_fn(f"the DP train step over {len(set(mesh.devices))} "
-                   f"devices runs eager: a captured step records one "
-                   f"device")
+            log_fn(f"the DP train step over {cards} devices runs eager: a "
+                   f"captured step records one device")
         if val_dev:
             self.eval = GraphedStep(self.eval, val_dev[0],
                                     capture=self.capture,
@@ -335,10 +352,9 @@ class Steps:
         else:
             dp.reseed_replica_generators(self.generators, seed)
 
-    def _run(self, step, carry, batches, order) -> None:
+    def _run(self, step, carry, batches, order, sync_free) -> None:
         for t in carry:
             t.zero_()
-        sync_free = self.capture and isinstance(step, GraphedStep)
         with no_sync(carry[0].device) if sync_free else \
                 contextlib.nullcontext():
             for bi in order:
@@ -347,12 +363,14 @@ class Steps:
     def train_epoch(self, batches, order):
         """The train steps over ``batches`` (groups with a mesh) in
         ``order``: (loss sum, count of rejected steps) on the device."""
-        self._run(self.train, self.train_carry, batches, order)
+        self._run(self.train, self.train_carry, batches, order,
+                  self.train_sync_free)
         return self.train_carry
 
     def val_loss(self, batches) -> float:
         """The weighted mean eval loss over ``batches`` (one read-back)."""
-        self._run(self.eval, self.eval_carry, batches, range(len(batches)))
+        self._run(self.eval, self.eval_carry, batches, range(len(batches)),
+                  self.capture and isinstance(self.eval, GraphedStep))
         s_sum, w_sum = self.eval_carry
         return float(s_sum) / max(float(w_sum), 1.0)
 
@@ -393,8 +411,20 @@ def run_training(
 
     Full training state (params + optimizer + plateau scheduler + epoch)
     snapshots to ``<ckpt_path>.last`` every ``snapshot_every`` epochs;
-    ``resume=True`` continues from it."""
+    ``resume=True`` continues from it. In a process group rank 0 alone
+    logs and writes the checkpoints, every rank passing a barrier after
+    each write; every rank resumes from the same files."""
     device = torch.device(device)
+    lead = distributed.rank() == 0
+    if not lead:
+        def log_fn(*_):
+            return None
+
+    def save(path, *a, **kw):
+        if lead:
+            save_checkpoint(path, *a, **kw)
+        distributed.barrier()
+
     # live (non-pad) edges per epoch, for the per-epoch edges/s counter,
     # counted before the DP padding (pad batches carry real edge types)
     epoch_edges = int(sum(
@@ -511,7 +541,7 @@ def run_training(
                 best_val = monitored
                 best_params = copy.deepcopy(params)
                 if ckpt_path:
-                    save_checkpoint(
+                    save(
                         ckpt_path + ".best", best_params,
                         config=ckpt_config,
                         extra={"epoch": epoch, "val_loss": best_val})
@@ -521,7 +551,7 @@ def run_training(
                    f"{epoch_edges / max(t_train, 1e-9) / 1e6:.1f}M edges/s")
         if ckpt_path and snapshot_every and (
                 epoch % snapshot_every == 0 or epoch == epochs - 1):
-            save_checkpoint(
+            save(
                 ckpt_path + ".last", params, config=ckpt_config,
                 opt_state=opt.state_arrays(),
                 extra={"epoch": epoch, "lr": sched.lr,

@@ -36,7 +36,14 @@ batch after another. Here a step is captured once per run and shape as a
   * a data-parallel step takes a group of D batches: the static buffers
     hold the group (a list); a halo step (``placed_step_fn``) reads the
     shards, which stay on the device for the run, and copies only the
-    query embeddings and the learning rate into its buffers.
+    query embeddings and the learning rate into its buffers;
+  * a capture runs with the cyclic garbage collector paused
+    (``no_collection``): a collection inside it that destroys an earlier
+    step's graphs frees device memory and invalidates the capture;
+  * a data-parallel step (``ExchangedStep``) is two graphs, the
+    process's own replicas' gradients and the ordered sum with the
+    optimizer, and the exchange between them runs eagerly: across the
+    ranks of a process group it is a gather, which no graph may hold.
 
 A forward is the same capture with ``inference=True``: its buffers are
 made, its warm-up and capture run, and every call runs, under
@@ -62,6 +69,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import threading
 import time
 from typing import Callable, Optional, Sequence
@@ -152,6 +160,21 @@ def no_sync(device):
         torch.cuda.set_sync_debug_mode(prev)
 
 
+@contextlib.contextmanager
+def no_collection():
+    """No cyclic garbage collection inside, where a capture runs: one that
+    destroys an earlier step's graphs (a step held in a reference cycle)
+    frees device memory, which invalidates the capture.
+    ``torch.cuda.graph`` collects once before it begins."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
 def _device_of(value) -> torch.device:
     """The device of the first tensor in ``value`` (as ``static_like``
     walks it)."""
@@ -221,7 +244,7 @@ class GraphedStep:
                             "generator with a CUDA graph: train eagerly "
                             "(graphed=False)")
                     graph.register_generator_state(gen)
-            with self.record.capture():
+            with self.record.capture(), no_collection():
                 with torch.cuda.graph(graph, pool=pool):
                     self.outputs = self.fn(self.batch)
         cs.reset_launches()
@@ -239,8 +262,52 @@ class GraphedStep:
             return self.outputs
 
 
+class ExchangedStep:
+    """A train step split at its reduction, ``step(batch, lr) -> (loss,
+    ok)``: ``local(batch) -> terms`` (this process's replicas'
+    objectives and gradients), ``exchange(terms)`` (every replica's
+    terms: a collective across ranks, which no graph may hold, or the
+    terms themselves in one process) and ``finish(terms, lr) -> (loss,
+    ok)`` (the ordered sum and the optimizer's update of ``state`` in
+    place). ``local`` and ``finish`` are each a ``GraphedStep``, made
+    here on the static buffers of ``example`` (a batch) and of ``terms``
+    (a tensor shaped as what the exchange returns), ``capture`` recording
+    them as two CUDA graphs; the exchange runs eagerly between their
+    replays. ``local`` may draw from ``generators``. The loss and flag
+    come back as copies of the finish's outputs; a float ``lr`` is filled
+    into a device scalar."""
+
+    def __init__(self, local: Callable, exchange: Callable,
+                 finish: Callable, example, terms: torch.Tensor, *,
+                 capture: bool, state: Sequence[torch.Tensor] = (),
+                 generators: Sequence[torch.Generator] = ()):
+        self.exchange = exchange
+        self.local = GraphedStep(local, example, capture=capture,
+                                 generators=generators)
+        dev = terms.device
+        out = self.out = (torch.zeros((), device=dev),
+                          torch.zeros((), dtype=torch.bool, device=dev))
+
+        def fn(b):
+            loss, ok = finish(*b)
+            out[0].copy_(loss)
+            out[1].copy_(ok)
+
+        self.finish = GraphedStep(fn, (terms, torch.zeros((), device=dev)),
+                                  capture=capture,
+                                  state=list(state) + list(out))
+
+    def __call__(self, batch, lr):
+        terms = self.exchange(self.local(batch))
+        if not isinstance(lr, torch.Tensor):
+            lr = torch.full((), float(lr), device=terms.device)
+        self.finish((terms, lr))
+        return self.out[0].clone(), self.out[1].clone()
+
+
 def placed_step_fn(body: Callable, reseed: Callable, opt, *,
-                   graphed: bool) -> Callable:
+                   graphed: bool, exchange: Optional[Callable] = None,
+                   finish: Optional[Callable] = None) -> Callable:
     """A train step over data placed on the device for a run (a halo
     partition's shards, a DP x halo grid's replicas): ``step(params,
     place, query_embs, lr, seed=0) -> (loss, ok)`` calls ``reseed(place,
@@ -248,16 +315,26 @@ def placed_step_fn(body: Callable, reseed: Callable, opt, *,
     them, then ``body(params, place, query_embs, lr) -> (loss, ok)``,
     which updates ``opt`` (train/loop.Adam) in place.
 
-    ``graphed``: the body runs as a ``GraphedStep`` made at the first call
-    for that call's ``params`` and ``place``, which later calls must pass
-    again; the query embeddings and the learning rate (a float is filled
-    into a device scalar) are its static buffers, and the loss and flag
-    come back as copies of its outputs. It is captured where ``place``
-    lies on one CUDA device and raises where it spans several; on the CPU
-    it runs without a capture."""
+    With ``exchange`` and ``finish`` the step is split as
+    ``ExchangedStep`` splits it: ``body(params, place, query_embs) ->
+    terms``, then ``exchange(terms)`` (one row [flat gradient, term] per
+    entry of ``place``), then ``finish(terms, lr) -> (loss, ok)``, which
+    updates ``opt``.
+
+    ``graphed``: the body (or the body and the finish) runs as a
+    ``GraphedStep`` made at the first call for that call's ``params`` and
+    ``place``, which later calls must pass again; the query embeddings
+    and the learning rate (a float is filled into a device scalar) are
+    its static buffers, and the loss and flag come back as copies of its
+    outputs. It is captured where ``place`` lies on one CUDA device and
+    raises where it spans several; on the CPU it runs without a
+    capture."""
+    split = exchange is not None
     if not graphed:
         def step(params, place, query_embs, lr, seed=0):
             reseed(place, seed)
+            if split:
+                return finish(exchange(body(params, place, query_embs)), lr)
             return body(params, place, query_embs, lr)
         return step
 
@@ -273,23 +350,32 @@ def placed_step_fn(body: Callable, reseed: Callable, opt, *,
             if dev.type == "cuda" and devices != {dev}:
                 raise ValueError(f"a captured step runs on one card; its "
                                  f"data lies on {sorted(map(str, devices))}")
-            out = (torch.zeros((), device=dev),
-                   torch.zeros((), dtype=torch.bool, device=dev))
+            held.update(params=params, place=place)
+            if split:
+                held["step"] = ExchangedStep(
+                    lambda b: body(params, place, b[0]), exchange, finish,
+                    (query_embs,), opt.flat.new_zeros(
+                        (len(place), opt.flat.numel() + 1)),
+                    capture=dev.type == "cuda",
+                    state=opt.state_tensors(), generators=gens)
+            else:
+                out = held["out"] = (
+                    torch.zeros((), device=dev),
+                    torch.zeros((), dtype=torch.bool, device=dev))
 
-            def fn(batch):
-                loss, ok = body(params, place, *batch)
-                out[0].copy_(loss)
-                out[1].copy_(ok)
+                def fn(batch):
+                    loss, ok = body(params, place, *batch)
+                    out[0].copy_(loss)
+                    out[1].copy_(ok)
 
-            held.update(params=params, place=place, out=out,
-                        step=GraphedStep(
-                            fn, (query_embs, lr),
-                            capture=dev.type == "cuda",
-                            state=opt.state_tensors() + list(out),
-                            generators=gens))
+                held["step"] = GraphedStep(
+                    fn, (query_embs, lr), capture=dev.type == "cuda",
+                    state=opt.state_tensors() + list(out), generators=gens)
         elif params is not held["params"] or place is not held["place"]:
             raise ValueError("a graphed step replays over the parameters "
                              "and data of its first call")
+        if split:
+            return held["step"]((query_embs,), lr)
         held["step"]((query_embs, lr))
         return held["out"][0].clone(), held["out"][1].clone()
 

@@ -1,0 +1,190 @@
+"""Processes as replicas: the port's counterpart of desco_tpu's ``data``
+mesh axis across processes (desco_tpu/parallel/topology.py:55-64, where
+``create_hybrid_device_mesh`` puts the ``data`` axis over processes and
+keeps the ``graph`` axis inside each).
+
+Each rank of a ``torch.distributed`` process group holds a contiguous
+block of the data replicas on its own card (parallel/dp.make_mesh,
+parallel/topology.make_mesh2d). The group starts from torchrun's
+environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` /
+``MASTER_PORT``) or from an explicit ``init_method`` (a ``file://`` path,
+as the tests give), always with an explicit timeout.
+
+The backend is chosen once, by rule, and printed: ``nccl`` where every
+rank of the host owns a card of its own, ``gloo`` where ranks share a
+card or run on the CPU. Nothing switches backend after a failure: a
+failed init or collective raises. Under gloo a card's tensor is staged
+through host memory by this module (a copy out, the gather on the host,
+a copy back), so the collective never depends on gloo's CUDA support.
+
+Reductions are never ``all_reduce``, whose order of addition is the
+backend's: ``gather_in_rank_order`` gathers every replica's terms, and
+the caller adds them in replica order, so every rank holds the bits one
+process would.
+
+With no group, ``rank()`` is 0 and ``world()`` 1, and the gather returns
+its input: the single-process paths run through the same code.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import datetime
+import hashlib
+import os
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+# long enough for rank 0 to compute a training set's ground truth while
+# the other ranks wait (``rank_zero_first``)
+DEFAULT_TIMEOUT_S = 1800.0
+
+
+def choose_backend(device_type: str, local_world: int, n_cards: int) -> str:
+    """``nccl`` where every one of the host's ``local_world`` ranks owns a
+    card of its own, ``gloo`` where they share a card or run on the CPU."""
+    if device_type == "cuda" and 0 < local_world <= n_cards:
+        return "nccl"
+    return "gloo"
+
+
+def _env_int(name: str, default: Optional[int]) -> Optional[int]:
+    value = os.environ.get(name)
+    return int(value) if value not in (None, "") else default
+
+
+def launched_world() -> int:
+    """The group size torchrun's environment asks for (1 without it)."""
+    return _env_int("WORLD_SIZE", 1)
+
+
+def init(device=None, *, init_method: Optional[str] = None,
+         rank: Optional[int] = None, world_size: Optional[int] = None,
+         timeout_s: float = DEFAULT_TIMEOUT_S, log_fn=print) -> str:
+    """Start the process group and return its backend. Without
+    ``init_method`` the rank, world size and rendezvous come from
+    torchrun's environment (``env://``). ``device`` is the device type
+    the ranks compute on (None means CUDA); on CUDA the rank's card
+    (``rank_device``) becomes the current device."""
+    if dist.is_initialized():
+        raise RuntimeError("the process group is already started")
+    if init_method is None:
+        init_method = "env://"
+        rank = _env_int("RANK", rank)
+        world_size = _env_int("WORLD_SIZE", world_size)
+    if rank is None or world_size is None:
+        raise ValueError("a process group needs its rank and world size")
+    dev_type = torch.device("cuda" if device is None else device).type
+    local_world = _env_int("LOCAL_WORLD_SIZE", world_size)
+    n_cards = torch.cuda.device_count() if dev_type == "cuda" else 0
+    if dev_type == "cuda":
+        if not n_cards:
+            raise RuntimeError("no CUDA device is visible for the ranks; "
+                               "pass device='cpu' to run them on the CPU")
+        torch.cuda.set_device(rank_device("cuda", rank))
+    backend = choose_backend(dev_type, local_world, n_cards)
+    dist.init_process_group(
+        backend, init_method=init_method, rank=rank, world_size=world_size,
+        timeout=datetime.timedelta(seconds=timeout_s))
+    why = ("every rank owns a card" if backend == "nccl"
+           else "the CPU" if dev_type == "cpu"
+           else f"{local_world} ranks share {n_cards} card(s)")
+    log_fn(f"process group: rank {rank} of {world_size}, backend "
+           f"{backend} ({why}), device {rank_device(dev_type, rank)}")
+    return backend
+
+
+def shutdown() -> None:
+    """End the process group, if one was started."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def world() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def backend() -> Optional[str]:
+    return dist.get_backend() if dist.is_initialized() else None
+
+
+def rank_device(device=None, rank_: Optional[int] = None) -> torch.device:
+    """The rank's device: ``cuda:(LOCAL_RANK % device_count)`` for a CUDA
+    ``device`` (None means CUDA), the CPU for a CPU one. ``LOCAL_RANK``
+    defaults to the rank (``rank_``, else the group's)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type != "cuda":
+        return dev
+    local = _env_int("LOCAL_RANK", rank() if rank_ is None else rank_)
+    return torch.device("cuda", local % torch.cuda.device_count())
+
+
+def barrier() -> None:
+    if world() > 1:
+        dist.barrier()
+
+
+@contextlib.contextmanager
+def rank_zero_first():
+    """Rank 0 runs the block first (it fills the disk caches the block
+    reads), the other ranks after it: they then find the caches
+    written."""
+    if rank() != 0:
+        barrier()
+    yield
+    if rank() == 0:
+        barrier()
+
+
+def _all_gather(t: torch.Tensor) -> torch.Tensor:
+    """Every rank's ``t`` (same shape everywhere) stacked in rank order
+    [world, ...], on ``t``'s device. Under gloo a card's tensor goes
+    through host memory."""
+    if backend() == "nccl":
+        out = torch.empty((world(),) + tuple(t.shape), dtype=t.dtype,
+                          device=t.device)
+        dist.all_gather_into_tensor(out, t.contiguous())
+        return out
+    host = t.detach().to("cpu").contiguous()
+    parts = [torch.empty_like(host) for _ in range(world())]
+    dist.all_gather(parts, host)
+    return torch.stack(parts).to(t.device)
+
+
+def gather_in_rank_order(local: torch.Tensor, device=None) -> torch.Tensor:
+    """``local``: one row per replica this rank holds ([L, ...], every rank
+    the same L). Returns the rows of every rank's replicas [world * L,
+    ...], in global replica order (rank r's replicas are the block
+    [r L, (r + 1) L)), on ``device`` (default ``local``'s). With no group
+    it is ``local`` itself, moved."""
+    dev = torch.device(device) if device is not None else local.device
+    if world() == 1:
+        return local.to(dev)
+    if backend() != "nccl" and dev.type == "cpu":
+        local = local.to("cpu")  # one copy out, no copy back
+    out = _all_gather(local)
+    return out.reshape((-1,) + tuple(local.shape[1:])).to(dev)
+
+
+def check_replicated(t: torch.Tensor, what: str) -> None:
+    """Raise unless ``t`` has the same bits on every rank (a digest of
+    each rank's copy, gathered). One read-back."""
+    if world() == 1:
+        return
+    digest = hashlib.sha256(
+        t.detach().to("cpu").contiguous().numpy().tobytes()).digest()
+    mine = torch.frombuffer(bytearray(digest), dtype=torch.uint8)
+    if backend() == "nccl":
+        mine = mine.to(rank_device("cuda"))
+    every = _all_gather(mine).cpu()
+    differ = [r for r in range(world()) if not torch.equal(every[r],
+                                                           every[0])]
+    if differ:
+        raise RuntimeError(f"the {what} differ between ranks: ranks "
+                           f"{differ} against rank 0")

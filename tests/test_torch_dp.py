@@ -272,7 +272,7 @@ def test_dp_steps_repeat_and_rewind_their_generators(dp_data, rng):
     for _ in range(2):
         tp = copy.deepcopy(tp0)
         opt = tloop.make_adam(tp)
-        step = dp.dp_step_fn(tloop.gossip_loss_fn(0.3, q), opt, mesh, "sum")
+        step = dp.DPStep(tloop.gossip_loss_fn(0.3, q), opt, mesh, "sum")
         gens = dp.replica_generators(mesh, 5)
         loss, ok = step(tp, group, 1e-3, gens)
         assert bool(ok)

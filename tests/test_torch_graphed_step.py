@@ -214,6 +214,30 @@ def test_static_batch_refuses_another_shape(tiny_data):
         graphed.copy_into(static, wide)
 
 
+def test_no_collection_frees_no_cycle_inside():
+    """A capture runs with the cyclic collector paused: an object held in
+    a reference cycle (as a DP step holds its graphs) dies before or
+    after it, never inside, and the collector runs again after it."""
+    import gc
+    import weakref
+
+    class Held:
+        pass
+
+    def cycle():
+        a = Held()
+        a.self = a
+        return weakref.ref(a)
+
+    with graphed.no_collection():
+        dead = cycle()
+        kept = [Held() for _ in range(100_000)]  # enough to trigger one
+        assert len(kept) == 100_000 and dead() is not None and not gc.isenabled()
+    assert gc.isenabled()
+    gc.collect()
+    assert dead() is None
+
+
 def test_launch_record_adds_the_capture_per_replay():
     """A stub capture that counts as the wrappers count while a graph
     records (no kernel launches on the CPU): the counters are put back

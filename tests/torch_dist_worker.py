@@ -1,0 +1,178 @@
+"""One rank of tests/test_torch_distributed.py's process group on the CPU.
+
+    python tests/torch_dist_worker.py JOB RANK
+
+JOB is a pickle the test wrote: the rendezvous (``init_method``, a
+``file://`` path under the test's temporary directory), the world size,
+the group's timeout, the inputs (host batches, weights in desco_tpu's
+flat layout, query embeddings, halo partitioner arguments) and where to
+write this rank's results (a pickle of numpy arrays and plain values).
+It imports torch and desco_tpu_torch only: never the test module, which
+imports JAX, nor tests/conftest.py.
+"""
+
+import os
+import pickle
+import sys
+
+import torch
+
+from desco_tpu_torch.models import neighborhood
+from desco_tpu_torch.parallel import dp, topology
+from desco_tpu_torch.pipeline import PipelineConfig, model_configs
+from desco_tpu_torch.train import loop
+from desco_tpu_torch.train.checkpoint import flatten_params, params_from_jax
+from desco_tpu_torch.utils import distributed
+
+CPU = torch.device("cpu")
+
+
+def arr(t):
+    return t.detach().cpu().numpy().copy()
+
+
+def dp_steps(job, case):
+    """Three DP steps, eager and graphed (static buffers on the CPU):
+    losses, flags, the first step's reduced gradient, the final
+    parameters."""
+    kind, d, first, dropout = case
+    batches = dp.pad_batches_to_multiple(
+        list(job["tbs" if kind == "graphs" else "gbs"][first:first + d]), d)
+    mesh = dp.make_mesh(d, "cpu")
+    group = dp.place_batches(batches, mesh, training=True)
+    if kind == "graphs":
+        tt, tq = model_configs(PipelineConfig(**job["cfg"]), "cpu")
+        loss_fn = loop.neighborhood_loss_fn(tt, tq, job["qb"].to("cpu"))
+        flat0 = job["neigh"]
+    else:
+        loss_fn = loop.gossip_loss_fn(dropout,
+                                      torch.from_numpy(job["q_embs"]))
+        flat0 = job["gossip"]
+    out = {}
+    for graphed in (False, True):
+        params = params_from_jax(flat0)
+        opt = loop.make_adam(params)
+        step = dp.DPStep(loss_fn, opt, mesh, kind, graphed=graphed)
+        gens = dp.replica_generators(mesh, 3)
+        losses, oks, grad1 = [], [], None
+        for i in range(3):
+            dp.reseed_replica_generators(gens, 3 + i)
+            loss, ok = step(params, group, 1e-3, gens)
+            losses.append(float(loss))
+            oks.append(bool(ok))
+            if grad1 is None:
+                grad1 = arr(opt.grad)
+        out[graphed] = {"losses": losses, "oks": oks, "grad1": grad1,
+                        "flat": arr(opt.flat), "mu": arr(opt.mu)}
+    return out
+
+
+def predicts(job, d):
+    """Both stages' DP predicts over ``d`` replicas."""
+    mesh = dp.make_mesh(d, "cpu")
+    tt, tq = model_configs(PipelineConfig(**job["cfg"]), "cpu")
+    params = params_from_jax(job["neigh"]).requires_grad_(False)
+    with torch.inference_mode():
+        q_embs = neighborhood.embed_queries(params, tq,
+                                            job["qb"].to("cpu"))
+    gparams = params_from_jax(job["gossip"]).requires_grad_(False)
+    return {
+        "neigh": dp.dp_predict_neighborhood_counts(
+            params, tt, q_embs, list(job["tbs"]), mesh),
+        "gossip": dp.dp_predict_gossip_counts(
+            gparams, torch.from_numpy(job["q_embs"]), list(job["gbs"]), mesh)}
+
+
+def dp_halo(job):
+    """The 2 x 2 DP x halo grid, its rows on the ranks: the layout, the
+    composed loss and gradient, and two calls of the step eager and
+    graphed at dropout 0.1."""
+    n_graph = job["n_graph"]
+    parts = topology.harmonized_partitions(job["specs"], n_graph, n_types=2)
+    mesh = topology.make_mesh2d(2, n_graph, devices=[CPU])
+    replicas = topology.place_replicas(topology.stack_partitions(parts),
+                                       mesh)
+    q = torch.from_numpy(job["halo_q"])
+    out = {"rows": [row[0] is not None for row in mesh.devices],
+           "four_rows": [row[0] is not None for row in
+                         topology.make_mesh2d(4, 1, devices=[CPU]).devices]}
+    try:
+        topology.make_mesh2d(3, n_graph, devices=[CPU])
+        out["odd_rows_error"] = None
+    except ValueError as e:
+        out["odd_rows_error"] = str(e)
+    params = params_from_jax(job["halo_gossip"])
+    loss, flat = topology.dp_halo_gossip_loss_and_grads(params, replicas, q)
+    out["loss"], out["flat"] = float(loss), arr(flat)
+    for graphed in (False, True):
+        params = params_from_jax(job["halo_gossip"])
+        opt = loop.make_adam(params)
+        step = topology.dp_halo_gossip_step_fn(opt, dropout=0.1,
+                                               graphed=graphed)
+        calls = []
+        for seed in (4, 5):
+            loss, ok = step(params, replicas, q, 1e-3, seed=seed)
+            calls.append([float(loss), bool(ok), arr(opt.grad),
+                          arr(opt.flat), arr(opt.mu), arr(opt.nu)])
+        out[graphed] = calls
+    return out
+
+
+def mesh_layout(job):
+    mesh = dp.make_mesh(4, "cpu")
+    out = {"ranks": list(mesh.ranks), "local": list(mesh.local),
+           "devices": [None if d is None else str(d) for d in mesh.devices],
+           "default_size": dp.make_mesh(0, "cpu").size,
+           "backend": distributed.backend()}
+    try:
+        dp.make_mesh(3, "cpu")
+        out["odd_error"] = None
+    except ValueError as e:
+        out["odd_error"] = str(e)
+    return out
+
+
+def training(job):
+    """``run_training`` over a D = 2 mesh of the two ranks, 2 epochs of each
+    stage (the gossip's at dropout 0.01), each rank given its own
+    checkpoint path: rank 0 alone writes."""
+    cfg = PipelineConfig(**job["cfg"])
+    tt, tq = model_configs(cfg, "cpu")
+    mesh = dp.make_mesh(2, "cpu")
+    kw = dict(epochs=2, lr=1e-3, seed=4, log_fn=lambda *_: None,
+              mesh=mesh, device="cpu")
+    prefix = os.path.join(job["out_dir"], f"ckpt_rank{distributed.rank()}")
+    res = loop.train_neighborhood(
+        params_from_jax(job["neigh"]), tt, tq, job["qb"], list(job["tbs"]),
+        list(job["tbs"][:2]), ckpt_path=prefix + "_neigh", **kw)
+    gres = loop.train_gossip(
+        params_from_jax(job["gossip"]), torch.from_numpy(job["q_embs"]),
+        list(job["gbs"][:5]), list(job["gbs"][:2]), dropout=0.01,
+        ckpt_path=prefix + "_gossip", **kw)
+    return {stage: {"train": r.train_losses, "val": r.val_losses,
+                    "params": flatten_params(r.params)}
+            for stage, r in (("neigh", res), ("gossip", gres))}
+
+
+def main():
+    with open(sys.argv[1], "rb") as f:
+        job = pickle.load(f)
+    rank = int(sys.argv[2])
+    torch.set_num_threads(1)
+    distributed.init("cpu", init_method=job["init_method"], rank=rank,
+                     world_size=job["world"], timeout_s=job["timeout_s"],
+                     log_fn=lambda *_: None)
+    try:
+        out = {"mesh": mesh_layout(job),
+               "steps": {case: dp_steps(job, case) for case in job["cases"]},
+               "predict": {d: predicts(job, d) for d in (2, 4)},
+               "halo": dp_halo(job),
+               "training": training(job)}
+    finally:
+        distributed.shutdown()
+    with open(os.path.join(job["out_dir"], f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+if __name__ == "__main__":
+    main()
