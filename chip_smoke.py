@@ -306,7 +306,20 @@ nonzero on a failed check (no phase catches its own failure):
      --train_neigh --train_gossip --test_gossip`` at the paper width, 2
      epochs per stage on SynNp_32_3 (test SynNp_16_4): exit 0, the mesh
      line printed once (rank 0), one set of checkpoints, finite normed
-     MSE; the phase's seconds.
+     MSE; (c) the halo graph axis across the same two ranks, after (a):
+     r4's 2-layer gossip train step (29 queries) on phase 14's
+     12,000-node graph in 4 shards over ``make_mesh2d(1, 4)``, shards 0-1
+     on rank 0 and 2-3 on rank 1, two calls at dropout 0 and two at 0.1;
+     the DP x halo step on desco_tpu's 3 x 2 fallback grid (phase 14's
+     two graphs and an 8,000-node one), whose middle row crosses the
+     ranks, two calls at the gossip's dropout; r4's target tower (SAGE, 8
+     layers, hidden 64) sharded over a 1 x 2 grid, ``dp_halo_shmp_forward``
+     on the 12,000-node graph's typed sample; the steps asked for graphed
+     run eager (their exchanges are collectives) and say so; every
+     result on both ranks bit-equal to the same grids in this process
+     (eager), each rank's gather-fused K1 and its backward launched as
+     many times as its shards' streams need; the step and forward ms
+     both ways and one exchange's ms; the phase's seconds.
  12. one JSON line of kernels (K2' and K3' at T = 33 and at T = 1 in
      rows of their own, launched by the order-4 run and the DIAMNet
      driver; every other row's launches count the ablation path, labeled
@@ -2972,8 +2985,8 @@ def dp_phase(torch, cs, dev, seed: int, svc, main_req, res_main,
             "predict_ms": dp_ms, "neigh_step": neigh_rows,
             "gossip_step": gossip_rows, "epochs": epochs,
             "dp_halo": {"loss_rel": lerr, "grad_err": gerr, "ms": halo_ms},
-            "grid": replicas, "grid_parts": parts, "graft": graft,
-            "seconds": took}
+            "grid": replicas, "grid_parts": parts, "grid_specs": specs,
+            "graft": graft, "seconds": took}
 
 
 # ------------------------------------------------------- phase 15: tools
@@ -3936,6 +3949,148 @@ def dist_workload(torch, job, dev, reference: bool = False):
     return out
 
 
+# phase 18's halo graph axis across the ranks: (a) the 12,000-node graph
+# of phase 14 in 4 shards, 0-1 on rank 0 and 2-3 on rank 1; (b) a 3 x 2
+# fallback grid over phase 14's two graphs and a third (BA, this many
+# nodes and seed); (c) r4's target tower on a 1 x 2 grid over the ranks
+DIST_HALO_SHARDS = 4
+DIST_GRID_THIRD = (8000, 5)
+
+
+def timed_calls(torch, step, opt, params, place, q, seeds) -> dict:
+    """Calls of a placed train step: per call the loss, the flag, the
+    reduced gradient, the parameters and Adam's moments (numpy), and the
+    ms of each call."""
+    calls, ms = [], []
+    for seed in seeds:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, ok = step(params, place, q, 1e-3, seed=seed)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        calls.append([float(loss), bool(ok)] + [
+            t.cpu().numpy().copy()
+            for t in (opt.grad, opt.flat, opt.mu, opt.nu)])
+    return {"calls": calls, "ms": ms}
+
+
+def dist_halo_workload(torch, job, dev, reference: bool = False) -> dict:
+    """Phase 18's halo graph axis across processes, on one process: (a)
+    two calls of ``halo_gossip_step_fn`` at dropout 0 and two at 0.1 over
+    ``make_mesh2d(1, 4)``'s shards (r4's gossip, 29 queries); (b) two calls
+    of the DP x halo step over the 3 x 2 grid at the gossip's dropout;
+    (c) ``dp_halo_shmp_forward`` of r4's target tower on a 1 x 2 grid.
+    Across the ranks each rank holds its slots, the steps asked for
+    graphed (they run eager: their exchanges are collectives); in one
+    process (``reference``) every slot is here, the steps eager. Returns
+    numpy results, ms, and the launches of each part; across the ranks
+    also the ms of one exchange of (a)'s layer-0 pull tables."""
+    from desco_tpu_torch.ops import cuda_segment as cs
+    from desco_tpu_torch.parallel import halo, topology
+    from desco_tpu_torch.train import loop as train_loop
+    from desco_tpu_torch.train.checkpoint import params_from_jax
+    from desco_tpu_torch.utils import distributed
+
+    hq = torch.from_numpy(job["halo_q"]).to(dev)
+    out = {"launches": {}}
+
+    def grid(n_data, n_graph, parts):
+        return topology.place_replicas(
+            topology.stack_partitions(parts),
+            topology.make_mesh2d(n_data, n_graph, devices=[dev]))
+
+    def counted(name, fn):
+        cs.reset_launches()
+        result = fn()
+        torch.cuda.synchronize()
+        out["launches"][name] = cs.read_launches()
+        return result
+
+    # (a) four shards of one graph, two per rank
+    [shards] = grid(1, DIST_HALO_SHARDS, [job["halo_part"]])
+    out["held"] = [sh is not None for sh in shards]
+    n_q = hq.shape[0]
+    # gather-fused K1 per call: 2 layers x 29 queries forward, the second
+    # layer's backward (the first reads detached rows), the direction
+    # degrees once per placed row, over this process's shards
+    agg_a = per_aggregate(halo.local_shards(shards))
+    out["expected"] = {"a": {"gather_segment_sum": (1 + 4 * 2 * n_q) * agg_a,
+                             "gather_segment_sum_bwd": 4 * n_q * agg_a}}
+
+    def part_a():
+        res = {}
+        for dropout in (0.0, 0.1):
+            params = params_from_jax(job["halo_gossip"]).to(dev)
+            opt = train_loop.make_adam(params)
+            step = halo.halo_gossip_step_fn(opt, dropout=dropout,
+                                            graphed=not reference)
+            res[dropout] = timed_calls(torch, step, opt, params, shards, hq,
+                                       (0, 1))
+        return res
+
+    out["a"] = counted("a", part_a)
+    # (b) the 3 x 2 fallback grid: row 1 on both ranks
+    replicas = grid(3, 2, job["grid3_parts"])
+    agg_b = sum(per_aggregate(halo.local_shards(row)) for row in replicas
+                if row is not None)
+    out["expected"]["b"] = {
+        "gather_segment_sum": (1 + 2 * 2 * n_q) * agg_b,
+        "gather_segment_sum_bwd": 2 * n_q * agg_b}
+
+    def part_b():
+        params = params_from_jax(job["halo_gossip"]).to(dev)
+        opt = train_loop.make_adam(params)
+        step = topology.dp_halo_gossip_step_fn(
+            opt, dropout=job["dropout"], graphed=not reference)
+        return timed_calls(torch, step, opt, params, replicas, hq, (0, 1))
+
+    out["b"] = counted("b", part_b)
+    # (c) the sharded SHMP forward, one shard per rank
+    cfg, flat0, part = job["shmp"]
+    rows = grid(1, 2, [part])
+    out["expected"]["c"] = {
+        "gather_segment_sum": 2 * cfg.layer_num * per_aggregate(
+            halo.local_shards(rows[0])),
+        "fused_typed_transform_aggregate": 0, "sorted_segment_sum": 0,
+        "gather_segment_sum_bwd": 0}
+    tparams = params_from_jax(flat0).to(dev).requires_grad_(False)
+    fwd = topology.dp_halo_shmp_forward(cfg)
+
+    def part_c():
+        ms = []
+        with torch.inference_mode():
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                embs = fwd(tparams, rows)[0]
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+        return {"embs": [None if e is None else e.cpu().numpy()
+                         for e in embs], "ms": ms}
+
+    out["c"] = counted("c", part_c)
+    if not reference:
+        # one exchange of (a)'s layer-0 pull tables as the halo exchange
+        # sends them: k * k blocks of [h_max, F] to the other rank (k
+        # slots per rank), none to this one
+        sh = next(s for s in shards if s is not None)
+        width = hq.shape[1] + job["halo_gossip"]["pre/0"].shape[1]
+        k = DIST_HALO_SHARDS // distributed.world()
+        counts = [0 if q == distributed.rank() else k * k
+                  for q in range(distributed.world())]
+        block = torch.zeros((sum(counts), sh.h_max, width), device=dev)
+        ms = []
+        for _ in range(12):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            distributed.exchange_blocks(block, counts=(counts, counts))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out["exchange_ms"] = ms[2:]
+        out["exchange_bytes"] = block.numel() * 4
+    return out
+
+
 def dist_rank_main(args) -> int:
     """One rank of phase 18 (``--dist_rank``): start the gloo group on the
     card, run ``dist_workload`` eager and graphed with the launch counters
@@ -3962,6 +4117,12 @@ def dist_rank_main(args) -> int:
         out["seconds"] = time.perf_counter() - t0
         out["launches"] = cs.read_launches()
         out["backend"] = backend
+        t0 = time.perf_counter()
+        out["halo_ranks"] = dist_halo_workload(torch, job, dev)
+        out["halo_seconds"] = time.perf_counter() - t0
+        for part in out["halo_ranks"]["launches"].values():
+            for k, v in part.items():
+                out["launches"][k] += v
     finally:
         distributed.shutdown()
     with open(os.path.join(job["out_dir"], f"rank{args.dist_rank}.pkl"),
@@ -4016,9 +4177,119 @@ def equal_results(a, b) -> bool:
     return a == b
 
 
+def halo_ranks_report(ranks, href, rank_errs, extra: dict) -> dict:
+    """Phase 18 (c)'s checks and figures: every rank's
+    ``dist_halo_workload`` result against the one-process ``href`` bit
+    for bit, the eager notes in each rank's standard error, finite losses
+    that move, each rank's launches of every part against what its shards'
+    streams need; returns the ms figures (with ``extra``)."""
+    hcomp = {}
+    for r, res in enumerate(ranks):
+        h = res["halo_ranks"]
+        hcomp[f"rank {r} holds shards {2 * r}-{2 * r + 1}"] = (
+            h["held"] == [q // 2 == r for q in range(DIST_HALO_SHARDS)])
+        for dropout in (0.0, 0.1):
+            hcomp[f"(a) halo step, dropout {dropout}, rank {r}"] = (
+                equal_results(h["a"][dropout]["calls"],
+                              href["a"][dropout]["calls"]))
+        hcomp[f"(b) 3 x 2 DP x halo step, rank {r}"] = equal_results(
+            h["b"]["calls"], href["b"]["calls"])
+        embs = h["c"]["embs"]
+        hcomp[f"(c) sharded SHMP forward, rank {r}"] = (
+            embs[1 - r] is None and embs[r] is not None
+            and np.array_equal(embs[r], href["c"]["embs"][r]))
+        hcomp[f"the graphed steps said they ran eager, rank {r}"] = (
+            rank_errs[r].count("the graphed step runs eager") == 3)
+    print(f"phase 18 (c) halo graph axis across {DIST_WORLD} processes: "
+          f"bit-equal to the same grids in one process: "
+          f"{json.dumps(hcomp)}", flush=True)
+    check(all(hcomp.values()), "phase 18 (c): a cross-rank halo result "
+          "differs from one process")
+    for name, calls in (("(a) dropout 0", href["a"][0.0]["calls"]),
+                        ("(a) dropout 0.1", href["a"][0.1]["calls"]),
+                        ("(b)", href["b"]["calls"])):
+        check(all(c[1] and np.isfinite(c[0]) for c in calls)
+              and calls[0][0] != calls[1][0],
+              f"phase 18 {name}: the steps did not move a finite loss")
+    check(all(np.isfinite(e).all() for e in href["c"]["embs"]),
+          "phase 18 (c): the sharded forward is not finite")
+    for r, res in enumerate(ranks):
+        h = res["halo_ranks"]
+        for part in ("a", "b", "c"):
+            got, want = h["launches"][part], h["expected"][part]
+            print(f"phase 18 (c) rank {r} part {part} launches: "
+                  f"{json.dumps(got)}; expected {json.dumps(want)}",
+                  flush=True)
+            check(launches_match(got, want) and got["gather_segment_sum"] > 0,
+                  f"phase 18 (c): part {part}'s launches on rank {r}")
+        check(h["launches"]["a"]["gather_segment_sum_bwd"] > 0
+              and h["launches"]["b"]["gather_segment_sum_bwd"] > 0,
+              f"phase 18 (c): K1' backward never launched on rank {r}")
+    hfig = {
+        "halo_step_ms": {
+            str(d): {"one_process_eager": href["a"][d]["ms"],
+                     "ranks": [r["halo_ranks"]["a"][d]["ms"]
+                               for r in ranks]} for d in (0.0, 0.1)},
+        "grid_3x2_step_ms": {"one_process_eager": href["b"]["ms"],
+                             "ranks": [r["halo_ranks"]["b"]["ms"]
+                                       for r in ranks]},
+        "shmp_forward_ms": {"one_process": href["c"]["ms"],
+                            "ranks": [r["halo_ranks"]["c"]["ms"]
+                                      for r in ranks]},
+        "exchange_ms_median": [float(np.median(r["halo_ranks"]
+                                               ["exchange_ms"]))
+                               for r in ranks],
+        "exchange_bytes": ranks[0]["halo_ranks"]["exchange_bytes"],
+        "rank_halo_seconds": [r["halo_seconds"] for r in ranks], **extra}
+    print(f"phase 18 (c) figures (ms per call, both calls): "
+          f"{json.dumps(hfig)}", flush=True)
+    return hfig
+
+
+def dist_halo_job(seed: int, grid_specs: list, query_ids, shmp_cfg) -> dict:
+    """Phase 18 (c)'s partitions: phase 14's 12,000-node graph
+    (``grid_specs[1]``) in 4 shards; the 3 x 2 grid's three graphs
+    (phase 14's two and a third); the 12,000-node graph's whole-graph
+    typed sample in 2 shards for r4's target tower."""
+    from desco_tpu_torch.batch.build import gossip_sample
+    from desco_tpu_torch.data.workload import Workload
+    from desco_tpu_torch.graph import Graph
+    from desco_tpu_torch.parallel import halo, topology
+
+    t0 = time.perf_counter()
+    hrng = np.random.default_rng(seed + 18)
+    g3 = ba_graph(Graph, DIST_GRID_THIRD[0], HALO_DEGREE, DIST_GRID_THIRD[1])
+    x3 = hrng.uniform(0.0, 8.0, (g3.n_nodes, 29)).astype(np.float32)
+    y3 = (x3 * hrng.uniform(0.5, 1.5, (g3.n_nodes, 1))).astype(np.float32)
+    s3 = gossip_sample(g3, x3, y3)
+    grid3 = topology.harmonized_partitions(
+        [grid_specs[0], grid_specs[1],
+         dict(n_nodes=g3.n_nodes, node_type=s3.node_type, x=x3,
+              edge_src=s3.edge_src, edge_dst=s3.edge_dst,
+              edge_type=s3.edge_type, node_y=y3)], 2, n_types=2)
+    halo_part = halo.partition_typed_graph(
+        n_devices=DIST_HALO_SHARDS, n_types=2, **grid_specs[1])
+    g12 = ba_graph(Graph, DP_HALO_SECOND[0], HALO_DEGREE, DP_HALO_SECOND[1])
+    [ws] = Workload([g12]).wo_canonical_samples(
+        query_ids, truth=np.zeros((g12.n_nodes, 29)))
+    ws.x = hrng.standard_normal((g12.n_nodes, 1)).astype(np.float32)
+    shmp_part = halo.partition_typed_graph(
+        g12.n_nodes, ws.node_type, ws.x, ws.edge_src, ws.edge_dst,
+        ws.edge_type, 2, n_types=shmp_cfg.n_edge_types)
+    print(f"phase 18 (c) partitions in {time.perf_counter() - t0:.2f} s: "
+          f"(a) {g12.n_nodes} nodes in {DIST_HALO_SHARDS} shards (n_loc "
+          f"{halo_part.n_loc}, h_max {halo_part.h_max}, p_max "
+          f"{halo_part.p_max}); (b) 3 x 2 grid of {grid_specs[0]['n_nodes']}"
+          f", {grid_specs[1]['n_nodes']} and {g3.n_nodes} nodes, caps "
+          f"{json.dumps(halo.partition_caps(grid3[0]))}; (c) the typed "
+          f"sample in 2 shards (n_loc {shmp_part.n_loc}, h_max "
+          f"{shmp_part.h_max}, p_max {shmp_part.p_max})", flush=True)
+    return dict(halo_part=halo_part, grid3_parts=grid3, shmp_part=shmp_part)
+
+
 def dist_phase(torch, cs, dev, seed: int, tcfg, qb, train_stage, gbatches,
-               best, gbest, q_embs, grid_parts, halo_gossip,
-               halo_q) -> dict:
+               best, gbest, q_embs, grid_parts, grid_specs, halo_gossip,
+               halo_q, shmp_cfg, shmp_params) -> dict:
     """Phase 18: data parallelism across processes, two ranks of a gloo
     group on the one card. (a) Each rank (``chip_smoke.py --dist_rank``)
     runs the D = 2 DP steps of both stages (paper config, phase 6's
@@ -4031,7 +4302,16 @@ def dist_phase(torch, cs, dev, seed: int, tcfg, qb, train_stage, gbatches,
     torch.distributed.run --nproc_per_node 2 -m desco_tpu_torch.main
     --n_devices 2 --train_neigh --train_gossip --test_gossip`` at the
     paper width, 2 epochs per stage: exit 0, one set of checkpoints,
-    finite normed MSE. Returns the launches (both ranks) and figures."""
+    finite normed MSE. (c) The halo graph axis across the ranks
+    (``dist_halo_workload``, the same ranks): r4's gossip train step on
+    phase 14's 12,000-node graph in 4 shards, 2 per rank (two calls at
+    dropout 0, two at 0.1), the DP x halo step on a 3 x 2 fallback grid
+    whose middle row crosses the ranks, and r4's target tower sharded
+    over a 1 x 2 grid: every result bit-equal on both ranks to the same
+    grid in this process (eager), the gather-fused K1 and its backward
+    launched on both ranks as many times as their shards' streams
+    need, the graphed steps run eager and say so. Returns the launches
+    (both ranks) and figures."""
     import pickle
 
     from desco_tpu_torch.train.checkpoint import flatten_params
@@ -4042,6 +4322,9 @@ def dist_phase(torch, cs, dev, seed: int, tcfg, qb, train_stage, gbatches,
                       for k, v in flatten_params(m).items()}
     p_neigh = neigh_init(torch, tcfg, seed)
     p_gossip = gossip_init(torch, tcfg, seed)
+    t0 = time.perf_counter()
+    halo_job = dist_halo_job(seed, grid_specs, tcfg.query_ids, shmp_cfg)
+    halo_prep_s = time.perf_counter() - t0
     job = dict(
         init_method=f"file://{os.path.join(work.name, 'rendezvous')}",
         out_dir=work.name, tcfg=tcfg, qb=qb, n_steps=3,
@@ -4051,7 +4334,8 @@ def dist_phase(torch, cs, dev, seed: int, tcfg, qb, train_stage, gbatches,
         gbest=host(gbest), q_embs=q_embs.detach().cpu().numpy(),
         dropout=tcfg.gossip_dropout, parts=grid_parts,
         halo_gossip=host(halo_gossip),
-        halo_q=halo_q.detach().cpu().numpy())
+        halo_q=halo_q.detach().cpu().numpy(), **halo_job)
+    job["shmp"] = (shmp_cfg, host(shmp_params), job.pop("shmp_part"))
     path = os.path.join(work.name, "job.pkl")
     with open(path, "wb") as f:
         pickle.dump(job, f)
@@ -4060,11 +4344,15 @@ def dist_phase(torch, cs, dev, seed: int, tcfg, qb, train_stage, gbatches,
     t0 = time.perf_counter()
     ref = dist_workload(torch, job, dev, reference=True)
     ref_s = time.perf_counter() - t0
-    # (a) the two ranks
     t0 = time.perf_counter()
-    run_children([[sys.executable, os.path.join(REPO, "chip_smoke.py"),
-                   "--dist_rank", str(r), "--dist_job", path]
-                  for r in range(DIST_WORLD)], DIST_JOIN_TIMEOUT_S)
+    href = dist_halo_workload(torch, job, dev, reference=True)
+    href_s = time.perf_counter() - t0
+    # (a) and (c): the two ranks
+    t0 = time.perf_counter()
+    rank_outs = run_children(
+        [[sys.executable, os.path.join(REPO, "chip_smoke.py"),
+          "--dist_rank", str(r), "--dist_job", path]
+         for r in range(DIST_WORLD)], DIST_JOIN_TIMEOUT_S)
     ranks_s = time.perf_counter() - t0
     ranks = []
     for r in range(DIST_WORLD):
@@ -4112,6 +4400,9 @@ def dist_phase(torch, cs, dev, seed: int, tcfg, qb, train_stage, gbatches,
         "one_process_s": ref_s, "ranks_wall_s": ranks_s}
     print(f"phase 18 figures (graphed steps after the first, ms): "
           f"{json.dumps(figures)}", flush=True)
+    figures["halo_ranks"] = halo_ranks_report(
+        ranks, href, [err for _, err in rank_outs],
+        {"one_process_halo_s": href_s, "partitions_s": halo_prep_s})
     launches = {k: sum(r["launches"][k] for r in ranks)
                 for k in ranks[0]["launches"]}
     for r, res in enumerate(ranks):
@@ -5110,8 +5401,9 @@ def main() -> int:
     # ------------------------- 18. data parallelism across processes
     dist = dist_phase(torch, cs, dev, args.seed, tcfg, qb, train_stage,
                       gbatches, best, gres.best_params, q_embs,
-                      dpr.pop("grid_parts"), svc.gossip_params,
-                      svc.member_embs[0])
+                      dpr.pop("grid_parts"), dpr.pop("grid_specs"),
+                      svc.gossip_params, svc.member_embs[0], svc.tgt_cfg,
+                      svc.members[0]["target"])
 
     # ----------------------------------------------------- 12. the record
     seg_src = "desco_tpu_torch/csrc/segment_sum.cu"

@@ -172,16 +172,20 @@ def cast_params(params, dtype: torch.dtype, device=None):
     inside the graph."""
     if dtype == torch.float32 and device is None:
         return params
+    return map_params(params, lambda p: p.to(device, dtype))
+
+
+def map_params(params, fn):
+    """The tower's parameter tree with ``fn`` applied to every leaf, in the
+    shape ``cast_params`` gives it."""
     if isinstance(params, Linear):
-        return _CastLinear(params.w.to(device, dtype),
-                           params.b.to(device, dtype))
+        return _CastLinear(fn(params.w), fn(params.b))
     if isinstance(params, nn.ParameterList):  # GAT's (a_src, a_dst)
-        return [p.to(device, dtype) for p in params]
+        return [fn(p) for p in params]
     if isinstance(params, nn.ModuleList):
-        return [cast_params(m, dtype, device) for m in params]
-    out = {name: cast_params(m, dtype, device)
-           for name, m in params.items()}
-    out.update({name: p.to(device, dtype)  # PNA's pna_mix
+        return [map_params(m, fn) for m in params]
+    out = {name: map_params(m, fn) for name, m in params.items()}
+    out.update({name: fn(p)  # PNA's pna_mix
                 for name, p in params.named_parameters(recurse=False)})
     return out
 

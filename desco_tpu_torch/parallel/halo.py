@@ -15,17 +15,41 @@ halo table). The host partitioner (``HaloPartition``,
 copied so the port imports nothing of desco_tpu; the same inputs give
 array-equal partitions.
 
-One controller, shards as a list. desco_tpu runs the per-shard code
-inside ``shard_map`` with ``all_to_all`` and ``psum`` on a ``graph``
-axis. Here one process holds every shard (``place_shards``): shard d's
-tensors live on ``devices[d % len(devices)]``, and each step loops over
-the shards in desco_tpu's step order. ``all_to_all`` is, per (sender,
-receiver) pair, the sender's block copied with ``.to(receiver device)``
-(a no-op where both share a device; autograd passes through it), and
-``psum`` a sum over the shards in shard order. More shards than devices
-stand in for the fake host devices desco_tpu's tests use (D = 4 on the
-CPU or on one card); ``n_devices`` keeps desco_tpu's meaning, the number
-of shards, 0 for every visible CUDA device.
+Shards as a list. desco_tpu runs the per-shard code inside
+``shard_map`` with ``all_to_all`` and ``psum`` on a ``graph`` axis. Here
+a process holds its shards as a list (``place_shards``) of the global
+length D: shard d's tensors live on ``devices[d % len(devices)]``, and
+each step loops over the shards it holds in desco_tpu's step order.
+``all_to_all`` is, per (sender, receiver) pair, the sender's block copied
+with ``.to(receiver device)`` (a no-op where both share a device;
+autograd passes through it), and ``psum`` a sum over the shards in shard
+order. More shards than devices stand in for the fake host devices
+desco_tpu's tests use (D = 4 on the CPU or on one card); ``n_devices``
+keeps desco_tpu's meaning, the number of shards, 0 for every visible
+CUDA device.
+
+desco_tpu's ``graph`` axis may span processes (a mesh over every
+process's devices, or ``make_mesh2d``'s plain fallback grid,
+parallel/topology.py). Here that is a shard list placed with ``ranks``:
+slot d is None where another rank of the ``torch.distributed`` group
+holds it, and every list of per-shard tensors below has one entry per
+shard this process holds, in slot order. The blocks between ranks go
+through ``utils/distributed.exchange_blocks``, one collective per
+exchange site for all of a rank's shards, in the process group of the
+ranks the list spans; ``psum`` gathers every slot's value and adds them
+in slot order on every rank. Every rank issues the same collectives in
+the same order, forward and backward (each exchange is one autograd node
+on every rank, created at the same point of the same code). A CUDA graph
+cannot hold a collective, so a step whose shards span ranks runs eager
+(``halo_gossip_step_fn``).
+
+Gradients: where autograd is on, each shard slot reads views of its
+own of the parameters (``shard_params``), made in reverse slot order, so
+a backward to the master parameters adds the slots' terms in slot order;
+a train step gives each slot leaves of its own that share the
+parameters' storage and takes each slot's gradient alone (one row per
+slot, ``slot_terms``, gathered across ranks and summed in slot order):
+one process and the ranks add the same numbers in the same order.
 
 The halo sums run on the port's kernels (ops/cuda_segment.py). The
 interior and boundary streams of the SAGE-family aggregation and the
@@ -63,7 +87,7 @@ from __future__ import annotations
 import dataclasses
 import sys
 import time
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -75,6 +99,7 @@ from ..models.shmp_gnn import (
     _per_type_linear,
     cast_params,
     dropout as _dropout,
+    map_params,
     gat_softmax_out,
     pna_log_degree_sum,
     pna_mix,
@@ -89,6 +114,7 @@ from ..ops.cuda_segment import (
     typed_streams,
 )
 from ..ops.segment import graph_pool_sum, segment_max
+from ..utils import distributed
 from ..utils.cuda_graphs import GraphedStep, clone_outputs, placed_step_fn
 
 
@@ -547,6 +573,9 @@ class HaloShard:
     # [n_loc, 2]: the in-degrees per direction bit of a gossip partition,
     # kept by ``halo_direction_degrees`` at its first call
     direction_deg: Optional[torch.Tensor] = None
+    # which rank holds each slot of the list, where some slot is another
+    # rank's (None: this process holds every slot)
+    ranks: Optional["SlotRanks"] = None
 
     @property
     def n_loc(self) -> int:
@@ -559,6 +588,31 @@ class HaloShard:
     @property
     def p_max(self) -> int:
         return self.push_rows.shape[-1]
+
+
+@dataclasses.dataclass(frozen=True)
+class SlotRanks:
+    """The ranks of a shard list that spans processes: ``of[d]`` holds
+    slot d; ``members``, the ranks it spans in order; ``group``, their
+    process group (None: the default one)."""
+
+    of: tuple
+    members: tuple
+    group: object = None
+
+    def slots(self, rank: int) -> List[int]:
+        """The slots ``rank`` holds, in order."""
+        return [d for d, r in enumerate(self.of) if r == rank]
+
+
+def local_shards(shards: list) -> List[HaloShard]:
+    """The shards this process holds, in slot order."""
+    return [sh for sh in shards if sh is not None]
+
+
+def spans_ranks(shards: list) -> bool:
+    """Whether another rank holds some slot of ``shards``."""
+    return any(sh is None for sh in shards)
 
 
 def shard_devices(n_devices: int, device) -> List[torch.device]:
@@ -577,15 +631,47 @@ def shard_devices(n_devices: int, device) -> List[torch.device]:
     return [visible[d % len(visible)] for d in range(n_devices)]
 
 
-def place_shards(part: HaloPartition, devices) -> List[HaloShard]:
+def place_shards(part: HaloPartition, devices,
+                 ranks: Optional[Sequence[int]] = None
+                 ) -> List[Optional[HaloShard]]:
     """Move a partition onto its devices: shard d on ``devices[d %
     len(devices)]`` (``shard_devices`` gives one per shard), int32 index
     and f32 value tensors, with the interior and boundary
     ``TypedStreams`` derived once (the source-sorted backward streams are
-    derived on the device where a backward first needs them)."""
+    derived on the device where a backward first needs them).
+
+    ``ranks`` (in a process group): ``ranks[d]`` is the rank that holds
+    shard d; this rank places its own and leaves None for the others.
+    The ranks must ascend over the slots (desco_tpu's devices are
+    process-major). Where they are not every rank, their process group
+    must have been made on every rank first (``distributed.group_of``;
+    ``topology.make_mesh2d`` makes its rows'). This rank must hold a slot:
+    ranks that leave it none raise. Without ``ranks`` this process holds
+    every shard."""
     d_n, t, n_loc = part.n_devices, part.n_types, part.n_loc
+    layout = None
+    if ranks is not None:
+        ranks = tuple(int(r) for r in ranks)
+        if len(ranks) != d_n or list(ranks) != sorted(ranks):
+            raise ValueError(f"ranks {ranks} for {d_n} shards: one per "
+                             f"shard, ascending")
+        if ranks[0] < 0 or ranks[-1] >= distributed.world():
+            raise ValueError(f"ranks {ranks}: the group has "
+                             f"{distributed.world()} ranks")
+        if distributed.rank() not in ranks:
+            raise ValueError(f"rank {distributed.rank()} holds no slot of "
+                             f"ranks {ranks}: a rank places only the shard "
+                             f"lists it holds a slot of (a grid's other "
+                             f"rows are None, topology.place_replicas)")
+        if set(ranks) != {distributed.rank()}:
+            members = tuple(sorted(set(ranks)))
+            layout = SlotRanks(ranks, members,
+                               distributed.group_of(members))
     shards = []
     for d in range(d_n):
+        if layout is not None and layout.of[d] != distributed.rank():
+            shards.append(None)
+            continue
         dev = torch.device(devices[d % len(devices)])
 
         def put(a, dtype=None):
@@ -617,35 +703,81 @@ def place_shards(part: HaloPartition, devices) -> List[HaloShard]:
             boundary=(typed_streams(src_b, seg_b, 1, n_loc * t,
                                     d_n * part.h_max)
                       if src_b.shape[0] else None),
-            graph_sorted=bool(np.all(np.diff(part.node_graph[d]) >= 0))))
+            graph_sorted=bool(np.all(np.diff(part.node_graph[d]) >= 0)),
+            ranks=layout))
     return shards
 
 
 # ----------------------------------------------------------- exchanges
+def _route(blocks: List[torch.Tensor], shards: list,
+           anchors: List[torch.Tensor]) -> List[List[torch.Tensor]]:
+    """desco_tpu's ``all_to_all`` over the shards: ``blocks`` holds, per
+    shard this process holds, a [D, ...] tensor whose block r goes to
+    slot r. Returns per local receiver the D blocks it gets, block p from
+    slot p, on its device. Between two local shards a block is a device
+    copy; between ranks every block goes in one ``exchange_blocks``,
+    recorded in autograd where the ``anchors`` (the shards' layer inputs)
+    require grad."""
+    loc = local_shards(shards)
+    sent = {sh.index: b for sh, b in zip(loc, blocks)}
+    remote = (_cross_rank(blocks, loc, anchors) if spans_ranks(shards)
+              else {})
+    return [[sent[p][sh.index].to(sh.device) if p in sent
+             else remote[p, sh.index] for p in range(len(shards))]
+            for sh in loc]
+
+
+def _cross_rank(blocks: List[torch.Tensor], loc: List[HaloShard],
+                anchors: List[torch.Tensor]) -> dict:
+    """The blocks between this rank's shards and other ranks' in one
+    collective: to each other member rank q, the blocks from this rank's
+    shards to q's (sender, then receiver, in slot order); nothing to this
+    rank itself. Returns {(sender slot, receiver slot): block} for every
+    remote sender and local receiver."""
+    layout, me = loc[0].ranks, distributed.rank()
+    dev = loc[0].device
+    send, n_in, n_out = [], [], []
+    for q in layout.members:
+        peers = [] if q == me else layout.slots(q)
+        send += [b[j].to(dev) for b in blocks for j in peers]
+        n_in.append(len(blocks) * len(peers))
+        n_out.append(len(peers) * len(loc))
+    recv = iter(distributed.exchange_blocks(
+        torch.stack(send), layout.group, anchors, counts=(n_in, n_out)))
+    return {(p, sh.index): next(recv).to(sh.device)
+            for q in layout.members if q != me
+            for p in layout.slots(q) for sh in loc}
+
+
 def halo_exchange(xs: List[torch.Tensor],
-                  shards: List[HaloShard]) -> List[torch.Tensor]:
+                  shards: list) -> List[torch.Tensor]:
     """The pull exchange: every shard sends ``x[send_idx] * send_mask``
-    to each peer. Returns each receiver's halo table [D*h_max, F], block
-    p the rows received from shard p (desco_tpu's ``all_to_all``). The
-    send gather is the gather-fused K1 over the live send slots (dead
+    to each peer. Returns each local receiver's halo table [D*h_max, F],
+    block p the rows received from shard p (desco_tpu's ``all_to_all``).
+    The send gather is the gather-fused K1 over the live send slots (dead
     slots are zero rows), so its backward, which sums a row's cotangents
     over the peers it went to, is K1 over the source-sorted slots: no
-    atomic ``index_add_``, the same bits every run."""
+    atomic ``index_add_``, the same bits every run. ``xs``: one per shard
+    this process holds."""
     sends = [_stream_sum(x, sh.send).view(sh.n_devices, sh.h_max,
                                           x.shape[1])
-             for x, sh in zip(xs, shards)]
-    return [torch.cat([sends[p][r].to(sh.device)
-                       for p in range(len(shards))])
-            for r, sh in enumerate(shards)]
+             for x, sh in zip(xs, local_shards(shards))]
+    return [torch.cat(got) for got in _route(sends, shards, xs)]
 
 
-def psum(values: List[torch.Tensor]) -> List[torch.Tensor]:
-    """desco_tpu's ``psum`` over the shards: the sum in shard order, on
-    every shard's device."""
-    total = values[0]
-    for v in values[1:]:
-        total = total + v.to(total.device)
-    return [total.to(v.device) for v in values]
+def psum(values: List[torch.Tensor], shards: list) -> List[torch.Tensor]:
+    """desco_tpu's ``psum`` over the shards: every slot's value (``values``
+    one per shard this process holds) sent to every shard as the
+    exchanges send (``_route``: across ranks too, differentiable), and
+    added in slot order on each local shard's device."""
+    out = []
+    for got in _route([v.expand((len(shards),) + v.shape) for v in values],
+                      shards, values):
+        total = got[0]
+        for v in got[1:]:
+            total = total + v
+        out.append(total)
+    return out
 
 
 def _stream_sum(x: torch.Tensor, st: TypedStreams) -> torch.Tensor:
@@ -657,10 +789,11 @@ def _stream_sum(x: torch.Tensor, st: TypedStreams) -> torch.Tensor:
     return gather_segment_sum(x, st).to(x.dtype)
 
 
-def halo_typed_aggregate(xs: List[torch.Tensor], shards: List[HaloShard],
+def halo_typed_aggregate(xs: List[torch.Tensor], shards: list,
                          tag: str = "") -> List[torch.Tensor]:
     """Hybrid typed aggregation over the shards' resident edges: per
-    shard [n_loc, T, H], in desco_tpu's five steps:
+    shard this process holds (``xs`` one each) [n_loc, T, H], in
+    desco_tpu's five steps:
 
       1. the PULL exchange (boundary rows);
       2. the INTERIOR stream's sum (local cells + outgoing push
@@ -675,7 +808,8 @@ def halo_typed_aggregate(xs: List[torch.Tensor], shards: List[HaloShard],
     (halo_pull{tag}, halo_interior{tag}, ...), so
     parallel/overlap_check.py can check that no interior op reads a pull
     result and no boundary op a push result."""
-    t = shards[0].n_types
+    loc = local_shards(shards)
+    t = loc[0].n_types
     d_n = len(shards)
 
     # (1) pull exchange first: nothing below reads it until (4)
@@ -684,33 +818,33 @@ def halo_typed_aggregate(xs: List[torch.Tensor], shards: List[HaloShard],
 
     # (2) interior stream: local sources only
     with torch.profiler.record_function(f"halo_interior{tag}"):
-        combs = [_stream_sum(x, sh.interior) for x, sh in zip(xs, shards)]
-    aggs = [c[:sh.n_loc * t] for c, sh in zip(combs, shards)]
+        combs = [_stream_sum(x, sh.interior) for x, sh in zip(xs, loc)]
+    aggs = [c[:sh.n_loc * t] for c, sh in zip(combs, loc)]
 
     # (3) push exchange of the interior partials
-    p_max = shards[0].p_max
+    p_max = loc[0].p_max
     push_in = None
     if p_max:
         with torch.profiler.record_function(f"halo_push{tag}"):
             outs = [c[sh.n_loc * t:].view(d_n, p_max, c.shape[1])
-                    for c, sh in zip(combs, shards)]
+                    for c, sh in zip(combs, loc)]
             # receiver r's [D, p_max, H]: block s from shard s
-            push_in = [torch.stack([outs[s][r].to(sh.device)
-                                    for s in range(d_n)])
-                       for r, sh in enumerate(shards)]
+            push_in = [torch.stack(got)
+                       for got in _route(outs, shards, xs)]
 
-    # (4) boundary stream: sources in the received halo table
-    if shards[0].boundary is not None:
+    # (4) boundary stream: sources in the received halo table (every
+    # shard has one or none: the partition pads the streams alike)
+    if loc[0].boundary is not None:
         with torch.profiler.record_function(f"halo_boundary{tag}"):
             aggs = [a + _stream_sum(h, sh.boundary)
-                    for a, h, sh in zip(aggs, halos, shards)]
+                    for a, h, sh in zip(aggs, halos, loc)]
 
     # (5) received push partials, peer by peer; dead slots land in the
     # spill rows past the cells. Backward: index_select's index_add_,
     # atomic on the card but onto rows distinct within one peer
     if push_in is not None:
         out = []
-        for a, parts, sh in zip(aggs, push_in, shards):
+        for a, parts, sh in zip(aggs, push_in, loc):
             a = torch.cat([a, a.new_zeros((p_max, a.shape[1]))])
             for s in range(d_n):
                 rows = sh.push_rows[s]
@@ -719,32 +853,36 @@ def halo_typed_aggregate(xs: List[torch.Tensor], shards: List[HaloShard],
             out.append(a[:sh.n_loc * t])
         aggs = out
     return [a.reshape(sh.n_loc, t, a.shape[1])
-            for a, sh in zip(aggs, shards)]
+            for a, sh in zip(aggs, loc)]
 
 
-def halo_direction_degrees(shards: List[HaloShard]) -> List[torch.Tensor]:
-    """Per shard [n_loc, 2]: the in-degrees per direction bit of a gossip
-    partition (tag ``_L100``, as desco_tpu's), through the same halo
-    aggregation on 1-column rows. They depend on the partition alone: the
-    first call computes them, outside autograd and inference mode, and
-    keeps them on the shards (``HaloShard.direction_deg``); later calls,
-    training and serving alike, read those."""
-    if any(sh.direction_deg is None for sh in shards):
+def halo_direction_degrees(shards: list) -> List[torch.Tensor]:
+    """Per shard this process holds [n_loc, 2]: the in-degrees per
+    direction bit of a gossip partition (tag ``_L100``, as desco_tpu's),
+    through the same halo aggregation on 1-column rows. They depend on
+    the partition alone: the first call computes them (every rank of a
+    list that spans ranks at the same point), outside autograd and
+    inference mode, and keeps them on the shards
+    (``HaloShard.direction_deg``); later calls, training and serving
+    alike, read those."""
+    loc = local_shards(shards)
+    if any(sh.direction_deg is None for sh in loc):
         with torch.inference_mode(False), torch.no_grad():
             aggs = halo_typed_aggregate(
-                [sh.node_mask[:, None] for sh in shards], shards,
+                [sh.node_mask[:, None] for sh in loc], shards,
                 tag="_L100")
-        for sh, a in zip(shards, aggs):
+        for sh, a in zip(loc, aggs):
             sh.direction_deg = a[..., 0]
-    return [sh.direction_deg for sh in shards]
+    return [sh.direction_deg for sh in loc]
 
 
 # ------------------------------------------------------------ SHMP tower
-def halo_aggregator(cfg: SHMPConfig, shards: List[HaloShard]):
+def halo_aggregator(cfg: SHMPConfig, shards: list):
     """The SAGE / GIN / GCN aggregation over the shards: per layer the
     hybrid exchange and typed aggregate, then the per-type transform."""
-    if shards[0].n_types != cfg.n_edge_types:
-        raise ValueError(f"the partition has {shards[0].n_types} edge "
+    n_types = local_shards(shards)[0].n_types
+    if n_types != cfg.n_edge_types:
+        raise ValueError(f"the partition has {n_types} edge "
                          f"types, the tower {cfg.n_edge_types}")
 
     def agg_fn(xs, conv_ws, layer):
@@ -754,9 +892,8 @@ def halo_aggregator(cfg: SHMPConfig, shards: List[HaloShard]):
     return agg_fn
 
 
-def _require_pull_only(shards: List[HaloShard], conv: str,
-                       why: str) -> None:
-    if any(sh.p_max for sh in shards):
+def _require_pull_only(shards: list, conv: str, why: str) -> None:
+    if any(sh.p_max for sh in local_shards(shards)):
         raise ValueError(f"halo {conv} needs a force_pull=True partition "
                          f"({why})")
 
@@ -781,7 +918,7 @@ def _streams(shard: HaloShard):
             if st is not None]
 
 
-def halo_gat_aggregator(cfg: SHMPConfig, shards: List[HaloShard], atts):
+def halo_gat_aggregator(cfg: SHMPConfig, shards: list, atts):
     """Typed GAT attention over the shards (``models/shmp_gnn
     .gat_aggregator`` semantics). Pull edges have a local destination, so
     each (dst, type) softmax is local once the raw remote rows arrive:
@@ -795,7 +932,8 @@ def halo_gat_aggregator(cfg: SHMPConfig, shards: List[HaloShard], atts):
         with torch.profiler.record_function(f"halo_pull_L{layer}"):
             halos = halo_exchange(xs, shards)
         out = []
-        for x, halo, w, att, sh in zip(xs, halos, conv_ws, atts, shards):
+        for x, halo, w, att, sh in zip(xs, halos, conv_ws, atts,
+                                       local_shards(shards)):
             n = x.shape[0]
             n_seg = n * t_n
             a_src, a_dst = att[0][layer], att[1][layer]
@@ -827,8 +965,7 @@ def halo_gat_aggregator(cfg: SHMPConfig, shards: List[HaloShard], atts):
     return agg_fn
 
 
-def halo_pna_aggregator(cfg: SHMPConfig, shards: List[HaloShard],
-                        mix_ws):
+def halo_pna_aggregator(cfg: SHMPConfig, shards: list, mix_ws):
     """Typed PNA aggregation over the shards (``models/shmp_gnn
     .pna_aggregator`` semantics, its two-pass variance included): every
     (dst, type) statistic is local at the dst owner of a pull-only
@@ -844,7 +981,7 @@ def halo_pna_aggregator(cfg: SHMPConfig, shards: List[HaloShard],
         with torch.profiler.record_function(f"halo_pull_L{layer}"):
             halos = halo_exchange(xs, shards)
         parts = []
-        for x, halo, w, sh in zip(xs, halos, conv_ws, shards):
+        for x, halo, w, sh in zip(xs, halos, conv_ws, local_shards(shards)):
             n = x.shape[0]
             n_seg = n * t_n
             z_tab = (torch.matmul(x, w), torch.matmul(halo, w))
@@ -872,29 +1009,38 @@ def halo_pna_aggregator(cfg: SHMPConfig, shards: List[HaloShard],
                           *pna_log_degree_sum(cnt, sh.node_mask.float())))
         # the graph's mean log-degree over its valid nodes: its parts
         # summed over the shards, so every shard scales alike
-        lsums = psum([p[5] for p in parts])
-        valids = psum([p[6] for p in parts])
+        lsums = psum([p[5] for p in parts], shards)
+        valids = psum([p[6] for p in parts], shards)
         return [pna_mix(*p[:5], lsum, valid, mix_w[layer])
                 for p, lsum, valid, mix_w in zip(parts, lsums, valids,
                                                   mix_ws)]
     return agg_fn
 
 
-def _per_device(params, dtype, shards: List[HaloShard]) -> list:
-    """Each shard's view of ``params`` cast to ``dtype`` on its device
-    (one copy per device; the casts and copies are inside the graph)."""
+def shard_params(params, dtype, shards: list) -> list:
+    """Each local shard's view of ``params`` (a module) cast to ``dtype``
+    on its device, inside the graph. Where autograd records, each slot
+    reads views of its own (no copy where the device and type are the
+    parameters'), made in reverse slot order, so a backward to
+    ``params`` adds the slots' terms in slot order (autograd runs the
+    later-made node first); otherwise one cast per device."""
+    loc = local_shards(shards)
+    if torch.is_grad_enabled():
+        return [map_params(params, lambda p, dev=sh.device:
+                           p.to(dev, dtype).view_as(p))
+                for sh in loc[::-1]][::-1]
     home = next(params.parameters()).device
     cache = {}
-    for sh in shards:
+    for sh in loc:
         if sh.device not in cache:
             cache[sh.device] = cast_params(
                 params, dtype, None if sh.device == home else sh.device)
-    return [cache[sh.device] for sh in shards]
+    return [cache[sh.device] for sh in loc]
 
 
 def shard_generators(shards: List[HaloShard], seed: int) -> list:
-    """One dropout generator per shard, on its device, seeded from the
-    step's seed and the shard index (desco_tpu folds the mesh position
+    """One dropout generator per shard this process holds, on its device,
+    seeded from the step's seed and the shard index (desco_tpu folds the mesh position
     into its key: the two match in distribution only)."""
     return ShardGenerators().seed(shards, seed)
 
@@ -909,26 +1055,28 @@ class ShardGenerators:
     def __init__(self):
         self.gens: List[torch.Generator] = []
 
-    def seed(self, shards: List[HaloShard], seed: int) -> list:
-        devices = [sh.device for sh in shards]
+    def seed(self, shards: list, seed: int) -> list:
+        loc = local_shards(shards)
+        devices = [sh.device for sh in loc]
         if [g.device for g in self.gens] != devices:
             self.gens = [torch.Generator(device=d) for d in devices]
-        for g, sh in zip(self.gens, shards):
+        for g, sh in zip(self.gens, loc):
             g.manual_seed((int(seed) * 1_000_003 + sh.index) % (2 ** 63 - 1))
         return self.gens
 
 
-def halo_shmp_core(params, cfg: SHMPConfig, shards: List[HaloShard],
+def halo_shmp_core(params, cfg: SHMPConfig, shards: list,
                    train: bool = False, seed: Optional[int] = None
                    ) -> List[torch.Tensor]:
-    """SHMP core over ONE sharded graph: per shard the concat-skip
-    embeddings [n_loc, post_input_dim] in ``cfg.dtype``. The layer body is
-    ``apply_shmp_core``'s (``run_shmp_layers_sharded``); only the
-    aggregation differs: remote contributions arrive through fresh
-    pull / push exchanges per layer. GAT and PNA need a ``force_pull``
-    partition. ``seed`` (training with dropout): each shard draws its
-    masks from ``shard_generators``."""
-    sp = _per_device(params, cfg.dtype, shards)
+    """SHMP core over ONE sharded graph: per shard this process holds the
+    concat-skip embeddings [n_loc, post_input_dim] in ``cfg.dtype``. The
+    layer body is ``apply_shmp_core``'s (``run_shmp_layers_sharded``);
+    only the aggregation differs: remote contributions arrive through
+    fresh pull / push exchanges per layer. GAT and PNA need a
+    ``force_pull`` partition. ``seed`` (training with dropout): each shard
+    draws its masks from ``shard_generators``."""
+    loc = local_shards(shards)
+    sp = shard_params(params, cfg.dtype, shards)
     if cfg.conv_type == "GAT":
         agg = halo_gat_aggregator(cfg, shards, [p["att"] for p in sp])
     elif cfg.conv_type == "PNA":
@@ -936,7 +1084,7 @@ def halo_shmp_core(params, cfg: SHMPConfig, shards: List[HaloShard],
     else:
         agg = halo_aggregator(cfg, shards)
     xs, ntypes, nmasks = [], [], []
-    for sh, p in zip(shards, sp):
+    for sh, p in zip(loc, sp):
         nmask = sh.node_mask[:, None].to(cfg.dtype)
         x = _per_type_linear(sh.x.to(cfg.dtype), p["pre"].w, p["pre"].b,
                              sh.node_type, cfg.n_node_types)
@@ -949,47 +1097,58 @@ def halo_shmp_core(params, cfg: SHMPConfig, shards: List[HaloShard],
                                    train=train, generators=gens)
 
 
-def halo_graph_pool(embs: List[torch.Tensor], shards: List[HaloShard],
+def halo_graph_pool(embs: List[torch.Tensor], shards: list,
                     n_graphs: int) -> torch.Tensor:
-    """Cross-shard global-add pool [n_graphs, H] on the first shard's
-    device: each shard's pooling sum (K1 over its ascending
+    """Cross-shard global-add pool [n_graphs, H] on the first local
+    shard's device: each shard's pooling sum (K1 over its ascending
     ``node_graph``, padding slot n_graphs dropped), then the sum over the
-    shards."""
-    if not all(sh.graph_sorted for sh in shards):
+    shards (``psum``: across ranks too)."""
+    loc = local_shards(shards)
+    if not all(sh.graph_sorted for sh in loc):
         raise ValueError("halo pooling runs K1 over node_graph, which must "
                          "ascend within each shard")
     return psum([graph_pool_sum(e, sh.node_graph, n_graphs)
-                 for e, sh in zip(embs, shards)])[0]
+                 for e, sh in zip(embs, loc)], shards)[0]
 
 
 # ---------------------------------------------------------------- gossip
-def halo_gossip_single(params, shards: List[HaloShard],
+def halo_gossip_single(params, shards: list,
                        x_cols: List[torch.Tensor], query_emb: torch.Tensor,
                        deg: Optional[List[torch.Tensor]] = None,
                        dropout: float = 0.0, train: bool = False,
                        generators=None) -> List[torch.Tensor]:
     """Gossip forward for ONE query over ONE sharded graph whose edge
-    types are the direction bits (0 fwd / 1 bwd): per shard the residual
-    [n_loc] (``models/gossip.apply_gossip_single``, its dropout points
-    included), with the hybrid exchange feeding the per-direction
-    aggregations. ``x_cols``: each shard's stage-1 counts of this query;
-    ``deg``: ``halo_direction_degrees(shards)``, computed here when not
-    given; ``generators``: one per shard (``shard_generators``)."""
+    types are the direction bits (0 fwd / 1 bwd): per shard this process
+    holds the residual [n_loc] (``models/gossip.apply_gossip_single``, its
+    dropout points included), with the hybrid exchange feeding the
+    per-direction aggregations. ``x_cols``: each local shard's stage-1
+    counts of this query; ``deg``: ``halo_direction_degrees(shards)``,
+    computed here when not given; ``generators``: one per local shard
+    (``shard_generators``)."""
+    return _gossip_single(shard_params(params, torch.float32, shards),
+                          shards, x_cols, query_emb, deg, dropout, train,
+                          generators)
+
+
+def _gossip_single(sp: list, shards: list, x_cols, query_emb, deg,
+                   dropout, train, generators) -> List[torch.Tensor]:
+    """``halo_gossip_single`` on the local slots' parameter views ``sp``
+    (``shard_params``)."""
     from ..models.gossip import _gate
 
-    sp = _per_device(params, torch.float32, shards)
-    qs = [query_emb.to(sh.device) for sh in shards]
-    generators = generators or [None] * len(shards)
-    nmasks = [sh.node_mask[:, None] for sh in shards]
+    loc = local_shards(shards)
+    qs = [query_emb.to(sh.device) for sh in loc]
+    generators = generators or [None] * len(loc)
+    nmasks = [sh.node_mask[:, None] for sh in loc]
     xs = []
-    for p, sh, xc, q, nmask in zip(sp, shards, x_cols, qs, nmasks):
+    for p, sh, xc, q, nmask in zip(sp, loc, x_cols, qs, nmasks):
         x = p["pre"](xc[:, None])
         qe = q[None, :].expand(x.shape[0], q.shape[0])
         xs.append(torch.cat([qe, x], dim=-1).detach() * nmask)
     embs = [[x] for x in xs]
     if deg is None:
         deg = halo_direction_degrees(shards)
-    for li in range(len(params["convs"])):
+    for li in range(len(sp[0]["convs"])):
         aggs = halo_typed_aggregate(xs, shards, tag=f"_L{li}")
         new = []
         for p, x, agg, dg, q, nmask, gen in zip(sp, xs, aggs, deg, qs,
@@ -1006,29 +1165,87 @@ def halo_gossip_single(params, shards: List[HaloShard],
             e.append(x)
     return [_apply_post(p["post"], torch.cat(e, dim=-1), dropout, train,
                         gen)[:, 0] * sh.node_mask
-            for p, e, sh, gen in zip(sp, embs, shards, generators)]
+            for p, e, sh, gen in zip(sp, embs, loc, generators)]
 
 
-def halo_gossip_loss(params, shards: List[HaloShard],
-                     query_embs: torch.Tensor, dropout: float = 0.0,
-                     train: bool = False, generators=None) -> torch.Tensor:
+def _slot_sums(sp: list, shards: list, query_embs: torch.Tensor,
+               dropout: float, train: bool, generators) -> list:
+    """Per local shard slot, the gossip objective's sum over its valid
+    nodes and the queries, in query order, on the slots' parameter views
+    ``sp``."""
+    loc = local_shards(shards)
+    deg = halo_direction_degrees(shards)
+    sums = [None] * len(loc)
+    for q, q_emb in enumerate(query_embs):
+        res = _gossip_single(sp, shards, [sh.x[:, q] for sh in loc], q_emb,
+                             deg, dropout, train, generators)
+        for i, (r, sh) in enumerate(zip(res, loc)):
+            loss = (torch.log2((r + sh.x[:, q] - sh.node_y[:, q]).abs()
+                               + 1.0) * sh.node_mask).sum()
+            sums[i] = loss if sums[i] is None else sums[i] + loss
+    return sums
+
+
+def halo_gossip_loss(params, shards: list, query_embs: torch.Tensor,
+                     dropout: float = 0.0, train: bool = False,
+                     generators=None) -> torch.Tensor:
     """The gossip objective over ONE sharded graph
     (``models/gossip.gossip_loss``): the sum over queries and valid nodes
-    of log2(|gossip + neigh - truth| + 1), summed over the shards, so the
-    gradients through the per-layer exchanges are exact. Each shard's
-    ``x`` holds the stage-1 counts [n_loc, Q], ``node_y`` the truth. A
-    scalar on the first shard's device."""
-    deg = halo_direction_degrees(shards)
-    total = None
-    for q, q_emb in enumerate(query_embs):
-        res = halo_gossip_single(params, shards, [sh.x[:, q] for sh in shards],
-                                 q_emb, deg, dropout, train, generators)
-        losses = [(torch.log2((r + sh.x[:, q] - sh.node_y[:, q]).abs() + 1.0)
-                   * sh.node_mask).sum() for r, sh in zip(res, shards)]
-        for loss in losses:
-            loss = loss.to(shards[0].device)
-            total = loss if total is None else total + loss
-    return total
+    of log2(|gossip + neigh - truth| + 1). Each shard's ``x`` holds the
+    stage-1 counts [n_loc, Q], ``node_y`` the truth. desco_tpu's psum'd
+    scalar: per shard slot the sum over its nodes and the queries in
+    query order, the slots' sums added in slot order (``psum``: every
+    rank's slots where the shards span ranks), on the first local
+    shard's device. Its backward reaches the parameter reads of this
+    process's shards: across ranks the slots' gradients are summed by the
+    train step (``halo_gossip_step_fn``)."""
+    sums = _slot_sums(shard_params(params, torch.float32, shards), shards,
+                      query_embs, dropout, train, generators)
+    return psum(sums, shards)[0]
+
+
+def slot_terms(params, shards: list, query_embs: torch.Tensor,
+               dropout: float = 0.0, generators=None,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[L, n + 1] on ``params``' device: per shard slot this process holds
+    (L of them, in slot order), the gradient of the halo gossip loss with
+    respect to the slot's own leaves of the parameters, flat in parameter
+    order, then the slot's sum. One backward for all local slots: across
+    ranks its exchanges carry the other ranks' cotangents. The rows of
+    every slot added in slot order are the loss and its gradient.
+
+    A slot's leaves share the parameters' storage where its shard lies on
+    their device (a cast copy elsewhere), and their gradients accumulate
+    into the slot's row itself: ``out`` (zeros, written in place) or a
+    new buffer."""
+    home = next(params.parameters()).device
+    loc = local_shards(shards)
+    sizes = [p.numel() for p in params.parameters()]
+    rows = (out if out is not None
+            else torch.zeros((len(loc), sum(sizes) + 1), device=home))
+    trees, leaves = [], []
+    for i, sh in enumerate(loc):
+        own, off = {}, 0
+        for p, n in zip(params.parameters(), sizes):
+            t = p.detach().to(sh.device, torch.float32).requires_grad_()
+            if t.device == home:
+                t.grad = rows[i, off:off + n].view_as(p)
+            own[id(p)] = t
+            off += n
+        trees.append(map_params(params, lambda p, own=own: own[id(p)]))
+        leaves.append(list(own.values()))
+    sums = _slot_sums(trees, shards, query_embs, dropout, dropout > 0.0,
+                      generators)
+    torch.autograd.backward(sums, [torch.ones_like(s) for s in sums],
+                            inputs=[t for ts in leaves for t in ts])
+    for i, (ts, s) in enumerate(zip(leaves, sums)):
+        off = 0
+        for t, n in zip(ts, sizes):
+            if t.device != home and t.grad is not None:
+                rows[i, off:off + n].copy_(t.grad.reshape(-1))
+            off += n
+        rows[i, -1].copy_(s.detach())
+    return rows
 
 
 def halo_gossip_step_fn(opt, dropout: float = 0.0, graphed: bool = False):
@@ -1038,26 +1255,64 @@ def halo_gossip_step_fn(opt, dropout: float = 0.0, graphed: bool = False):
     (train/loop.py) over ``params``, applied with the finite-loss guard of
     ``train_step``. ``dropout`` > 0 draws masks from one generator per
     shard, made once and reseeded from ``seed`` at every call
-    (``ShardGenerators``). ``graphed``: the step is captured as a CUDA
-    graph at its first call, for that call's ``params`` and ``shards``,
-    and replayed at every later one (utils/cuda_graphs.placed_step_fn)."""
+    (``ShardGenerators``).
+
+    The step's parts: each local slot's row [gradient of its own
+    parameter leaves, its sum] (``slot_terms``); where the shards span
+    ranks, the rows gathered in rank order (every rank holds the same
+    number of slots, process-major, so rank order is slot order; the
+    first call checks that every rank holds the same parameters); then
+    the rows added in slot order and Adam. ``graphed``: the rows and the
+    sum are captured as CUDA graphs at the first call, for that call's
+    ``params`` and ``shards``, and replayed at every later one, the
+    exchange between them (utils/cuda_graphs.placed_step_fn); where the
+    shards span ranks the step runs eager (its exchanges are collectives,
+    which no capture holds) and says so once on standard error."""
+    from .dp import apply_reduced, reduce_terms
+
     gens = ShardGenerators()
+    state = {"spans": False, "checked": False}
 
     def reseed(shards, seed):
         return gens.seed(shards, seed) if dropout > 0.0 else []
 
-    def body(params, shards, query_embs, lr):
-        opt.zero_grad()
-        loss = halo_gossip_loss(params, shards, query_embs, dropout,
-                                train=dropout > 0.0,
-                                generators=gens.gens or None)
-        loss.backward()
-        loss = loss.detach()
-        ok = torch.isfinite(loss)
-        opt.step(lr, ok)
-        return loss, ok
+    def local(params, shards, query_embs):
+        state["spans"] = spans_ranks(shards)
+        if state["spans"]:
+            _check_even(shards)
+        return slot_terms(params, shards, query_embs, dropout,
+                          gens.gens or None)
 
-    return placed_step_fn(body, reseed, opt, graphed=graphed)
+    def exchange(terms):
+        if not state["spans"]:
+            return terms
+        if not state["checked"]:
+            distributed.check_replicated(opt.flat, "parameters")
+            state["checked"] = True
+        return distributed.gather_in_rank_order(terms)
+
+    def finish(terms, lr):
+        loss, flat = reduce_terms(terms)
+        return apply_reduced(opt, loss, flat, lr)
+
+    return placed_step_fn(
+        local, reseed, opt, graphed=graphed, exchange=exchange,
+        finish=finish, n_terms=len,
+        eager_when=lambda shards: (spans_ranks(shards)
+                                   and "the halo gossip step's shards span "
+                                       "ranks"))
+
+
+def _check_even(shards: list) -> None:
+    """A step across ranks gathers one row per slot from every rank of the
+    group: its shards must span every rank, each holding as many."""
+    layout = local_shards(shards)[0].ranks
+    counts = {q: len(layout.slots(q)) for q in layout.members}
+    if (layout.members != tuple(range(distributed.world()))
+            or len(set(counts.values())) != 1):
+        raise ValueError(f"a halo step across ranks needs every rank of "
+                         f"the group to hold as many slots; the shards "
+                         f"lie {counts} over {distributed.world()} ranks")
 
 
 # --------------------------------------------------------------- serving

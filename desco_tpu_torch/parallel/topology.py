@@ -5,27 +5,26 @@ desco_tpu lays out a ("data", "graph") mesh: the ``graph`` axis carries
 halo-partitioned single-graph parallelism (one boundary exchange per
 layer per query, latency-critical, kept innermost so neighbor ranks sit
 on adjacent devices) and the ``data`` axis carries data parallelism (one
-gradient reduction per step). Here one controller holds both axes as
-lists: replica d is a shard list of parallel/halo.py on row d of the
-grid, and the ``data`` reduction is parallel/dp.py's: replica d reads
-its own copy of the parameters on its row's first device
-(``ReplicaParams``), and the replicas' gradients are summed on the
-master device in replica order. Inside a replica the halo path copies
-the parameters to each shard's device within the autograd graph, so a
-row spread over several devices sums its shards' gradients through
-autograd (parallel/halo.py).
+gradient reduction per step). Here a process holds both axes as lists:
+replica d is a shard list of parallel/halo.py on row d of the grid. The
+reduction is explicit, per (replica, shard) slot: each slot's gradient
+is that of its own leaves of the parameters (``halo.slot_terms``), one
+row [flat gradient, term] per slot; the rows are added per replica in shard
+order, then over the replicas in replica order, on the master device.
 
-desco_tpu's multi-process branch (a hybrid mesh whose ``data`` axis
-spans processes, the ``graph`` axis inside each) is the port's process
-group (utils/distributed.py): with P ranks and ``n_data`` a multiple of
-P, rank r holds the rows [r n_data / P, (r + 1) n_data / P), the whole
-graph axis of each row on the rank's card(s); a row another rank holds
-is None in the grid and in the placed replicas. Each rank computes its
-rows' terms, the terms are gathered in row order and every rank sums
-them in row order: the bits of the in-process grid. Where ``n_data`` is
-not a multiple of P, desco_tpu falls back to a graph axis across
-processes, whose halo exchange between processes is not ported: the
-port raises.
+desco_tpu's multi-process branches are the port's process group
+(utils/distributed.py). Its grid is the flat (n_data * n_graph) list of
+every process's devices, process-major: with P ranks, slot i = d *
+n_graph + g lies on rank i // (n_data * n_graph / P). Where ``n_data``
+is a multiple of P that is desco_tpu's hybrid mesh (the ``data`` axis
+over the processes, each row whole on one rank); otherwise it is its
+plain fallback grid, and a row's graph axis may cross ranks: its halo
+exchanges then go between the ranks (parallel/halo.py). A slot another
+rank holds is None in the grid and in the placed replicas, a row of
+which this rank holds no slot is None. Each rank computes the rows of
+its own slots, the rows are gathered in rank order (which is slot
+order) and every rank sums them as one process would: the bits of the
+in-process grid.
 """
 
 from __future__ import annotations
@@ -39,16 +38,17 @@ import torch
 from . import halo as halo_mod
 from ..utils import distributed
 from ..utils.cuda_graphs import placed_step_fn
-from .dp import (ReplicaParams, apply_reduced, reduce_terms, replica_seed,
-                 replica_terms)
+from .dp import apply_reduced, replica_seed
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh2D:
     """``devices[d][g]``: the device of shard g of replica d (None where
-    another rank of the process group holds row d)."""
+    another rank of the process group holds that slot); ``ranks[d][g]``:
+    the rank that holds it."""
 
     devices: tuple
+    ranks: tuple
 
     @property
     def shape(self) -> tuple:
@@ -62,37 +62,37 @@ def make_mesh2d(n_data: int, n_graph: int,
     devices as ``halo.shard_devices`` does, so a 2 x 2 grid runs on one
     card (or on the CPU with ``devices=[torch.device("cpu")]``).
 
-    In a process group of P ranks the ``data`` axis spans the ranks, as
-    desco_tpu's hybrid mesh spans processes: rank r holds the rows [r
-    n_data / P, (r + 1) n_data / P), cycling over ``devices`` (default:
-    the rank's card) within the rank. ``n_data`` must be a multiple of
-    P."""
-    world = distributed.world()
+    In a process group of P ranks the grid is desco_tpu's flat reshape of
+    every process's devices: slot i = d * n_graph + g lies on rank i //
+    (n_data * n_graph / P), and each rank cycles its slots over
+    ``devices`` (default: the rank's card). Where n_data is a multiple of
+    P each rank holds whole rows (desco_tpu's hybrid mesh); otherwise
+    rows cross ranks (its fallback grid), and every rank makes the
+    process group of each such row's ranks here: every rank calls it
+    alike. n_data * n_graph must be a multiple of P."""
+    world, here = distributed.world(), distributed.rank()
+    n = n_data * n_graph
+    if n % world:
+        raise ValueError(
+            f"a {n_data} x {n_graph} grid over {world} processes: every "
+            f"process holds as many slots, so n_data * n_graph must be a "
+            f"multiple of the process count")
     if world > 1:
-        if n_data % world:
-            raise ValueError(
-                f"a {n_data} x {n_graph} grid over {world} processes: "
-                f"n_data must be a multiple of the process count; "
-                f"otherwise desco_tpu puts the graph axis across "
-                f"processes, whose halo exchange between processes is not "
-                f"ported (ROADMAP.md, Queue 1: a halo graph axis across "
-                f"processes)")
         devs = (list(devices) if devices is not None
                 else [distributed.rank_device("cuda")])
-        per, here = n_data // world, distributed.rank()
-        rows = []
-        for d in range(n_data):
-            base = (d - here * per) * n_graph
-            rows.append(tuple(
-                torch.device(devs[(base + g) % len(devs)])
-                if d // per == here else None for g in range(n_graph)))
-        return Mesh2D(tuple(rows))
-    devs = (list(devices) if devices is not None
-            else halo_mod.shard_devices(0, "cuda"))
-    n = n_data * n_graph
-    flat = [torch.device(devs[i % len(devs)]) for i in range(n)]
-    return Mesh2D(tuple(tuple(flat[d * n_graph:(d + 1) * n_graph])
-                        for d in range(n_data)))
+    else:
+        devs = (list(devices) if devices is not None
+                else halo_mod.shard_devices(0, "cuda"))
+    per = n // world
+    ranks = [i // per for i in range(n)]
+    for d in range(n_data):  # every rank makes the rows' groups, in order
+        members = sorted(set(ranks[d * n_graph:(d + 1) * n_graph]))
+        if len(members) > 1:
+            distributed.group_of(members, make=True)
+    flat = [torch.device(devs[(i - here * per) % len(devs)])
+            if ranks[i] == here else None for i in range(n)]
+    return Mesh2D(*(tuple(tuple(a[d * n_graph:(d + 1) * n_graph])
+                          for d in range(n_data)) for a in (flat, ranks)))
 
 
 def harmonized_partitions(specs: list, n_devices: int, **kw) -> list:
@@ -128,72 +128,80 @@ def stack_partitions(parts: list) -> halo_mod.HaloPartition:
 
 
 def place_replicas(stacked: halo_mod.HaloPartition,
-                   mesh: Mesh2D) -> List[Optional[List[halo_mod.HaloShard]]]:
+                   mesh: Mesh2D) -> List[Optional[list]]:
     """A stacked partition on the grid: per replica d, the shard list of
-    its rows (``halo.place_shards`` on row d's devices), None where
-    another rank holds row d."""
+    row d (``halo.place_shards`` on the row's devices and ranks, None for
+    a slot another rank holds), None for a row of which this rank holds
+    no slot. Every rank of the group calls it with the same grid."""
     n_data, n_graph = mesh.shape
     if stacked.n_devices != n_data * n_graph:
         raise ValueError(f"{stacked.n_devices} shards for a "
                          f"{n_data} x {n_graph} grid")
     out = []
     for d in range(n_data):
-        if mesh.devices[d][0] is None:
+        if all(dev is None for dev in mesh.devices[d]):
             out.append(None)
             continue
         rows = slice(d * n_graph, (d + 1) * n_graph)
         part = dataclasses.replace(stacked, **{
             name: getattr(stacked, name)[rows] for name in _ARRAYS
             if getattr(stacked, name) is not None})
-        out.append(halo_mod.place_shards(part, mesh.devices[d]))
+        out.append(halo_mod.place_shards(part, mesh.devices[d],
+                                         ranks=mesh.ranks[d]))
     return out
 
 
-def _local_rows(replicas) -> list:
-    """The rows this process holds."""
-    return [d for d, shards in enumerate(replicas) if shards is not None]
-
-
-def _row_devices(replicas) -> list:
-    """The device of each local replica's parameters: its first shard's."""
-    return [replicas[d][0].device for d in _local_rows(replicas)]
-
-
-def _local_halo_terms(params, replicas, query_embs, dropout, copies,
+def _local_halo_terms(params, replicas, query_embs, dropout,
                       generators) -> torch.Tensor:
-    """``dp.replica_terms`` of the rows this process holds: each row's
-    ``halo_gossip_loss`` on its own parameter copy."""
-    home = next(params.parameters()).device
-    local = _local_rows(replicas)
-    if (len(local) < len(replicas)) != (distributed.world() > 1):
-        raise ValueError("in a process group the grid's rows span the "
-                         "ranks (make_mesh2d), and only there")
-    reps = (copies or ReplicaParams()).sync(params, _row_devices(replicas))
-    train = dropout > 0.0
+    """[L, n + 1]: ``halo.slot_terms`` of every slot this process holds,
+    row by row, in slot order (the rows' collectives in the same order on
+    every rank), written into one buffer."""
+    held = [(d, shards) for d, shards in enumerate(replicas)
+            if shards is not None]
+    counts = [len(halo_mod.local_shards(shards)) for _, shards in held]
+    n = sum(p.numel() for p in params.parameters())
+    rows = torch.zeros((sum(counts), n + 1),
+                       device=next(params.parameters()).device)
+    off = 0
+    for (d, shards), k in zip(held, counts):
+        halo_mod.slot_terms(params, shards, query_embs, dropout,
+                            generators[d] if dropout > 0.0 else None,
+                            out=rows[off:off + k])
+        off += k
+    return rows
 
-    def losses(j):
-        d = local[j]
-        return halo_mod.halo_gossip_loss(
-            reps[j], replicas[d], query_embs, dropout, train=train,
-            generators=generators[d] if train else None)
 
-    return replica_terms(losses, reps, home)
+def reduce_grid_terms(terms: torch.Tensor, n_graph: int):
+    """The explicit ``psum`` over both axes: every slot's row of
+    ``halo.slot_terms`` [n_data * n_graph, n + 1], added per replica in
+    shard order, then over the replicas in replica order. Returns (the
+    objective, the flat gradient)."""
+    total = None
+    for d in range(0, terms.shape[0], n_graph):
+        row = terms[d]
+        for r in terms[d + 1:d + n_graph]:
+            row = row + r
+        total = row if total is None else total + row
+    return total[-1], total[:-1]
+
+
+def _n_graph(replicas) -> int:
+    return len(next(r for r in replicas if r is not None))
 
 
 def dp_halo_gossip_loss_and_grads(params, replicas, query_embs: torch.Tensor,
                                   dropout: float = 0.0,
-                                  copies: Optional[ReplicaParams] = None,
-                                  generators: Optional[list] = None):
+                                  generators: Optional[dict] = None):
     """(loss, flat gradient) on the master device: the sum over replicas of
-    each replica's ``halo_gossip_loss`` (desco_tpu's ``"sum"`` weighting)
-    on its own parameter copy (``copies`` keeps them between steps),
-    each replica's gradient taken alone and summed in replica order;
-    across ranks each rank computes its rows and the rows' terms are
-    gathered first. Dropout above 0 draws replica d's masks from
-    ``generators[d]``, one generator per shard."""
-    terms = _local_halo_terms(params, replicas, query_embs, dropout, copies,
+    each replica's ``halo_gossip_loss`` (desco_tpu's ``"sum"`` weighting),
+    each (replica, shard) slot's gradient taken alone on its own
+    parameter leaves (``halo.slot_terms``), gathered across ranks and added
+    as ``reduce_grid_terms`` adds them. Dropout above 0 draws replica d's
+    masks from ``generators[d]``, one generator per local shard."""
+    terms = _local_halo_terms(params, replicas, query_embs, dropout,
                               generators)
-    return reduce_terms(distributed.gather_in_rank_order(terms))
+    return reduce_grid_terms(distributed.gather_in_rank_order(terms),
+                             _n_graph(replicas))
 
 
 def dp_halo_gossip_step_fn(opt, dropout: float = 0.0, graphed: bool = False):
@@ -201,13 +209,14 @@ def dp_halo_gossip_step_fn(opt, dropout: float = 0.0, graphed: bool = False):
     lr, seed=0) -> (loss, ok)``, ``replicas`` from ``place_replicas``;
     ``opt`` the port's Adam over ``params`` with ``train_step``'s
     finite-loss guard. Dropout masks come from generators per (replica,
-    shard), made once and reseeded at every call. The step's parts are
-    ``DPStep``'s: the local rows' terms, their exchange (the gather
+    shard), made once and reseeded at every call. The step's parts: the
+    local slots' rows (``halo.slot_terms``), their exchange (the gather
     across ranks, whose first call checks that every rank holds the same
-    parameters) and the ordered sum with Adam. ``graphed``: the local
-    part and the sum are captured at the first call and replayed
-    (utils/cuda_graphs.placed_step_fn), the exchange between them."""
-    copies = ReplicaParams()
+    parameters) and ``reduce_grid_terms`` with Adam. ``graphed``: the
+    local part and the sum are captured at the first call and replayed
+    (utils/cuda_graphs.placed_step_fn), the exchange between them; where
+    a row's shards span ranks the step runs eager (its halo exchanges are
+    collectives) and says so once on standard error."""
     gens: dict = {}
     checked = []
 
@@ -215,15 +224,17 @@ def dp_halo_gossip_step_fn(opt, dropout: float = 0.0, graphed: bool = False):
         if dropout <= 0.0:
             return []
         out = []
-        for d in _local_rows(replicas):
-            g = gens.setdefault(d, halo_mod.ShardGenerators())
-            out += g.seed(replicas[d], replica_seed(seed, d))
+        for d, shards in enumerate(replicas):
+            if shards is not None:
+                g = gens.setdefault(d, halo_mod.ShardGenerators())
+                out += g.seed(shards, replica_seed(seed, d))
         return out
 
     def local(params, replicas, query_embs):
+        grid["n_graph"] = _n_graph(replicas)
         return _local_halo_terms(
-            params, replicas, query_embs, dropout, copies,
-            {d: g.gens for d, g in gens.items()} if dropout > 0.0 else None)
+            params, replicas, query_embs, dropout,
+            {d: g.gens for d, g in gens.items()})
 
     def exchange(terms):
         if not checked:
@@ -232,24 +243,37 @@ def dp_halo_gossip_step_fn(opt, dropout: float = 0.0, graphed: bool = False):
         return distributed.gather_in_rank_order(terms)
 
     def finish(terms, lr):
-        loss, flat = reduce_terms(terms)
+        loss, flat = reduce_grid_terms(terms, grid["n_graph"])
         return apply_reduced(opt, loss, flat, lr)
 
-    return placed_step_fn(local, reseed, opt, graphed=graphed,
-                          exchange=exchange, finish=finish)
+    def across(replicas):
+        return (any(shards is not None and halo_mod.spans_ranks(shards)
+                    for shards in replicas)
+                and "the DP x halo step's rows span ranks")
+
+    grid: dict = {}
+    return placed_step_fn(
+        local, reseed, opt, graphed=graphed, exchange=exchange,
+        finish=finish, eager_when=across,
+        n_terms=lambda replicas: len(replicas) * _n_graph(replicas))
 
 
 def dp_halo_shmp_forward(cfg):
     """The composed SHMP core forward: ``fwd(params, replicas)`` -> per
     replica the per-shard embeddings of ``halo.halo_shmp_core`` over its
-    own graph and parameter copy (the exchanges stay within a replica's
-    row), None for a row another rank holds."""
-    copies = ReplicaParams()
+    own graph (the exchanges stay within a replica's row, across ranks
+    where the row crosses them), None for a slot another rank holds and
+    for a row of which this rank holds no slot."""
 
     def fwd(params, replicas):
-        reps = iter(copies.sync(params, _row_devices(replicas)))
-        return [None if shards is None
-                else halo_mod.halo_shmp_core(next(reps), cfg, shards)
-                for shards in replicas]
+        out = []
+        for shards in replicas:
+            if shards is None:
+                out.append(None)
+                continue
+            embs = iter(halo_mod.halo_shmp_core(params, cfg, shards))
+            out.append([None if sh is None else next(embs)
+                        for sh in shards])
+        return out
 
     return fwd

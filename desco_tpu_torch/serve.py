@@ -23,6 +23,11 @@ one per visible GPU), and ``--compile_cache DIR`` builds the kernels into
 DIR once for every later start. The service replays its compiled
 forwards (CUDA graphs).
 
+The daemon is one process, as desco_tpu's is: it reads one stdin per
+process, and desco_tpu serves per process (it cannot read a sharded
+result back across processes; ``serving.py``'s docstring), so no user
+runs it across the ranks of a process group.
+
 Usage:
   python -m desco_tpu_torch.serve --neigh_ckpt release/r4/neigh.best \\
       --gossip_ckpt release/r4/gossip.best         # stdin/stdout

@@ -26,6 +26,17 @@ shards both device stages over that many data-parallel replicas
 built kernels in a directory a restarted service reuses
 (utils/compile_cache.py).
 
+Serving stays per process. desco_tpu trains across processes but cannot
+serve there: it reads its sharded results back with ``np.asarray``, which
+raises for an array that spans another process's devices (the halo serve,
+desco_tpu/parallel/halo.py:1042; the DP predicts, desco_tpu/parallel/
+dp.py:155 and :200). So the port's halo serve shards over this process's
+own devices even inside a ``torch.distributed`` group: there every rank
+serves the whole graph. A service made inside a group whose mesh spans
+the ranks gathers every rank's predictions (parallel/dp.py), where
+desco_tpu's would raise: a difference kept on purpose (ROADMAP.md, Queue
+3).
+
 The device stages replay compiled forwards, as desco_tpu jits them: the
 service holds ``utils/cuda_graphs.ServingGraphs``, one cache per ensemble
 member and one each for the bounds and the gossip forward, in one memory
@@ -252,7 +263,10 @@ class CountingService:
         ``count``. ``stats``, a dict, gets the host seconds of stage 1
         (``stage1_s``: decomposition, forward, bounds, verification), its
         target batches (``stage1_batches``) and the gossip's
-        ``serve_gossip_counts`` stats."""
+        ``serve_gossip_counts`` stats. Per process: inside a process
+        group each rank shards over its own devices and serves the whole
+        graph (desco_tpu cannot read a graph-sharded result back across
+        processes; see the module's docstring)."""
         from .parallel.halo import serve_gossip_counts
 
         refine = self._check_refine(refine)

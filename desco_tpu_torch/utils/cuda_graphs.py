@@ -70,6 +70,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import sys
 import threading
 import time
 from typing import Callable, Optional, Sequence
@@ -306,78 +307,67 @@ class ExchangedStep:
 
 
 def placed_step_fn(body: Callable, reseed: Callable, opt, *,
-                   graphed: bool, exchange: Optional[Callable] = None,
-                   finish: Optional[Callable] = None) -> Callable:
+                   graphed: bool, exchange: Callable, finish: Callable,
+                   n_terms: Callable = len,
+                   eager_when: Optional[Callable] = None) -> Callable:
     """A train step over data placed on the device for a run (a halo
-    partition's shards, a DP x halo grid's replicas): ``step(params,
-    place, query_embs, lr, seed=0) -> (loss, ok)`` calls ``reseed(place,
-    seed)``, which reseeds the step's generators (made once) and returns
-    them, then ``body(params, place, query_embs, lr) -> (loss, ok)``,
-    which updates ``opt`` (train/loop.Adam) in place.
+    partition's shards, a DP x halo grid's replicas), split as
+    ``ExchangedStep`` splits it: ``step(params, place, query_embs, lr,
+    seed=0) -> (loss, ok)`` calls ``reseed(place, seed)``, which reseeds
+    the step's generators (made once) and returns them, then
+    ``body(params, place, query_embs) -> terms``, ``exchange(terms)``
+    (``n_terms(place)`` rows [flat gradient, term]) and ``finish(terms,
+    lr) -> (loss, ok)``, which updates ``opt`` (train/loop.Adam) in
+    place.
 
-    With ``exchange`` and ``finish`` the step is split as
-    ``ExchangedStep`` splits it: ``body(params, place, query_embs) ->
-    terms``, then ``exchange(terms)`` (one row [flat gradient, term] per
-    entry of ``place``), then ``finish(terms, lr) -> (loss, ok)``, which
-    updates ``opt``.
+    ``graphed``: the body and the finish run as an ``ExchangedStep`` made
+    at the first call for that call's ``params`` and ``place``, which
+    later calls must pass again; the query embeddings and the learning
+    rate (a float is filled into a device scalar) are its static buffers,
+    and the loss and flag come back as copies of its outputs. It is
+    captured where ``place`` lies on one CUDA device and raises where it
+    spans several; on the CPU it runs without a capture. Where
+    ``eager_when(place)`` gives a reason (the body holds collectives,
+    which no capture may), the step runs eager and says so once on
+    standard error."""
 
-    ``graphed``: the body (or the body and the finish) runs as a
-    ``GraphedStep`` made at the first call for that call's ``params`` and
-    ``place``, which later calls must pass again; the query embeddings
-    and the learning rate (a float is filled into a device scalar) are
-    its static buffers, and the loss and flag come back as copies of its
-    outputs. It is captured where ``place`` lies on one CUDA device and
-    raises where it spans several; on the CPU it runs without a
-    capture."""
-    split = exchange is not None
+    def eager(params, place, query_embs, lr, seed=0):
+        reseed(place, seed)
+        return finish(exchange(body(params, place, query_embs)), lr)
+
     if not graphed:
-        def step(params, place, query_embs, lr, seed=0):
-            reseed(place, seed)
-            if split:
-                return finish(exchange(body(params, place, query_embs)), lr)
-            return body(params, place, query_embs, lr)
-        return step
+        return eager
 
     held = {}
 
     def step(params, place, query_embs, lr, seed=0):
+        if held and (params is not held["params"]
+                     or place is not held["place"]):
+            raise ValueError("a graphed step replays over the parameters "
+                             "and data of its first call")
+        if not held and eager_when is not None:
+            why = eager_when(place)
+            if why:
+                print(f"{why}: the graphed step runs eager (a captured "
+                      f"step cannot hold a collective)", file=sys.stderr,
+                      flush=True)
+                held.update(params=params, place=place, step=None)
+        if held and held["step"] is None:
+            return eager(params, place, query_embs, lr, seed)
         gens = reseed(place, seed)
         dev = query_embs.device
-        if not isinstance(lr, torch.Tensor):
-            lr = torch.full((), float(lr), device=dev)
         if not held:
             devices = {t.device for t in _tensors(place)}
             if dev.type == "cuda" and devices != {dev}:
                 raise ValueError(f"a captured step runs on one card; its "
                                  f"data lies on {sorted(map(str, devices))}")
-            held.update(params=params, place=place)
-            if split:
-                held["step"] = ExchangedStep(
-                    lambda b: body(params, place, b[0]), exchange, finish,
-                    (query_embs,), opt.flat.new_zeros(
-                        (len(place), opt.flat.numel() + 1)),
-                    capture=dev.type == "cuda",
-                    state=opt.state_tensors(), generators=gens)
-            else:
-                out = held["out"] = (
-                    torch.zeros((), device=dev),
-                    torch.zeros((), dtype=torch.bool, device=dev))
-
-                def fn(batch):
-                    loss, ok = body(params, place, *batch)
-                    out[0].copy_(loss)
-                    out[1].copy_(ok)
-
-                held["step"] = GraphedStep(
-                    fn, (query_embs, lr), capture=dev.type == "cuda",
-                    state=opt.state_tensors() + list(out), generators=gens)
-        elif params is not held["params"] or place is not held["place"]:
-            raise ValueError("a graphed step replays over the parameters "
-                             "and data of its first call")
-        if split:
-            return held["step"]((query_embs,), lr)
-        held["step"]((query_embs, lr))
-        return held["out"][0].clone(), held["out"][1].clone()
+            held.update(params=params, place=place, step=ExchangedStep(
+                lambda b: body(params, place, b[0]), exchange, finish,
+                (query_embs,), opt.flat.new_zeros(
+                    (n_terms(place), opt.flat.numel() + 1)),
+                capture=dev.type == "cuda",
+                state=opt.state_tensors(), generators=gens))
+        return held["step"]((query_embs,), lr)
 
     return step
 

@@ -22,6 +22,14 @@ backend's: ``gather_in_rank_order`` gathers every replica's terms, and
 the caller adds them in replica order, so every rank holds the bits one
 process would.
 
+A halo graph axis across ranks (parallel/halo.py: a shard list some of
+whose slots other ranks hold) exchanges rows with ``exchange_blocks``,
+desco_tpu's ``all_to_all``: block j of every rank goes to rank j, in one
+``all_to_all_single`` per exchange site, inside the process group of the
+ranks the shards span (``group_of``), with only the blocks each rank
+needs. It is differentiable: its backward is the same exchange of the
+cotangents.
+
 With no group, ``rank()`` is 0 and ``world()`` 1, and the gather returns
 its input: the single-process paths run through the same code.
 """
@@ -100,6 +108,7 @@ def shutdown() -> None:
     """End the process group, if one was started."""
     if dist.is_initialized():
         dist.destroy_process_group()
+    _GROUPS.clear()
 
 
 def rank() -> int:
@@ -170,6 +179,95 @@ def gather_in_rank_order(local: torch.Tensor, device=None) -> torch.Tensor:
         local = local.to("cpu")  # one copy out, no copy back
     out = _all_gather(local)
     return out.reshape((-1,) + tuple(local.shape[1:])).to(dev)
+
+
+def group_of(ranks, make: bool = False) -> Optional[object]:
+    """The process group of ``ranks`` (sorted ranks of the default
+    group): None, the default group itself, where they are every rank;
+    else the group ``make=True`` made for them. ``new_group`` is a
+    collective of every rank, so every rank makes the groups, the same
+    ones in the same order (``topology.make_mesh2d`` makes its rows'),
+    members or not; without ``make`` a group not made yet raises."""
+    ranks = tuple(ranks)
+    if ranks == tuple(range(world())):
+        return None
+    if ranks not in _GROUPS:
+        if not make:
+            raise ValueError(f"no process group of ranks {ranks} was made "
+                             f"on every rank (distributed.group_of(ranks, "
+                             f"make=True) does)")
+        _GROUPS[ranks] = dist.new_group(list(ranks))
+    return _GROUPS[ranks]
+
+
+_GROUPS: dict = {}
+
+
+def _all_to_all(t: torch.Tensor, group, n_in, n_out) -> torch.Tensor:
+    """``n_in[j]`` rows of ``t`` (in rank order) to rank j of ``group``;
+    the result holds ``n_out[p]`` rows from rank p, in rank order, on
+    ``t``'s device. Under gloo a card's tensor goes through host
+    memory."""
+    staged = backend() != "nccl"
+    src = (t.detach().to("cpu") if staged else t).contiguous()
+    out = src.new_empty((sum(n_out),) + tuple(t.shape[1:]))
+    dist.all_to_all_single(out, src, output_split_sizes=list(n_out),
+                           input_split_sizes=list(n_in), group=group)
+    return out.to(t.device) if staged else out
+
+
+class _Exchange(torch.autograd.Function):
+    """``exchange_blocks`` inside autograd: the transpose of an all-to-all
+    is the all-to-all with the counts swapped, so the backward exchanges
+    the cotangents. The anchors only decide whether the node is
+    recorded."""
+
+    @staticmethod
+    def forward(ctx, send, group, n_in, n_out, *anchors):
+        ctx.group, ctx.counts, ctx.n_anchors = group, (n_in, n_out), \
+            len(anchors)
+        return _all_to_all(send, group, n_in, n_out)
+
+    @staticmethod
+    def backward(ctx, grad):
+        n_in, n_out = ctx.counts
+        return ((_all_to_all(grad, ctx.group, n_out, n_in), None, None,
+                 None) + (None,) * ctx.n_anchors)
+
+
+def exchange_blocks(send: torch.Tensor, group=None, anchors=(),
+                    counts=None) -> torch.Tensor:
+    """desco_tpu's ``all_to_all``: ``send`` [W, ...] (W the size of
+    ``group``, None the default one) on this rank's device; block j goes
+    to rank j, and block p of the result [W, ...] is the block rank p
+    sent here. Every rank of the group calls it, with the same shape.
+    With one rank it is ``send`` itself.
+
+    ``counts`` (n_in, n_out), one entry per rank of the group: ``send``
+    holds n_in[j] blocks for rank j, in rank order, and the result
+    n_out[p] blocks from rank p (what rank p's n_in gives this rank), so
+    that only the blocks a rank needs are sent; 0 for this rank leaves
+    its own blocks out.
+
+    Differentiable. Every rank must record it in autograd alike, or one
+    rank's backward would wait for a collective the others never issue:
+    the node is recorded where ``send`` or one of ``anchors`` (tensors
+    that require grad on every rank alike, such as the layer's inputs)
+    requires grad, even where this rank's blocks hold nothing that does
+    (a shard with no rows to send)."""
+    size = dist.get_world_size(group) if dist.is_initialized() else 1
+    if counts is None:
+        if send.shape[0] != size:
+            raise ValueError(f"exchange_blocks takes one block per rank: "
+                             f"{send.shape[0]} blocks for {size} ranks")
+        counts = ([1] * size, [1] * size)
+    n_in, n_out = (tuple(int(c) for c in cs) for cs in counts)
+    if len(n_in) != size or len(n_out) != size or sum(n_in) != send.shape[0]:
+        raise ValueError(f"exchange_blocks: counts {n_in} / {n_out} for "
+                         f"{size} ranks and {send.shape[0]} blocks")
+    if size == 1:
+        return send
+    return _Exchange.apply(send, group, n_in, n_out, *anchors)
 
 
 def check_replicated(t: torch.Tensor, what: str) -> None:

@@ -195,14 +195,17 @@ def test_make_mesh_over_ranks(dist_run):
 def test_make_mesh2d_over_ranks(dist_run):
     """desco_tpu's hybrid mesh: the data axis over the ranks (rows [r
     n_data / P, ...)), the graph axis within a rank; n_data not a multiple
-    of P raises, naming ROADMAP's item."""
+    of P gives desco_tpu's fallback grid, whose middle row of 3 x 2
+    crosses the ranks (tests/test_torch_halo_ranks.py runs it); a grid of
+    fewer slots than a multiple of P raises."""
     _, ranks, _ = dist_run
     for r, res in enumerate(ranks):
         h = res["halo"]
         assert h["rows"] == [r == 0, r == 1]
         assert h["four_rows"] == [r == 0, r == 0, r == 1, r == 1]
-        assert "graph axis across processes" in h["odd_rows_error"]
-        assert "ROADMAP" in h["odd_rows_error"]
+        assert h["three_rows"] == [[r == 0, r == 0], [r == 0, r == 1],
+                                   [r == 1, r == 1]]
+        assert "multiple of the process count" in h["odd_rows_error"]
 
 
 # ------------------------------------------------------------- DP steps

@@ -1,14 +1,17 @@
-"""One rank of tests/test_torch_distributed.py's process group on the CPU.
+"""One rank of a process group on the CPU, for
+tests/test_torch_distributed.py (the data axis across ranks) and
+tests/test_torch_halo_ranks.py (the halo graph axis across ranks).
 
     python tests/torch_dist_worker.py JOB RANK
 
 JOB is a pickle the test wrote: the rendezvous (``init_method``, a
 ``file://`` path under the test's temporary directory), the world size,
-the group's timeout, the inputs (host batches, weights in desco_tpu's
-flat layout, query embeddings, halo partitioner arguments) and where to
-write this rank's results (a pickle of numpy arrays and plain values).
-It imports torch and desco_tpu_torch only: never the test module, which
-imports JAX, nor tests/conftest.py.
+the group's timeout, the scenario (``"dp"`` by default, ``"halo_ranks"``,
+``"grid_over_three"``), the inputs (host batches, weights in desco_tpu's
+flat layout, query embeddings, halo partitions) and where to write this
+rank's results (a pickle of numpy arrays and plain values). It imports
+torch and desco_tpu_torch only: never the test module, which imports
+JAX, nor tests/conftest.py.
 """
 
 import os
@@ -18,7 +21,7 @@ import sys
 import torch
 
 from desco_tpu_torch.models import neighborhood
-from desco_tpu_torch.parallel import dp, topology
+from desco_tpu_torch.parallel import dp, halo, topology
 from desco_tpu_torch.pipeline import PipelineConfig, model_configs
 from desco_tpu_torch.train import loop
 from desco_tpu_torch.train.checkpoint import flatten_params, params_from_jax
@@ -96,8 +99,11 @@ def dp_halo(job):
     out = {"rows": [row[0] is not None for row in mesh.devices],
            "four_rows": [row[0] is not None for row in
                          topology.make_mesh2d(4, 1, devices=[CPU]).devices]}
+    out["three_rows"] = [[d is not None for d in row] for row in
+                         topology.make_mesh2d(3, n_graph,
+                                              devices=[CPU]).devices]
     try:
-        topology.make_mesh2d(3, n_graph, devices=[CPU])
+        topology.make_mesh2d(3, 1, devices=[CPU])
         out["odd_rows_error"] = None
     except ValueError as e:
         out["odd_rows_error"] = str(e)
@@ -154,6 +160,132 @@ def training(job):
             for stage, r in (("neigh", res), ("gossip", gres))}
 
 
+def step_calls(step, params, opt, place, q, seeds) -> list:
+    """Calls of a placed train step: per call the loss, the flag, the
+    reduced gradient, the parameters and Adam's moments."""
+    calls = []
+    for seed in seeds:
+        loss, ok = step(params, place, q, 1e-3, seed=seed)
+        calls.append([float(loss), bool(ok), arr(opt.grad), arr(opt.flat),
+                      arr(opt.mu), arr(opt.nu)])
+    return calls
+
+
+def grid_steps(job, n_data, n_graph, graphed_too=True) -> dict:
+    """The DP x halo grid over the ranks: the layout, the composed loss and
+    gradient, and two calls of the step at dropout 0.1, eager (and
+    graphed: it runs eager where a row crosses ranks)."""
+    mesh = topology.make_mesh2d(n_data, n_graph, devices=[CPU])
+    replicas = topology.place_replicas(
+        topology.stack_partitions(job["grid_parts"]), mesh)
+    q = torch.from_numpy(job["halo_q"])
+    out = {"ranks": mesh.ranks,
+           "local": [[d is not None for d in row] for row in mesh.devices]}
+    loss, flat = topology.dp_halo_gossip_loss_and_grads(
+        params_from_jax(job["halo_gossip"]), replicas, q)
+    out["loss"], out["flat"] = float(loss), arr(flat)
+    for graphed in (False, True) if graphed_too else (False,):
+        params = params_from_jax(job["halo_gossip"])
+        opt = loop.make_adam(params)
+        step = topology.dp_halo_gossip_step_fn(opt, dropout=0.1,
+                                               graphed=graphed)
+        out[graphed] = step_calls(step, params, opt, replicas, q, (4, 5))
+    return out
+
+
+def halo_ranks(job) -> dict:
+    """The halo graph axis across the two ranks: ``make_mesh2d``'s
+    layouts and its raise, ``exchange_blocks`` and its backward, the
+    4-shard gossip loss (scalar and per slot), the slots' gradient rows
+    and two calls of ``halo_gossip_step_fn`` at dropout 0 and 0.1, eager
+    and graphed; the 3 x 2 DP x halo grid; the 1 x 2 SHMP forward (SAGE,
+    PNA)."""
+    out = {"mesh": {shape: topology.make_mesh2d(*shape, devices=[CPU])
+                    for shape in ((1, 4), (3, 2), (2, 2))}}
+    out["mesh"] = {k: (m.ranks, [[d is not None for d in row]
+                                 for row in m.devices])
+                   for k, m in out["mesh"].items()}
+    try:
+        topology.make_mesh2d(3, 1, devices=[CPU])
+        out["odd_error"] = None
+    except ValueError as e:
+        out["odd_error"] = str(e)
+    # exchange_blocks: block j to rank j, and the cotangents back
+    r = distributed.rank()
+    send = (torch.arange(24, dtype=torch.float32).reshape(2, 3, 4)
+            + 100.0 * r).requires_grad_(True)
+    got = distributed.exchange_blocks(send)
+    got.backward(torch.arange(24, dtype=torch.float32).reshape(2, 3, 4)
+                 * (r + 2.0))
+    out["exchange"] = {"got": arr(got), "grad": arr(send.grad)}
+    # with counts: 2 blocks to the other rank, none to this one
+    send = (torch.arange(24, dtype=torch.float32).reshape(2, 3, 4)
+            + 100.0 * r).requires_grad_(True)
+    counts = [2 if q != r else 0 for q in range(2)]
+    got = distributed.exchange_blocks(send, counts=(counts, counts))
+    got.backward(torch.arange(24, dtype=torch.float32).reshape(2, 3, 4)
+                 * (r + 2.0))
+    out["exchange_counts"] = {"got": arr(got), "grad": arr(send.grad)}
+    # ranks that leave a rank no slot, or name a rank outside the group
+    out["bad_ranks"] = {}
+    for bad in ((0, 0, 0, 0), (0, 0, 1, 2)):
+        try:
+            halo.place_shards(job["halo_part"], [CPU], ranks=bad)
+            out["bad_ranks"][bad] = None
+        except ValueError as e:
+            out["bad_ranks"][bad] = str(e)
+    # four shards, two per rank
+    shards = topology.place_replicas(
+        topology.stack_partitions([job["halo_part"]]),
+        topology.make_mesh2d(1, 4, devices=[CPU]))[0]
+    q = torch.from_numpy(job["halo_q"])
+    params = params_from_jax(job["halo_gossip"])
+    out["held"] = [sh is not None for sh in shards]
+    out["loss"] = float(halo.halo_gossip_loss(params, shards, q).detach())
+    out["sums"] = [float(s) for s in halo._slot_sums(
+        halo.shard_params(params, torch.float32, shards), shards, q, 0.0,
+        False, None)]
+    out["terms"] = arr(halo.slot_terms(params, shards, q))
+    for dropout in (0.0, 0.1):
+        for graphed in (False, True):
+            params = params_from_jax(job["halo_gossip"])
+            opt = loop.make_adam(params)
+            step = halo.halo_gossip_step_fn(opt, dropout=dropout,
+                                            graphed=graphed)
+            out["step", dropout, graphed] = step_calls(
+                step, params, opt, shards, q, (4, 5))
+    out["grid"] = grid_steps(job, 3, 2)
+    # serving stays per process: the halo serve inside the group places
+    # every shard on this rank and serves the whole graph
+    graph, x_all = job["serve"]
+    with torch.inference_mode():
+        out["serve"] = halo.serve_gossip_counts(
+            params_from_jax(job["halo_gossip"]).requires_grad_(False), graph,
+            x_all, q, n_devices=4, device="cpu")
+    # the sharded SHMP forward on a 1 x 2 grid over the ranks
+    for conv, (cfg, flat0, part) in job["towers"].items():
+        reps = topology.place_replicas(
+            topology.stack_partitions([part]),
+            topology.make_mesh2d(1, 2, devices=[CPU]))
+        with torch.inference_mode():
+            embs = topology.dp_halo_shmp_forward(cfg)(
+                params_from_jax(flat0), reps)
+        out["shmp", conv] = [None if e is None else arr(e)
+                             for e in embs[0]]
+    return out
+
+
+SCENARIOS = {
+    "dp": lambda job: {
+        "mesh": mesh_layout(job),
+        "steps": {case: dp_steps(job, case) for case in job["cases"]},
+        "predict": {d: predicts(job, d) for d in (2, 4)},
+        "halo": dp_halo(job),
+        "training": training(job)},
+    "halo_ranks": halo_ranks,
+    "grid_over_three": lambda job: grid_steps(job, 2, 3, graphed_too=False)}
+
+
 def main():
     with open(sys.argv[1], "rb") as f:
         job = pickle.load(f)
@@ -163,11 +295,7 @@ def main():
                      world_size=job["world"], timeout_s=job["timeout_s"],
                      log_fn=lambda *_: None)
     try:
-        out = {"mesh": mesh_layout(job),
-               "steps": {case: dp_steps(job, case) for case in job["cases"]},
-               "predict": {d: predicts(job, d) for d in (2, 4)},
-               "halo": dp_halo(job),
-               "training": training(job)}
+        out = SCENARIOS[job.get("scenario", "dp")](job)
     finally:
         distributed.shutdown()
     with open(os.path.join(job["out_dir"], f"rank{rank}.pkl"), "wb") as f:
