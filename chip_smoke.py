@@ -221,21 +221,22 @@ nonzero on a failed check (no phase catches its own failure):
      of the phase), a second one loads them without nvcc or g++.
  15. the analysis and experimental tools (run before the record), each
      through its ``run`` on the card at the paper width: (a)
-     ``tools/serving_bench`` in modes raw, service and latency at the
-     script's defaults (64 graphs of 30-120 nodes, seed 7, verify 0.001,
-     fresh weights), stream at 4 requests (cut from 8), and service over
+     ``tools/serving_bench`` in modes raw and service at the script's
+     defaults (64 graphs of 30-120 nodes, seed 7, verify 0.001, fresh
+     weights), latency over 32 graphs (cut from 64), stream at 4 requests
+     (cut from 8), and service over
      ``--n_devices 2``, bit-equal to one device; (b)
      ``compute_groundtruth --query_sizes 6`` (112 queries) on
      Syn_1827_test_max15, every count >= 0, every size 6, seven ids
      recounted alone and equal; (c) ``verify_sweep`` of release/r4 on
-     the replay set at budgets 0, 1e-3, 1e-2, 3e-2: rows verified rise,
+     the replay set at budgets 0, 1e-3, 1e-2 (3e-2 cut): rows verified rise,
      normed MSE falls or stays level, and at r4's budget it is within
      rtol 1e-2 of the stored replay's (tests/data); (d) ``scaling`` at
      its defaults (20,000 nodes, degree 8, 4 layers, hidden 64, metis)
      for ``er`` and ``comm`` at D = 1, 2, 4 shards on the one card (cut
      from 1, 2, 4, 8), D = 4 within 1e-4 of max|out| of D = 1; (e)
      ``large_graph_serving --nodes 20000 --devices 4``, a fresh service;
-     (f) ``runtime``, (g) ``dataset_statistics --sample 2000`` with
+     (f) ``runtime``, (g) ``dataset_statistics --sample 1000`` with
      release/r4's embeddings and t-SNE on the card (CSV, ``.npy`` and
      SVG written, KL finite) and (h) ``downstream_task`` and
      ``complexity_analysis``, all on Syn_64. Launches zeroed before and
@@ -314,12 +315,17 @@ nonzero on a failed check (no phase catches its own failure):
      two graphs and an 8,000-node one), whose middle row crosses the
      ranks, two calls at the gossip's dropout; r4's target tower (SAGE, 8
      layers, hidden 64) sharded over a 1 x 2 grid, ``dp_halo_shmp_forward``
-     on the 12,000-node graph's typed sample; the steps asked for graphed
-     run eager (their exchanges are collectives) and say so; every
-     result on both ranks bit-equal to the same grids in this process
-     (eager), each rank's gather-fused K1 and its backward launched as
-     many times as its shards' streams need; the step and forward ms
-     both ways and one exchange's ms; the phase's seconds.
+     on the 12,000-node graph's typed sample (two calls); each part runs
+     eager and graphed across the ranks, graphed as a chain of CUDA
+     graphs split at its collectives (one graph more than its split
+     points, no eager note); every result of both ways on both ranks
+     bit-equal to the same grids in this process (eager), each rank's
+     gather-fused K1 and its backward launched both ways as many times as
+     its shards' streams need; per rank and site the eager and graphed ms
+     per call, graphs per call, capture seconds, the collectives' ms
+     inside each graphed call and the pool's bytes; one exchange's ms,
+     whole and split into its device-to-host copy, gloo's all-to-all and
+     the host-to-device copy; the phase's seconds.
  12. one JSON line of kernels (K2' and K3' at T = 33 and at T = 1 in
      rows of their own, launched by the order-4 run and the DIAMNet
      driver; every other row's launches count the ablation path, labeled
@@ -422,6 +428,20 @@ BASELINE_REFERENCE = {
                     3018850371108864.0)},
 }
 BASELINE_RTOL = {"DIAMNET": 1e-3, "LRP": 5e-2}
+
+
+# the seconds of every phase of this run, in order (``phase_done``)
+T_START = time.perf_counter()
+PHASE_S: dict = {}
+_PHASE_MARK = [T_START]
+
+
+def phase_done(name: str) -> None:
+    """Print and keep the seconds since the previous phase ended."""
+    now = time.perf_counter()
+    PHASE_S[name] = now - _PHASE_MARK[0]
+    _PHASE_MARK[0] = now
+    print(f"phase {name} ended after {PHASE_S[name]:.1f} s", flush=True)
 
 
 def fail(msg: str) -> None:
@@ -2990,8 +3010,9 @@ def dp_phase(torch, cs, dev, seed: int, svc, main_req, res_main,
 
 
 # ------------------------------------------------------- phase 15: tools
-# the verify budgets of desco_tpu's analysis/verify_sweep.py
-VERIFY_BUDGETS = (0.0, 1e-3, 1e-2, 3e-2)
+# the verify budgets of desco_tpu's analysis/verify_sweep.py, its last
+# (3e-2, the slowest) cut: r4's budget is 1e-3
+VERIFY_BUDGETS = (0.0, 1e-3, 1e-2)
 # seven size-6 atlas ids from 77-208 (the star, a path-like tree, cycles
 # with chords, K6), each recounted alone by the per-query truth
 GT_RECOUNT = (77, 100, 130, 150, 180, 200, 208)
@@ -3041,7 +3062,9 @@ def tools_phase(torch, cs, card: str, gen_root: str,
     # (a) serving_bench: each mode its own fresh service
     sb = {mode: tool_run(f"serving_bench {mode}", serving_bench,
                          ["--mode", mode])
-          for mode in ("raw", "service", "latency")}
+          for mode in ("raw", "service")}
+    sb["latency"] = tool_run("serving_bench latency", serving_bench,
+                             ["--mode", "latency", "--graphs", 32])
     sb["stream"] = tool_run("serving_bench stream", serving_bench,
                             ["--mode", "stream", "--requests", 4])
     sb["dp2"] = tool_run("serving_bench service --n_devices 2",
@@ -3161,7 +3184,7 @@ def tools_phase(torch, cs, card: str, gen_root: str,
           f"edges, {rt['graphs']} graphs)", flush=True)
     out_dir = os.path.join(work.name, "stats")
     st = tool_run("dataset_statistics", dataset_statistics, [
-        "--datasets", "Syn_64", "--sample", 2000, "--checkpoint", R4_NEIGH,
+        "--datasets", "Syn_64", "--sample", 1000, "--checkpoint", R4_NEIGH,
         "--data_root", syn_root, "--out", out_dir])
     for tag in ("neighborhood_features", "trained_embeddings"):
         check(np.isfinite(st[tag]["kl"]), f"dataset_statistics: t-SNE of "
@@ -3820,10 +3843,10 @@ def prepare_gossip_batches_for(svc, stage, counts):
 DIST_WORLD = 2
 DIST_GROUP_TIMEOUT_S = 240.0
 DIST_JOIN_TIMEOUT_S = 300.0
-# phase 18's torchrun run of ``main``: paper width, 2 epochs per stage
+# phase 18's torchrun run of ``main``: paper width, 1 epoch per stage
 DIST_MAIN_FLAGS = ["--train_dataset", "SynNp_32_3", "--valid_dataset",
                    "SynNp_32_3", "--test_dataset", "SynNp_16_4",
-                   "--neigh_epoch_num", "2", "--gossip_epoch_num", "2"]
+                   "--neigh_epoch_num", "1", "--gossip_epoch_num", "1"]
 # the kernels of the path, by counter name
 PATH_KERNELS = ("sorted_segment_sum", "gather_segment_sum",
                 "fused_typed_transform_aggregate", "typed_aggregate_bwd",
@@ -3959,19 +3982,65 @@ DIST_GRID_THIRD = (8000, 5)
 
 def timed_calls(torch, step, opt, params, place, q, seeds) -> dict:
     """Calls of a placed train step: per call the loss, the flag, the
-    reduced gradient, the parameters and Adam's moments (numpy), and the
-    ms of each call."""
-    calls, ms = [], []
+    reduced gradient, the parameters and Adam's moments (numpy), the ms
+    of each call and, for a graphed step, the ms its collectives took
+    inside each call and its chain's figures (``chain_figures``)."""
+    calls, ms, exchange_ms = [], [], []
+    held = getattr(step, "held", None)
     for seed in seeds:
+        before = held["step"].collective_s if held else 0.0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         loss, ok = step(params, place, q, 1e-3, seed=seed)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
+        if held:
+            exchange_ms.append((held["step"].collective_s - before) * 1e3)
         calls.append([float(loss), bool(ok)] + [
             t.cpu().numpy().copy()
             for t in (opt.grad, opt.flat, opt.mu, opt.nu)])
-    return {"calls": calls, "ms": ms}
+    out = {"calls": calls, "ms": ms}
+    if held:
+        out.update(exchange_ms=exchange_ms, chain=chain_figures(held))
+    return out
+
+
+def chain_figures(held: dict) -> dict:
+    """A graphed step's or forward's chain (utils/cuda_graphs.GraphedStep):
+    graphs per call, split points, the capture's seconds (its warm-up
+    included) and the bytes of its memory pool."""
+    chained = held["step"]
+    return {"graphs": len(chained.graphs),
+            "split_points": len(chained.sequence),
+            "capture_s": chained.capture_s,
+            "pool_bytes": chained.pool_bytes()}
+
+
+def exchange_parts(torch, dist, block, counts, reps: int = 12) -> dict:
+    """One exchange of ``block`` as ``distributed.exchange_blocks`` stages
+    it under gloo, timed part by part (each ends in a synchronize): the
+    device-to-host copy into a pinned buffer, gloo's
+    ``all_to_all_single`` between the pinned buffers, the host-to-device
+    copy of what came back. Medians of the last ``reps - 2`` runs."""
+    host_in = torch.empty(block.shape, dtype=block.dtype, pin_memory=True)
+    host_out = torch.empty((sum(counts),) + tuple(block.shape[1:]),
+                           dtype=block.dtype, pin_memory=True)
+    out = torch.empty(host_out.shape, dtype=block.dtype, device=block.device)
+    parts = {"d2h": [], "gloo": [], "h2d": []}
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host_in.copy_(block)
+        t1 = time.perf_counter()
+        dist.all_to_all_single(host_out, host_in, output_split_sizes=counts,
+                               input_split_sizes=counts)
+        t2 = time.perf_counter()
+        out.copy_(host_out)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for k, (u, v) in zip(parts, ((t0, t1), (t1, t2), (t2, t3))):
+            parts[k].append((v - u) * 1e3)
+    return {k: float(np.median(v[2:])) for k, v in parts.items()}
 
 
 def dist_halo_workload(torch, job, dev, reference: bool = False) -> dict:
@@ -3979,12 +4048,15 @@ def dist_halo_workload(torch, job, dev, reference: bool = False) -> dict:
     two calls of ``halo_gossip_step_fn`` at dropout 0 and two at 0.1 over
     ``make_mesh2d(1, 4)``'s shards (r4's gossip, 29 queries); (b) two calls
     of the DP x halo step over the 3 x 2 grid at the gossip's dropout;
-    (c) ``dp_halo_shmp_forward`` of r4's target tower on a 1 x 2 grid.
-    Across the ranks each rank holds its slots, the steps asked for
-    graphed (they run eager: their exchanges are collectives); in one
-    process (``reference``) every slot is here, the steps eager. Returns
-    numpy results, ms, and the launches of each part; across the ranks
-    also the ms of one exchange of (a)'s layer-0 pull tables."""
+    (c) two calls of ``dp_halo_shmp_forward`` of r4's target tower on a 1
+    x 2 grid. Across the ranks each rank holds its slots and runs each
+    part eager and graphed (chains of CUDA graphs split at their
+    collectives); in one process (``reference``) every slot is here, each
+    part eager. Returns numpy results, ms, the launches of each part and
+    way; across the ranks also the chains' figures, the ms of one
+    exchange of (a)'s layer-0 pull tables and its parts."""
+    import torch.distributed as dist
+
     from desco_tpu_torch.ops import cuda_segment as cs
     from desco_tpu_torch.parallel import halo, topology
     from desco_tpu_torch.train import loop as train_loop
@@ -3993,58 +4065,67 @@ def dist_halo_workload(torch, job, dev, reference: bool = False) -> dict:
 
     hq = torch.from_numpy(job["halo_q"]).to(dev)
     out = {"launches": {}}
+    ways = (False,) if reference else (False, True)
 
     def grid(n_data, n_graph, parts):
         return topology.place_replicas(
             topology.stack_partitions(parts),
             topology.make_mesh2d(n_data, n_graph, devices=[dev]))
 
-    def counted(name, fn):
+    def counted(part, graphed, fn):
         cs.reset_launches()
         result = fn()
         torch.cuda.synchronize()
-        out["launches"][name] = cs.read_launches()
-        return result
+        out["launches"][f"{part} {'graphed' if graphed else 'eager'}"] = (
+            cs.read_launches())
+        out[part, graphed] = result
 
-    # (a) four shards of one graph, two per rank
+    # (a) four shards of one graph, two per rank; the direction degrees,
+    # kept on the shards, computed before either way counts
     [shards] = grid(1, DIST_HALO_SHARDS, [job["halo_part"]])
+    halo.halo_direction_degrees(shards)
     out["held"] = [sh is not None for sh in shards]
     n_q = hq.shape[0]
     # gather-fused K1 per call: 2 layers x 29 queries forward, the second
-    # layer's backward (the first reads detached rows), the direction
-    # degrees once per placed row, over this process's shards
+    # layer's backward (the first reads detached rows), over this
+    # process's shards
     agg_a = per_aggregate(halo.local_shards(shards))
-    out["expected"] = {"a": {"gather_segment_sum": (1 + 4 * 2 * n_q) * agg_a,
+    out["expected"] = {"a": {"gather_segment_sum": 4 * 2 * n_q * agg_a,
                              "gather_segment_sum_bwd": 4 * n_q * agg_a}}
 
-    def part_a():
+    def part_a(graphed):
         res = {}
         for dropout in (0.0, 0.1):
             params = params_from_jax(job["halo_gossip"]).to(dev)
             opt = train_loop.make_adam(params)
             step = halo.halo_gossip_step_fn(opt, dropout=dropout,
-                                            graphed=not reference)
+                                            graphed=graphed)
             res[dropout] = timed_calls(torch, step, opt, params, shards, hq,
                                        (0, 1))
         return res
 
-    out["a"] = counted("a", part_a)
+    for graphed in ways:
+        counted("a", graphed, lambda: part_a(graphed))
     # (b) the 3 x 2 fallback grid: row 1 on both ranks
     replicas = grid(3, 2, job["grid3_parts"])
+    for row in replicas:
+        if row is not None:
+            halo.halo_direction_degrees(row)
     agg_b = sum(per_aggregate(halo.local_shards(row)) for row in replicas
                 if row is not None)
     out["expected"]["b"] = {
-        "gather_segment_sum": (1 + 2 * 2 * n_q) * agg_b,
+        "gather_segment_sum": 2 * 2 * n_q * agg_b,
         "gather_segment_sum_bwd": 2 * n_q * agg_b}
 
-    def part_b():
+    def part_b(graphed):
         params = params_from_jax(job["halo_gossip"]).to(dev)
         opt = train_loop.make_adam(params)
         step = topology.dp_halo_gossip_step_fn(
-            opt, dropout=job["dropout"], graphed=not reference)
+            opt, dropout=job["dropout"], graphed=graphed)
         return timed_calls(torch, step, opt, params, replicas, hq, (0, 1))
 
-    out["b"] = counted("b", part_b)
+    for graphed in ways:
+        counted("b", graphed, lambda: part_b(graphed))
     # (c) the sharded SHMP forward, one shard per rank
     cfg, flat0, part = job["shmp"]
     rows = grid(1, 2, [part])
@@ -4054,25 +4135,35 @@ def dist_halo_workload(torch, job, dev, reference: bool = False) -> dict:
         "fused_typed_transform_aggregate": 0, "sorted_segment_sum": 0,
         "gather_segment_sum_bwd": 0}
     tparams = params_from_jax(flat0).to(dev).requires_grad_(False)
-    fwd = topology.dp_halo_shmp_forward(cfg)
 
-    def part_c():
-        ms = []
+    def part_c(graphed):
+        fwd = topology.dp_halo_shmp_forward(cfg, graphed=graphed)
+        held = getattr(fwd, "held", None)
+        ms, calls, exchange_ms = [], [], []
         with torch.inference_mode():
             for _ in range(2):
+                before = held["step"].collective_s if held else 0.0
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 embs = fwd(tparams, rows)[0]
                 torch.cuda.synchronize()
                 ms.append((time.perf_counter() - t0) * 1e3)
-        return {"embs": [None if e is None else e.cpu().numpy()
-                         for e in embs], "ms": ms}
+                if held:
+                    exchange_ms.append(
+                        (held["step"].collective_s - before) * 1e3)
+                calls.append([None if e is None else e.cpu().numpy()
+                              for e in embs])
+        res = {"calls": calls, "ms": ms}
+        if held:
+            res.update(exchange_ms=exchange_ms, chain=chain_figures(held))
+        return res
 
-    out["c"] = counted("c", part_c)
+    for graphed in ways:
+        counted("c", graphed, lambda: part_c(graphed))
     if not reference:
         # one exchange of (a)'s layer-0 pull tables as the halo exchange
         # sends them: k * k blocks of [h_max, F] to the other rank (k
-        # slots per rank), none to this one
+        # slots per rank), none to this one; whole, then part by part
         sh = next(s for s in shards if s is not None)
         width = hq.shape[1] + job["halo_gossip"]["pre/0"].shape[1]
         k = DIST_HALO_SHARDS // distributed.world()
@@ -4088,6 +4179,8 @@ def dist_halo_workload(torch, job, dev, reference: bool = False) -> dict:
             ms.append((time.perf_counter() - t0) * 1e3)
         out["exchange_ms"] = ms[2:]
         out["exchange_bytes"] = block.numel() * 4
+        out["exchange_parts_ms"] = exchange_parts(torch, dist, block,
+                                                  counts)
     return out
 
 
@@ -4160,8 +4253,9 @@ def run_children(cmds, timeout: float, env=None) -> list:
 
 
 def strip_ms(result: dict) -> dict:
-    """A result without its timings."""
-    return {k: v for k, v in result.items() if k != "ms"}
+    """A result without its timings and its chain's figures."""
+    return {k: v for k, v in result.items()
+            if k not in ("ms", "exchange_ms", "chain")}
 
 
 def equal_results(a, b) -> bool:
@@ -4179,70 +4273,102 @@ def equal_results(a, b) -> bool:
 
 def halo_ranks_report(ranks, href, rank_errs, extra: dict) -> dict:
     """Phase 18 (c)'s checks and figures: every rank's
-    ``dist_halo_workload`` result against the one-process ``href`` bit
-    for bit, the eager notes in each rank's standard error, finite losses
-    that move, each rank's launches of every part against what its shards'
-    streams need; returns the ms figures (with ``extra``)."""
+    ``dist_halo_workload`` result, eager and graphed, against the
+    one-process ``href`` bit for bit, no eager note in any rank's
+    standard error, each graphed site a chain of one graph more than its
+    split points, finite losses that move, each rank's launches of every
+    part and way against what its shards' streams need; returns the
+    figures (with ``extra``)."""
     hcomp = {}
     for r, res in enumerate(ranks):
         h = res["halo_ranks"]
         hcomp[f"rank {r} holds shards {2 * r}-{2 * r + 1}"] = (
             h["held"] == [q // 2 == r for q in range(DIST_HALO_SHARDS)])
-        for dropout in (0.0, 0.1):
-            hcomp[f"(a) halo step, dropout {dropout}, rank {r}"] = (
-                equal_results(h["a"][dropout]["calls"],
-                              href["a"][dropout]["calls"]))
-        hcomp[f"(b) 3 x 2 DP x halo step, rank {r}"] = equal_results(
-            h["b"]["calls"], href["b"]["calls"])
-        embs = h["c"]["embs"]
-        hcomp[f"(c) sharded SHMP forward, rank {r}"] = (
-            embs[1 - r] is None and embs[r] is not None
-            and np.array_equal(embs[r], href["c"]["embs"][r]))
-        hcomp[f"the graphed steps said they ran eager, rank {r}"] = (
-            rank_errs[r].count("the graphed step runs eager") == 3)
+        for graphed in (False, True):
+            way = "graphed" if graphed else "eager"
+            for dropout in (0.0, 0.1):
+                hcomp[f"(a) halo step, dropout {dropout}, {way}, rank {r}"] = (
+                    equal_results(h["a", graphed][dropout]["calls"],
+                                  href["a", False][dropout]["calls"]))
+            hcomp[f"(b) 3 x 2 DP x halo step, {way}, rank {r}"] = (
+                equal_results(h["b", graphed]["calls"],
+                              href["b", False]["calls"]))
+            hcomp[f"(c) sharded SHMP forward, {way}, rank {r}"] = all(
+                embs[1 - r] is None and embs[r] is not None
+                and np.array_equal(embs[r], want[r])
+                for embs, want in zip(h["c", graphed]["calls"],
+                                      href["c", False]["calls"]))
+        hcomp[f"no step ran eager for want of a capture, rank {r}"] = (
+            "runs eager" not in rank_errs[r])
+        for site, chain in (("(a) dropout 0", h["a", True][0.0]["chain"]),
+                            ("(a) dropout 0.1",
+                             h["a", True][0.1]["chain"]),
+                            ("(b)", h["b", True]["chain"]),
+                            ("(c)", h["c", True]["chain"])):
+            hcomp[f"{site} graphed: a chain of {chain['graphs']} graphs, "
+                  f"rank {r}"] = (chain["split_points"] > 0 and
+                                  chain["graphs"] == chain["split_points"]
+                                  + 1)
     print(f"phase 18 (c) halo graph axis across {DIST_WORLD} processes: "
           f"bit-equal to the same grids in one process: "
           f"{json.dumps(hcomp)}", flush=True)
     check(all(hcomp.values()), "phase 18 (c): a cross-rank halo result "
-          "differs from one process")
-    for name, calls in (("(a) dropout 0", href["a"][0.0]["calls"]),
-                        ("(a) dropout 0.1", href["a"][0.1]["calls"]),
-                        ("(b)", href["b"]["calls"])):
+          "differs from one process, or a graphed site is no chain")
+    for name, calls in (("(a) dropout 0", href["a", False][0.0]["calls"]),
+                        ("(a) dropout 0.1", href["a", False][0.1]["calls"]),
+                        ("(b)", href["b", False]["calls"])):
         check(all(c[1] and np.isfinite(c[0]) for c in calls)
               and calls[0][0] != calls[1][0],
               f"phase 18 {name}: the steps did not move a finite loss")
-    check(all(np.isfinite(e).all() for e in href["c"]["embs"]),
+    check(all(np.isfinite(e).all() for e in href["c", False]["calls"][0]),
           "phase 18 (c): the sharded forward is not finite")
     for r, res in enumerate(ranks):
         h = res["halo_ranks"]
         for part in ("a", "b", "c"):
-            got, want = h["launches"][part], h["expected"][part]
-            print(f"phase 18 (c) rank {r} part {part} launches: "
-                  f"{json.dumps(got)}; expected {json.dumps(want)}",
-                  flush=True)
-            check(launches_match(got, want) and got["gather_segment_sum"] > 0,
-                  f"phase 18 (c): part {part}'s launches on rank {r}")
-        check(h["launches"]["a"]["gather_segment_sum_bwd"] > 0
-              and h["launches"]["b"]["gather_segment_sum_bwd"] > 0,
-              f"phase 18 (c): K1' backward never launched on rank {r}")
+            for way in ("eager", "graphed"):
+                got, want = h["launches"][f"{part} {way}"], h["expected"][part]
+                print(f"phase 18 (c) rank {r} part {part} {way} launches: "
+                      f"{json.dumps(got)}; expected {json.dumps(want)}",
+                      flush=True)
+                check(launches_match(got, want)
+                      and got["gather_segment_sum"] > 0,
+                      f"phase 18 (c): part {part}'s {way} launches on rank "
+                      f"{r}")
+        for way in ("eager", "graphed"):
+            check(h["launches"][f"a {way}"]["gather_segment_sum_bwd"] > 0
+                  and h["launches"][f"b {way}"]["gather_segment_sum_bwd"] > 0,
+                  f"phase 18 (c): K1' backward never launched on rank {r} "
+                  f"({way})")
+
+    def per_rank(part, key, dropout=None):
+        return [(r["halo_ranks"][part, key] if dropout is None
+                 else r["halo_ranks"][part, key][dropout]) for r in ranks]
+
+    def site(part, dropout=None):
+        one = (href[part, False] if dropout is None
+               else href[part, False][dropout])
+        eager, graphed = per_rank(part, False, dropout), per_rank(
+            part, True, dropout)
+        return {"one_process_eager_ms": one["ms"],
+                "ranks_eager_ms": [e["ms"] for e in eager],
+                "ranks_graphed_ms": [g["ms"] for g in graphed],
+                "ranks_graphed_exchange_ms": [g.get("exchange_ms")
+                                              for g in graphed],
+                "ranks_chain": [g["chain"] for g in graphed]}
+
     hfig = {
-        "halo_step_ms": {
-            str(d): {"one_process_eager": href["a"][d]["ms"],
-                     "ranks": [r["halo_ranks"]["a"][d]["ms"]
-                               for r in ranks]} for d in (0.0, 0.1)},
-        "grid_3x2_step_ms": {"one_process_eager": href["b"]["ms"],
-                             "ranks": [r["halo_ranks"]["b"]["ms"]
-                                       for r in ranks]},
-        "shmp_forward_ms": {"one_process": href["c"]["ms"],
-                            "ranks": [r["halo_ranks"]["c"]["ms"]
-                                      for r in ranks]},
+        "halo_step": {str(d): site("a", d) for d in (0.0, 0.1)},
+        "grid_3x2_step": site("b"),
+        "shmp_forward": site("c"),
         "exchange_ms_median": [float(np.median(r["halo_ranks"]
                                                ["exchange_ms"]))
                                for r in ranks],
+        "exchange_parts_ms": [r["halo_ranks"]["exchange_parts_ms"]
+                              for r in ranks],
         "exchange_bytes": ranks[0]["halo_ranks"]["exchange_bytes"],
         "rank_halo_seconds": [r["halo_seconds"] for r in ranks], **extra}
-    print(f"phase 18 (c) figures (ms per call, both calls): "
-          f"{json.dumps(hfig)}", flush=True)
+    print(f"phase 18 (c) figures (ms per call; the graphed first call "
+          f"captures): {json.dumps(hfig)}", flush=True)
     return hfig
 
 
@@ -4301,17 +4427,18 @@ def dist_phase(torch, cs, dev, seed: int, tcfg, qb, train_stage, gbatches,
     K2, K3 and K4 must have launched on both. (b) ``python -m
     torch.distributed.run --nproc_per_node 2 -m desco_tpu_torch.main
     --n_devices 2 --train_neigh --train_gossip --test_gossip`` at the
-    paper width, 2 epochs per stage: exit 0, one set of checkpoints,
+    paper width, 1 epoch per stage: exit 0, one set of checkpoints,
     finite normed MSE. (c) The halo graph axis across the ranks
     (``dist_halo_workload``, the same ranks): r4's gossip train step on
     phase 14's 12,000-node graph in 4 shards, 2 per rank (two calls at
     dropout 0, two at 0.1), the DP x halo step on a 3 x 2 fallback grid
     whose middle row crosses the ranks, and r4's target tower sharded
-    over a 1 x 2 grid: every result bit-equal on both ranks to the same
-    grid in this process (eager), the gather-fused K1 and its backward
-    launched on both ranks as many times as their shards' streams
-    need, the graphed steps run eager and say so. Returns the launches
-    (both ranks) and figures."""
+    over a 1 x 2 grid, each eager and graphed (chains of CUDA graphs
+    split at their collectives): every result bit-equal on both ranks to
+    the same grid in this process (eager), the gather-fused K1 and its
+    backward launched on both ranks, both ways, as many times as their
+    shards' streams need. Returns the launches (both ranks) and
+    figures."""
     import pickle
 
     from desco_tpu_torch.train.checkpoint import flatten_params
@@ -4612,6 +4739,7 @@ def main() -> int:
           f"{len(train_stage.batches)} batches of n_cap {tb0.n_cap}, e_cap "
           f"{tb0.e_cap}, g_cap {tb0.g_cap}", flush=True)
 
+    phase_done("1 (environment)")
     # -------------------------------------------------------- 2. kernels
     krng = np.random.default_rng(args.seed + 1)
     f32, bf16 = torch.float32, torch.bfloat16
@@ -4682,6 +4810,7 @@ def main() -> int:
                 graph_ms(graph_rows, "k4_pool", dtype))
         del cases, gb, trb
 
+    phase_done("2 (kernels)")
     # -------------------------------------------------------- 3. serving
     cs.reset_launches()
     torch.cuda.synchronize()
@@ -4838,6 +4967,7 @@ def main() -> int:
           f"(bound {BF16_LOG2_ATOL})")
     del svc_bf, svc_gpu
 
+    phase_done("3 (serving)")
     # --------------------------------------------------------- 4. daemon
     reqs = [
         {"id": 1, "graphs": [{"n": g.n_nodes, "edges": g.edges.tolist()}
@@ -4873,6 +5003,7 @@ def main() -> int:
     print(f"daemon: 2 requests answered in {time.perf_counter() - t0:.1f} s "
           f"(process start and model load included)", flush=True)
 
+    phase_done("4 (daemon)")
     # ------------------------------------------------------ 5. gradients
     tgt_cfg, qry_cfg = model_configs(tcfg, dev)
     check(tgt_cfg.agg_mode == "kernel" and (
@@ -4984,6 +5115,7 @@ def main() -> int:
           flush=True)
     del tb0_dev, qb_dev, step_grads
 
+    phase_done("5 (gradients)")
     # ------------------------------------------- 6. training, full width
     cs.reset_launches()
     n_b = len(train_stage.batches)
@@ -5148,6 +5280,7 @@ def main() -> int:
           f"val (f32 tower) {bres.best_val:.4f}; {bf_step_ms:.2f} ms per "
           f"train step (epochs after the first)", flush=True)
 
+    phase_done("6 (training)")
     # --------------------------------------------------- 7. entry point
     cli_dir = os.path.join(workdir.name, "cli")
     cmd = [sys.executable, "-m", "desco_tpu_torch.main", "--train_neigh",
@@ -5194,6 +5327,7 @@ def main() -> int:
     second_member = os.path.join(keep_dir.name, "neigh.best")
     workdir.cleanup()
 
+    phase_done("7 (entry point)")
     # ------------------------------------- 8. datasets and the r4 replay
     from desco_tpu_torch import gen_dataset as gen_mod
     from desco_tpu_torch import main as main_mod
@@ -5315,6 +5449,7 @@ def main() -> int:
           f"{timing_of(replay_out, 'stage-1 predict+verify')} s, gossip "
           f"predict {timing_of(replay_out, 'gossip predict')} s", flush=True)
 
+    phase_done("8 (datasets, replay)")
     # ---------------------------------------------------- 9. ablations
     abl = ablation_phase(torch, cs, probe, dev, args.seed, gen_root,
                          replay_root, data_dir.name, main_stage.batches[0])
@@ -5322,6 +5457,7 @@ def main() -> int:
     site_rows = abl["site_rows"]
     abl_launches, o4_launches = abl["abl_launches"], abl["o4_launches"]
 
+    phase_done("9 (ablations)")
     # ------------------------------------------- 10. the rest of serving
     rest = serving_rest_phase(torch, cs, probe, dev, args.seed, gen_root,
                               replay_root, data_dir.name, svc,
@@ -5329,6 +5465,7 @@ def main() -> int:
                               main_stage.batches[0])
     keep_dir.cleanup()
 
+    phase_done("10 (the rest of serving)")
     # ----------------------------------------------- 11. bench and probe
     bench_keys = ("metric", "value", "unit", "vs_baseline", "graphs_per_s",
                   "bytes_per_edge_layer", "sol_fraction", "hbm_gbps_assumed",
@@ -5372,9 +5509,11 @@ def main() -> int:
     for name, n in probe_launches.items():
         check(n > 0, f"probe variant {name} never launched in its series")
 
+    phase_done("11 (bench, probe)")
     # ------------------------------------------------------- 13. halo
     hal = halo_phase(torch, cs, probe, dev, args.seed, svc)
 
+    phase_done("13 (halo)")
     # -------------------------------------------- 14. data parallelism
     svc._neigh_buckets, svc._gossip_buckets = (dict(b) for b in
                                                phase3_buckets)
@@ -5382,15 +5521,18 @@ def main() -> int:
                    main_stage, train_stage, tcfg, qb, gbatches, best,
                    tgt_cfg, qry_cfg)
 
+    phase_done("14 (data parallelism)")
     # ------------------------------------------------------- 15. tools
     tools = tools_phase(torch, cs, card, gen_root, replay_root)
 
+    phase_done("15 (tools)")
     # ---------------------------------------------- 16. compiled steps
     with tempfile.TemporaryDirectory(prefix="desco_smoke_g16_") as g16_dir:
         graphed_phase(torch, cs, dev, tcfg, train_stage, qb, gbatches,
                       gres.best_params, q_embs, hal.pop("train_shards"),
                       dpr.pop("grid"), g16_dir)
 
+    phase_done("16 (compiled steps)")
     # -------------------------------------------- 17. compiled serving
     compiled = compiled_serving_phase(
         torch, cs, dev, args.seed, svc, main_req, res_main, main_stage,
@@ -5398,6 +5540,7 @@ def main() -> int:
     print(f"compiled serving summary: {json.dumps(compiled)}", flush=True)
     data_dir.cleanup()
 
+    phase_done("17 (compiled serving)")
     # ------------------------- 18. data parallelism across processes
     dist = dist_phase(torch, cs, dev, args.seed, tcfg, qb, train_stage,
                       gbatches, best, gres.best_params, q_embs,
@@ -5405,6 +5548,7 @@ def main() -> int:
                       svc.gossip_params, svc.member_embs[0], svc.tgt_cfg,
                       svc.members[0]["target"])
 
+    phase_done("18 (across processes)")
     # ----------------------------------------------------- 12. the record
     seg_src = "desco_tpu_torch/csrc/segment_sum.cu"
     typed_src = "desco_tpu_torch/csrc/typed_aggregate.cu"
@@ -5529,6 +5673,9 @@ def main() -> int:
           f"({truth_s / n_train_nodes * 1e3:.3f} s per 1000 nodes), "
           f"{neigh_step_ms:.2f} ms per neighborhood train step, "
           f"{gossip_step_ms:.2f} ms per gossip train step", flush=True)
+    phase_done("12 (the record)")
+    print(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in PHASE_S.items()})}; "
+          f"the run took {time.perf_counter() - T_START:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -31,13 +31,13 @@ reduction:
      devices through autograd, whose order of accumulation is not fixed.
 
 Where a process's replicas share one card, in one process as across
-ranks, the training loop (train/loop.Steps) captures the step as two
-CUDA graphs, the process's replicas' forwards and gradients and the sum
-with Adam, and runs the exchange between them (``DPStep(graphed=True)``:
-the gather across ranks, the terms themselves in one process; no graph
-holds a collective). The replica generators are made once per run and
-reseeded (``reseed_replica_generators``), so the graphs keep reading
-them. A mesh over several cards in one process trains with the eager
+ranks, the training loop (train/loop.Steps) captures the step
+(``DPStep(graphed=True)``): one CUDA graph in one process; across ranks
+two, the process's replicas' forwards and gradients and the sum with
+Adam, split at the gather, which runs between their replays (no graph
+holds a collective, utils/cuda_graphs.GraphedStep). The replica
+generators are made once per run and reseeded
+(``reseed_replica_generators``), so the graphs keep reading them. A mesh over several cards in one process trains with the eager
 step.
 
 Gradient semantics are desco_tpu's:
@@ -68,7 +68,7 @@ import torch
 
 from ..batch.packed import PackedGraphs, stack_batches
 from ..utils import distributed
-from ..utils.cuda_graphs import ExchangedStep, ForwardCache
+from ..utils.cuda_graphs import ForwardCache, GraphedStep
 from ..utils.device import resolve_device
 from .halo import shard_devices
 
@@ -339,15 +339,14 @@ class DPStep:
     gradient lands in ``opt.grad`` (``apply_reduced``).
 
     Its parts: ``local`` (this process's replicas' terms), ``exchange``
-    (every replica's terms; across ranks the gather, whose first call
-    also checks that every rank holds the same parameters and raises if
-    not) and ``finish`` (the ordered sum and Adam). ``graphed``: ``local``
-    and ``finish`` are captured at the first call, for that call's
-    ``params`` and ``generators``, as two CUDA graphs with the exchange
-    between their replays (utils/cuda_graphs.ExchangedStep; static
-    buffers without a capture on the CPU), in one process as across
-    ranks; it needs this process's replicas on one device. ``prepare``
-    makes them ahead of the first call."""
+    (every replica's terms: across ranks the gather) and ``finish`` (the
+    ordered sum and Adam); before the first call's, the check that every
+    rank holds the same parameters (it raises if not). ``graphed``: the
+    step is captured at the first call, for that call's ``params`` and
+    ``generators`` (utils/cuda_graphs.GraphedStep: one CUDA graph in one
+    process, two split at the gather across ranks; static buffers
+    without a capture on the CPU); it needs this process's replicas on
+    one device. ``prepare`` makes it ahead of the first call."""
 
     def __init__(self, loss_fn: Callable, opt, mesh: DataMesh,
                  weight_kind: str = "graphs", graphed: bool = False):
@@ -366,30 +365,38 @@ class DPStep:
                                 self.weight_kind, generators, self.replicas)
 
     def exchange(self, terms: torch.Tensor) -> torch.Tensor:
-        if not self.checked:
-            distributed.check_replicated(self.opt.flat, "parameters")
-            self.checked = True
         return distributed.gather_in_rank_order(terms)
 
     def finish(self, terms: torch.Tensor, lr):
         loss, flat = reduce_terms(terms)
         return apply_reduced(self.opt, loss, flat, lr)
 
+    def check(self) -> None:
+        """Once: every rank holds the same parameters."""
+        if not self.checked:
+            distributed.check_replicated(self.opt.flat, "parameters")
+            self.checked = True
+
     def prepare(self, params, group, generators=None) -> None:
         """Make the graphed step (``graphed``) for ``params`` and
         ``generators``, which every call must then pass, on the static
         buffers of ``group``; the first call makes it where no one did."""
+        self.check()
         flat = self.opt.flat
-        self.held = (params, generators, ExchangedStep(
-            lambda g: self.local(params, g, generators), self.exchange,
-            self.finish, group,
-            flat.new_zeros((self.mesh.size, flat.numel() + 1)),
+
+        def step(b):
+            return self.finish(self.exchange(
+                self.local(params, b[0], generators)), b[1])
+
+        self.held = (params, generators, GraphedStep(
+            step, (group, flat.new_zeros(())),
             capture=flat.device.type == "cuda",
             state=self.opt.state_tensors(),
             generators=[g for g in generators or () if g is not None]))
 
     def __call__(self, params, group, lr, generators=None):
         if not self.graphed:
+            self.check()
             return self.finish(self.exchange(
                 self.local(params, group, generators)), lr)
         if self.held is None:
@@ -397,7 +404,10 @@ class DPStep:
         elif params is not self.held[0] or generators is not self.held[1]:
             raise ValueError("a graphed DP step replays over the parameters "
                              "and generators of its first call")
-        return self.held[2](group, lr)
+        if not isinstance(lr, torch.Tensor):
+            lr = torch.full((), float(lr), device=self.opt.flat.device)
+        loss, ok = self.held[2]((group, lr))
+        return loss.clone(), ok.clone()
 
 
 # ------------------------------------------------------------ prediction

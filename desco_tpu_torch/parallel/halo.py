@@ -40,8 +40,9 @@ ranks the list spans; ``psum`` gathers every slot's value and adds them
 in slot order on every rank. Every rank issues the same collectives in
 the same order, forward and backward (each exchange is one autograd node
 on every rank, created at the same point of the same code). A CUDA graph
-cannot hold a collective, so a step whose shards span ranks runs eager
-(``halo_gossip_step_fn``).
+cannot hold a collective, so a compiled step whose shards span ranks is
+a chain of graphs split at its exchanges and its gather
+(``halo_gossip_step_fn``, utils/cuda_graphs.GraphedStep).
 
 Gradients: where autograd is on, each shard slot reads views of its
 own of the parameters (``shard_params``), made in reverse slot order, so
@@ -1260,14 +1261,15 @@ def halo_gossip_step_fn(opt, dropout: float = 0.0, graphed: bool = False):
     The step's parts: each local slot's row [gradient of its own
     parameter leaves, its sum] (``slot_terms``); where the shards span
     ranks, the rows gathered in rank order (every rank holds the same
-    number of slots, process-major, so rank order is slot order; the
-    first call checks that every rank holds the same parameters); then
-    the rows added in slot order and Adam. ``graphed``: the rows and the
-    sum are captured as CUDA graphs at the first call, for that call's
-    ``params`` and ``shards``, and replayed at every later one, the
-    exchange between them (utils/cuda_graphs.placed_step_fn); where the
-    shards span ranks the step runs eager (its exchanges are collectives,
-    which no capture holds) and says so once on standard error."""
+    number of slots, process-major, so rank order is slot order); then
+    the rows added in slot order and Adam. Before them, once: where the
+    shards span ranks, the check that every rank holds as many slots and
+    the same parameters; the direction degrees. ``graphed``: the step is
+    captured at the first call, for that call's ``params`` and
+    ``shards``, and replayed at every later one
+    (utils/cuda_graphs.placed_step_fn): one CUDA graph in one process,
+    a chain of graphs split at the exchanges and the gather where the
+    shards span ranks."""
     from .dp import apply_reduced, reduce_terms
 
     gens = ShardGenerators()
@@ -1276,31 +1278,29 @@ def halo_gossip_step_fn(opt, dropout: float = 0.0, graphed: bool = False):
     def reseed(shards, seed):
         return gens.seed(shards, seed) if dropout > 0.0 else []
 
-    def local(params, shards, query_embs):
+    def prepare(shards):
         state["spans"] = spans_ranks(shards)
         if state["spans"]:
             _check_even(shards)
+            if not state["checked"]:
+                distributed.check_replicated(opt.flat, "parameters")
+                state["checked"] = True
+        halo_direction_degrees(shards)
+
+    def local(params, shards, query_embs):
         return slot_terms(params, shards, query_embs, dropout,
                           gens.gens or None)
 
     def exchange(terms):
-        if not state["spans"]:
-            return terms
-        if not state["checked"]:
-            distributed.check_replicated(opt.flat, "parameters")
-            state["checked"] = True
-        return distributed.gather_in_rank_order(terms)
+        return (distributed.gather_in_rank_order(terms) if state["spans"]
+                else terms)
 
     def finish(terms, lr):
         loss, flat = reduce_terms(terms)
         return apply_reduced(opt, loss, flat, lr)
 
-    return placed_step_fn(
-        local, reseed, opt, graphed=graphed, exchange=exchange,
-        finish=finish, n_terms=len,
-        eager_when=lambda shards: (spans_ranks(shards)
-                                   and "the halo gossip step's shards span "
-                                       "ranks"))
+    return placed_step_fn(local, reseed, opt, graphed=graphed,
+                          exchange=exchange, finish=finish, prepare=prepare)
 
 
 def _check_even(shards: list) -> None:

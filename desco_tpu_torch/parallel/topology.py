@@ -37,7 +37,7 @@ import torch
 
 from . import halo as halo_mod
 from ..utils import distributed
-from ..utils.cuda_graphs import placed_step_fn
+from ..utils.cuda_graphs import GraphedStep, clone_outputs, placed_step_fn
 from .dp import apply_reduced, replica_seed
 
 
@@ -211,14 +211,14 @@ def dp_halo_gossip_step_fn(opt, dropout: float = 0.0, graphed: bool = False):
     finite-loss guard. Dropout masks come from generators per (replica,
     shard), made once and reseeded at every call. The step's parts: the
     local slots' rows (``halo.slot_terms``), their exchange (the gather
-    across ranks, whose first call checks that every rank holds the same
-    parameters) and ``reduce_grid_terms`` with Adam. ``graphed``: the
-    local part and the sum are captured at the first call and replayed
-    (utils/cuda_graphs.placed_step_fn), the exchange between them; where
-    a row's shards span ranks the step runs eager (its halo exchanges are
-    collectives) and says so once on standard error."""
+    across ranks) and ``reduce_grid_terms`` with Adam; before them, once,
+    the check that every rank holds the same parameters and each row's
+    direction degrees. ``graphed``: the step is captured at the first
+    call and replayed (utils/cuda_graphs.placed_step_fn): one CUDA graph
+    in one process, a chain of graphs split at the rows' exchanges and
+    the gather across ranks."""
     gens: dict = {}
-    checked = []
+    grid: dict = {}
 
     def reseed(replicas, seed):
         if dropout <= 0.0:
@@ -230,40 +230,43 @@ def dp_halo_gossip_step_fn(opt, dropout: float = 0.0, graphed: bool = False):
                 out += g.seed(shards, replica_seed(seed, d))
         return out
 
-    def local(params, replicas, query_embs):
+    def prepare(replicas):
         grid["n_graph"] = _n_graph(replicas)
+        if not grid.get("checked"):
+            distributed.check_replicated(opt.flat, "parameters")
+            grid["checked"] = True
+        for shards in replicas:
+            if shards is not None:
+                halo_mod.halo_direction_degrees(shards)
+
+    def local(params, replicas, query_embs):
         return _local_halo_terms(
             params, replicas, query_embs, dropout,
             {d: g.gens for d, g in gens.items()})
-
-    def exchange(terms):
-        if not checked:
-            distributed.check_replicated(opt.flat, "parameters")
-            checked.append(True)
-        return distributed.gather_in_rank_order(terms)
 
     def finish(terms, lr):
         loss, flat = reduce_grid_terms(terms, grid["n_graph"])
         return apply_reduced(opt, loss, flat, lr)
 
-    def across(replicas):
-        return (any(shards is not None and halo_mod.spans_ranks(shards)
-                    for shards in replicas)
-                and "the DP x halo step's rows span ranks")
-
-    grid: dict = {}
-    return placed_step_fn(
-        local, reseed, opt, graphed=graphed, exchange=exchange,
-        finish=finish, eager_when=across,
-        n_terms=lambda replicas: len(replicas) * _n_graph(replicas))
+    return placed_step_fn(local, reseed, opt, graphed=graphed,
+                          exchange=distributed.gather_in_rank_order,
+                          finish=finish, prepare=prepare)
 
 
-def dp_halo_shmp_forward(cfg):
+def dp_halo_shmp_forward(cfg, graphed: bool = True):
     """The composed SHMP core forward: ``fwd(params, replicas)`` -> per
     replica the per-shard embeddings of ``halo.halo_shmp_core`` over its
     own graph (the exchanges stay within a replica's row, across ranks
     where the row crosses them), None for a slot another rank holds and
-    for a row of which this rank holds no slot."""
+    for a row of which this rank holds no slot.
+
+    ``graphed`` (desco_tpu jits it): the forward is captured under
+    inference mode at the first call, for that call's ``params`` and
+    ``replicas``, which later calls must pass again, and every call
+    returns copies of its outputs (utils/cuda_graphs.GraphedStep with
+    ``inference``): one CUDA graph in one process, a chain of graphs
+    split at the exchanges where a row crosses ranks; static buffers
+    without a capture on the CPU. ``graphed=False``: eager."""
 
     def fwd(params, replicas):
         out = []
@@ -276,4 +279,22 @@ def dp_halo_shmp_forward(cfg):
                         for sh in shards])
         return out
 
-    return fwd
+    if not graphed:
+        return fwd
+    held: dict = {}
+
+    def compiled(params, replicas):
+        if held and (params is not held["params"]
+                     or replicas is not held["replicas"]):
+            raise ValueError("a graphed forward replays over the parameters "
+                             "and data of its first call")
+        if not held:
+            dev = next(halo_mod.local_shards(shards)[0].device
+                       for shards in replicas if shards is not None)
+            held.update(params=params, replicas=replicas, step=GraphedStep(
+                lambda _: fwd(params, replicas), (),
+                capture=dev.type == "cuda", inference=True, device=dev))
+        return clone_outputs(held["step"](()))
+
+    compiled.held = held
+    return compiled

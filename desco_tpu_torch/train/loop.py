@@ -286,9 +286,9 @@ class Steps:
     steps read. With a ``mesh`` (parallel/dp.py) ``train_dev`` holds
     groups of D batches and the train step is the DP step, its replica
     generators made here (``generators``); it is ``dp.DPStep``, graphed
-    in two parts where this process's replicas share one device, eager,
-    saying so through ``log_fn``, where they lie on several. ``reseed``
-    seeds the generators."""
+    (split at the gather across ranks) where this process's replicas
+    share one device, eager, saying so through ``log_fn``, where they lie
+    on several. ``reseed`` seeds the generators."""
 
     def __init__(self, params, opt: Adam, loss_fn: Callable,
                  eval_fn: Callable, train_dev, val_dev, lr, generator,

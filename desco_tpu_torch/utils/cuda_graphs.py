@@ -40,10 +40,18 @@ batch after another. Here a step is captured once per run and shape as a
   * a capture runs with the cyclic garbage collector paused
     (``no_collection``): a collection inside it that destroys an earlier
     step's graphs frees device memory and invalidates the capture;
-  * a data-parallel step (``ExchangedStep``) is two graphs, the
-    process's own replicas' gradients and the ordered sum with the
-    optimizer, and the exchange between them runs eagerly: across the
-    ranks of a process group it is a gather, which no graph may hold.
+  * a step that reaches collectives (across the ranks of a process
+    group: a data-parallel step's gather, a halo step's exchanges and
+    their backward) is a chain of graphs split at them: each piece
+    between two collectives is captured once, every call replays the
+    pieces in capture order, and between two pieces the one collective
+    at that point runs eagerly (``collective``), reading the static
+    tensor the piece before wrote and writing the static buffer the
+    piece after reads. The first call records the collectives (kind,
+    group, counts, shapes); every later one must issue the same, and
+    every rank of a group the same there (``distributed
+    .check_sequence``); a collective that is not a split point raises
+    inside a piece. In one process a step reaches none and is one graph.
 
 A forward is the same capture with ``inference=True``: its buffers are
 made, its warm-up and capture run, and every call runs, under
@@ -60,7 +68,9 @@ alive, so one graph's scratch memory may serve the next.
 
 A failed capture or replay raises; nothing falls back to the eager step
 or forward. On the CPU, which only the tests ask for, the same
-static-buffer step or forward runs without a capture. ``no_sync`` runs
+static-buffer step or forward runs without a capture, through the same
+split points (static receive buffers, the sequence recorded and
+checked). ``no_sync`` runs
 the graphed loop under ``torch.cuda.set_sync_debug_mode("error")``, so a
 read-back left in a step raises instead of stalling the card.
 """
@@ -70,7 +80,6 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
-import sys
 import threading
 import time
 from typing import Callable, Optional, Sequence
@@ -82,7 +91,8 @@ from ..ops import cuda_segment as cs
 WARMUP_STEPS = 3
 # a forward's lazy set-up (kernel libraries and their shared-memory
 # attributes, the towers' bias ids, cuBLAS handles) needs one call; the
-# second checks that the first left nothing to set up
+# second checks that the first left nothing to set up (so does a step
+# split at collectives, whose eager calls cost the collectives too)
 WARMUP_FORWARDS = 2
 
 
@@ -186,6 +196,72 @@ def _device_of(value) -> torch.device:
     return _device_of(getattr(value, dataclasses.fields(value)[0].name))
 
 
+# ------------------------------------------------------ the chain's splits
+class _Chain:
+    """One run of a step's function through its split points: ``mode``
+    "run" (the collectives run: the warm-up, the CPU) or "capture" (each
+    split point ends a piece's capture and begins the next); ``index``
+    counts the split points passed, ``keys`` records them at the first
+    call, ``inside`` is set while a split point's collective runs."""
+
+    def __init__(self, step, mode: str):
+        self.step, self.mode = step, mode
+        self.index, self.keys, self.inside = 0, [], False
+
+
+# the chain whose function is running (one at a time: the backward's
+# split points run on autograd's device thread while the caller waits)
+_ACTIVE: Optional[_Chain] = None
+
+
+def collective(key: tuple, src: torch.Tensor, out_shape,
+               run: Callable) -> torch.Tensor:
+    """A collective at a split point: ``run(src, out)`` writes into
+    ``out`` (``out_shape``, ``src``'s dtype and device) what the
+    collective gives for ``src``; returns ``out``. Outside a chained step
+    it runs on a new ``out``. Inside one (a ``GraphedStep`` whose
+    function reaches it) it is one of the step's split points: ``key``
+    (kind, group, counts) and the shapes must be those of the same point
+    at the step's first call, which made ``out``; every later call
+    writes that buffer. A capture ends one piece there and begins the
+    next, and the collective runs between their replays."""
+    chain = _ACTIVE
+    out_shape = tuple(int(n) for n in out_shape)
+    if chain is None:
+        out = src.new_empty(out_shape)
+        run(src, out)
+        return out
+    return chain.step._split(chain, tuple(key) + (
+        tuple(src.shape), str(src.dtype), out_shape), src, run)
+
+
+def unrecorded_collective(what: str) -> None:
+    """Raise inside a chained step's piece: a collective that is not a
+    split point (``collective``) would run once at the capture and never
+    at a replay."""
+    chain = _ACTIVE
+    if chain is not None and not chain.inside:
+        raise RuntimeError(
+            f"{what} reached inside a chained step's piece ({chain.mode}): "
+            f"only its split points (distributed.exchange_blocks, "
+            f"gather_in_rank_order) may run a collective there")
+
+
+def _pool_bytes(ids: set) -> Optional[int]:
+    """The bytes the memory pools ``ids`` hold on the card (the caching
+    allocator's snapshot); None where this PyTorch's snapshot does not
+    name segments' pools."""
+    total, named = 0, False
+    for seg in torch.cuda.memory_snapshot() if ids else ():
+        pool = seg.get("segment_pool_id")
+        if pool is None:
+            continue
+        named = True
+        if tuple(pool) in ids:
+            total += int(seg["total_size"])
+    return total if named or not ids else None
+
+
 class GraphedStep:
     """``fn(batch)`` over same-shape batches, on static buffers made from
     ``example``; ``capture`` (a CUDA device) records it once as a CUDA
@@ -196,7 +272,17 @@ class GraphedStep:
     ``generators``. ``inference``: ``fn`` is a forward, made and run under
     inference mode. ``fn`` reads nothing that changes between calls but
     its batch; data it closes over (parameters, a partition's shards)
-    must keep their storage. An empty ``example`` needs the ``device``."""
+    must keep their storage. An empty ``example`` needs the ``device``.
+
+    Where ``fn`` reaches collectives (``collective``: across ranks), the
+    step is a chain of graphs split at them (``graphs``, one more than
+    the split points), in a memory pool of its own (``pool`` must be
+    None), captured in the relaxed mode: a split point in the backward
+    ends and begins captures on autograd's device thread. ``sequence``:
+    the split points' keys, recorded at the first call (on the card the
+    first warm-up); later calls, the capture included, must match them.
+    ``collective_s``: the host seconds of the replayed collectives,
+    summed over calls, each timed from the end of the piece before."""
 
     def __init__(self, fn: Callable, example, *, capture: bool,
                  state: Sequence[torch.Tensor] = (),
@@ -206,10 +292,16 @@ class GraphedStep:
         self.inference = inference
         with self._mode():
             self.batch = static_like(example)
-        self.graph = None
+        self.graphs: list = []
+        self.sequence: Optional[list] = None
+        self.buffers: list = []   # per split point: its static output
+        self.splits: list = []    # per split point: (run, static input)
         self.outputs = None
         self.record = cs.LaunchRecord()
         self.capture_s = 0.0
+        self.collective_s = 0.0
+        self.device = None
+        self._pool = self._drawn = self._capture_mode = None
         if capture:
             self._capture(list(state), list(generators), pool, torch.device(
                 device if device is not None else _device_of(self.batch)))
@@ -218,120 +310,177 @@ class GraphedStep:
         return (torch.inference_mode() if self.inference
                 else contextlib.nullcontext())
 
+    def _run(self, mode: str):
+        """``fn`` on the static buffers through its split points; the first
+        run records them and checks them across the ranks."""
+        global _ACTIVE
+        if _ACTIVE is not None:
+            raise RuntimeError("a chained step runs inside another")
+        chain = _ACTIVE = _Chain(self, mode)
+        try:
+            out = self.fn(self.batch)
+        finally:
+            _ACTIVE = None
+        if self.sequence is None:
+            self.sequence = chain.keys
+            if self.sequence:
+                from .distributed import check_sequence
+                check_sequence(self.sequence)
+        elif chain.index != len(self.sequence):
+            raise RuntimeError(
+                f"this call issued {chain.index} collectives, the first "
+                f"{len(self.sequence)}: a chained step issues the same in "
+                f"every call")
+        return out
+
+    def _split(self, chain: _Chain, key: tuple, src: torch.Tensor,
+               run: Callable) -> torch.Tensor:
+        i = chain.index
+        chain.index += 1
+        if self.sequence is None:
+            chain.keys.append(key)
+            self.buffers.append(src.new_empty(key[-1]))
+        elif i >= len(self.sequence) or self.sequence[i] != key:
+            first = self.sequence[i] if i < len(self.sequence) else None
+            raise RuntimeError(
+                f"collective {i} of this call is {key}, the first call's "
+                f"{first}: a chained step issues the same collectives, "
+                f"with the same shapes and groups, in every call")
+        out = self.buffers[i]
+        if chain.mode == "capture":
+            self.splits.append((run, src))
+            self.graphs[-1].capture_end()
+            self._begin_piece()
+        else:
+            t0 = time.perf_counter()
+            chain.inside = True
+            try:
+                run(src, out)
+            finally:
+                chain.inside = False
+            self.collective_s += time.perf_counter() - t0
+        return out
+
+    def _begin_piece(self) -> None:
+        graph = torch.cuda.CUDAGraph()
+        for gen in self._drawn:
+            graph.register_generator_state(gen)
+        graph.capture_begin(pool=self._pool,
+                            capture_error_mode=self._capture_mode)
+        self.graphs.append(graph)
+
     def _capture(self, state, generators, pool, dev) -> None:
         t0 = time.perf_counter()
         counted = cs.read_launches()
         saved = [t.clone() for t in state]
         gen_states = [g.get_state() for g in generators]
+        self.device = dev
         with torch.cuda.device(dev), self._mode():
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
-                for _ in range(WARMUP_FORWARDS if self.inference
-                               else WARMUP_STEPS):
-                    self.fn(self.batch)
+                self._run("run")
+                # a chain's second run checks that the first left nothing
+                # to set up, as a forward's does
+                for _ in range((WARMUP_FORWARDS
+                                if self.inference or self.sequence
+                                else WARMUP_STEPS) - 1):
+                    self._run("run")
             torch.cuda.current_stream(dev).wait_stream(side)
             for t, s in zip(state, saved):
                 t.copy_(s)
-            graph = torch.cuda.CUDAGraph()
+            self._drawn = []
             for gen, gen_state in zip(generators, gen_states):
                 draws = not torch.equal(gen.get_state(), gen_state)
                 gen.set_state(gen_state)
                 if draws:
-                    if not hasattr(graph, "register_generator_state"):
+                    if not hasattr(torch.cuda.CUDAGraph,
+                                   "register_generator_state"):
                         raise RuntimeError(
                             "the step draws from a generator (dropout "
                             "above 0) and this PyTorch cannot register a "
                             "generator with a CUDA graph: train eagerly "
                             "(graphed=False)")
-                    graph.register_generator_state(gen)
+                    self._drawn.append(gen)
+            if self.sequence and pool is not None:
+                raise ValueError("a step split at collectives captures "
+                                 "into a memory pool of its own")
+            # a chain's pieces share a pool of their own
+            self._pool = (torch.cuda.graph_pool_handle()
+                          if self.sequence else pool)
+            self._capture_mode = "relaxed" if self.sequence else "global"
+            # as torch.cuda.graph begins a capture
             with self.record.capture(), no_collection():
-                with torch.cuda.graph(graph, pool=pool):
-                    self.outputs = self.fn(self.batch)
+                torch.cuda.synchronize()
+                gc.collect()
+                torch.cuda.empty_cache()
+                with torch.cuda.stream(side):
+                    self._begin_piece()
+                    try:
+                        self.outputs = self._run("capture")
+                    except BaseException:
+                        with contextlib.suppress(Exception):
+                            self.graphs[-1].capture_end()
+                        self.graphs = []
+                        raise
+                    self.graphs[-1].capture_end()
         cs.reset_launches()
         cs.add_launches(counted)
-        self.graph = graph
+        self.collective_s = 0.0
         self.capture_s = time.perf_counter() - t0
+
+    def pool_bytes(self) -> Optional[int]:
+        """The bytes the step's memory pool holds on the card (None where
+        not reported; 0 without a capture)."""
+        if not self.graphs:
+            return 0
+        return _pool_bytes({tuple(self._pool if self._pool is not None
+                                  else self.graphs[0].pool())})
 
     def __call__(self, batch):
         with self._mode():
             copy_into(self.batch, batch)
-            if self.graph is None:
-                return self.fn(self.batch)
-            self.graph.replay()
+            if not self.graphs:
+                return self._run("run")
+            self.graphs[0].replay()
+            if self.splits:
+                stream = torch.cuda.current_stream(self.device)
+                for (run, src), out, graph in zip(
+                        self.splits, self.buffers, self.graphs[1:]):
+                    stream.synchronize()
+                    t0 = time.perf_counter()
+                    run(src, out)
+                    self.collective_s += time.perf_counter() - t0
+                    graph.replay()
             self.record.replayed()
             return self.outputs
 
 
-class ExchangedStep:
-    """A train step split at its reduction, ``step(batch, lr) -> (loss,
-    ok)``: ``local(batch) -> terms`` (this process's replicas'
-    objectives and gradients), ``exchange(terms)`` (every replica's
-    terms: a collective across ranks, which no graph may hold, or the
-    terms themselves in one process) and ``finish(terms, lr) -> (loss,
-    ok)`` (the ordered sum and the optimizer's update of ``state`` in
-    place). ``local`` and ``finish`` are each a ``GraphedStep``, made
-    here on the static buffers of ``example`` (a batch) and of ``terms``
-    (a tensor shaped as what the exchange returns), ``capture`` recording
-    them as two CUDA graphs; the exchange runs eagerly between their
-    replays. ``local`` may draw from ``generators``. The loss and flag
-    come back as copies of the finish's outputs; a float ``lr`` is filled
-    into a device scalar."""
-
-    def __init__(self, local: Callable, exchange: Callable,
-                 finish: Callable, example, terms: torch.Tensor, *,
-                 capture: bool, state: Sequence[torch.Tensor] = (),
-                 generators: Sequence[torch.Generator] = ()):
-        self.exchange = exchange
-        self.local = GraphedStep(local, example, capture=capture,
-                                 generators=generators)
-        dev = terms.device
-        out = self.out = (torch.zeros((), device=dev),
-                          torch.zeros((), dtype=torch.bool, device=dev))
-
-        def fn(b):
-            loss, ok = finish(*b)
-            out[0].copy_(loss)
-            out[1].copy_(ok)
-
-        self.finish = GraphedStep(fn, (terms, torch.zeros((), device=dev)),
-                                  capture=capture,
-                                  state=list(state) + list(out))
-
-    def __call__(self, batch, lr):
-        terms = self.exchange(self.local(batch))
-        if not isinstance(lr, torch.Tensor):
-            lr = torch.full((), float(lr), device=terms.device)
-        self.finish((terms, lr))
-        return self.out[0].clone(), self.out[1].clone()
-
-
 def placed_step_fn(body: Callable, reseed: Callable, opt, *,
                    graphed: bool, exchange: Callable, finish: Callable,
-                   n_terms: Callable = len,
-                   eager_when: Optional[Callable] = None) -> Callable:
+                   prepare: Optional[Callable] = None) -> Callable:
     """A train step over data placed on the device for a run (a halo
-    partition's shards, a DP x halo grid's replicas), split as
-    ``ExchangedStep`` splits it: ``step(params, place, query_embs, lr,
-    seed=0) -> (loss, ok)`` calls ``reseed(place, seed)``, which reseeds
-    the step's generators (made once) and returns them, then
+    partition's shards, a DP x halo grid's replicas): ``step(params,
+    place, query_embs, lr, seed=0) -> (loss, ok)`` calls
+    ``prepare(place)`` (the one-time checks and the set-up that issues
+    collectives: never inside a capture), ``reseed(place, seed)``, which
+    reseeds the step's generators (made once) and returns them, then
     ``body(params, place, query_embs) -> terms``, ``exchange(terms)``
-    (``n_terms(place)`` rows [flat gradient, term]) and ``finish(terms,
-    lr) -> (loss, ok)``, which updates ``opt`` (train/loop.Adam) in
-    place.
+    (every slot's rows: across ranks the gather) and ``finish(terms, lr)
+    -> (loss, ok)``, which updates ``opt`` (train/loop.Adam) in place.
 
-    ``graphed``: the body and the finish run as an ``ExchangedStep`` made
-    at the first call for that call's ``params`` and ``place``, which
-    later calls must pass again; the query embeddings and the learning
-    rate (a float is filled into a device scalar) are its static buffers,
-    and the loss and flag come back as copies of its outputs. It is
-    captured where ``place`` lies on one CUDA device and raises where it
-    spans several; on the CPU it runs without a capture. Where
-    ``eager_when(place)`` gives a reason (the body holds collectives,
-    which no capture may), the step runs eager and says so once on
-    standard error."""
+    ``graphed``: the step runs as a ``GraphedStep`` made at the first call
+    for that call's ``params`` and ``place``, which later calls must pass
+    again; the query embeddings and the learning rate (a float is filled
+    into a device scalar) are its static buffers, and the loss and flag
+    come back as copies of its outputs. It is captured where ``place``
+    lies on one CUDA device, a chain of graphs split at its collectives
+    where ``place`` spans ranks, and raises where it spans several
+    devices; on the CPU it runs without a capture."""
 
     def eager(params, place, query_embs, lr, seed=0):
+        if prepare is not None:
+            prepare(place)
         reseed(place, seed)
         return finish(exchange(body(params, place, query_embs)), lr)
 
@@ -345,30 +494,26 @@ def placed_step_fn(body: Callable, reseed: Callable, opt, *,
                      or place is not held["place"]):
             raise ValueError("a graphed step replays over the parameters "
                              "and data of its first call")
-        if not held and eager_when is not None:
-            why = eager_when(place)
-            if why:
-                print(f"{why}: the graphed step runs eager (a captured "
-                      f"step cannot hold a collective)", file=sys.stderr,
-                      flush=True)
-                held.update(params=params, place=place, step=None)
-        if held and held["step"] is None:
-            return eager(params, place, query_embs, lr, seed)
-        gens = reseed(place, seed)
         dev = query_embs.device
         if not held:
             devices = {t.device for t in _tensors(place)}
             if dev.type == "cuda" and devices != {dev}:
                 raise ValueError(f"a captured step runs on one card; its "
                                  f"data lies on {sorted(map(str, devices))}")
-            held.update(params=params, place=place, step=ExchangedStep(
-                lambda b: body(params, place, b[0]), exchange, finish,
-                (query_embs,), opt.flat.new_zeros(
-                    (n_terms(place), opt.flat.numel() + 1)),
-                capture=dev.type == "cuda",
+            if prepare is not None:
+                prepare(place)
+        gens = reseed(place, seed)
+        if not isinstance(lr, torch.Tensor):
+            lr = torch.full((), float(lr), device=dev)
+        if not held:
+            held.update(params=params, place=place, step=GraphedStep(
+                lambda b: finish(exchange(body(params, place, b[0])), b[1]),
+                (query_embs, lr), capture=dev.type == "cuda",
                 state=opt.state_tensors(), generators=gens))
-        return held["step"]((query_embs,), lr)
+        loss, ok = held["step"]((query_embs, lr))
+        return loss.clone(), ok.clone()
 
+    step.held = held
     return step
 
 
@@ -430,16 +575,7 @@ class GraphPool:
         """The bytes the pools' segments hold on the card (the caching
         allocator's snapshot); None where this PyTorch's snapshot does
         not name segments' pools."""
-        ids = {tuple(h) for h in self.handles.values()}
-        total, named = 0, False
-        for seg in torch.cuda.memory_snapshot() if ids else ():
-            pool = seg.get("segment_pool_id")
-            if pool is None:
-                continue
-            named = True
-            if tuple(pool) in ids:
-                total += int(seg["total_size"])
-        return total if named or not ids else None
+        return _pool_bytes({tuple(h) for h in self.handles.values()})
 
 
 class ForwardCache:

@@ -30,6 +30,12 @@ ranks the shards span (``group_of``), with only the blocks each rank
 needs. It is differentiable: its backward is the same exchange of the
 cotangents.
 
+The gather and the exchange are the split points of a compiled step
+(utils/cuda_graphs.collective): inside a step captured as a chain of
+CUDA graphs they write static receive buffers between the pieces'
+replays, and any other collective there raises. Under gloo a card's
+tensor is staged through reused host buffers, pinned.
+
 With no group, ``rank()`` is 0 and ``world()`` 1, and the gather returns
 its input: the single-process paths run through the same code.
 """
@@ -44,6 +50,8 @@ from typing import Optional
 
 import torch
 import torch.distributed as dist
+
+from .cuda_graphs import collective, unrecorded_collective
 
 # long enough for rank 0 to compute a training set's ground truth while
 # the other ranks wait (``rank_zero_first``)
@@ -135,6 +143,7 @@ def rank_device(device=None, rank_: Optional[int] = None) -> torch.device:
 
 
 def barrier() -> None:
+    unrecorded_collective("a barrier")
     if world() > 1:
         dist.barrier()
 
@@ -151,19 +160,48 @@ def rank_zero_first():
         barrier()
 
 
-def _all_gather(t: torch.Tensor) -> torch.Tensor:
-    """Every rank's ``t`` (same shape everywhere) stacked in rank order
-    [world, ...], on ``t``'s device. Under gloo a card's tensor goes
-    through host memory."""
+# reused pinned host buffers of the gloo staging copies, per (side,
+# dtype): a collective's copies block, so one pair serves them all
+_STAGING: dict = {}
+
+
+def _staging(side: str, like: torch.Tensor) -> torch.Tensor:
+    """A pinned host tensor shaped as ``like`` (a card's tensor) for a
+    collective's staging copy (``side`` "in" or "out"), on a reused
+    buffer."""
+    key = (side, like.dtype)
+    buf = _STAGING.get(key)
+    if buf is None or buf.numel() < like.numel():
+        buf = torch.empty(max(like.numel(), 1), dtype=like.dtype,
+                          pin_memory=True)
+        _STAGING[key] = buf
+    return buf[:like.numel()].view(like.shape)
+
+
+def _all_gather_into(t: torch.Tensor, out: torch.Tensor) -> None:
+    """Every rank's ``t`` (same shape everywhere) into ``out`` [world,
+    ...], in rank order. Under gloo a card's tensor goes through host
+    memory."""
     if backend() == "nccl":
-        out = torch.empty((world(),) + tuple(t.shape), dtype=t.dtype,
-                          device=t.device)
         dist.all_gather_into_tensor(out, t.contiguous())
-        return out
-    host = t.detach().to("cpu").contiguous()
-    parts = [torch.empty_like(host) for _ in range(world())]
-    dist.all_gather(parts, host)
-    return torch.stack(parts).to(t.device)
+        return
+    host = t.contiguous()
+    if t.is_cuda:
+        host = _staging("in", t)
+        host.copy_(t)
+    parts = _staging("out", out) if out.is_cuda else out
+    dist.all_gather(list(parts.unbind(0)), host)
+    if parts is not out:
+        out.copy_(parts)
+
+
+def _all_gather(t: torch.Tensor) -> torch.Tensor:
+    """Every rank's ``t`` stacked in rank order [world, ...], on ``t``'s
+    device; not a split point."""
+    unrecorded_collective("a gather")
+    out = t.new_empty((world(),) + tuple(t.shape))
+    _all_gather_into(t.detach(), out)
+    return out
 
 
 def gather_in_rank_order(local: torch.Tensor, device=None) -> torch.Tensor:
@@ -171,13 +209,14 @@ def gather_in_rank_order(local: torch.Tensor, device=None) -> torch.Tensor:
     the same L). Returns the rows of every rank's replicas [world * L,
     ...], in global replica order (rank r's replicas are the block
     [r L, (r + 1) L)), on ``device`` (default ``local``'s). With no group
-    it is ``local`` itself, moved."""
+    it is ``local`` itself, moved. A split point of a compiled step."""
     dev = torch.device(device) if device is not None else local.device
     if world() == 1:
         return local.to(dev)
     if backend() != "nccl" and dev.type == "cpu":
         local = local.to("cpu")  # one copy out, no copy back
-    out = _all_gather(local)
+    out = collective(("gather", _members(None), None), local.detach(),
+                     (world(),) + tuple(local.shape), _all_gather_into)
     return out.reshape((-1,) + tuple(local.shape[1:])).to(dev)
 
 
@@ -196,6 +235,7 @@ def group_of(ranks, make: bool = False) -> Optional[object]:
             raise ValueError(f"no process group of ranks {ranks} was made "
                              f"on every rank (distributed.group_of(ranks, "
                              f"make=True) does)")
+        unrecorded_collective("a process group's creation")
         _GROUPS[ranks] = dist.new_group(list(ranks))
     return _GROUPS[ranks]
 
@@ -203,17 +243,39 @@ def group_of(ranks, make: bool = False) -> Optional[object]:
 _GROUPS: dict = {}
 
 
-def _all_to_all(t: torch.Tensor, group, n_in, n_out) -> torch.Tensor:
-    """``n_in[j]`` rows of ``t`` (in rank order) to rank j of ``group``;
-    the result holds ``n_out[p]`` rows from rank p, in rank order, on
-    ``t``'s device. Under gloo a card's tensor goes through host
-    memory."""
-    staged = backend() != "nccl"
-    src = (t.detach().to("cpu") if staged else t).contiguous()
-    out = src.new_empty((sum(n_out),) + tuple(t.shape[1:]))
-    dist.all_to_all_single(out, src, output_split_sizes=list(n_out),
+def _members(group) -> tuple:
+    """The ranks of ``group`` (None: every rank), sorted."""
+    if group is None:
+        return tuple(range(world()))
+    for ranks, made in _GROUPS.items():
+        if made is group:
+            return ranks
+    return tuple(sorted(dist.get_process_group_ranks(group)))
+
+
+def _all_to_all_into(src: torch.Tensor, out: torch.Tensor, group, n_in,
+                     n_out) -> None:
+    """``n_in[j]`` rows of ``src`` (in rank order) to rank j of ``group``;
+    ``out`` receives ``n_out[p]`` rows from rank p, in rank order. Under
+    gloo a card's tensor goes through host memory."""
+    staged = backend() != "nccl" and src.is_cuda
+    host_in, host_out = src.contiguous(), out
+    if staged:
+        host_in, host_out = _staging("in", src), _staging("out", out)
+        host_in.copy_(src)
+    dist.all_to_all_single(host_out, host_in, output_split_sizes=list(n_out),
                            input_split_sizes=list(n_in), group=group)
-    return out.to(t.device) if staged else out
+    if staged:
+        out.copy_(host_out)
+
+
+def _all_to_all(t: torch.Tensor, group, n_in, n_out) -> torch.Tensor:
+    """The all-to-all of ``exchange_blocks`` on ``t``'s device: a split
+    point of a compiled step."""
+    return collective(
+        ("all_to_all", _members(group), (n_in, n_out)), t.detach(),
+        (sum(n_out),) + tuple(t.shape[1:]),
+        lambda src, out: _all_to_all_into(src, out, group, n_in, n_out))
 
 
 class _Exchange(torch.autograd.Function):
@@ -270,9 +332,33 @@ def exchange_blocks(send: torch.Tensor, group=None, anchors=(),
     return _Exchange.apply(send, group, n_in, n_out, *anchors)
 
 
+def check_sequence(keys: list) -> None:
+    """Raise unless every rank of each process group that a compiled
+    step's split points (``keys``, utils/cuda_graphs.GraphedStep
+    .sequence) run in issues the same collectives there, in the same
+    order, with blocks of the same shape and dtype: per group, in the
+    order of their ranks, the members' lists gathered within it."""
+    if world() == 1:
+        return
+    mine: dict = {}
+    for kind, members, _, shape, dtype, _ in keys:
+        mine.setdefault(members, []).append((kind, shape[1:], dtype))
+    for members in sorted(mine):
+        got = [None] * len(members)
+        dist.all_gather_object(got, mine[members], group=group_of(members))
+        differ = [q for q, g in zip(members, got) if g != mine[members]]
+        if differ:
+            raise RuntimeError(
+                f"the collectives of a compiled step differ between the "
+                f"ranks of group {members}: ranks {differ} against rank "
+                f"{rank()}")
+
+
 def check_replicated(t: torch.Tensor, what: str) -> None:
     """Raise unless ``t`` has the same bits on every rank (a digest of
     each rank's copy, gathered). One read-back."""
+    unrecorded_collective("the check that every rank holds the same "
+                          f"{what}")
     if world() == 1:
         return
     digest = hashlib.sha256(

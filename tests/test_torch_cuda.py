@@ -1177,6 +1177,149 @@ def test_graphed_halo_steps_equal_eager_on_gpu(rng, cuda_device):
         assert na == nb and na["gather_segment_sum_bwd"] > 0
 
 
+class _Relay(torch.autograd.Function):
+    """The identity through a split point (utils/cuda_graphs.collective),
+    forward and backward: a stand-in for a cross-rank exchange."""
+
+    @staticmethod
+    def forward(ctx, x):
+        from desco_tpu_torch.utils.cuda_graphs import collective
+        return collective(("relay", (0,), None), x.detach(), x.shape,
+                          lambda src, out: out.copy_(src))
+
+    @staticmethod
+    def backward(ctx, grad):
+        from desco_tpu_torch.utils.cuda_graphs import collective
+        return collective(("relay_bwd", (0,), None), grad, grad.shape,
+                          lambda src, out: out.copy_(src))
+
+
+@pytest.mark.cuda
+def test_chained_step_captures_on_gpu(cuda_device):
+    """A train step split at a relay in its forward and one in its
+    backward (which autograd runs on its device thread), with dropout on
+    both sides of the first split: captured as a chain of three CUDA
+    graphs in one pool, every call replaying them with the relays between;
+    losses and weights bit-equal to the eager step over three calls, the
+    generator reseeded between them."""
+    from desco_tpu_torch.utils.cuda_graphs import GraphedStep
+
+    gen = torch.Generator(cuda_device)
+
+    def make(w):
+        def step(b):
+            leaf = w.detach().requires_grad_()
+            h = torch.nn.functional.dropout(torch.tanh(b[0] @ leaf), 0.2)
+            mask = (torch.rand(h.shape, generator=gen, device=h.device)
+                    > 0.2).float()
+            y = _Relay.apply(h * mask) * (torch.rand(
+                h.shape, generator=gen, device=h.device) + 0.5)
+            loss = (y * y).sum()
+            (grad,) = torch.autograd.grad(loss, leaf)
+            w.sub_(0.1 * grad)
+            return loss.detach()
+        return step
+
+    torch.manual_seed(0)
+    w0 = torch.randn(64, 32, device=cuda_device)
+    xs = [torch.randn(256, 64, device=cuda_device) for _ in range(3)]
+    w_eager, w_chain = w0.clone(), w0.clone()
+    eager = make(w_eager)
+    gen.manual_seed(3)
+    step = GraphedStep(make(w_chain), (xs[0],), capture=True,
+                       state=[w_chain], generators=[gen])
+    assert len(step.graphs) == 3 and len(step.sequence) == 2
+    for i, x in enumerate(xs):
+        gen.manual_seed(10 + i)
+        torch.manual_seed(20 + i)
+        want = eager((x,))
+        gen.manual_seed(10 + i)
+        torch.manual_seed(20 + i)
+        got = step((x,))
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(w_chain, w_eager), i
+    assert step.pool_bytes() != 0
+
+
+@pytest.mark.cuda
+def test_cross_rank_halo_step_chains_on_gpu(rng, cuda_device, tmp_path):
+    """The 4-shard halo gossip step over two gloo ranks on the one card
+    (tests/torch_dist_worker.py, scenario ``halo_card``), two calls at
+    dropout 0 and 0.1, eager and graphed (a chain of CUDA graphs split at
+    its exchanges and the gather): every call bit-equal on both ranks to
+    the eager step over the same shards in this process; the chain has
+    one graph more than split points, and no eager note is printed."""
+    import os
+    import pickle
+    import subprocess
+    import sys
+
+    from desco_tpu_torch.batch.build import gossip_sample
+    from desco_tpu_torch.models import gossip as gm
+    from desco_tpu_torch.parallel import halo
+    from desco_tpu_torch.train.checkpoint import (flatten_params,
+                                                  params_from_jax)
+    from desco_tpu_torch.train.loop import make_adam
+
+    g, _ = halo_typed_graph(rng, n=200, p=0.03)
+    x = rng.random((g.n_nodes, 3)).astype(np.float32) * 5
+    y = x * rng.uniform(0.5, 1.5, (g.n_nodes, 1)).astype(np.float32)
+    s = gossip_sample(g, x, y)
+    part = halo.partition_typed_graph(g.n_nodes, s.node_type, x,
+                                      s.edge_src, s.edge_dst, s.edge_type,
+                                      4, node_y=y, n_types=2)
+    params = gm.init_gossip_model(hidden_dim=16, emb_channels=16,
+                                  generator=torch.Generator().manual_seed(5))
+    embs = torch.randn(3, 16, generator=torch.Generator().manual_seed(6))
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    job = dict(scenario="halo_card", device="cuda", halo_part=part,
+               halo_gossip={k: np.asarray(v) for k, v in
+                            flatten_params(params).items()},
+               halo_q=embs.numpy(), world=2, timeout_s=120.0,
+               init_method=f"file://{tmp_path / 'rendezvous'}",
+               out_dir=str(tmp_path))
+    with open(tmp_path / "job.pkl", "wb") as f:
+        pickle.dump(job, f)
+    env = dict(os.environ, PYTHONPATH=root)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(root, "tests", "torch_dist_worker.py"),
+         str(tmp_path / "job.pkl"), str(r)], cwd=root, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-4000:]
+        assert "runs eager" not in err
+    shards = halo.place_shards(part, [cuda_device])
+    for dropout in (0.0, 0.1):
+        # the ranks' parameter order: the flat layout's
+        p = params_from_jax(job["halo_gossip"]).to(cuda_device)
+        opt = make_adam(p)
+        step = halo.halo_gossip_step_fn(opt, dropout=dropout)
+        want = []
+        for seed in (4, 5):
+            loss, ok = step(p, shards, embs.to(cuda_device), 1e-3, seed=seed)
+            want.append([float(loss), bool(ok)] + [
+                t.cpu().numpy() for t in (opt.grad, opt.flat, opt.mu,
+                                          opt.nu)])
+        for r in range(2):
+            with open(tmp_path / f"rank{r}.pkl", "rb") as f:
+                res = pickle.load(f)
+            for graphed in (False, True):
+                got = res["step", dropout, graphed]
+                for a, b in zip(got, want):
+                    assert a[:2] == b[:2], (r, dropout, graphed)
+                    for u, v in zip(a[2:], b[2:]):
+                        np.testing.assert_array_equal(u, v)
+            graphs, splits = res["chain", dropout]
+            assert graphs == splits + 1 and splits == 6 * 3 + 1
+
+
 # ------------------------------------------------- compiled serving forwards
 @pytest.mark.cuda
 def test_graphed_forwards_equal_eager_on_gpu(cuda_device):

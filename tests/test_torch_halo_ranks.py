@@ -12,7 +12,10 @@ a join 120 s) hold the shards between them: 4 shards of one gossip
 graph (0-1 on rank 0, 2-3 on rank 1), the 3 x 2 fallback grid (its middle
 row crosses the ranks) and a 1 x 2 SHMP forward (SAGE, PNA); three ranks
 hold a 2 x 3 grid whose rows span two ranks each (process groups of a
-part of the ranks). Every rank result is held bit for bit against the
+part of the ranks). The graphed steps and forward run as chains split at
+their collectives (utils/cuda_graphs.GraphedStep, static buffers without
+a capture on the CPU): their split points are checked, and the chain's
+raises. Every rank result is held bit for bit against the
 same shards in this process; the cross-rank halo step at dropout 0
 against desco_tpu's ``halo_gossip_step_fn`` on 4 fake devices within
 tests/test_torch_halo.py's tolerances (the loss rtol 1e-5; the
@@ -47,6 +50,17 @@ from test_torch_topology import replica_specs
 
 CPU = [torch.device("cpu")]
 EAGER_NOTE = "the graphed step runs eager"
+
+
+def step_chain(n_q: int, groups, world: int = 2) -> list:
+    """The split points of a graphed gossip step over the rows whose
+    exchanges run in ``groups`` (in row order): per row, 2 layers x (pull,
+    push) per query forward and the second layer's backward (the first
+    reads detached rows), then the gather of every rank's rows."""
+    out = []
+    for members in groups:
+        out += [("all_to_all", members)] * (6 * n_q)
+    return out + [("gather", tuple(range(world)))]
 
 
 def run_ranks(job: dict, tmp, world: int):
@@ -230,10 +244,10 @@ def test_halo_loss_and_slot_terms_over_ranks_equal_one_process(ranks_run):
 @pytest.mark.parametrize("dropout", [0.0, 0.1])
 def test_halo_step_over_ranks_equals_one_process(ranks_run, dropout):
     """Two calls of ``halo_gossip_step_fn`` with the 4 shards over the two
-    ranks, eager and graphed (which runs eager across ranks and says so
-    on standard error): losses, flags, reduced gradients, parameters and
-    Adam's moments bit-equal to the step over the same shards in one
-    process, on both ranks."""
+    ranks, eager and graphed (a chain split at its 6 exchanges per query
+    and the gather, the same on both ranks; no eager note): losses,
+    flags, reduced gradients, parameters and Adam's moments bit-equal to
+    the step over the same shards in one process, on both ranks."""
     job, ranks, errs = ranks_run
     want = one_process_steps(job["halo_gossip"],
                              halo.place_shards(job["halo_part"], CPU),
@@ -244,9 +258,11 @@ def test_halo_step_over_ranks_equals_one_process(ranks_run, dropout):
         for graphed in (False, True):
             assert_same(res["step", dropout, graphed], want,
                         f"rank {r} graphed={graphed}")
+    for res in ranks:
+        assert res["chain", dropout] == step_chain(len(job["halo_q"]),
+                                                   [(0, 1)])
     for err in errs:
-        assert err.count(f"the halo gossip step's shards span ranks: "
-                         f"{EAGER_NOTE}") == 2
+        assert EAGER_NOTE not in err
 
 
 def test_halo_step_over_ranks_matches_desco_tpu(ranks_run):
@@ -292,7 +308,7 @@ def test_halo_step_over_ranks_matches_desco_tpu(ranks_run):
 
 
 # --------------------------------------------------------------- the grids
-def one_process_grid(job, n_data, n_graph, graphed_too=True) -> dict:
+def one_process_grid(job, n_data, n_graph) -> dict:
     replicas = topology.place_replicas(
         topology.stack_partitions(job["grid_parts"]),
         topology.make_mesh2d(n_data, n_graph, devices=CPU))
@@ -300,7 +316,7 @@ def one_process_grid(job, n_data, n_graph, graphed_too=True) -> dict:
     loss, flat = topology.dp_halo_gossip_loss_and_grads(
         params_from_jax(job["halo_gossip"]), replicas, q)
     out = {"loss": float(loss), "flat": flat.numpy()}
-    for graphed in (False, True) if graphed_too else (False,):
+    for graphed in (False, True):
         out[graphed] = one_process_steps(
             job["halo_gossip"], replicas, q, topology.dp_halo_gossip_step_fn,
             0.1, graphed)
@@ -310,8 +326,9 @@ def one_process_grid(job, n_data, n_graph, graphed_too=True) -> dict:
 def test_fallback_grid_step_over_ranks_equals_one_process(ranks_run):
     """The 3 x 2 fallback grid over two ranks (row 1's shards on both):
     the composed loss and gradient and two calls of the DP x halo step at
-    dropout 0.1, eager and graphed (eager across ranks, said once),
-    bit-equal to the 3 x 2 grid in one process on both ranks."""
+    dropout 0.1, eager and graphed (a chain split at row 1's exchanges and
+    the gather), bit-equal to the 3 x 2 grid in one process on both
+    ranks."""
     job, ranks, errs = ranks_run
     want = one_process_grid(job, 3, 2)
     for r, res in enumerate(ranks):
@@ -319,15 +336,16 @@ def test_fallback_grid_step_over_ranks_equals_one_process(ranks_run):
         assert [list(row) for row in got["ranks"]] == [[0, 0], [0, 1],
                                                       [1, 1]]
         assert_same({k: got[k] for k in want}, want, f"rank {r}")
+        assert got["chain"] == step_chain(len(job["halo_q"]), [(0, 1)])
     for err in errs:
-        assert err.count(f"the DP x halo step's rows span ranks: "
-                         f"{EAGER_NOTE}") == 1
+        assert EAGER_NOTE not in err
 
 
 @pytest.mark.parametrize("conv", ["SAGE", "PNA"])
 def test_sharded_shmp_forward_over_ranks_equals_one_process(ranks_run,
                                                             conv):
-    """``dp_halo_shmp_forward`` on a 1 x 2 grid over the two ranks: each
+    """``dp_halo_shmp_forward`` on a 1 x 2 grid over the two ranks, eager
+    and graphed (a chain split at its exchanges), two calls each: each
     rank returns its own shard's embeddings (None for the other's),
     bit-equal to the same grid in one process (PNA's degree normalizer
     is summed across the ranks)."""
@@ -337,27 +355,61 @@ def test_sharded_shmp_forward_over_ranks_equals_one_process(ranks_run,
         topology.stack_partitions([part]),
         topology.make_mesh2d(1, 2, devices=CPU))
     with torch.inference_mode():
-        [want] = topology.dp_halo_shmp_forward(cfg)(params_from_jax(flat0),
-                                                    replicas)
+        [want] = topology.dp_halo_shmp_forward(cfg, graphed=False)(
+            params_from_jax(flat0), replicas)
     for r, res in enumerate(ranks):
-        got = res["shmp", conv]
-        assert [e is None for e in got] == [r != 0, r != 1]
-        np.testing.assert_array_equal(got[r], want[r].numpy())
+        for graphed in (False, True):
+            for got in res["shmp", conv, graphed]:
+                assert [e is None for e in got] == [r != 0, r != 1]
+                np.testing.assert_array_equal(got[r], want[r].numpy())
+        chain = res["shmp_chain", conv]
+        assert chain and set(chain) == {("all_to_all", (0, 1))}
+        assert chain == ranks[0]["shmp_chain", conv]
 
 
 def test_grid_over_three_ranks_equals_one_process(tmp_path):
     """A 2 x 3 grid over three ranks: row 0's shards on ranks 0-1, row 1's
     on ranks 1-2 (a process group of two of the three ranks each, rank 1
-    in both); the composed loss and gradient and two eager calls of the
-    step bit-equal to the grid in one process on every rank."""
+    in both); the composed loss and gradient and two calls of the step,
+    eager and graphed (a chain split at each row's exchanges in its
+    group and the gather of all three), bit-equal to the grid in one
+    process on every rank."""
     _, jp, q = gossip_data()
     job = dict(scenario="grid_over_three", halo_gossip=host_flat(jp),
                halo_q=q, grid_parts=grid_parts(3)[:2])
-    ranks, _ = run_ranks(job, tmp_path, 3)
-    want = one_process_grid(job, 2, 3, graphed_too=False)
+    ranks, outs = run_ranks(job, tmp_path, 3)
+    want = one_process_grid(job, 2, 3)
     for r, res in enumerate(ranks):
         assert [list(row) for row in res["ranks"]] == [[0, 0, 1], [1, 2, 2]]
         assert_same({k: res[k] for k in want}, want, f"rank {r}")
+    groups = [[(0, 1)], [(0, 1), (1, 2)], [(1, 2)]]
+    for res, rows in zip(ranks, groups):
+        assert res["chain"] == step_chain(len(q), rows, world=3)
+    assert not any(EAGER_NOTE in err for _, err in outs)
+
+
+def test_chain_raises_over_ranks(ranks_run):
+    """A chained step (on the CPU: static buffers, no capture) over the two
+    ranks: its first call records two exchanges and gives what eager
+    exchanges give; a call with three or one raises on both ranks, and
+    the step then runs as before; a barrier or the parameters' check
+    inside it raises; ``check_sequence`` raises where the ranks' lists
+    differ and passes where they agree."""
+    _, ranks, _ = ranks_run
+    send = [np.arange(6.0, dtype=np.float32).reshape(2, 3) + 10.0 * r
+            for r in range(2)]
+    for r, res in enumerate(ranks):
+        c = res["chain_checks"]
+        # two exchanges: block j to rank j and back, each doubled
+        np.testing.assert_array_equal(c["first"], 4.0 * send[r])
+        np.testing.assert_array_equal(c["again"], c["first"])
+        assert c["sequence"] == [("all_to_all", (0, 1))] * 2
+        assert "collective 2 of this call" in c["more"]
+        assert "issued 1 collectives, the first 2" in c["fewer"]
+        for name in ("barrier", "check"):
+            assert "reached inside a chained step's piece" in c[name]
+        assert "differ between the ranks of group (0, 1)" in (
+            c["ranks_differ"])
 
 
 def test_halo_serve_in_a_group_serves_the_whole_graph_per_rank(ranks_run):

@@ -6,8 +6,9 @@ tests/test_torch_halo_ranks.py (the halo graph axis across ranks).
 
 JOB is a pickle the test wrote: the rendezvous (``init_method``, a
 ``file://`` path under the test's temporary directory), the world size,
-the group's timeout, the scenario (``"dp"`` by default, ``"halo_ranks"``,
-``"grid_over_three"``), the inputs (host batches, weights in desco_tpu's
+the group's timeout, the device (the CPU by default; ``"cuda"`` for
+tests/test_torch_cuda.py), the scenario (``"dp"`` by default,
+``"halo_ranks"``, ``"grid_over_three"``, ``"halo_card"``), the inputs (host batches, weights in desco_tpu's
 flat layout, query embeddings, halo partitions) and where to write this
 rank's results (a pickle of numpy arrays and plain values). It imports
 torch and desco_tpu_torch only: never the test module, which imports
@@ -26,6 +27,7 @@ from desco_tpu_torch.pipeline import PipelineConfig, model_configs
 from desco_tpu_torch.train import loop
 from desco_tpu_torch.train.checkpoint import flatten_params, params_from_jax
 from desco_tpu_torch.utils import distributed
+from desco_tpu_torch.utils.cuda_graphs import GraphedStep
 
 CPU = torch.device("cpu")
 
@@ -171,10 +173,16 @@ def step_calls(step, params, opt, place, q, seeds) -> list:
     return calls
 
 
-def grid_steps(job, n_data, n_graph, graphed_too=True) -> dict:
+def chain_of(step) -> list:
+    """A graphed step's chain (utils/cuda_graphs.GraphedStep): its split
+    points' kinds and groups, in order."""
+    return [(k[0], k[1]) for k in step.held["step"].sequence]
+
+
+def grid_steps(job, n_data, n_graph) -> dict:
     """The DP x halo grid over the ranks: the layout, the composed loss and
     gradient, and two calls of the step at dropout 0.1, eager (and
-    graphed: it runs eager where a row crosses ranks)."""
+    graphed: a chain split at its collectives, its split points kept)."""
     mesh = topology.make_mesh2d(n_data, n_graph, devices=[CPU])
     replicas = topology.place_replicas(
         topology.stack_partitions(job["grid_parts"]), mesh)
@@ -184,12 +192,14 @@ def grid_steps(job, n_data, n_graph, graphed_too=True) -> dict:
     loss, flat = topology.dp_halo_gossip_loss_and_grads(
         params_from_jax(job["halo_gossip"]), replicas, q)
     out["loss"], out["flat"] = float(loss), arr(flat)
-    for graphed in (False, True) if graphed_too else (False,):
+    for graphed in (False, True):
         params = params_from_jax(job["halo_gossip"])
         opt = loop.make_adam(params)
         step = topology.dp_halo_gossip_step_fn(opt, dropout=0.1,
                                                graphed=graphed)
         out[graphed] = step_calls(step, params, opt, replicas, q, (4, 5))
+        if graphed:
+            out["chain"] = chain_of(step)
     return out
 
 
@@ -254,6 +264,8 @@ def halo_ranks(job) -> dict:
                                             graphed=graphed)
             out["step", dropout, graphed] = step_calls(
                 step, params, opt, shards, q, (4, 5))
+            if graphed:
+                out["chain", dropout] = chain_of(step)
     out["grid"] = grid_steps(job, 3, 2)
     # serving stays per process: the halo serve inside the group places
     # every shard on this rank and serves the whole graph
@@ -267,11 +279,97 @@ def halo_ranks(job) -> dict:
         reps = topology.place_replicas(
             topology.stack_partitions([part]),
             topology.make_mesh2d(1, 2, devices=[CPU]))
-        with torch.inference_mode():
-            embs = topology.dp_halo_shmp_forward(cfg)(
-                params_from_jax(flat0), reps)
-        out["shmp", conv] = [None if e is None else arr(e)
-                             for e in embs[0]]
+        tparams = params_from_jax(flat0)
+        for graphed in (False, True):
+            fwd = topology.dp_halo_shmp_forward(cfg, graphed=graphed)
+            with torch.inference_mode():
+                calls = [fwd(tparams, reps)[0] for _ in range(2)]
+            out["shmp", conv, graphed] = [
+                [None if e is None else arr(e) for e in embs]
+                for embs in calls]
+            if graphed:
+                out["shmp_chain", conv] = chain_of(fwd)
+    out["chain_checks"] = chain_checks()
+    return out
+
+
+def chain_checks() -> dict:
+    """A chained step's raises across the ranks (utils/cuda_graphs
+    .GraphedStep on the CPU): a call that issues more or fewer
+    collectives than the first, a collective inside a piece that is not
+    a split point (a barrier, the parameters' check), and
+    ``check_sequence`` given lists that differ between the ranks. Each
+    raises on every rank alike, before any collective would wait."""
+    r = distributed.rank()
+    n = {"exchanges": 2}
+
+    def body(b):
+        x = b[0]
+        for _ in range(n["exchanges"]):
+            x = distributed.exchange_blocks(x) * 2.0
+        return x
+
+    out = {}
+    step = GraphedStep(body, (torch.zeros(2, 3),), capture=False)
+    first = step((torch.arange(6.0).reshape(2, 3) + 10.0 * r,))
+    out["first"] = arr(first)
+    out["sequence"] = [(k[0], k[1]) for k in step.sequence]
+    for name, count in (("more", 3), ("fewer", 1)):
+        n["exchanges"] = count
+        try:
+            step((torch.zeros(2, 3),))
+            out[name] = None
+        except RuntimeError as e:
+            out[name] = str(e)
+    n["exchanges"] = 2
+    out["again"] = arr(step((torch.arange(6.0).reshape(2, 3) + 10.0 * r,)))
+    for name, stray in (("barrier", distributed.barrier),
+                        ("check", lambda: distributed.check_replicated(
+                            torch.ones(2), "parameters"))):
+        def stray_body(b, stray=stray):
+            stray()
+            return b[0]
+        try:
+            GraphedStep(stray_body, (torch.zeros(2),), capture=False)(
+                (torch.zeros(2),))
+            out[name] = None
+        except RuntimeError as e:
+            out[name] = str(e)
+    keys = [("all_to_all", (0, 1), ((1, 1), (1, 1)), (2, 3 + r),
+             "torch.float32", (2, 3 + r))]
+    try:
+        distributed.check_sequence(keys)
+        out["ranks_differ"] = None
+    except RuntimeError as e:
+        out["ranks_differ"] = str(e)
+    distributed.check_sequence([k[:3] + ((2, 3),) + k[4:5] + ((2, 3),)
+                                for k in keys])
+    return out
+
+
+def halo_card(job) -> dict:
+    """The 4-shard halo gossip step over the ranks on ``job["device"]``
+    (the card in tests/test_torch_cuda.py): two calls at dropout 0 and
+    0.1, eager and graphed (a chain of CUDA graphs), and each graphed
+    chain's (graphs, split points)."""
+    dev = distributed.rank_device(job["device"])
+    shards = topology.place_replicas(
+        topology.stack_partitions([job["halo_part"]]),
+        topology.make_mesh2d(1, 4, devices=[dev]))[0]
+    q = torch.from_numpy(job["halo_q"]).to(dev)
+    out = {}
+    for dropout in (0.0, 0.1):
+        for graphed in (False, True):
+            params = params_from_jax(job["halo_gossip"]).to(dev)
+            opt = loop.make_adam(params)
+            step = halo.halo_gossip_step_fn(opt, dropout=dropout,
+                                            graphed=graphed)
+            out["step", dropout, graphed] = step_calls(
+                step, params, opt, shards, q, (4, 5))
+            if graphed:
+                chained = step.held["step"]
+                out["chain", dropout] = (len(chained.graphs),
+                                         len(chained.sequence))
     return out
 
 
@@ -283,7 +381,8 @@ SCENARIOS = {
         "halo": dp_halo(job),
         "training": training(job)},
     "halo_ranks": halo_ranks,
-    "grid_over_three": lambda job: grid_steps(job, 2, 3, graphed_too=False)}
+    "halo_card": halo_card,
+    "grid_over_three": lambda job: grid_steps(job, 2, 3)}
 
 
 def main():
@@ -291,7 +390,8 @@ def main():
         job = pickle.load(f)
     rank = int(sys.argv[2])
     torch.set_num_threads(1)
-    distributed.init("cpu", init_method=job["init_method"], rank=rank,
+    distributed.init(job.get("device", "cpu"),
+                     init_method=job["init_method"], rank=rank,
                      world_size=job["world"], timeout_s=job["timeout_s"],
                      log_fn=lambda *_: None)
     try:
