@@ -25,7 +25,13 @@ nonzero on a failed check (no phase catches its own failure):
      K4's bf16 result must be equal; two gather-fused backward runs must
      be bit-equal), on edge cases (odd widths, K = 1, tiles that N does
      not fill, tiles without a live edge, long runs, all padding, an
-     empty stream) and at the shapes of real packed batches of the
+     empty stream; K1's narrow layout at K = 1-16, identity and gathered
+     rows, f32 and bf16, with empty segments, negative and padding keys
+     and segments of 4500 and 40 edges: bit for bit the CPU's sum in the
+     layout's fixed fold order, two runs bit-equal; GAT's operand pairs,
+     one K1 and one K4 launch, equal to the separate launches) and at the
+     shapes of real
+     packed batches of the
      phase-3 request and of the phase-6 training set (whose permutation
      derived on the card must equal ``pack_samples``' one); the four
      variants of the K5 probe against their plain versions on the bench
@@ -35,7 +41,9 @@ nonzero on a failed check (no phase catches its own failure):
      ``index_select`` + K1 and K4 + ``index_add_`` composition it
      replaced, and the PyTorch yardstick for the same function the same
      way (one call for K1, K4 and the gather-fused K1, ``sparse.mm`` of
-     the unit CSR adjacency or its transpose; two for K2, ``sparse.mm``
+     the unit CSR adjacency or its transpose, the gather-fused K1 also at
+     one column, the serving gossip batch's direction degrees; two for
+     K2, ``sparse.mm``
      + ``matmul``, and three for K3), the wrapper and the
      plain version with CUDA events over 50 eager calls, and the least
      time the card could take for the same work (products counted at the
@@ -121,16 +129,20 @@ nonzero on a failed check (no phase catches its own failure):
      per 1000 neighborhoods printed) and on a random 33-type stream at
      the serving batch's shape, f32 and bf16: against the plain versions
      at phase 2's tolerances, two runs bit-equal, CUDA-graph times, bound
-     and yardstick as in phase 2; K1 and K4 at GAT's and PNA's use sites
-     ([E, 64] and [E, 1] rows over a target batch's N*T keys) against
-     their plain versions, timed; (b) GIN, GCN, GAT and PNA at the paper
+     and yardstick as in phase 2; K1 at GAT's and PNA's use sites ([E,
+     64] and [E, 1] rows over a target batch's N*T keys; at one column
+     the function and its bare launch in turns), GAT's K1 pair (num and
+     den) in turns with K1 on num's rows alone, K4 to [E, 64] in turns
+     with GAT's K4 pair, against their plain versions (the pairs equal to
+     the separate launches), timed; (b) GIN, GCN, GAT and PNA at the paper
      width (8 layers, hidden 64, 6 types, 29 queries) on the first two
      target batches of the replay set: a forward, counts within rtol
      1e-3 of the CPU (floored as in phase 3), and one train step,
      gradients within phase 5's bound; launches zeroed before and read
      after each, exactly as ``expected_conv_launches`` predicts (GIN /
      GCN: K2 8 per target batch and K3 8 per train step; GAT / PNA: no
-     K2 or K3, K1 per sum and pooling, K4 behind them); two same-seed
+     K2 or K3, K1 per PNA sum and pooling, one K1 pair per GAT layer,
+     K4 or the K4 pair behind them; no one-column K1 or K4); two same-seed
      train steps bit-equal for GIN and GCN, printed for GAT and PNA; the
      same CUDA-vs-CPU and bit-equality checks for an order-4 (33-type)
      train step; (c) ``ablation_gnns --neigh_conv_type GIN`` and
@@ -185,7 +197,8 @@ nonzero on a failed check (no phase catches its own failure):
      a PNA tower at width 64 on a ``force_pull`` partition against their
      packed towers, forward (1e-3 of max|out|) and backward (finite,
      error printed), launches exactly as ``expected_halo_conv`` predicts
-     (K1 sums, K4 behind them); (d) the direction degrees of a partition
+     (PNA's K1 sums and GAT's K1 pairs, K4 and its pair behind them);
+     (d) the direction degrees of a partition
      with push pairs, computed once and kept on its shards (one
      gather-fused K1 per stream, none at the next call), the halo gossip
      loss on it against the packed ``gossip_loss`` (gradients within
@@ -196,8 +209,9 @@ nonzero on a failed check (no phase catches its own failure):
      --large_threshold 1000`` answering a 2,000-node graph as
      ``count_large_graph`` does; (e) every kernel of the path launched,
      and the gather-fused K1 (forward and backward) on a gossip shard's
-     interior, boundary and send streams and the 1-column degrees, K1
-     and K4 at the halo GAT / PNA sums, checked and timed as in phase 2.
+     interior, boundary and send streams and the 1-column degrees, K1,
+     K4 and their pairs at the halo GAT / PNA sums, checked and timed as
+     in phase 9 (a).
  14. data parallelism (run before the record), D = 2 and D = 4 replicas
      on the one card: (a) phase 3's 256-graph request through
      ``CountingService(n_devices=2)``, every output bit-equal to phase 3's
@@ -332,8 +346,10 @@ nonzero on a failed check (no phase catches its own failure):
      serving and the ensembles, the halo path, data parallelism in one
      process and across processes (phase 18, both ranks) and the tools
      too, the gather-fused K1's the baseline entry points as well;
-     K1, K4 and the gather-fused K1 carry their halo use sites; the
-     tools' entry is the last of ``launches_per_path`` in every row, 0
+     K1, K4 and the gather-fused K1 carry their halo use sites; GAT's K1
+     and K4 pairs have rows of their own, measured at the packed and the
+     halo site; the tools' entry is the last of ``launches_per_path`` in
+     every row, 0
      where they do not run the row's shape), the card line, then the
      final ok line.
 """
@@ -635,6 +651,96 @@ def k1_main(torch, cs, dev, msgs, seg, n, label, timed: dict) -> dict:
     print(f"K1 {dname(msgs.dtype)} at {label}: msgs {tuple(msgs.shape)}, "
           f"{n} segments, {e_live} live rows: {json.dumps(row)}", flush=True)
     return row
+
+
+# ------------------------------------------- phase 2: K1's narrow layout
+def narrow_order_sum(x, rows, offs):
+    """K1's sum of x[rows[e]] (rows None: x[e]) over each segment
+    [offs[r], offs[r+1]) on rows of K <= 16 elements, on the CPU in f32,
+    in the narrow layout's fixed order: with lanes the power of two >= K
+    and G = 32 / lanes, group g takes edges g, g + G, ... of a segment and
+    adds them in order from 0, and the G partials fold as lane l adds
+    lane l ^ off for off = 16, 8, ..., lanes."""
+    k = x.shape[1]
+    groups = 32 // (1 << (k - 1).bit_length())
+    lo, hi = offs[:-1].astype(np.int64), offs[1:].astype(np.int64)
+    lens = hi - lo
+    part = np.zeros((len(lo), groups, k), np.float32)
+    for j in range(int(lens.max(initial=0))):
+        m = np.nonzero(lens > j)[0]
+        e = lo[m] + j
+        part[m, j % groups] = part[m, j % groups] + x[
+            e if rows is None else rows[e]]
+    off = groups // 2
+    while off >= 1:
+        part = part + part[:, np.arange(groups) ^ off]
+        off //= 2
+    return part[:, 0]
+
+
+def narrow_edge_cases(torch, cs, rng, dev, dtype) -> None:
+    """K1 on rows of K = 1-16 elements (the narrow layout: a group of
+    lanes per segment), identity rows and gathered ones: empty segments,
+    three negative keys, padding keys, one segment of 4500 edges and one
+    of 40 (both summed by their whole warp), the rest short; bit for bit
+    the CPU's f32 sum of the up-cast rows in the layout's fold order
+    (``narrow_order_sum``), two runs bit-equal, within the plain version's
+    tolerance. Then GAT's operand pair at K =
+    1, 3, 16, 64 and 128: one K1 launch bit-equal to K1 on each operand,
+    one K4 launch equal to K4 on each."""
+    n_seg = 300
+    ids = np.sort(np.concatenate([rng.integers(0, n_seg - 60, 1200),
+                                  np.full(4500, 40), np.full(40, 270)]))
+    seg = np.concatenate([np.full(3, -1), ids,
+                          np.full(64, PAD_KEY)]).astype(np.int32)
+    sd = torch.as_tensor(seg, device=dev)
+    offs = cs.segment_offsets(sd, n_seg)
+    o = offs.cpu().numpy()
+    lens = o[1:] - o[:-1]
+    check(o[0] == 3 and (lens == 0).any() and lens[40] >= 4500
+          and lens[270] == 40, f"K1 narrow: the stream (offsets {o[:4]})")
+    for gather in (False, True):
+        rows = (rng.integers(0, 500, len(seg)).astype(np.int32) if gather
+                else None)
+        rd = None if rows is None else torch.as_tensor(rows, device=dev)
+        for k in range(1, 17):
+            x = torch.randn(500 if gather else len(seg), k,
+                            device=dev).to(dtype)
+            outs = [torch.empty(n_seg, k, device=dev) for _ in range(2)]
+            for out in outs:
+                cs.launch_k1(x, offs, n_seg, out, rows=rd)
+            torch.cuda.synchronize()
+            what = (f"K1 narrow {dname(dtype)} K={k} "
+                    f"{'gather' if gather else 'identity'}")
+            check(torch.equal(outs[0], outs[1]),
+                  f"{what}: two runs differ")
+            max_err(torch, outs[0], cs.gather_rows_segment_sum_plain(
+                x, rd, offs, n_seg), what)
+            check(torch.equal(outs[0].cpu(), torch.as_tensor(
+                narrow_order_sum(x.float().cpu().numpy(), rows, o))),
+                f"{what}: not the sum in the narrow layout's fold order")
+    print(f"K1 {dname(dtype)} narrow layout ok: K = 1-16, identity and "
+          f"gather, the CPU's fold-order sum bit for bit (segments of "
+          f"4500 and 40 edges by their warp), two runs bit-equal",
+          flush=True)
+    g_aux = torch.randn(n_seg, device=dev)
+    for k in (1, 3, 16, 64, 128):
+        m = torch.randn(len(seg), k, device=dev).to(dtype)
+        a = torch.rand(len(seg), device=dev).to(dtype)
+        g = torch.randn(n_seg, k, device=dev)
+        num, den = cs.sorted_segment_sum_pair(m, a, sd, n_seg, offs)
+        d, d_aux = cs.segment_sum_vjp_pair(g, g_aux, sd, n_seg, dtype)
+        want = (cs.sorted_segment_sum(m, sd, n_seg, offs),
+                cs.sorted_segment_sum(a[:, None], sd, n_seg, offs)[:, 0],
+                cs.segment_sum_vjp(g, sd, n_seg, dtype),
+                cs.segment_sum_vjp(g_aux[:, None], sd, n_seg, dtype)[:, 0])
+        torch.cuda.synchronize()
+        check(all(x.dtype == y.dtype and torch.equal(x, y)
+                  for x, y in zip((num, den, d, d_aux), want)),
+              f"K1 / K4 pair {dname(dtype)} K={k}: not equal to the "
+              f"separate launches")
+    print(f"K1 / K4 pairs {dname(dtype)} ok: K = 1, 3, 16, 64, 128, equal "
+          f"to K1 and K4 on each operand", flush=True)
 
 
 # ------------------------------------------------ phase 2: gather-fused K1
@@ -1095,6 +1201,110 @@ def k4_main(torch, cs, dev, g, seg, dtype, label, timed: dict) -> dict:
     return row
 
 
+# ----------------------------------------- phases 9 and 13: GAT / PNA sites
+def turns_us(probe, first, second) -> tuple:
+    """CUDA-graph us per launch of two functions timed in turns, first,
+    second, second, first (a drift of the card's clock between the two
+    falls on both): (first's median, second's median, the four times)."""
+    a1 = probe.graph_us(first)
+    b1 = probe.graph_us(second)
+    b2 = probe.graph_us(second)
+    a2 = probe.graph_us(first)
+    return (a1 + a2) / 2, (b1 + b2) / 2, [a1, b1, b2, a2]
+
+
+def conv_site_rows(torch, cs, probe, dev, keys, n_seg, offs, gen,
+                   where: str) -> dict:
+    """K1, K4 and their pairs at one GAT / PNA use site: the stream's keys
+    and offsets (derived once, as the aggregators derive them). K1 on
+    [E, 64] and [E, 1] rows (PNA's sums; one column was GAT's den and
+    PNA's count before they left K1), each as the function in CUDA graphs
+    and the bare launch, in turns at one column (the function's time
+    beyond its kernel); GAT's pair (num [E, 64] and den [E] in one K1
+    launch) in turns with K1 on the [E, 64] rows alone; K4 to [E, 64]
+    rows, and its pair (both cotangents in one launch) in turns with it.
+    Each is checked: K1 against its plain version, the pairs equal to the
+    separate launches, K4 equal to its plain version."""
+    rows = {}
+    e = keys.shape[0]
+    e_live = int(((keys >= 0) & (keys < n_seg)).sum())
+    for k in (64, 1):
+        msgs = torch.randn(e, k, device=dev, generator=gen)
+        res = torch.empty(n_seg, k, device=dev)
+        fn_us, k1_us, turns = turns_us(
+            probe, lambda i: cs.sorted_segment_sum(msgs, keys, n_seg, offs),
+            lambda i: cs.launch_k1(msgs, offs, n_seg, res))
+        rows["k1", k] = k1_main(
+            torch, cs, dev, msgs, keys, n_seg,
+            f"the {where} GAT / PNA sums, K = {k}",
+            {"ms": fn_us / 1e3, "kernel_only_ms": k1_us / 1e3,
+             "turns_us": turns})
+        if k == 64:
+            msgs64, k1_64 = msgs, (res, k1_us)
+    # GAT's num and den: one K1 launch against K1 on num's rows alone
+    aux = torch.rand(e, device=dev, generator=gen)
+    res, res_aux = torch.empty(n_seg, 64, device=dev), torch.empty(
+        n_seg, device=dev)
+    num, den = cs.sorted_segment_sum_pair(msgs64, aux, keys, n_seg, offs)
+    torch.cuda.synchronize()
+    check(torch.equal(num, cs.sorted_segment_sum(msgs64, keys, n_seg, offs))
+          and torch.equal(den, cs.sorted_segment_sum(
+              aux[:, None], keys, n_seg, offs)[:, 0]),
+          f"K1 pair at the {where} site: not the two sums")
+    pair_us, alone_us, turns = turns_us(
+        probe, lambda i: cs.launch_k1_pair(msgs64, aux, offs, n_seg, res,
+                                           res_aux),
+        lambda i: cs.launch_k1(msgs64, offs, n_seg, k1_64[0]))
+    b_ms, b_by = bound(e_live * 65 * 4 + e * 4 + n_seg * 65 * 4, e_live * 65)
+    rows["k1_pair"] = {
+        "ms": probe.graph_us(lambda i: cs.sorted_segment_sum_pair(
+            msgs64, aux, keys, n_seg, offs)) / 1e3,
+        "kernel_only_ms": pair_us / 1e3, "k1_alone_ms": alone_us / 1e3,
+        "ratio_to_k1_alone": pair_us / alone_us, "turns_us": turns,
+        "wrapper_ms": cuda_ms(torch, lambda: cs.sorted_segment_sum_pair(
+            msgs64, aux, keys, n_seg, offs)),
+        "plain_ms": cuda_ms(torch, lambda: cs.sorted_segment_sum_pair_plain(
+            msgs64, aux, keys, n_seg)),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+        "max_abs_err": 0.0}
+    print(f"K1 pair at the {where} GAT num + den: msgs [{e}, 64] + [{e}] -> "
+          f"{n_seg} segments, equal to the two sums: "
+          f"{json.dumps(rows['k1_pair'])}", flush=True)
+    # their cotangents: K4 on [E, 64], and the pair in one launch
+    g = torch.randn(n_seg, 64, device=dev, generator=gen)
+    g_aux = torch.randn(n_seg, device=dev, generator=gen)
+    d = torch.empty(e, 64, device=dev)
+    d_aux = torch.empty(e, device=dev)
+    pair_us, k4_us, turns = turns_us(
+        probe, lambda i: cs.launch_k4_pair(g, g_aux, keys, n_seg, d, d_aux),
+        lambda i: cs.launch_k4(g, keys, n_seg, d))
+    rows["k4", 64] = k4_main(
+        torch, cs, dev, g, keys, torch.float32,
+        f"the {where} GAT / PNA sums' backward and PNA's gather, K = 64",
+        {"ms": k4_us / 1e3, "kernel_only_ms": k4_us / 1e3})
+    dd, dd_aux = cs.segment_sum_vjp_pair(g, g_aux, keys, n_seg)
+    torch.cuda.synchronize()
+    check(torch.equal(dd, cs.segment_sum_vjp(g, keys, n_seg))
+          and torch.equal(dd_aux, cs.segment_sum_vjp(
+              g_aux[:, None], keys, n_seg)[:, 0]),
+          f"K4 pair at the {where} site: not the two gathers")
+    b_ms, b_by = bound(n_seg * 65 * 4 + e * 4 + e * 65 * 4, 0)
+    rows["k4_pair"] = {
+        "ms": pair_us / 1e3, "kernel_only_ms": pair_us / 1e3,
+        "k4_alone_ms": k4_us / 1e3, "ratio_to_k4_alone": pair_us / k4_us,
+        "turns_us": turns,
+        "wrapper_ms": cuda_ms(torch, lambda: cs.segment_sum_vjp_pair(
+            g, g_aux, keys, n_seg)),
+        "plain_ms": cuda_ms(torch, lambda: cs.segment_sum_vjp_pair_plain(
+            g, g_aux, keys, n_seg)),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+        "max_abs_err": 0.0}
+    print(f"K4 pair at the {where} GAT cotangents: g [{n_seg}, 64] + "
+          f"[{n_seg}] -> [{e}, 64] + [{e}], equal to the two gathers: "
+          f"{json.dumps(rows['k4_pair'])}", flush=True)
+    return rows
+
+
 # ------------------------------------------------------------ phase 2: K5
 def k5_checks(torch, cs, probe, dev, seed: int) -> dict:
     """The four variants of the K5 probe against their plain versions on
@@ -1182,11 +1392,12 @@ def grad_errors(torch, loss_on, params, what: str,
 # ------------------------------------------------------ phase 9: ablations
 ORDER4_SET = "Syn_1827_test_max15"
 ABLATION_CONVS = ("GIN", "GCN", "GAT", "PNA")
-# per layer of the GAT and PNA aggregations: the K1 sums (GAT: num and
-# den; PNA: the count, the sum and the sum of squared deviations), those
-# that carry a gradient (K4 behind them; PNA's count of ones has none),
-# and the K4 gathers (PNA's mean back to the edges, K1 behind it)
-CONV_SUMS = {"GAT": (2, 2, 0), "PNA": (3, 2, 1)}
+# per layer of the GAT and PNA aggregations: the K1 sums (PNA: the sum
+# and the sum of squared deviations; its counts are the offsets apart),
+# the K1 pairs (GAT: num and den in one launch), each with K4 (its pair)
+# behind it, and the K4 gathers (PNA's mean back to the edges, K1 behind
+# it)
+CONV_SUMS = {"GAT": (0, 1, 0), "PNA": (2, 0, 1)}
 
 
 def expected_conv_launches(conv: str, n_fwd: int, n_steps: int,
@@ -1194,24 +1405,27 @@ def expected_conv_launches(conv: str, n_fwd: int, n_steps: int,
     """Launches of ``n_fwd`` ``forward_counts`` calls (both towers) or of
     ``n_steps`` train steps (forward and backward of both towers) at
     ``layers`` layers: GIN / GCN run K2 in the target tower and the
-    gather-fused K1 in the query tower, GAT / PNA their K1 sums in both
-    and neither K2 nor K3; every tower pools once (K1, and K4 behind it
-    in a train step)."""
+    gather-fused K1 in the query tower, GAT / PNA their K1 sums and pairs
+    in both and neither K2 nor K3; every tower pools once (K1, and K4
+    behind it in a train step)."""
     n = n_fwd + n_steps
     if conv in CONV_SUMS:
-        s, s_grad, gathers = CONV_SUMS[conv]
+        s, pairs, gathers = CONV_SUMS[conv]
         return {"fused_typed_transform_aggregate": 0,
                 "typed_aggregate_bwd": 0, "gather_segment_sum": 0,
                 "gather_segment_sum_bwd": 0,
                 "sorted_segment_sum": 2 * (n * (s * layers + 1)
                                            + n_steps * gathers * layers),
                 "segment_sum_vjp": 2 * (n * gathers * layers
-                                        + n_steps * (s_grad * layers + 1))}
+                                        + n_steps * (s * layers + 1)),
+                "sorted_segment_sum_pair": 2 * n * pairs * layers,
+                "segment_sum_vjp_pair": 2 * n_steps * pairs * layers}
     return {"fused_typed_transform_aggregate": layers * n,
             "typed_aggregate_bwd": layers * n_steps,
             "gather_segment_sum": layers * n,
             "gather_segment_sum_bwd": layers * n_steps,
-            "sorted_segment_sum": 2 * n, "segment_sum_vjp": 2 * n_steps}
+            "sorted_segment_sum": 2 * n, "segment_sum_vjp": 2 * n_steps,
+            "sorted_segment_sum_pair": 0, "segment_sum_vjp_pair": 0}
 
 
 def typed_graph_ms(torch, cs, probe, case, dtype) -> tuple:
@@ -1355,34 +1569,16 @@ def ablation_phase(torch, cs, probe, dev, seed: int, gen_root: str,
     qb_abl = build_query_batch(abl_cfg)
     abl_launches = {k: 0 for k in cs.read_launches()}
 
-    # K1 and K4 at GAT's and PNA's use sites: [E, 64] and [E, 1] rows over
-    # the N*T (dst, type) keys of the first target batch (6 types)
+    # K1, K4 and their pairs at GAT's and PNA's use sites, over the N*T
+    # (dst, type) keys of the first target batch (6 types)
     site = conv_batches[0].to(dev)
     keys6 = (site.edge_dst.int() * 6 + site.edge_type.int()).contiguous()
     n_seg6 = site.n_cap * 6
-    # the offsets as the GAT / PNA aggregators derive them: once per batch
-    offs6 = cs.segment_offsets(keys6, n_seg6)
-    site_rows = {}
     with torch.inference_mode():
-        for k in (64, 1):
-            msgs = torch.randn(keys6.shape[0], k, device=dev, generator=agen)
-            res = torch.empty(n_seg6, k, device=dev)
-            fn_us = probe.graph_us(
-                lambda i: cs.sorted_segment_sum(msgs, keys6, n_seg6, offs6))
-            k1_us = probe.graph_us(
-                lambda i: cs.launch_k1(msgs, offs6, n_seg6, res))
-            site_rows["k1", k] = k1_main(
-                torch, cs, dev, msgs, keys6, n_seg6,
-                f"the GAT / PNA sums of {REPLAY_SET} batch 0, K = {k}",
-                {"ms": fn_us / 1e3, "kernel_only_ms": k1_us / 1e3})
-            g = torch.randn(n_seg6, k, device=dev, generator=agen)
-            d = torch.empty(keys6.shape[0], k, device=dev)
-            k4_us = probe.graph_us(
-                lambda i: cs.launch_k4(g, keys6, n_seg6, d))
-            site_rows["k4", k] = k4_main(
-                torch, cs, dev, g, keys6, torch.float32,
-                f"the GAT / PNA sums' backward and PNA's gather, K = {k}",
-                {"ms": k4_us / 1e3, "kernel_only_ms": k4_us / 1e3})
+        site_rows = conv_site_rows(
+            torch, cs, probe, dev, keys6, n_seg6,
+            cs.segment_offsets(keys6, n_seg6), agen,
+            f"packed ({REPLAY_SET} batch 0)")
 
     def add_launches(got):
         for key, n in got.items():
@@ -2042,20 +2238,23 @@ def per_aggregate(shards) -> int:
 def expected_halo_conv(conv: str, shards, layers: int,
                        backward: bool) -> dict:
     """Launches of one halo GAT / PNA core (and its backward): per layer
-    and stream the K1 sums and K4 gathers of ``CONV_SUMS``, the pull
-    sends on the gather-fused K1; backward K4 behind every sum with a
-    gradient, K1 behind every K4 gather, K1' behind every send (every
-    shard reads its halo table)."""
-    s, s_grad, gathers = CONV_SUMS[conv]
+    and stream the K1 sums, pairs and K4 gathers of ``CONV_SUMS``, the
+    pull sends on the gather-fused K1; backward K4 behind every sum, the
+    K4 pair behind every pair, K1 behind every K4 gather, K1' behind
+    every send (every shard reads its halo table)."""
+    s, pairs, gathers = CONV_SUMS[conv]
     c = halo_streams(shards)
     streams = c["shards"] + c["boundary"]
     out = {"sorted_segment_sum": layers * streams * s,
            "segment_sum_vjp": layers * streams * gathers,
+           "sorted_segment_sum_pair": layers * streams * pairs,
+           "segment_sum_vjp_pair": 0,
            "gather_segment_sum": layers * c["send"],
            "gather_segment_sum_bwd": 0}
     if backward:
         out["sorted_segment_sum"] += layers * streams * gathers
-        out["segment_sum_vjp"] += layers * streams * s_grad
+        out["segment_sum_vjp"] += layers * streams * s
+        out["segment_sum_vjp_pair"] = layers * streams * pairs
         out["gather_segment_sum_bwd"] = layers * c["send"]
     return out
 
@@ -2093,9 +2292,9 @@ def library_sums(torch, what: str):
           f"sum", flush=True)
 
 
-def halo_gather_site(torch, cs, probe, dev, x, st, what: str) -> dict:
-    """The gather-fused K1 and its backward at one halo stream of the
-    card's run: checked against the plain versions (``gather_check``),
+def gather_site(torch, cs, probe, dev, x, st, what: str) -> dict:
+    """The gather-fused K1 and its backward at one stream of the card's
+    run (a halo stream, or the serving gossip batch's degrees): checked against the plain versions (``gather_check``),
     timed in CUDA graphs of 8 launches, the plain versions eagerly, and
     ``sparse.mm`` of the stream's unit CSR adjacency (and its transpose)
     as the yardstick; the bound in HBM bytes over the live rows
@@ -2484,48 +2683,32 @@ def halo_phase(torch, cs, probe, dev, seed: int, svc) -> dict:
     with torch.inference_mode():
         sh0 = halo.place_shards(gpart, [dev])[0]
         xg = torch.randn(sh0.n_loc, 128, device=dev, generator=hgen)
-        sites["k1g_interior"] = halo_gather_site(
+        sites["k1g_interior"] = gather_site(
             torch, cs, probe, dev, xg, sh0.interior,
             f"the gossip's interior stream (shard 0 of {HALO_SHARDS}, layer "
             f"0, K = 128)")
         xh = torch.randn(sh0.send.n_nodes, 128, device=dev, generator=hgen)
-        sites["k1g_boundary"] = halo_gather_site(
+        sites["k1g_boundary"] = gather_site(
             torch, cs, probe, dev, xh, sh0.boundary,
             "the gossip's boundary stream (shard 0, K = 128)")
-        sites["k1g_send"] = halo_gather_site(
+        sites["k1g_send"] = gather_site(
             torch, cs, probe, dev, xg, sh0.send,
             "the gossip's pull sends (shard 0, K = 128)")
-        sites["k1g_degrees"] = halo_gather_site(
+        sites["k1g_degrees"] = gather_site(
             torch, cs, probe, dev, sh0.node_mask[:, None].contiguous(),
             sh0.interior, "the direction degrees (shard 0, K = 1)")
         csh = halo.place_shards(halo.partition_typed_graph(
             n, ws.node_type, ws.x, ws.edge_src, ws.edge_dst, ws.edge_type,
             HALO_SHARDS, n_types=6, force_pull=True), [dev])[0]
-        keys, n_seg = csh.interior.keys, csh.n_loc * 6
-        offs = csh.interior.fwd_toffs
-        for k in (64, 1):
-            msgs = torch.randn(keys.shape[0], k, device=dev, generator=hgen)
-            res_k = torch.empty(n_seg, k, device=dev)
-            # as the halo GAT / PNA call it: the offsets of the shard's
-            # stream, derived once
-            fn_us = probe.graph_us(
-                lambda i: cs.sorted_segment_sum(msgs, keys, n_seg, offs))
-            k1_us = probe.graph_us(
-                lambda i: cs.launch_k1(msgs, offs, n_seg, res_k))
-            sites["k1", k] = k1_main(
-                torch, cs, dev, msgs, keys, n_seg,
-                f"the halo GAT / PNA sums (shard 0's interior stream), "
-                f"K = {k}", {"ms": fn_us / 1e3, "kernel_only_ms": k1_us / 1e3})
-            gk = torch.randn(n_seg, k, device=dev, generator=hgen)
-            d = torch.empty(keys.shape[0], k, device=dev)
-            k4_us = probe.graph_us(lambda i: cs.launch_k4(gk, keys, n_seg, d))
-            sites["k4", k] = k4_main(
-                torch, cs, dev, gk, keys, torch.float32,
-                f"the halo GAT / PNA sums' backward and PNA's gather, "
-                f"K = {k}", {"ms": k4_us / 1e3, "kernel_only_ms": k4_us / 1e3})
+        # as the halo GAT / PNA call them: shard 0's interior stream and
+        # its offsets, derived once
+        sites.update(conv_site_rows(
+            torch, cs, probe, dev, csh.interior.keys, csh.n_loc * 6,
+            csh.interior.fwd_toffs, hgen, "halo (shard 0's interior stream)"))
     print(f"phase 13 (halo) launches: {json.dumps(halo_launches)}", flush=True)
     for name in ("gather_segment_sum", "gather_segment_sum_bwd",
                  "sorted_segment_sum", "segment_sum_vjp",
+                 "sorted_segment_sum_pair", "segment_sum_vjp_pair",
                  "fused_typed_transform_aggregate"):
         check(halo_launches[name] > 0, f"phase 13: {name} never launched")
     print(f"phase 13 (halo) took {time.perf_counter() - t13:.1f} s",
@@ -4746,6 +4929,7 @@ def main() -> int:
     with torch.inference_mode():
         for dtype in (f32, bf16):
             k1_edge_cases(torch, cs, krng, dev, dtype)
+            narrow_edge_cases(torch, cs, krng, dev, dtype)
             gather_edge_cases(torch, cs, krng, dev, dtype)
             k2_edge_cases(torch, cs, krng, dev, dtype)
             k3_edge_cases(torch, cs, krng, dev, dtype)
@@ -4808,6 +4992,12 @@ def main() -> int:
                 torch, cs, dev, c["g"], c["seg"], dtype,
                 "the target-tower pooling's backward",
                 graph_ms(graph_rows, "k4_pool", dtype))
+        # the gather-fused K1 at one column: the serving gossip batch's
+        # direction degrees (models/gossip.direction_degrees)
+        k_rows["k1g_degrees"] = gather_site(
+            torch, cs, probe, dev, gb.node_mask[:, None].float().contiguous(),
+            cases["gossip"]["st"],
+            "the serving gossip batch's direction degrees (K = 1)")
         del cases, gb, trb
 
     phase_done("2 (kernels)")
@@ -5228,7 +5418,9 @@ def main() -> int:
           f"{steps} train steps, K2 = 8 x ({steps} train steps + {steps} "
           f"val batches + {n_b} predict batches)", flush=True)
     for kern in cs.KERNELS:
-        check(train_launches[kern.__name__] > 0,
+        # GAT's pairs run on the ablation and halo paths only
+        check(train_launches[kern.__name__] > 0 or kern.__name__ in
+              ("sorted_segment_sum_pair", "segment_sum_vjp_pair"),
               f"kernel {kern.__name__} never launched on the training path")
         check(train_launches[kern.__name__ + "_bf16"] == 0,
               f"kernel {kern.__name__}: bf16 launches on the f32 training "
@@ -5585,14 +5777,35 @@ def main() -> int:
                 launches=sum(per_path), launches_per_path=per_path,
                 **k_rows[key, d]))
             if d == "f32" and key in ("k1", "k4"):
-                # the GAT / PNA use sites, measured in phase 9
+                # the GAT / PNA use sites, measured in phase 9, and the
+                # halo ones, in phase 13 (K4 has no one-column use left)
+                ks = (64, 1) if key == "k1" else (64,)
                 kernels[-1]["gat_pna_sites"] = {
-                    f"K={k}": site_rows[key, k] for k in (64, 1)}
-                # the halo GAT / PNA use sites, measured in phase 13
+                    f"K={k}": site_rows[key, k] for k in ks}
                 kernels[-1]["halo_sites"] = {
-                    f"K={k}": hal["sites"][key, k] for k in (64, 1)}
+                    f"K={k}": hal["sites"][key, k] for k in ks}
             check(sum(per_path) > 0,
                   f"kernel {wrapper} ({d}) never launched on a main path")
+    # GAT's pairs: num and den in one K1 launch, their cotangents in one
+    # K4 launch, on the f32 paths that run GAT (the ablations and the
+    # halo path), measured at the packed site (phase 9) and the halo
+    # site (phase 13)
+    for key, wrapper, line_no in (("k1_pair", "sorted_segment_sum_pair",
+                                   310),
+                                  ("k4_pair", "segment_sum_vjp_pair", 464)):
+        paths = (launches, train_launches, launches_bf, bf_launches,
+                 replay_launches, abl_launches, serving_rest,
+                 hal["launches"], dpr["launches"], dist["launches"],
+                 tools["launches"])
+        per_path = [p[wrapper] - p[wrapper + "_bf16"] for p in paths]
+        check(sum(per_path) > 0,
+              f"kernel {wrapper} never launched on a main path")
+        kernels.append(dict(
+            name=f"{wrapper} (K{key[1]} on an operand pair, GAT, f32)",
+            route="cuda", source=seg_src,
+            replaces=f"desco_tpu/ops/pallas_segment.py:{line_no}",
+            launches=sum(per_path), launches_per_path=per_path,
+            **site_rows[key], halo_site=hal["sites"][key]))
     # the gather-fused K1 and its backward: every main path runs them on
     # f32 rows (the query tower and the gossip model are f32; the bf16
     # tower aggregates through K2); the bf16 instantiation is checked and
@@ -5621,7 +5834,10 @@ def main() -> int:
             halo_sites={site: hal["sites"][site][
                 "bwd" if key.endswith("bwd") else "fwd"]
                 for site in ("k1g_interior", "k1g_boundary", "k1g_send",
-                             "k1g_degrees")}))
+                             "k1g_degrees")},
+            # the serving gossip batch's degrees, one column, phase 2
+            serving_degrees=k_rows["k1g_degrees"][
+                "bwd" if key.endswith("bwd") else "fwd"]))
     # K2' and K3' at T = 33 (type chunks): launched by the order-4 run,
     # measured at its packed batch and at the serving batch's shape; the
     # bf16 instantiation is checked and timed in phase 9

@@ -9,20 +9,33 @@
 // the gather is folded into the sum and the [E, K] messages never exist
 // (desco_tpu's typed_edge_aggregate is "one fused gather + segment-sum").
 // The same kernel is the backward of the gather-fused sum, run over the
-// batch's source-sorted stream. One warp owns one segment and one chunk of
-// 32 x (2- to 16-byte lane loads) columns, so wide rows are split over
-// warps; the edges are read in order, the sum stays in f32 registers and
-// is written once. No atomics, no spill row, and the result does not
-// depend on the launch (deterministic). Edges past the last offset (the
-// padding keys) are never visited. What bounds it: the bytes of the x
-// rows (re-read from L2 once per edge when gathered), the index stream
-// and the f32 output; a quarter of an f32 operation per byte.
+// batch's source-sorted stream. Wide rows (more than 16 elements): one
+// warp owns one segment and one chunk of 32 x (2- to 16-byte lane loads)
+// columns, so wide rows are split over warps, and each element is the
+// edge-order f32 sum of one lane. Narrow rows (at most 16 elements, the
+// direction degrees, GAT's softmax denominator): a group of 1-16 lanes
+// owns one segment, so a warp sums up to 32 consecutive segments, and a
+// segment of more than 32 / (the group's lanes) edges is summed by its
+// whole warp; the sum keeps a fixed order, lane groups over strided edges
+// folded as a tree (segsum_narrow). Sums stay in f32 registers and are
+// written once: no atomics, no spill row, and the result does not depend
+// on the layout, the grid or the launch (deterministic). Edges past the
+// last offset (the padding keys) are never visited. What bounds it: the
+// bytes of the x rows (re-read from L2 once per edge when gathered), the
+// index stream and the f32 output; a quarter of an f32 operation per
+// byte. On one-column rows those bytes take under a microsecond, so the
+// launch and the offsets' latency set the time, and the narrow layout
+// needs a 32nd of the warps that a warp per segment would.
+// desco_sorted_segment_sum_pair also sums a second, one-column operand
+// over the same offsets in the same launch (GAT's softmax denominator
+// beside its numerator).
 //
 // K4 desco_segment_sum_vjp_gather is the backward of K1, desco_tpu's
 //    _ssum_ad_bwd (desco_tpu/ops/pallas_segment.py:464): d[e, :] =
 //    g[seg[e], :] where 0 <= seg[e] < n_segments, else 0, in the dtype of
 //    K1's messages. One thread copies one piece (at most 16 bytes of
-//    output) of one row; bound by the [E, K] write.
+//    output) of one row; bound by the [E, K] write. Its pair form writes
+//    the second operand's cotangent from the same read of seg[e].
 //
 // The typed transform-aggregate (K2, K3) has kernels of its own, in
 // typed_aggregate.cu.
@@ -106,6 +119,22 @@ __device__ __forceinline__ unsigned float_to_bf16_bits(float x) {
   return __bfloat16_as_ushort(__float2bfloat16(x));  // round to nearest even
 }
 
+// One element of T as a raw word, loaded where the code stands: the asm
+// is volatile, so the compiler cannot sink the load to its first use
+// after a loop of row loads, and its latency hides behind theirs.
+template <typename T>
+__device__ __forceinline__ unsigned load_early(const T* p) {
+  if constexpr (sizeof(T) == 4) {
+    unsigned v;
+    asm volatile("ld.global.nc.b32 %0, [%1];" : "=r"(v) : "l"(p));
+    return v;
+  } else {
+    unsigned short h;
+    asm volatile("ld.global.nc.u16 %0, [%1];" : "=h"(h) : "l"(p));
+    return h;
+  }
+}
+
 // acc += the VEC elements of one raw row piece, converted to f32.
 template <typename T, int VEC>
 __device__ __forceinline__ void add_raw(
@@ -156,56 +185,212 @@ __device__ __forceinline__ void store_row(float* __restrict__ p,
   }
 }
 
-// The running state of K1's kernel folded across the lane groups of a
-// warp in the narrow layout: lane l adds lane l ^ off for off = 16, 8, ...
-// down to ``lanes``, a fixed order, so every lane of group 0 ends with the
-// sum over all groups (OR-ed bits in kModeNoAcc).
+// The f32 results of K1's kernel for one row piece: the sums, or
+// (kModeNoAcc) the OR-ed bit pattern of each element as a number.
 template <typename T, int VEC, int MODE>
-__device__ __forceinline__ void fold_groups(
-    float (&acc)[VEC], unsigned (&bits)[Lane<T, VEC>::kWords], int lanes) {
-  for (int off = kWarp / 2; off >= lanes; off >>= 1) {
-    if constexpr (MODE == kModeNoAcc) {
+__device__ __forceinline__ void finish(
+    float (&acc)[VEC], const unsigned (&bits)[Lane<T, VEC>::kWords]) {
+  if constexpr (MODE == kModeNoAcc) {
+    if constexpr (sizeof(T) == 4 || VEC == 1) {
 #pragma unroll
-      for (int i = 0; i < Lane<T, VEC>::kWords; ++i)
-        bits[i] |= __shfl_xor_sync(kFullMask, bits[i], off);
+      for (int i = 0; i < VEC; ++i) acc[i] = (float)bits[i];
     } else {
 #pragma unroll
-      for (int i = 0; i < VEC; ++i)
-        acc[i] += __shfl_xor_sync(kFullMask, acc[i], off);
+      for (int i = 0; i < VEC / 2; ++i) {
+        acc[2 * i] = (float)(bits[i] & 0xffffu);
+        acc[2 * i + 1] = (float)(bits[i] >> 16);
+      }
     }
   }
 }
 
-// K1: out[r, c] = sum of x[rows[e], c] for e in [offs[r], offs[r+1]), in
-// edge order (GATHER = false: rows is the identity, x[e, c]).
+constexpr int kLongUnroll = 8;  // rounds of a warp-wide segment in flight
+
+// K1's narrow layout: rows of at most 16 elements, one element per lane
+// (VEC == 1). A group of LANES lanes (a power of two >= K) owns one
+// segment, lane c of the group its column c, so a warp sums 32 / LANES
+// consecutive segments; the warp reads their offsets with one coalesced
+// load and writes their results side by side.
 //
-// Grid: blockIdx.x * 8 + warp is the segment r, blockIdx.y the column
-// chunk of 32 * VEC columns, so a wide row is split over several warps
-// (512 pooling segments of 576 columns are 512 x 9 warps, not 512 warps
-// walking the columns in turn). Wide layout (``lanes`` == 32): lane l
-// owns columns chunk + l*VEC .. +VEC and adds every edge of the segment
-// in order, so each output element is summed by one lane in a fixed order
-// and the result does not depend on the layout. Narrow layout (``lanes``
-// < 32, rows of at most 16 elements): the warp splits into 32 / lanes
-// groups of ``lanes`` lanes; group g adds edges g, g + groups, ... in
-// order and the groups are folded in a fixed shuffle order
-// (fold_groups): deterministic, but not the edge-order sum.
-//
-// Gather: per 32 edges the warp reads the 32 row indices in one load and
-// broadcasts them with __shfl_sync; x rows are then read with 2- to
-// 16-byte lane loads, kUnroll rows in flight before the first add. No
-// [E, K] message tensor exists. MODE strips the kernel for the probe:
-// kModeNoOffs gives warp r the fixed rows [r*run, min((r+1)*run,
-// n_rows)) and reads no offsets; kModeNoAcc also replaces convert-and-add
-// by an OR of the raw words and writes each OR-ed element's bit pattern
-// as a number.
-template <typename T, int VEC, int MODE, bool GATHER, bool NARROW>
-__global__ void __launch_bounds__(kThreads)
-segsum_rows_kernel(const T* __restrict__ x, const int* __restrict__ rows,
-                   const int* __restrict__ offs, int n_segments, int k,
-                   int lanes, int run, int n_rows, float* __restrict__ out) {
+// The order of the sum is fixed by the segment alone: the warp's G = 32 /
+// LANES lane groups take edges g, g + G, g + 2G, ... of the segment, each
+// adds its edges in order from 0, and the G partial sums are folded by
+// lane l adding lane l ^ off for off = 16, 8, ... down to LANES: a tree
+// over the groups, where one lane walking a hub segment in edge order
+// would take n rounding steps, not log n, which GAT's softmax gradients
+// amplify (on an H100 the sharded and the packed GAT tower then parted by
+// 6.5e-4 of a gradient's scale on a 20,000-node graph, 2.5e-6 with the
+// tree).
+// A segment of at most G edges (at most SHORT, where that is less) has
+// at most one edge per group, so its owning lane computes that fold
+// alone, its rows the groups' partials (empty groups add +0, which
+// changes nothing). A longer segment is summed by its whole warp: the
+// same fold, whichever computes it. After the short ones, each group
+// loads its edges of a round (the warp's loads coalesced, the next round
+// in flight), then the warp folds and the owning group keeps the result.
+// ``block`` is the block's index in this layout.
+template <typename T, int MODE, bool GATHER, int LANES, int SHORT = 32>
+__device__ __forceinline__ void segsum_narrow(
+    const T* __restrict__ x, const int* __restrict__ rows,
+    const int* __restrict__ offs, int n_segments, int k, int run,
+    int n_rows, float* __restrict__ out, int block) {
+  constexpr int kGroups = kWarp / LANES;
+  constexpr int kLane = SHORT < kGroups ? SHORT : kGroups;  // a lane's own
+  constexpr int kWords = Lane<T, 1>::kWords;
+  const int lane = threadIdx.x % kWarp;
+  const long long first =
+      ((long long)block * kWarpsPerBlock + threadIdx.x / kWarp) * kGroups;
+  if (first >= n_segments) return;  // the whole warp
+  const int seg0 = (int)first;
+  const int g = lane / LANES;
+  const int c = lane % LANES;
+  const int n_live = min(kGroups, n_segments - seg0);  // warp-uniform
+  const bool live = g < n_live;
+  const bool col = live && c < k;
+  int lo = 0, hi = 0;
+  if constexpr (MODE == kModeFull) {
+    // offsets seg0 .. seg0 + n_live: lanes 0 .. n_live, and a 33rd
+    // for the last of 32 one-lane segments
+    const int o = lane <= n_live ? __ldg(offs + seg0 + lane) : 0;
+    lo = __shfl_sync(kFullMask, o, g);
+    hi = __shfl_sync(kFullMask, o, (g + 1) % kWarp);
+    if (kGroups == kWarp && g == kWarp - 1)
+      hi = n_live == kWarp ? __ldg(offs + seg0 + kWarp) : 0;
+  } else {
+    const long long b = (long long)(seg0 + g) * run;
+    lo = (int)min(b, (long long)n_rows);
+    hi = (int)min(b + run, (long long)n_rows);
+  }
+  if (!live) lo = hi = 0;
+  const int n = hi - lo;
+  const bool is_long = n > kLane;
+  float acc[1] = {0.f};
+  unsigned bits[kWords] = {0u};
+  if (col && !is_long) {
+    // at most one edge a group: group i's partial is 0 + edge i, or 0.
+    // Slots 8-15 and 16-31 only where a segment of the warp reaches them
+    Raw<kWords> r[kGroups];
+    auto load_slot = [&](int i) {
+      if (i < n) {
+        int src = lo + i;
+        if constexpr (GATHER) src = __ldg(rows + lo + i);
+        r[i] = load_raw<T, 1>(x + (int64_t)src * k + c);
+      }
+    };
+    constexpr int kFirst = kLane < 8 ? kLane : 8;
+    constexpr int kSecond = kLane < 16 ? kLane : 16;
+#pragma unroll
+    for (int i = 0; i < kGroups; ++i) r[i].w[0] = 0u;
+#pragma unroll
+    for (int i = 0; i < kFirst; ++i) load_slot(i);
+    if (kLane > 8 && n > 8) {
+#pragma unroll
+      for (int i = kFirst; i < kSecond; ++i) load_slot(i);
+    }
+    if (kLane > 16 && n > 16) {
+#pragma unroll
+      for (int i = kSecond; i < kLane; ++i) load_slot(i);
+    }
+    float v[kGroups];
+#pragma unroll
+    for (int i = 0; i < kGroups; ++i) {
+      float a[1] = {0.f};
+      if (i < kLane && i < n) fold_raw<T, 1, MODE>(a, bits, r[i]);
+      v[i] = a[0];
+    }
+    // group 0's side of the fold: v[i] += v[i + s] for s = G / 2 .. 1,
+    // written out so that every index is a constant
+    if constexpr (kGroups >= 32) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) v[i] = v[i] + v[i + 16];
+    }
+    if constexpr (kGroups >= 16) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] = v[i] + v[i + 8];
+    }
+    if constexpr (kGroups >= 8) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) v[i] = v[i] + v[i + 4];
+    }
+    if constexpr (kGroups >= 4) {
+      v[0] = v[0] + v[2];
+      v[1] = v[1] + v[3];
+    }
+    acc[0] = v[0] + v[1];
+  }
+  // the long segments, one at a time, each by the whole warp
+  unsigned todo = __ballot_sync(kFullMask, live && c == 0 && is_long);
+  while (todo != 0u) {
+    const int owner = __ffs(todo) - 1;
+    todo &= todo - 1u;
+    const int llo = __shfl_sync(kFullMask, lo, owner);
+    const int lhi = __shfl_sync(kFullMask, hi, owner);
+    // round b's loads: group g loads edge b + u * G + g, column c
+    auto load_round = [&](int b, Raw<kWords>(&r)[kLongUnroll]) {
+#pragma unroll
+      for (int u = 0; u < kLongUnroll; ++u) {
+        const int e = b + u * kGroups + g;
+        r[u].w[0] = 0u;
+        if (e < lhi && c < k) {
+          int src = e;
+          if constexpr (GATHER) src = __ldg(rows + e);
+          r[u] = load_raw<T, 1>(x + (int64_t)src * k + c);
+        }
+      }
+    };
+    float lacc[1] = {0.f};
+    unsigned lbits[kWords] = {0u};
+    Raw<kWords> r[kLongUnroll];
+    load_round(llo, r);
+    for (int b = llo; b < lhi; b += kGroups * kLongUnroll) {
+      Raw<kWords> next[kLongUnroll];  // in flight while this one is added
+      load_round(b + kGroups * kLongUnroll, next);
+#pragma unroll
+      for (int u = 0; u < kLongUnroll; ++u)
+        if (c < k && b + u * kGroups + g < lhi)
+          fold_raw<T, 1, MODE>(lacc, lbits, r[u]);
+#pragma unroll
+      for (int u = 0; u < kLongUnroll; ++u) r[u] = next[u];
+    }
+    for (int off = kWarp / 2; off >= LANES; off >>= 1) {
+      if constexpr (MODE == kModeNoAcc) {
+        lbits[0] |= __shfl_xor_sync(kFullMask, lbits[0], off);
+      } else {
+        lacc[0] += __shfl_xor_sync(kFullMask, lacc[0], off);
+      }
+    }
+    if (g == owner / LANES) {
+      acc[0] = lacc[0];
+      bits[0] = lbits[0];
+    }
+  }
+  if (!col) return;
+  finish<T, 1, MODE>(acc, bits);
+  out[(int64_t)(seg0 + g) * k + c] = acc[0];
+}
+
+// K1's wide layout (rows of more than 16 elements): block * 8 + warp is
+// the segment r, blockIdx.y the column chunk of 32 * VEC columns, so a
+// wide row is split over several warps (512 pooling segments of 576
+// columns are 512 x 9 warps, not 512 warps walking the columns in turn);
+// lane l owns columns chunk + l*VEC .. +VEC and adds every edge of the
+// segment in order. Gather: per 32 edges the warp reads the 32 row
+// indices in one load and broadcasts them with __shfl_sync; x rows are
+// then read with 2- to 16-byte lane loads, kUnroll rows in flight before
+// the first add. AUX (identity rows): the one-column ``aux`` [E] over the
+// same edges is summed into aux_out in the narrow layout's order at one
+// column, lane l adding edges l, l + 32, ... (one coalesced load a
+// chunk, issued with the rows'), the lanes folded as a tree at the end:
+// bit-equal to K1 on aux alone.
+template <typename T, int VEC, int MODE, bool GATHER, bool AUX = false>
+__device__ __forceinline__ void segsum_wide(
+    const T* __restrict__ x, const int* __restrict__ rows,
+    const int* __restrict__ offs, int n_segments, int k, int run,
+    int n_rows, float* __restrict__ out, int block,
+    const T* __restrict__ aux = nullptr, float* __restrict__ aux_out =
+    nullptr) {
   constexpr int kWords = Lane<T, VEC>::kWords;
-  const int seg = blockIdx.x * kWarpsPerBlock + (threadIdx.x / kWarp);
+  const int seg = block * kWarpsPerBlock + (threadIdx.x / kWarp);
   const int lane = threadIdx.x % kWarp;
   if (seg >= n_segments) return;  // the whole warp: seg is warp-uniform
   int lo, hi;
@@ -217,13 +402,12 @@ segsum_rows_kernel(const T* __restrict__ x, const int* __restrict__ rows,
     lo = (int)min(b, (long long)n_rows);
     hi = (int)min(b + run, (long long)n_rows);
   }
-  const int groups = NARROW ? kWarp / lanes : 1;
-  const int g = NARROW ? lane / lanes : 0;
-  const int c = (int)blockIdx.y * kWarp * VEC + (NARROW ? lane % lanes : lane)
-                * VEC;
+  const int c = (int)blockIdx.y * kWarp * VEC + lane * VEC;
   const bool active = c < k;  // idle lanes still take part in shuffles
+  const bool aux_warp = AUX && blockIdx.y == 0;  // warp-uniform
   const T* __restrict__ col = x + c;
   float acc[VEC];
+  float acc_aux[1] = {0.f};  // lane l: edges l, l + 32, ... of aux
   unsigned bits[kWords];
 #pragma unroll
   for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
@@ -235,11 +419,16 @@ segsum_rows_kernel(const T* __restrict__ x, const int* __restrict__ rows,
     if constexpr (GATHER) {
       if (lane < n) idx = __ldg(rows + e0 + lane);
     }
-    for (int j = 0; j < n; j += groups * kUnroll) {
+    Raw<Lane<T, 1>::kWords> ra;
+    ra.w[0] = 0u;
+    if constexpr (AUX) {
+      if (aux_warp && lane < n) ra.w[0] = load_early(aux + e0 + lane);
+    }
+    for (int j = 0; j < n; j += kUnroll) {
       Raw<kWords> r[kUnroll];
 #pragma unroll
       for (int i = 0; i < kUnroll; ++i) {
-        const int t = j + g + i * groups;  // edge e0 + t of the segment
+        const int t = j + i;  // edge e0 + t of the segment
         int src;
         if constexpr (GATHER) {
           src = __shfl_sync(kFullMask, idx, t & (kWarp - 1));
@@ -255,26 +444,79 @@ segsum_rows_kernel(const T* __restrict__ x, const int* __restrict__ rows,
       }
 #pragma unroll
       for (int i = 0; i < kUnroll; ++i)
-        if (active && j + g + i * groups < n)
-          fold_raw<T, VEC, MODE>(acc, bits, r[i]);
+        if (active && j + i < n) fold_raw<T, VEC, MODE>(acc, bits, r[i]);
+    }
+    if constexpr (AUX) {
+      if (aux_warp && lane < n) add_raw<T, 1>(acc_aux, ra);
     }
   }
-  if constexpr (NARROW) fold_groups<T, VEC, MODE>(acc, bits, lanes);
-  if (!active || g != 0) return;
-  if constexpr (MODE == kModeNoAcc) {
-    // the OR-ed bit pattern of each element, as a number
-    if constexpr (sizeof(T) == 4 || VEC == 1) {
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) acc[i] = (float)bits[i];
-    } else {
-#pragma unroll
-      for (int i = 0; i < VEC / 2; ++i) {
-        acc[2 * i] = (float)(bits[i] & 0xffffu);
-        acc[2 * i + 1] = (float)(bits[i] >> 16);
-      }
+  if constexpr (AUX) {
+    if (aux_warp) {
+      for (int off = kWarp / 2; off >= 1; off >>= 1)
+        acc_aux[0] += __shfl_xor_sync(kFullMask, acc_aux[0], off);
+      if (lane == 0) aux_out[seg] = acc_aux[0];
     }
   }
+  if (!active) return;
+  finish<T, VEC, MODE>(acc, bits);
   store_row(out + (int64_t)seg * k + c, acc);
+}
+
+// K1: out[r, c] = sum of x[rows[e], c] for e in [offs[r], offs[r+1])
+// (GATHER = false: rows is the identity, x[e, c]), in the wide layout
+// (LANES == 32, edge order) or the narrow one (LANES < 32, the fold
+// order). The order is a function of the segment and the row width
+// alone, so the result does not depend on the grid, the launch or the
+// path a segment takes. No [E, K] message
+// tensor exists. MODE strips the kernel for the probe: kModeNoOffs gives
+// segment r the fixed rows [r*run, min((r+1)*run, n_rows)) and reads no
+// offsets; kModeNoAcc also replaces convert-and-add by an OR of the raw
+// words and writes each OR-ed element's bit pattern as a number.
+template <typename T, int VEC, int MODE, bool GATHER, int LANES>
+__global__ void __launch_bounds__(kThreads)
+segsum_rows_kernel(const T* __restrict__ x, const int* __restrict__ rows,
+                   const int* __restrict__ offs, int n_segments, int k,
+                   int run, int n_rows, float* __restrict__ out) {
+  if constexpr (LANES < kWarp) {
+    static_assert(VEC == 1, "narrow rows load one element per lane");
+    segsum_narrow<T, MODE, GATHER, LANES>(x, rows, offs, n_segments, k, run,
+                                          n_rows, out, blockIdx.x);
+  } else {
+    segsum_wide<T, VEC, MODE, GATHER>(x, rows, offs, n_segments, k, run,
+                                      n_rows, out, blockIdx.x);
+  }
+}
+
+// K1 on an operand pair over one sorted stream, in one launch: the rows
+// x [E, k] in their layout and the one-column ``aux`` [E] in the narrow
+// layout's order at one column, bit-equal to two launches. Wide rows
+// (GAT's numerator beside its denominator) carry aux on their own warps
+// (segsum_wide's AUX): a coalesced load a chunk and a short fold, where a
+// launch of its own would cost a launch. Narrow rows leave aux to the
+// first ``aux_blocks`` blocks (256 segments a block, started first and
+// overlapped with the rows'), whose lanes sum at most 8 edges alone (the
+// rest by the warp: the same fold), so they need no more registers than
+// the rows' warps.
+template <typename T, int VEC, int LANES>
+__global__ void __launch_bounds__(kThreads)
+segsum_pair_kernel(const T* __restrict__ x, const T* __restrict__ aux,
+                   const int* __restrict__ offs, int n_segments, int k,
+                   int aux_blocks, float* __restrict__ out,
+                   float* __restrict__ aux_out) {
+  const int block = (int)blockIdx.x;
+  if constexpr (LANES < kWarp) {
+    if (block < aux_blocks) {
+      segsum_narrow<T, kModeFull, false, 1, 8>(aux, nullptr, offs,
+                                               n_segments, 1, 0, 0, aux_out,
+                                               block);
+    } else {
+      segsum_narrow<T, kModeFull, false, LANES>(
+          x, nullptr, offs, n_segments, k, 0, 0, out, block - aux_blocks);
+    }
+  } else {
+    segsum_wide<T, VEC, kModeFull, false, true>(
+        x, nullptr, offs, n_segments, k, 0, 0, out, block, aux, aux_out);
+  }
 }
 
 // VEC f32 values as one aligned store of VEC elements of T (at most 16
@@ -330,25 +572,36 @@ __device__ __forceinline__ void load_f32(float (&a)[VEC],
 // K4: out[e, c..c+VEC) = live(e) ? g[seg[e], c..c+VEC) : 0 with
 // live(e) = 0 <= seg[e] < n_segments; g is f32, out is T. Thread i owns
 // piece i of the [E, K / VEC] grid of row pieces, so a warp writes
-// consecutive bytes.
-template <typename T, int VEC>
+// consecutive bytes. AUX: the thread of a row's first piece also writes
+// aux_out[e] = live(e) ? g_aux[seg[e]] : 0, the cotangent of a second,
+// one-column operand of K1 over the same keys, from the same read of
+// seg[e] (GAT's two cotangents in one launch).
+template <typename T, int VEC, bool AUX>
 __global__ void __launch_bounds__(kThreads)
 segsum_vjp_gather_kernel(T* __restrict__ out, const float* __restrict__ g,
                          const int* __restrict__ seg, long long n_pieces,
-                         int pieces_per_row, int n_segments, int k) {
+                         int pieces_per_row, int n_segments, int k,
+                         T* __restrict__ aux_out,
+                         const float* __restrict__ g_aux) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (i >= n_pieces) return;
   const long long e = i / pieces_per_row;
   const int c = (int)(i - e * pieces_per_row) * VEC;
   const int s = seg[e];
+  const bool live = s >= 0 && s < n_segments;
   float acc[VEC];
-  if (s >= 0 && s < n_segments) {
+  float a[1] = {0.f};
+  if (live) {
     load_f32(acc, g + (int64_t)s * k + c);
+    if (AUX && c == 0) a[0] = __ldg(g_aux + s);  // beside the row's load
   } else {
 #pragma unroll
     for (int j = 0; j < VEC; ++j) acc[j] = 0.f;
   }
   store_piece<T, VEC>(out + e * k + c, acc);
+  if constexpr (AUX) {
+    if (c == 0) store_piece<T, 1>(aux_out + e, a);
+  }
 }
 
 bool aligned(const void* p, uintptr_t bytes) {
@@ -419,25 +672,62 @@ void dispatch(int dtype, int vec, dim3 grid, cudaStream_t s, void* ptr,
   }
 }
 
-// K1's kernel for one mode and gather flag; the layout (wide or narrow,
-// the ``lanes`` of lanes_per_row) is picked at run time. Only one-element
+// K1's kernel for one mode and gather flag (PAIR: the pair kernel, on
+// identity rows of the full kernel); the layout (wide, or narrow at the
+// ``lanes`` of lanes_per_row) is picked at run time. Only one-element
 // lanes can be narrow (pick_vec gives v > 1 only where K / v > 16).
-template <int MODE, bool GATHER>
+template <int MODE, bool GATHER, bool PAIR = false>
 struct LaunchSegsumRows {
+  template <typename T, int VEC, int LANES>
+  static void launch(dim3 grid, cudaStream_t s, const T* x, const int* rows,
+                     const int* offs, int n_segments, int k, int run_rows,
+                     int n_rows, float* out, const void* aux,
+                     float* aux_out) {
+    if constexpr (PAIR) {
+      // run_rows carries the aux blocks; grid.x adds the rows' blocks
+      segsum_pair_kernel<T, VEC, LANES><<<grid, kThreads, 0, s>>>(
+          x, static_cast<const T*>(aux), offs, n_segments, k, run_rows, out,
+          aux_out);
+    } else {
+      segsum_rows_kernel<T, VEC, MODE, GATHER, LANES>
+          <<<grid, kThreads, 0, s>>>(x, rows, offs, n_segments, k, run_rows,
+                                     n_rows, out);
+    }
+  }
+
   template <typename T, int VEC>
   static void run(dim3 grid, cudaStream_t s, T* x, const int* rows,
                   const int* offs, int n_segments, int k, int lanes,
-                  int run_rows, int n_rows, float* out) {
+                  int run_rows, int n_rows, float* out, const void* aux,
+                  float* aux_out) {
     if constexpr (VEC == 1) {
-      if (lanes < kWarp) {
-        segsum_rows_kernel<T, VEC, MODE, GATHER, true>
-            <<<grid, kThreads, 0, s>>>(x, rows, offs, n_segments, k, lanes,
-                                       run_rows, n_rows, out);
-        return;
+      switch (lanes) {
+        case 1:
+          launch<T, 1, 1>(grid, s, x, rows, offs, n_segments, k, run_rows,
+                          n_rows, out, aux, aux_out);
+          return;
+        case 2:
+          launch<T, 1, 2>(grid, s, x, rows, offs, n_segments, k, run_rows,
+                          n_rows, out, aux, aux_out);
+          return;
+        case 4:
+          launch<T, 1, 4>(grid, s, x, rows, offs, n_segments, k, run_rows,
+                          n_rows, out, aux, aux_out);
+          return;
+        case 8:
+          launch<T, 1, 8>(grid, s, x, rows, offs, n_segments, k, run_rows,
+                          n_rows, out, aux, aux_out);
+          return;
+        case 16:
+          launch<T, 1, 16>(grid, s, x, rows, offs, n_segments, k, run_rows,
+                           n_rows, out, aux, aux_out);
+          return;
+        default:
+          break;
       }
     }
-    segsum_rows_kernel<T, VEC, MODE, GATHER, false><<<grid, kThreads, 0, s>>>(
-        x, rows, offs, n_segments, k, kWarp, run_rows, n_rows, out);
+    launch<T, VEC, kWarp>(grid, s, x, rows, offs, n_segments, k, run_rows,
+                          n_rows, out, aux, aux_out);
   }
 };
 
@@ -450,23 +740,28 @@ int lanes_per_row(int k, int vec) {
   return lanes;
 }
 
-// K1's grid: 8 segments per block in x, the column chunks of 32 * VEC
-// in y (one chunk in the narrow layout). (0, 0, 0) if it does not fit.
+// K1's grid: wide rows 8 segments per block in x and the column chunks
+// of 32 * VEC in y; narrow rows 8 x 32 / lanes segments per block, one
+// chunk. (0, 0, 0) if it does not fit.
 dim3 segsum_grid(int n_segments, int k, int vec) {
-  const long long chunks = ((long long)k + kWarp * vec - 1) / (kWarp * vec);
-  if (chunks > 65535) return dim3(0, 0, 0);
-  return dim3((unsigned)(((long long)n_segments + kWarpsPerBlock - 1) /
-                         kWarpsPerBlock),
-              (unsigned)chunks);
+  const int lanes = lanes_per_row(k, vec);
+  const long long per_block = (long long)kWarpsPerBlock * (kWarp / lanes);
+  const long long chunks =
+      lanes < kWarp ? 1 : ((long long)k + kWarp * vec - 1) / (kWarp * vec);
+  const long long blocks = ((long long)n_segments + per_block - 1) / per_block;
+  if (chunks > 65535 || blocks > 2147483647LL) return dim3(0, 0, 0);
+  return dim3((unsigned)blocks, (unsigned)chunks);
 }
 
+template <bool AUX>
 struct LaunchVjpGather {
   template <typename T, int VEC>
   static void run(dim3 grid, cudaStream_t s, T* out, const float* g,
                   const int* seg, long long n_pieces, int pieces_per_row,
-                  int n_segments, int k) {
-    segsum_vjp_gather_kernel<T, VEC><<<grid, kThreads, 0, s>>>(
-        out, g, seg, n_pieces, pieces_per_row, n_segments, k);
+                  int n_segments, int k, void* aux_out, const float* g_aux) {
+    segsum_vjp_gather_kernel<T, VEC, AUX><<<grid, kThreads, 0, s>>>(
+        out, g, seg, n_pieces, pieces_per_row, n_segments, k,
+        static_cast<T*>(aux_out), g_aux);
   }
 };
 
@@ -476,7 +771,7 @@ bool known_dtype(int dtype) { return dtype == kF32 || dtype == kBf16; }
 
 extern "C" {
 
-int desco_segment_sum_abi_version() { return 5; }
+int desco_segment_sum_abi_version() { return 6; }
 
 const char* desco_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
@@ -495,13 +790,43 @@ int desco_sorted_segment_sum(void* x, int dtype, const int* rows,
   const dim3 grid = segsum_grid(n_segments, k, vec);
   if (grid.x == 0) return static_cast<int>(cudaErrorInvalidValue);
   const int lanes = lanes_per_row(k, vec);
+  float* no_aux = nullptr;
   if (rows != nullptr) {
     dispatch<LaunchSegsumRows<kModeFull, true>>(
-        dtype, vec, grid, s, x, rows, offs, n_segments, k, lanes, 0, 0, out);
+        dtype, vec, grid, s, x, rows, offs, n_segments, k, lanes, 0, 0, out,
+        nullptr, no_aux);
   } else {
     dispatch<LaunchSegsumRows<kModeFull, false>>(
-        dtype, vec, grid, s, x, rows, offs, n_segments, k, lanes, 0, 0, out);
+        dtype, vec, grid, s, x, rows, offs, n_segments, k, lanes, 0, 0, out,
+        nullptr, no_aux);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K1 over identity rows with a second, one-column operand: out as
+// desco_sorted_segment_sum over x [E, k], and aux_out [n_segments] f32
+// the sums of aux [E] (``dtype`` too) over the same offsets.
+int desco_sorted_segment_sum_pair(void* x, void* aux, int dtype,
+                                  const int* offs, int n_segments, int k,
+                                  float* out, float* aux_out, void* stream) {
+  if (n_segments <= 0) return 0;
+  if (k <= 0 || !known_dtype(dtype))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int vec = pick_vec(k, dtype == kBf16 ? 2 : 4, x, out);
+  dim3 grid = segsum_grid(n_segments, k, vec);
+  const dim3 aux_grid = segsum_grid(n_segments, 1, 1);
+  if (grid.x == 0 || aux_grid.x == 0 ||
+      (long long)grid.x + aux_grid.x > 2147483647LL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int lanes = lanes_per_row(k, vec);
+  const int aux_blocks = lanes < kWarp ? (int)aux_grid.x : 0;
+  grid.x += aux_blocks;
+  const int* no_rows = nullptr;
+  dispatch<LaunchSegsumRows<kModeFull, false, true>>(
+      dtype, vec, grid, s, x, no_rows, offs, n_segments, k, lanes,
+      aux_blocks, 0, out,
+      static_cast<const void*>(aux), aux_out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -518,8 +843,33 @@ int desco_segment_sum_vjp_gather(const float* g, const int* seg, int n_edges,
   if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((unsigned)blocks);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dispatch<LaunchVjpGather>(dtype, vec, grid, s, out, g, seg, n_pieces, ppr,
-                            n_segments, k);
+  const float* no_aux = nullptr;
+  dispatch<LaunchVjpGather<false>>(dtype, vec, grid, s, out, g, seg,
+                                   n_pieces, ppr, n_segments, k, nullptr,
+                                   no_aux);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The cotangents of desco_sorted_segment_sum_pair's two operands in one
+// launch: out [n_edges, k] as desco_segment_sum_vjp_gather from g, and
+// aux_out [n_edges] (``dtype`` too) from g_aux [n_segments] f32.
+int desco_segment_sum_vjp_gather_pair(const float* g, const float* g_aux,
+                                      const int* seg, int n_edges,
+                                      int n_segments, int k, void* out,
+                                      void* aux_out, int dtype,
+                                      void* stream) {
+  if (n_edges <= 0) return 0;
+  if (k <= 0 || !known_dtype(dtype))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int vec = pick_piece(k, dtype == kBf16 ? 2 : 4, g, out);
+  const int ppr = k / vec;
+  const long long n_pieces = (long long)n_edges * ppr;
+  const long long blocks = (n_pieces + kThreads - 1) / kThreads;
+  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((unsigned)blocks);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  dispatch<LaunchVjpGather<true>>(dtype, vec, grid, s, out, g, seg, n_pieces,
+                                  ppr, n_segments, k, aux_out, g_aux);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -22,10 +22,12 @@ node type on x_neigh + x, eps 0) and GCN (x = x_neigh) aggregate as
 above, so K2 / K3 or the gather-fused K1 run them on the card. GAT and
 PNA aggregate through their own providers (``gat_aggregator``,
 ``pna_aggregator``): the typed transform z = x @ W[t] is a matmul, their
-sums over the (dst, type)-sorted edge stream go through K1
-(``sorted_segment_sum``; its backward is K4) and their segment max / min
-through ``scatter_reduce`` (``ops.segment.segment_max``), as desco_tpu
-leaves those to ``jax.ops``.
+sums over the (dst, type)-sorted edge stream go through K1 (GAT's
+numerator and denominator in one launch, ``sorted_segment_sum_pair``;
+PNA's ``sorted_segment_sum``; the backward is K4), PNA's counts are the
+stream's offsets apart (``segment_counts``), and their segment max / min
+go through ``scatter_reduce`` (``ops.segment.segment_max``), as
+desco_tpu leaves those to ``jax.ops``.
 
 Parameters are ``nn.Module`` trees in desco_tpu's pytree layout
 (models/init.py); the forward is a plain function of (params, config,
@@ -325,8 +327,9 @@ def gat_aggregator(cfg: SHMPConfig, batch: PackedGraphs, att):
     ``gat_aggregator``, shmp_gnn.py:180-231): attention softmax-normalized
     within each (dst, edge-type) segment with a self-loop term, per-type
     outputs summed. fn(x, conv_w, layer) -> [N, K] (f32 for a bf16
-    tower: the softmax sums are K1's f32 sums)."""
-    from ..ops.cuda_segment import segment_offsets, sorted_segment_sum
+    tower: the softmax sums are K1's f32 sums, numerator and denominator
+    in one launch, their cotangents in one K4 launch)."""
+    from ..ops.cuda_segment import segment_offsets, sorted_segment_sum_pair
 
     a_src_all, a_dst_all = att  # [L, T, H] each
     t_n = cfg.n_edge_types
@@ -348,8 +351,8 @@ def gat_aggregator(cfg: SHMPConfig, batch: PackedGraphs, att):
         # terms are dropped by the sums
         p = torch.exp(s_e - segment_pick(m, keys, n_seg))
         z_src = z.reshape(n_seg, -1)[rows]                # [E, K]
-        num = sorted_segment_sum(p[:, None] * z_src, keys, n_seg, offs)
-        den = sorted_segment_sum(p[:, None], keys, n_seg, offs)
+        num, den = sorted_segment_sum_pair(p[:, None] * z_src, p, keys,
+                                           n_seg, offs)
         return gat_softmax_out(num, den, m, s_src, s_dst, z)
     return agg_fn
 
@@ -364,7 +367,7 @@ def segment_pick(table: torch.Tensor, keys: torch.Tensor,
 
 def gat_softmax_out(num, den, m, s_src, s_dst, z) -> torch.Tensor:
     """GAT's output [N, K] from its per-(node, type) softmax sums: num
-    [N*T, K] and den [N*T, 1] the sums of exp(s_e - m) z_src and of
+    [N*T, K] and den [N*T] the sums of exp(s_e - m) z_src and of
     exp(s_e - m) over each segment's edges, m [N*T] the segment maxima
     (0 where empty), s_src / s_dst [T, N] the logits, z [T, N, K] the
     transformed rows. The self-loop candidate is merged into each
@@ -400,13 +403,16 @@ def pna_aggregator(cfg: SHMPConfig, batch: PackedGraphs, mix_w_all):
     (relative variance under about 1e-7), and sqrt's gradient 1 / (2 std)
     with it, so a change of summation order (the card against the CPU)
     moves the gradients by 1e-3 of their scale at eight layers. The mean
-    goes back to the edges through K4 (``sorted_gather``)."""
-    from ..ops.cuda_segment import (segment_offsets, sorted_gather,
-                                    sorted_segment_sum)
+    goes back to the edges through K4 (``sorted_gather``). The counts
+    are the stream's offsets apart (``segment_counts``): desco_tpu's
+    segment-sum of ones, exact, with no launch."""
+    from ..ops.cuda_segment import (segment_counts, segment_offsets,
+                                    sorted_gather, sorted_segment_sum)
 
     t_n = cfg.n_edge_types
     keys, rows = _edge_stream(batch, t_n)
     offs = segment_offsets(keys, batch.n_cap * t_n)
+    cnt = segment_counts(offs)                            # [N*T]
     nmask_f = batch.node_mask.float()
 
     def agg_fn(x, conv_w, layer):
@@ -416,8 +422,6 @@ def pna_aggregator(cfg: SHMPConfig, batch: PackedGraphs, mix_w_all):
         z = torch.matmul(x, conv_w)                       # [T, N, K]
         z_src = z.reshape(n_seg, -1)[rows]                # [E, K]
         z32 = z_src.float()
-        cnt = sorted_segment_sum(z32.new_ones((z32.shape[0], 1)), keys,
-                                 n_seg, offs)[:, 0]
         d = cnt.clamp(min=1.0)[:, None]
         mean = sorted_segment_sum(z32, keys, n_seg, offs) / d
         dev_e = z32 - sorted_gather(mean, keys, n_seg, offs)

@@ -24,13 +24,23 @@ pallas_segment.py:345, shared by the stream's sums; the (dst, type) and
 (src, type) offsets of ``TypedStreams`` for the typed aggregation, derived
 once per batch) and, optionally, the row of x each edge reads. Padding
 keys sort past the last offset and are never visited. One warp owns one
-segment and one chunk of columns (wide rows are split over warps), reads
-its edges in order and sums in f32 registers: every output row is written
-once, with no atomics and a deterministic order. So the typed aggregation
-writes no [E, K] messages, and its backward is neither K4 nor the atomic
-``index_add_`` behind ``index_select``: dx[s] = the sum of the cotangent
-rows g[dst*T + type] over the edges out of s, read in (src, type) order.
-K4: one thread per 16-byte output piece.
+segment and one chunk of columns of a wide row (wide rows are split over
+warps); rows of at most 16 elements give each segment a group of 1-16
+lanes, so a warp sums up to 32 segments (a segment of more edges than
+the warp has lane groups is summed by its whole warp). Wide rows are
+edge-order sums; narrow rows take a fixed fold order (lane groups over
+strided edges, folded as a tree). Either way the sums stay in f32
+registers and are written once, with no atomics, in an order fixed by
+the segment alone. So the typed
+aggregation writes no [E, K] messages, and its backward is neither K4
+nor the atomic ``index_add_`` behind ``index_select``: dx[s] = the sum
+of the cotangent rows g[dst*T + type] over the edges out of s, read in
+(src, type) order.
+K4: one thread per 16-byte output piece. ``sorted_segment_sum_pair``
+sums a one-column operand beside the rows in the same launch (GAT's
+softmax denominator beside its numerator), and its backward writes both
+cotangents in one K4 launch; a count of ones is ``segment_counts`` of the
+offsets, with no launch at all (PNA's degrees).
 
 K2 and K3 (``csrc/typed_aggregate.cu``, redesigned for Hopper) aggregate
 first and transform after: x_neigh = sum_t A_t @ W_t with A[d, t] the sum
@@ -136,9 +146,12 @@ def _load(stem: str, abi_fn: str, abi: int, sigs: dict) -> ctypes.CDLL:
 def library() -> ctypes.CDLL:
     """The loaded K1 / K4 library (built on first use)."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    return _load(STEM, "desco_segment_sum_abi_version", 5, {
+    return _load(STEM, "desco_segment_sum_abi_version", 6, {
         "desco_sorted_segment_sum": [p, i, p, p, i, i, p, p],
-        "desco_segment_sum_vjp_gather": [p, p, i, i, i, p, i, p]})
+        "desco_sorted_segment_sum_pair": [p, p, i, p, i, i, p, p, p],
+        "desco_segment_sum_vjp_gather": [p, p, i, i, i, p, i, p],
+        "desco_segment_sum_vjp_gather_pair": [p, p, p, i, i, i, p, p, i,
+                                              p]})
 
 
 def typed_library() -> ctypes.CDLL:
@@ -304,6 +317,25 @@ def launch_k4(g, seg, n_segments: int, out) -> None:
             _stream(g.device)))
 
 
+def launch_k1_pair(x, aux, offs, n_segments: int, out, aux_out) -> None:
+    """K1 over identity rows with a one-column second operand: out as
+    ``launch_k1`` and aux_out[r] = sum of aux[e] over the same edges."""
+    with torch.cuda.device(x.device):
+        _check(library().desco_sorted_segment_sum_pair(
+            x.data_ptr(), aux.data_ptr(), _DTYPE_CODE[x.dtype],
+            offs.data_ptr(), n_segments, x.shape[1], out.data_ptr(),
+            aux_out.data_ptr(), _stream(x.device)))
+
+
+def launch_k4_pair(g, g_aux, seg, n_segments: int, out, aux_out) -> None:
+    """K4 for both operands of ``launch_k1_pair`` in one launch."""
+    with torch.cuda.device(g.device):
+        _check(library().desco_segment_sum_vjp_gather_pair(
+            g.data_ptr(), g_aux.data_ptr(), seg.data_ptr(), seg.shape[0],
+            n_segments, g.shape[1], out.data_ptr(), aux_out.data_ptr(),
+            _DTYPE_CODE[out.dtype], _stream(g.device)))
+
+
 # ------------------------------------------------------------------- K1
 def sorted_segment_sum_plain(msgs: torch.Tensor, seg: torch.Tensor,
                              n_segments: int) -> torch.Tensor:
@@ -320,6 +352,14 @@ def segment_offsets(seg: torch.Tensor, n_segments: int) -> torch.Tensor:
     bounds = torch.arange(n_segments + 1, dtype=torch.int32,
                           device=seg.device)
     return torch.searchsorted(seg, bounds, out_int32=True)
+
+
+def segment_counts(offs: torch.Tensor) -> torch.Tensor:
+    """[n_segments] f32: the edges of each segment, offs[s + 1] -
+    offs[s] — the segment-sum of a column of ones over the stream
+    (padding and negative keys dropped alike), exact below 2^24, with no
+    launch and no gradient."""
+    return (offs[1:] - offs[:-1]).float()
 
 
 def _sorted_segment_sum_forward(msgs, seg, n_segments, offs):
@@ -462,6 +502,129 @@ def sorted_gather(table: torch.Tensor, seg: torch.Tensor,
     backward is K1 over the same keys (no atomics; ``offs`` as for
     ``sorted_segment_sum``)."""
     return _SortedGather.apply(table, seg, n_segments, offs)
+
+
+# --------------------------------------------- K1 and K4 on an operand pair
+def sorted_segment_sum_pair_plain(msgs: torch.Tensor, aux: torch.Tensor,
+                                  seg: torch.Tensor, n_segments: int):
+    """The pair's plain version: two ``sorted_segment_sum_plain`` calls,
+    (msgs' sums [n_segments, K], aux's sums [n_segments]), f32."""
+    return (sorted_segment_sum_plain(msgs, seg, n_segments),
+            sorted_segment_sum_plain(aux[:, None], seg, n_segments)[:, 0])
+
+
+def _pair_forward(msgs, aux, seg, n_segments, offs):
+    if _on_cpu(msgs, aux, seg):
+        return sorted_segment_sum_pair_plain(msgs, aux, seg, n_segments)
+    _require_cuda(msgs, aux, seg, offs)
+    _require(msgs, "msgs", ROW_DTYPES, 2)
+    _require(aux, "aux", msgs.dtype, 1)
+    _require(seg, "seg", torch.int32, 1)
+    e, k = msgs.shape
+    if seg.shape[0] != e or aux.shape[0] != e:
+        raise ValueError(f"seg has {seg.shape[0]} ids and aux "
+                         f"{aux.shape[0]} rows for {e} message rows")
+    if k == 0:
+        raise ValueError("the pair's messages need at least one column")
+    if not 0 <= n_segments < 2 ** 31 - 1:
+        raise ValueError(f"n_segments={n_segments} out of int32 range")
+    if offs.dtype != torch.int32 or offs.shape != (n_segments + 1,):
+        raise ValueError(f"offs must be the [{n_segments + 1}] int32 "
+                         f"offsets of seg, got {offs.dtype} "
+                         f"{tuple(offs.shape)}")
+    out = torch.empty((n_segments, k), dtype=torch.float32,
+                      device=msgs.device)
+    aux_out = torch.empty(n_segments, dtype=torch.float32,
+                          device=msgs.device)
+    if n_segments:
+        launch_k1_pair(msgs, aux, offs, n_segments, out, aux_out)
+        _count(sorted_segment_sum_pair, msgs.dtype)
+    return out, aux_out
+
+
+class _SortedSegmentSumPair(torch.autograd.Function):
+    """K1 on both operands in one launch; backward K4 on both, one
+    launch."""
+
+    @staticmethod
+    def forward(ctx, msgs, aux, seg, n_segments, offs):
+        ctx.save_for_backward(seg)
+        ctx.n_segments = n_segments
+        ctx.dtype = msgs.dtype
+        return _pair_forward(msgs, aux, seg, n_segments, offs)
+
+    @staticmethod
+    def backward(ctx, g, g_aux):
+        (seg,) = ctx.saved_tensors
+        d, d_aux = segment_sum_vjp_pair(g, g_aux, seg, ctx.n_segments,
+                                        dtype=ctx.dtype)
+        return d, d_aux, None, None, None
+
+
+def sorted_segment_sum_pair(msgs: torch.Tensor, aux: torch.Tensor,
+                            seg: torch.Tensor, n_segments: int,
+                            offs: torch.Tensor):
+    """Two segment-sums over one sorted stream in one K1 launch: (out
+    [n_segments, K] f32, the sums of msgs [E, K]; aux_out [n_segments]
+    f32, the sums of aux [E]), as ``sorted_segment_sum`` computes each
+    (GAT's softmax numerator and denominator). msgs and aux are f32 or
+    both bf16. Differentiable in both: the backward is one K4 launch that
+    writes both cotangents from one read of seg. On the CPU the plain
+    versions (two ``sorted_segment_sum_plain`` calls, two K4 gathers)."""
+    return _SortedSegmentSumPair.apply(msgs, aux, seg, n_segments, offs)
+
+
+sorted_segment_sum_pair.launches = 0
+sorted_segment_sum_pair.launches_bf16 = 0
+
+
+def segment_sum_vjp_pair_plain(g, g_aux, seg, n_segments: int,
+                               dtype: Optional[torch.dtype] = None):
+    """The pair's backward, plainly: two ``segment_sum_vjp_plain``
+    gathers, ([E, K], [E]) in ``dtype`` (default: g's)."""
+    return (segment_sum_vjp_plain(g, seg, n_segments, dtype),
+            segment_sum_vjp_plain(g_aux[:, None], seg, n_segments,
+                                  dtype)[:, 0])
+
+
+def segment_sum_vjp_pair(g: torch.Tensor, g_aux: torch.Tensor,
+                         seg: torch.Tensor, n_segments: int,
+                         dtype: torch.dtype = torch.float32):
+    """The cotangents of ``sorted_segment_sum_pair``'s operands: (d [E, K]
+    with d[e] = g[seg[e]], d_aux [E] with d_aux[e] = g_aux[seg[e]]), 0
+    where seg[e] is outside [0, n_segments), in ``dtype`` (the messages'),
+    from one K4 launch on the card. g [n_segments, K] and g_aux
+    [n_segments] f32 (made contiguous here)."""
+    if dtype not in ROW_DTYPES:
+        raise ValueError(f"the cotangent of K1's messages is f32 or bf16, "
+                         f"not {dtype}")
+    if _on_cpu(g, g_aux, seg):
+        return segment_sum_vjp_pair_plain(g, g_aux, seg, n_segments, dtype)
+    _require_cuda(g, g_aux, seg)
+    g, g_aux = g.contiguous(), g_aux.contiguous()
+    _require(g, "g", torch.float32, 2)
+    _require(g_aux, "g_aux", torch.float32, 1)
+    _require(seg, "seg", torch.int32, 1)
+    if g.shape[0] != n_segments or g_aux.shape[0] != n_segments:
+        raise ValueError(f"g has {g.shape[0]} rows and g_aux "
+                         f"{g_aux.shape[0]} for {n_segments} segments")
+    e, k = seg.shape[0], g.shape[1]
+    if e >= 2 ** 31 - 1 or k == 0:
+        raise ValueError(f"{e} rows of {k} columns: the pair takes fewer "
+                         f"than 2^31 - 1 rows of at least one column")
+    out = torch.empty((e, k), dtype=dtype, device=g.device)
+    aux_out = torch.empty(e, dtype=dtype, device=g.device)
+    if e == 0:
+        return out, aux_out
+    if n_segments == 0:
+        return out.zero_(), aux_out.zero_()
+    launch_k4_pair(g, g_aux, seg, n_segments, out, aux_out)
+    _count(segment_sum_vjp_pair, dtype)
+    return out, aux_out
+
+
+segment_sum_vjp_pair.launches = 0
+segment_sum_vjp_pair.launches_bf16 = 0
 
 
 # ------------------------------------------------------- K2 and K3 streams
@@ -976,7 +1139,8 @@ gather_segment_sum_bwd.launches_bf16 = 0
 # every kernel wrapper of this module, for launch accounting
 KERNELS = (sorted_segment_sum, fused_typed_transform_aggregate,
            typed_aggregate_bwd, segment_sum_vjp, gather_segment_sum,
-           gather_segment_sum_bwd)
+           gather_segment_sum_bwd, sorted_segment_sum_pair,
+           segment_sum_vjp_pair)
 
 
 def reset_launches() -> None:

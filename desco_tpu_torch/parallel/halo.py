@@ -60,12 +60,14 @@ launch each, without an [E, H] message tensor, and its backward is the
 same kernel over the source-sorted stream (no atomics). The pull's send
 gather is the same kernel over the live send slots, so the backward of
 a row sent to several peers sums its cotangents without atomics too.
-GAT's and PNA's sums go through K1 (``sorted_segment_sum`` with the
-shard's offsets, K4 behind it) and PNA's mean back to the edges through
-K4 (``sorted_gather``), as the packed towers do; segment max / min
-through ``ops.segment.segment_max``. CPU tensors take the plain
-versions. The received push partials are written one peer at a time, in
-peer order (a gather, an add and an ``index_copy`` into the shard's
+GAT's and PNA's sums go through K1 with the shard's offsets (GAT's
+numerator and denominator in one launch per stream,
+``sorted_segment_sum_pair``; K4 behind them), PNA's counts are the
+streams' offsets apart (``segment_counts``) and PNA's mean goes back to
+the edges through K4 (``sorted_gather``), as the packed towers do;
+segment max / min through ``ops.segment.segment_max``. CPU tensors take
+the plain versions. The received push partials are written one peer at
+a time, in peer order (a gather, an add and an ``index_copy`` into the shard's
 cells): within one peer the targets are unique, and the dead slots
 (desco_tpu points them out of range and ``.at[].add`` drops them) are
 sent to spill rows past the cells, one per slot, that are cut off. So no
@@ -110,8 +112,10 @@ from ..models.shmp_gnn import (
 from ..ops.cuda_segment import (
     TypedStreams,
     gather_segment_sum,
+    segment_counts,
     sorted_gather,
     sorted_segment_sum,
+    sorted_segment_sum_pair,
     typed_streams,
 )
 from ..ops.segment import graph_pool_sum, segment_max
@@ -957,10 +961,9 @@ def halo_gat_aggregator(cfg: SHMPConfig, shards: list, atts):
             for keys, et, src, tab, offs, s_e in terms:
                 p = torch.exp(s_e - segment_pick(m, keys, n_seg))
                 z_src = z_tab[tab][et, src]               # [E, K]
-                num = num + sorted_segment_sum(p[:, None] * z_src, keys,
-                                               n_seg, offs)
-                den = den + sorted_segment_sum(p[:, None], keys, n_seg,
-                                               offs)
+                num_s, den_s = sorted_segment_sum_pair(
+                    p[:, None] * z_src, p, keys, n_seg, offs)
+                num, den = num + num_s, den + den_s
             out.append(gat_softmax_out(num, den, m, s_src, s_dst, z))
         return out
     return agg_fn
@@ -990,10 +993,7 @@ def halo_pna_aggregator(cfg: SHMPConfig, shards: list, mix_ws):
             for keys, src, tab, offs in _streams(sh):
                 et, _, src = _edge_terms(keys, src, n, t_n)
                 rows.append((keys, offs, z_tab[tab][et, src]))  # [E, K]
-            cnt = sum(sorted_segment_sum(z.new_ones((z.shape[0], 1),
-                                                    dtype=torch.float32),
-                                         k, n_seg, o)
-                      for k, o, z in rows)[:, 0]
+            cnt = sum(segment_counts(o) for _, o, _ in rows)
             d = cnt.clamp(min=1.0)[:, None]
             mean = sum(sorted_segment_sum(z.float(), k, n_seg, o)
                        for k, o, z in rows) / d

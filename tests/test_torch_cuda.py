@@ -540,13 +540,59 @@ def test_gather_segsum_matches_plain_on_gpu(rng, cuda_device, n, t, k, e,
     assert torch.equal(xg.grad, dx)
 
 
+def edge_order_sum(x, rows, offs):
+    """The edge-order f32 sum of x[rows[e]] (rows None: x[e]) over each
+    segment [offs[r], offs[r+1]), in numpy: ((0 + x_0) + x_1) + ..., the
+    order of K1's wide layout (rows of more than 16 elements)."""
+    x = np.asarray(x, np.float32)
+    lo, hi = offs[:-1].astype(np.int64), offs[1:].astype(np.int64)
+    out = np.zeros((len(lo), x.shape[1]), np.float32)
+    for j in range(int((hi - lo).max(initial=0))):
+        m = hi - lo > j
+        e = lo[m] + j
+        out[m] = out[m] + x[e if rows is None else rows[e]]
+    return out
+
+
+def narrow_order_sum(x, rows, offs):
+    """The same sum on rows of K <= 16 elements in the order of K1's
+    narrow layout: with lanes the power of two >= K and G = 32 / lanes,
+    group g takes edges g, g + G, ... of a segment and adds them in order
+    from 0, and the G partials fold as lane l adds lane l ^ off for off =
+    16, 8, ..., lanes."""
+    x = np.asarray(x, np.float32)
+    k = x.shape[1]
+    groups = 32 // (1 << (k - 1).bit_length())
+    lo, hi = offs[:-1].astype(np.int64), offs[1:].astype(np.int64)
+    part = np.zeros((len(lo), groups, k), np.float32)
+    for j in range(int((hi - lo).max(initial=0))):
+        m = np.nonzero(hi - lo > j)[0]
+        e = lo[m] + j
+        part[m, j % groups] = part[m, j % groups] + x[
+            e if rows is None else rows[e]]
+    off = groups // 2
+    while off >= 1:
+        part = part + part[:, np.arange(groups) ^ off]
+        off //= 2
+    return part[:, 0]
+
+
+def k1_order_sum(x, rows, offs):
+    """K1's sum in its layout's order: edge order above 16 elements, the
+    narrow fold order at or below."""
+    order = edge_order_sum if x.shape[1] > 16 else narrow_order_sum
+    return order(x, rows, offs)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [1, 16, 33, 64, 128, 576])
+@pytest.mark.parametrize("k", [1, 3, 16, 33, 64, 128, 576])
 def test_k1_identity_equals_probe_full_and_edge_order(rng, cuda_device, k):
     """K1 on the identity stream (graph pooling) is the probe's ``full``
     variant bit for bit, and for rows of more than 16 elements it is the
     edge-order f32 sum of each element (the order before the column
-    split), so f32 rows give exactly the cumulative sum's differences."""
+    split), so f32 rows give exactly the cumulative sum's differences; at
+    16 elements or fewer it is the sum in the narrow layout's fold order,
+    bit for bit."""
     from desco_tpu_torch.tools import segsum_inner_ablation as probe
 
     msgs, seg = sorted_stream(rng, 300, 3000, k)
@@ -555,17 +601,107 @@ def test_k1_identity_equals_probe_full_and_edge_order(rng, cuda_device, k):
         offs = cs.segment_offsets(s, 300)
         assert torch.equal(cs.sorted_segment_sum(m, s, 300, offs),
                            probe.probe_full(m, s, 300))
-        if k > 16:  # one lane per element: edge order, bit for bit
-            mf = T(msgs).to(cuda_device)
-            out = cs.sorted_segment_sum(mf, s, 300, offs)
-            offs = offs.cpu().numpy()
-            ref = np.zeros((300, k), np.float32)
-            for r in range(300):
-                acc = np.zeros(k, np.float32)
-                for e in range(offs[r], offs[r + 1]):
-                    acc = acc + msgs[e]
-                ref[r] = acc
-            assert torch.equal(out.cpu(), T(ref))
+        mf = T(msgs).to(cuda_device)
+        out = cs.sorted_segment_sum(mf, s, 300, offs)
+    assert torch.equal(out.cpu(), T(k1_order_sum(
+        msgs, None, offs.cpu().numpy())))
+
+
+def narrow_stream(rng, n_seg, e_live, k, n_rows=0):
+    """A sorted stream for the narrow layout: short segments, empty ones,
+    one of 5000 edges and one of 40 (both past the 32 / lanes edges a lane
+    sums alone, so summed by their whole warp), three negative keys first and
+    64 padding keys last; x [E, k] (or [n_rows, k] with random rows, the
+    gather)."""
+    ids = np.sort(np.concatenate([rng.integers(0, n_seg - 100, e_live),
+                                  np.full(5000, n_seg // 7),
+                                  np.full(40, n_seg - 50)]))
+    seg = np.concatenate([np.full(3, -1), ids, np.full(64, 2 ** 30)])
+    x = rng.standard_normal((n_rows or len(seg), k)).astype(np.float32)
+    rows = (rng.integers(0, n_rows, len(seg)).astype(np.int32) if n_rows
+            else None)
+    return x, rows, seg.astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, BF], ids=["f32", "bf16"])
+@pytest.mark.parametrize("gather", [False, True], ids=["identity", "gather"])
+@pytest.mark.parametrize("k", list(range(1, 17)))
+def test_k1_narrow_rows_are_fold_order_sums_on_gpu(rng, cuda_device, k,
+                                                   gather, dtype):
+    """Rows of 1-16 elements (K1's narrow layout, a group of lanes per
+    segment), identity rows and gathered ones: bit for bit the f32 sum of
+    the (up-cast) rows in the layout's fold order, computed on the CPU,
+    whether a segment was summed by its lanes or by its whole warp; equal
+    over two runs; within the plain version's tolerance; empty segments
+    0, negative and padding keys never read."""
+    n_seg = 700
+    x, rows, seg = narrow_stream(rng, n_seg, 3000, k,
+                                 n_rows=500 if gather else 0)
+    xd = T(x).to(cuda_device).to(dtype)
+    sd = T(seg).to(cuda_device)
+    rd = None if rows is None else T(rows).to(cuda_device)
+    with torch.inference_mode():
+        offs = cs.segment_offsets(sd, n_seg)
+        outs = [torch.empty(n_seg, k, device=cuda_device) for _ in range(2)]
+        for out in outs:
+            cs.launch_k1(xd, offs, n_seg, out, rows=rd)
+        if not gather:
+            before = cs.sorted_segment_sum.launches
+            assert torch.equal(cs.sorted_segment_sum(xd, sd, n_seg, offs),
+                               outs[0])
+            assert cs.sorted_segment_sum.launches == before + 1
+        ref = cs.gather_rows_segment_sum_plain(xd, rd, offs, n_seg)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    close(outs[0], ref)
+    o = offs.cpu().numpy()
+    assert torch.equal(outs[0].cpu(), T(narrow_order_sum(
+        xd.float().cpu().numpy(), rows, o)))
+    assert int((o[1:] - o[:-1] == 0).sum()) > 0 and o[0] == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, BF], ids=["f32", "bf16"])
+@pytest.mark.parametrize("k", [1, 3, 16, 33, 64, 128])
+def test_k1_k4_pairs_equal_two_launches_on_gpu(rng, cuda_device, k, dtype):
+    """GAT's operand pair: one K1 launch sums the rows and the one-column
+    operand, bit-equal to K1 on each alone (the same layouts' sums), and
+    one K4 launch writes both cotangents, equal to K4 on each alone;
+    under autograd the backward is that launch. Each pair counts one
+    launch on its own counter; mixed dtypes raise."""
+    n_seg = 700
+    x, _, seg = narrow_stream(rng, n_seg, 3000, k)
+    m = T(x).to(cuda_device).to(dtype)
+    a = T(np.exp(x[:, 0])).to(cuda_device).to(dtype)
+    s = T(seg).to(cuda_device)
+    offs = cs.segment_offsets(s, n_seg)
+    g = torch.randn(n_seg, k, device=cuda_device)
+    g_aux = torch.randn(n_seg, 2, device=cuda_device)[:, 0]  # strided
+    before = (cs.sorted_segment_sum_pair.launches,
+              cs.segment_sum_vjp_pair.launches)
+    with torch.inference_mode():
+        num, den = cs.sorted_segment_sum_pair(m, a, s, n_seg, offs)
+        d, d_aux = cs.segment_sum_vjp_pair(g, g_aux, s, n_seg, dtype)
+        want = (cs.sorted_segment_sum(m, s, n_seg, offs),
+                cs.sorted_segment_sum(a[:, None], s, n_seg, offs)[:, 0],
+                cs.segment_sum_vjp(g, s, n_seg, dtype),
+                cs.segment_sum_vjp(g_aux[:, None].contiguous(), s, n_seg,
+                                   dtype)[:, 0])
+    torch.cuda.synchronize()
+    assert (cs.sorted_segment_sum_pair.launches,
+            cs.segment_sum_vjp_pair.launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    for got, ref in zip((num, den, d, d_aux), want):
+        assert got.dtype == ref.dtype and torch.equal(got, ref)
+    mg, ag = m.clone().requires_grad_(), a.clone().requires_grad_()
+    num2, den2 = cs.sorted_segment_sum_pair(mg, ag, s, n_seg, offs)
+    ((num2 * g).sum() + (den2 * g_aux).sum()).backward()
+    assert cs.segment_sum_vjp_pair.launches == before[1] + 2
+    assert torch.equal(mg.grad, d) and torch.equal(ag.grad, d_aux)
+    other = torch.float32 if dtype == BF else BF
+    with pytest.raises(ValueError):
+        cs.sorted_segment_sum_pair(m, a.to(other), s, n_seg, offs)
 
 
 @pytest.mark.cuda
@@ -627,9 +763,10 @@ def test_conv_towers_on_gpu_match_cpu(rng, cuda_device, conv, order):
     """A target tower of each conv type (and order-4 typing, 33 types) on
     the card against the same on the CPU: output rtol 1e-4 of its scale,
     every parameter's gradient within 1e-4 of its scale (phase 5's
-    bound). GAT and PNA run K1 (2 and 3 sums per layer, and the pooling)
-    and K4 behind them (PNA also one K4 gather per layer, K1 behind it),
-    never K2 or K3; the others K2 and K3."""
+    bound). GAT runs one K1 pair per layer (num and den) and one K4 pair
+    behind it, PNA two K1 sums per layer and K4 behind them, and one K4
+    gather with K1 behind it (its counts are the offsets apart); both pool
+    on K1 with K4 behind, never K2 or K3; the others K2 and K3."""
     import copy
 
     from desco_tpu_torch.models import shmp_gnn as sg
@@ -660,11 +797,17 @@ def test_conv_towers_on_gpu_match_cpu(rng, cuda_device, conv, order):
     for k, want in g_c.items():
         scale = float(want.abs().max())
         assert float((g_g[k] - want).abs().max()) <= 1e-4 * scale, k
-    sums, gathers = {"GAT": (2, 0), "PNA": (3, 1)}.get(conv, (0, 0))
-    if sums:
+    # per layer: K1 sums (PNA: the sum and the squared deviations; its
+    # counts are the offsets apart), K1 pairs (GAT: num and den in one
+    # launch) and K4 gathers (PNA's mean, K1 behind it); K4 behind every
+    # sum and pair, K1 and K4 once more for the pooling
+    sums, pairs, gathers = {"GAT": (0, 1, 0), "PNA": (2, 0, 1)}.get(
+        conv, (0, 0, 0))
+    if sums or pairs:
         assert n["sorted_segment_sum"] == (sums + gathers) * layers + 1
-        # PNA's count of ones has no gradient
-        assert n["segment_sum_vjp"] == (2 + gathers) * layers + 1
+        assert n["segment_sum_vjp"] == (sums + gathers) * layers + 1
+        assert n["sorted_segment_sum_pair"] == pairs * layers
+        assert n["segment_sum_vjp_pair"] == pairs * layers
         assert n["fused_typed_transform_aggregate"] == 0
         assert n["typed_aggregate_bwd"] == 0
     else:
@@ -694,7 +837,8 @@ def test_halo_tower_on_gpu_matches_cpu(rng, cuda_device, conv):
     CPU, output and gradients within 1e-4 of their scale. SAGE sums its
     streams on the gather-fused K1 (forward and backward: sends, interior
     and boundary streams, 3 x 4 launches per layer on this partition),
-    GAT and PNA on K1 with K4 behind; no halo sum on K2."""
+    GAT on one K1 pair per stream and layer with one K4 pair behind, PNA
+    on K1 with K4 behind; no halo sum on K2."""
     import copy
 
     from desco_tpu_torch.models import shmp_gnn as sg
@@ -738,11 +882,12 @@ def test_halo_tower_on_gpu_matches_cpu(rng, cuda_device, conv):
         assert n["gather_segment_sum_bwd"] == layers * per_agg
         assert n["sorted_segment_sum"] == n["segment_sum_vjp"] == 0
     else:
-        sums, grad_sums, gathers = {"GAT": (2, 2, 0), "PNA": (3, 2, 1)}[conv]
+        sums, pairs, gathers = {"GAT": (0, 1, 0), "PNA": (2, 0, 1)}[conv]
         streams = 2 * len(shards)
         assert n["sorted_segment_sum"] == layers * streams * (sums + gathers)
-        assert n["segment_sum_vjp"] == layers * streams * (grad_sums
-                                                           + gathers)
+        assert n["segment_sum_vjp"] == layers * streams * (sums + gathers)
+        assert n["sorted_segment_sum_pair"] == layers * streams * pairs
+        assert n["segment_sum_vjp_pair"] == layers * streams * pairs
         assert n["gather_segment_sum"] == layers * sends
 
 
