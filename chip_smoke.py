@@ -661,6 +661,7 @@ def narrow_order_sum(x, rows, offs):
     and G = 32 / lanes, group g takes edges g, g + G, ... of a segment and
     adds them in order from 0, and the G partials fold as lane l adds
     lane l ^ off for off = 16, 8, ..., lanes."""
+    x = np.asarray(x, np.float32)
     k = x.shape[1]
     groups = 32 // (1 << (k - 1).bit_length())
     lo, hi = offs[:-1].astype(np.int64), offs[1:].astype(np.int64)
@@ -686,8 +687,10 @@ def narrow_edge_cases(torch, cs, rng, dev, dtype) -> None:
     the CPU's f32 sum of the up-cast rows in the layout's fold order
     (``narrow_order_sum``), two runs bit-equal, within the plain version's
     tolerance. Then GAT's operand pair at K =
-    1, 3, 16, 64 and 128: one K1 launch bit-equal to K1 on each operand,
-    one K4 launch equal to K4 on each."""
+    1, 3, 16, 64 and 128: K1's pair (one launch above 16 columns)
+    bit-equal to K1 on each operand and within the tolerance of its plain
+    version, K4's pair (one launch) equal to K4 on each and to its plain
+    version."""
     n_seg = 300
     ids = np.sort(np.concatenate([rng.integers(0, n_seg - 60, 1200),
                                   np.full(4500, 40), np.full(40, 270)]))
@@ -735,12 +738,20 @@ def narrow_edge_cases(torch, cs, rng, dev, dtype) -> None:
                 cs.segment_sum_vjp(g, sd, n_seg, dtype),
                 cs.segment_sum_vjp(g_aux[:, None], sd, n_seg, dtype)[:, 0])
         torch.cuda.synchronize()
+        what = f"K1 / K4 pair {dname(dtype)} K={k}"
         check(all(x.dtype == y.dtype and torch.equal(x, y)
                   for x, y in zip((num, den, d, d_aux), want)),
-              f"K1 / K4 pair {dname(dtype)} K={k}: not equal to the "
-              f"separate launches")
+              f"{what}: not equal to the separate launches")
+        plain = cs.sorted_segment_sum_pair_plain(m, a, sd, n_seg)
+        max_err(torch, num, plain[0], f"{what}: num")
+        max_err(torch, den, plain[1], f"{what}: den")
+        check(all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(
+            (d, d_aux),
+            cs.segment_sum_vjp_pair_plain(g, g_aux, sd, n_seg, dtype))),
+            f"{what}: the cotangents are not the plain version's")
     print(f"K1 / K4 pairs {dname(dtype)} ok: K = 1, 3, 16, 64, 128, equal "
-          f"to K1 and K4 on each operand", flush=True)
+          f"to K1 and K4 on each operand, within the plain versions' "
+          f"tolerance", flush=True)
 
 
 # ------------------------------------------------ phase 2: gather-fused K1
@@ -1179,6 +1190,7 @@ def k4_main(torch, cs, dev, g, seg, dtype, label, timed: dict) -> dict:
     torch.cuda.synchronize()
     ref = cs.segment_sum_vjp_plain(g, seg, n, dtype)
     check(torch.equal(out, ref), f"K4 {dname(dtype)} {label}: not equal")
+    err = float((out.float() - ref.float()).abs().max())
     library_ms = None
     if dtype == torch.float32:
         ids = seg.long().clamp(0, n - 1)
@@ -1194,7 +1206,7 @@ def k4_main(torch, cs, dev, g, seg, dtype, label, timed: dict) -> dict:
         "plain_ms": cuda_ms(
             torch, lambda: cs.segment_sum_vjp_plain(g, seg, n, dtype)),
         "library_ms": library_ms,
-        "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0.0,
+        "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
     }
     print(f"K4 {dname(dtype)} at {label}: g {tuple(g.shape)} -> d "
           f"[{seg.numel()}, {k}]: {json.dumps(row)}", flush=True)
@@ -1223,8 +1235,9 @@ def conv_site_rows(torch, cs, probe, dev, keys, n_seg, offs, gen,
     beyond its kernel); GAT's pair (num [E, 64] and den [E] in one K1
     launch) in turns with K1 on the [E, 64] rows alone; K4 to [E, 64]
     rows, and its pair (both cotangents in one launch) in turns with it.
-    Each is checked: K1 against its plain version, the pairs equal to the
-    separate launches, K4 equal to its plain version."""
+    Each is checked: K1 and its pair against their plain versions (the
+    pair also bit-equal to the separate launches), K4 and its pair equal
+    to their plain versions."""
     rows = {}
     e = keys.shape[0]
     e_live = int(((keys >= 0) & (keys < n_seg)).sum())
@@ -1251,6 +1264,9 @@ def conv_site_rows(torch, cs, probe, dev, keys, n_seg, offs, gen,
           and torch.equal(den, cs.sorted_segment_sum(
               aux[:, None], keys, n_seg, offs)[:, 0]),
           f"K1 pair at the {where} site: not the two sums")
+    plain = cs.sorted_segment_sum_pair_plain(msgs64, aux, keys, n_seg)
+    pair_err = max(max_err(torch, num, plain[0], f"K1 pair num ({where})"),
+                   max_err(torch, den, plain[1], f"K1 pair den ({where})"))
     pair_us, alone_us, turns = turns_us(
         probe, lambda i: cs.launch_k1_pair(msgs64, aux, offs, n_seg, res,
                                            res_aux),
@@ -1266,7 +1282,7 @@ def conv_site_rows(torch, cs, probe, dev, keys, n_seg, offs, gen,
         "plain_ms": cuda_ms(torch, lambda: cs.sorted_segment_sum_pair_plain(
             msgs64, aux, keys, n_seg)),
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-        "max_abs_err": 0.0}
+        "max_abs_err": pair_err}
     print(f"K1 pair at the {where} GAT num + den: msgs [{e}, 64] + [{e}] -> "
           f"{n_seg} segments, equal to the two sums: "
           f"{json.dumps(rows['k1_pair'])}", flush=True)
@@ -1288,6 +1304,12 @@ def conv_site_rows(torch, cs, probe, dev, keys, n_seg, offs, gen,
           and torch.equal(dd_aux, cs.segment_sum_vjp(
               g_aux[:, None], keys, n_seg)[:, 0]),
           f"K4 pair at the {where} site: not the two gathers")
+    plain = cs.segment_sum_vjp_pair_plain(g, g_aux, keys, n_seg)
+    pair_err = max(float((dd - plain[0]).abs().max()),
+                   float((dd_aux - plain[1]).abs().max()))
+    check(torch.equal(dd, plain[0]) and torch.equal(dd_aux, plain[1]),
+          f"K4 pair at the {where} site: not its plain version "
+          f"(max err {pair_err:.3g})")
     b_ms, b_by = bound(n_seg * 65 * 4 + e * 4 + e * 65 * 4, 0)
     rows["k4_pair"] = {
         "ms": pair_us / 1e3, "kernel_only_ms": pair_us / 1e3,
@@ -1298,7 +1320,7 @@ def conv_site_rows(torch, cs, probe, dev, keys, n_seg, offs, gen,
         "plain_ms": cuda_ms(torch, lambda: cs.segment_sum_vjp_pair_plain(
             g, g_aux, keys, n_seg)),
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-        "max_abs_err": 0.0}
+        "max_abs_err": pair_err}
     print(f"K4 pair at the {where} GAT cotangents: g [{n_seg}, 64] + "
           f"[{n_seg}] -> [{e}, 64] + [{e}], equal to the two gathers: "
           f"{json.dumps(rows['k4_pair'])}", flush=True)
@@ -1963,25 +1985,56 @@ def ensemble_part(torch, cs, dev, svc, request, second: str) -> dict:
 def tcp_part(svc, request) -> None:
     """(c) ``python -m desco_tpu_torch.serve --tcp``: one request over a
     localhost socket answers what ``CountingService.count`` answers."""
-    import selectors
     import socket
+    import threading
 
-    port = free_port()
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "desco_tpu_torch.serve", "--neigh_ckpt",
-         R4_NEIGH, "--gossip_ckpt", R4_GOSSIP, "--tcp",
-         f"127.0.0.1:{port}"], cwd=REPO, stderr=subprocess.PIPE, text=True)
-    t0 = time.perf_counter()
+    def start():
+        """(process, port, seconds to listening, or None where another
+        process took the free port before the daemon bound it). A thread
+        reads the daemon's stderr: a buffered readline behind a select
+        can take both of its lines at once and then wait on an empty
+        pipe."""
+        port = free_port()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "desco_tpu_torch.serve", "--neigh_ckpt",
+             R4_NEIGH, "--gossip_ckpt", R4_GOSSIP, "--tcp",
+             f"127.0.0.1:{port}"], cwd=REPO, stderr=subprocess.PIPE,
+            text=True)
+        lines = []
+
+        def read():
+            for line in proc.stderr:
+                lines.append(line)
+
+        reader = threading.Thread(target=read, daemon=True)
+        reader.start()
+        t0 = time.perf_counter()
+        try:
+            while not any("listening on" in ln for ln in list(lines)):
+                if proc.poll() is not None:
+                    reader.join(timeout=10)
+                    seen = "".join(lines)
+                    if "Address already in use" in seen:
+                        return proc, port, None
+                    fail(f"the TCP daemon exited (code {proc.returncode}) "
+                         f"before listening: {seen[-2000:]}")
+                check(time.perf_counter() - t0 < 300,
+                      f"the TCP daemon is not listening after 300 s: "
+                      f"{''.join(lines)[-2000:]}")
+                time.sleep(0.1)
+        except BaseException:
+            proc.kill()
+            raise
+        return proc, port, time.perf_counter() - t0
+
+    for attempt in range(3):
+        proc, port, ready_s = start()
+        if ready_s is not None:
+            break
+        print(f"daemon --tcp: port {port} was taken before the daemon "
+              f"bound it; another port", flush=True)
+    check(ready_s is not None, "the TCP daemon found no free port in 3 tries")
     try:
-        sel = selectors.DefaultSelector()
-        sel.register(proc.stderr, selectors.EVENT_READ)
-        seen = ""
-        while "listening on" not in seen:
-            check(time.perf_counter() - t0 < 300 and proc.poll() is None,
-                  f"the TCP daemon is not listening: {seen[-2000:]}")
-            if sel.select(timeout=5):
-                seen += proc.stderr.readline()
-        ready_s = time.perf_counter() - t0
         req = {"id": 10, "graphs": [{"n": g.n_nodes,
                                      "edges": g.edges.tolist()}
                                     for g in request]}

@@ -221,21 +221,19 @@ constexpr int kLongUnroll = 8;  // rounds of a warp-wide segment in flight
 // amplify (on an H100 the sharded and the packed GAT tower then parted by
 // 6.5e-4 of a gradient's scale on a 20,000-node graph, 2.5e-6 with the
 // tree).
-// A segment of at most G edges (at most SHORT, where that is less) has
-// at most one edge per group, so its owning lane computes that fold
+// A segment of at most G edges has at most one edge per group, so its owning lane computes that fold
 // alone, its rows the groups' partials (empty groups add +0, which
 // changes nothing). A longer segment is summed by its whole warp: the
 // same fold, whichever computes it. After the short ones, each group
 // loads its edges of a round (the warp's loads coalesced, the next round
 // in flight), then the warp folds and the owning group keeps the result.
 // ``block`` is the block's index in this layout.
-template <typename T, int MODE, bool GATHER, int LANES, int SHORT = 32>
+template <typename T, int MODE, bool GATHER, int LANES>
 __device__ __forceinline__ void segsum_narrow(
     const T* __restrict__ x, const int* __restrict__ rows,
     const int* __restrict__ offs, int n_segments, int k, int run,
     int n_rows, float* __restrict__ out, int block) {
   constexpr int kGroups = kWarp / LANES;
-  constexpr int kLane = SHORT < kGroups ? SHORT : kGroups;  // a lane's own
   constexpr int kWords = Lane<T, 1>::kWords;
   const int lane = threadIdx.x % kWarp;
   const long long first =
@@ -263,7 +261,7 @@ __device__ __forceinline__ void segsum_narrow(
   }
   if (!live) lo = hi = 0;
   const int n = hi - lo;
-  const bool is_long = n > kLane;
+  const bool is_long = n > kGroups;
   float acc[1] = {0.f};
   unsigned bits[kWords] = {0u};
   if (col && !is_long) {
@@ -277,25 +275,25 @@ __device__ __forceinline__ void segsum_narrow(
         r[i] = load_raw<T, 1>(x + (int64_t)src * k + c);
       }
     };
-    constexpr int kFirst = kLane < 8 ? kLane : 8;
-    constexpr int kSecond = kLane < 16 ? kLane : 16;
+    constexpr int kFirst = kGroups < 8 ? kGroups : 8;
+    constexpr int kSecond = kGroups < 16 ? kGroups : 16;
 #pragma unroll
     for (int i = 0; i < kGroups; ++i) r[i].w[0] = 0u;
 #pragma unroll
     for (int i = 0; i < kFirst; ++i) load_slot(i);
-    if (kLane > 8 && n > 8) {
+    if (kGroups > 8 && n > 8) {
 #pragma unroll
       for (int i = kFirst; i < kSecond; ++i) load_slot(i);
     }
-    if (kLane > 16 && n > 16) {
+    if (kGroups > 16 && n > 16) {
 #pragma unroll
-      for (int i = kSecond; i < kLane; ++i) load_slot(i);
+      for (int i = kSecond; i < kGroups; ++i) load_slot(i);
     }
     float v[kGroups];
 #pragma unroll
     for (int i = 0; i < kGroups; ++i) {
       float a[1] = {0.f};
-      if (i < kLane && i < n) fold_raw<T, 1, MODE>(a, bits, r[i]);
+      if (i < n) fold_raw<T, 1, MODE>(a, bits, r[i]);
       v[i] = a[0];
     }
     // group 0's side of the fold: v[i] += v[i + s] for s = G / 2 .. 1,
@@ -380,8 +378,8 @@ __device__ __forceinline__ void segsum_narrow(
 // the first add. AUX (identity rows): the one-column ``aux`` [E] over the
 // same edges is summed into aux_out in the narrow layout's order at one
 // column, lane l adding edges l, l + 32, ... (one coalesced load a
-// chunk, issued with the rows'), the lanes folded as a tree at the end:
-// bit-equal to K1 on aux alone.
+// chunk, issued with the rows'), the lanes folded as a tree at the end
+// into lane 0: bit-equal to K1 on aux alone.
 template <typename T, int VEC, int MODE, bool GATHER, bool AUX = false>
 __device__ __forceinline__ void segsum_wide(
     const T* __restrict__ x, const int* __restrict__ rows,
@@ -487,36 +485,17 @@ segsum_rows_kernel(const T* __restrict__ x, const int* __restrict__ rows,
   }
 }
 
-// K1 on an operand pair over one sorted stream, in one launch: the rows
-// x [E, k] in their layout and the one-column ``aux`` [E] in the narrow
-// layout's order at one column, bit-equal to two launches. Wide rows
-// (GAT's numerator beside its denominator) carry aux on their own warps
-// (segsum_wide's AUX): a coalesced load a chunk and a short fold, where a
-// launch of its own would cost a launch. Narrow rows leave aux to the
-// first ``aux_blocks`` blocks (256 segments a block, started first and
-// overlapped with the rows'), whose lanes sum at most 8 edges alone (the
-// rest by the warp: the same fold), so they need no more registers than
-// the rows' warps.
-template <typename T, int VEC, int LANES>
+// K1 on an operand pair over one sorted stream, in one launch: the wide
+// rows x [E, k] (k > 16; GAT's numerator) and the one-column ``aux`` [E]
+// (its denominator), which segsum_wide's AUX sums on the rows' own warps
+// in the narrow layout's order at one column, bit-equal to two launches.
+template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
 segsum_pair_kernel(const T* __restrict__ x, const T* __restrict__ aux,
                    const int* __restrict__ offs, int n_segments, int k,
-                   int aux_blocks, float* __restrict__ out,
-                   float* __restrict__ aux_out) {
-  const int block = (int)blockIdx.x;
-  if constexpr (LANES < kWarp) {
-    if (block < aux_blocks) {
-      segsum_narrow<T, kModeFull, false, 1, 8>(aux, nullptr, offs,
-                                               n_segments, 1, 0, 0, aux_out,
-                                               block);
-    } else {
-      segsum_narrow<T, kModeFull, false, LANES>(
-          x, nullptr, offs, n_segments, k, 0, 0, out, block - aux_blocks);
-    }
-  } else {
-    segsum_wide<T, VEC, kModeFull, false, true>(
-        x, nullptr, offs, n_segments, k, 0, 0, out, block, aux, aux_out);
-  }
+                   float* __restrict__ out, float* __restrict__ aux_out) {
+  segsum_wide<T, VEC, kModeFull, false, true>(
+      x, nullptr, offs, n_segments, k, 0, 0, out, blockIdx.x, aux, aux_out);
 }
 
 // VEC f32 values as one aligned store of VEC elements of T (at most 16
@@ -672,62 +651,62 @@ void dispatch(int dtype, int vec, dim3 grid, cudaStream_t s, void* ptr,
   }
 }
 
-// K1's kernel for one mode and gather flag (PAIR: the pair kernel, on
-// identity rows of the full kernel); the layout (wide, or narrow at the
-// ``lanes`` of lanes_per_row) is picked at run time. Only one-element
-// lanes can be narrow (pick_vec gives v > 1 only where K / v > 16).
-template <int MODE, bool GATHER, bool PAIR = false>
+// K1's kernel for one mode and gather flag; the layout (wide, or narrow
+// at the ``lanes`` of lanes_per_row) is picked at run time. Only
+// one-element lanes can be narrow (pick_vec gives v > 1 only where
+// K / v > 16).
+template <int MODE, bool GATHER>
 struct LaunchSegsumRows {
   template <typename T, int VEC, int LANES>
   static void launch(dim3 grid, cudaStream_t s, const T* x, const int* rows,
                      const int* offs, int n_segments, int k, int run_rows,
-                     int n_rows, float* out, const void* aux,
-                     float* aux_out) {
-    if constexpr (PAIR) {
-      // run_rows carries the aux blocks; grid.x adds the rows' blocks
-      segsum_pair_kernel<T, VEC, LANES><<<grid, kThreads, 0, s>>>(
-          x, static_cast<const T*>(aux), offs, n_segments, k, run_rows, out,
-          aux_out);
-    } else {
-      segsum_rows_kernel<T, VEC, MODE, GATHER, LANES>
-          <<<grid, kThreads, 0, s>>>(x, rows, offs, n_segments, k, run_rows,
-                                     n_rows, out);
-    }
+                     int n_rows, float* out) {
+    segsum_rows_kernel<T, VEC, MODE, GATHER, LANES><<<grid, kThreads, 0, s>>>(
+        x, rows, offs, n_segments, k, run_rows, n_rows, out);
   }
 
   template <typename T, int VEC>
   static void run(dim3 grid, cudaStream_t s, T* x, const int* rows,
                   const int* offs, int n_segments, int k, int lanes,
-                  int run_rows, int n_rows, float* out, const void* aux,
-                  float* aux_out) {
+                  int run_rows, int n_rows, float* out) {
     if constexpr (VEC == 1) {
       switch (lanes) {
         case 1:
           launch<T, 1, 1>(grid, s, x, rows, offs, n_segments, k, run_rows,
-                          n_rows, out, aux, aux_out);
+                          n_rows, out);
           return;
         case 2:
           launch<T, 1, 2>(grid, s, x, rows, offs, n_segments, k, run_rows,
-                          n_rows, out, aux, aux_out);
+                          n_rows, out);
           return;
         case 4:
           launch<T, 1, 4>(grid, s, x, rows, offs, n_segments, k, run_rows,
-                          n_rows, out, aux, aux_out);
+                          n_rows, out);
           return;
         case 8:
           launch<T, 1, 8>(grid, s, x, rows, offs, n_segments, k, run_rows,
-                          n_rows, out, aux, aux_out);
+                          n_rows, out);
           return;
         case 16:
           launch<T, 1, 16>(grid, s, x, rows, offs, n_segments, k, run_rows,
-                           n_rows, out, aux, aux_out);
+                           n_rows, out);
           return;
         default:
           break;
       }
     }
     launch<T, VEC, kWarp>(grid, s, x, rows, offs, n_segments, k, run_rows,
-                          n_rows, out, aux, aux_out);
+                          n_rows, out);
+  }
+};
+
+struct LaunchSegsumPair {
+  template <typename T, int VEC>
+  static void run(dim3 grid, cudaStream_t s, T* x, const void* aux,
+                  const int* offs, int n_segments, int k, float* out,
+                  float* aux_out) {
+    segsum_pair_kernel<T, VEC><<<grid, kThreads, 0, s>>>(
+        x, static_cast<const T*>(aux), offs, n_segments, k, out, aux_out);
   }
 };
 
@@ -790,43 +769,41 @@ int desco_sorted_segment_sum(void* x, int dtype, const int* rows,
   const dim3 grid = segsum_grid(n_segments, k, vec);
   if (grid.x == 0) return static_cast<int>(cudaErrorInvalidValue);
   const int lanes = lanes_per_row(k, vec);
-  float* no_aux = nullptr;
   if (rows != nullptr) {
     dispatch<LaunchSegsumRows<kModeFull, true>>(
-        dtype, vec, grid, s, x, rows, offs, n_segments, k, lanes, 0, 0, out,
-        nullptr, no_aux);
+        dtype, vec, grid, s, x, rows, offs, n_segments, k, lanes, 0, 0, out);
   } else {
     dispatch<LaunchSegsumRows<kModeFull, false>>(
-        dtype, vec, grid, s, x, rows, offs, n_segments, k, lanes, 0, 0, out,
-        nullptr, no_aux);
+        dtype, vec, grid, s, x, rows, offs, n_segments, k, lanes, 0, 0, out);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // K1 over identity rows with a second, one-column operand: out as
 // desco_sorted_segment_sum over x [E, k], and aux_out [n_segments] f32
-// the sums of aux [E] (``dtype`` too) over the same offsets.
+// the sums of aux [E] (``dtype`` too) over the same offsets. Wide rows
+// (k > 16) carry aux in the same launch; narrow ones are K1 on x, then
+// K1 on aux (two launches, the same sums).
 int desco_sorted_segment_sum_pair(void* x, void* aux, int dtype,
                                   const int* offs, int n_segments, int k,
                                   float* out, float* aux_out, void* stream) {
   if (n_segments <= 0) return 0;
   if (k <= 0 || !known_dtype(dtype))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int vec = pick_vec(k, dtype == kBf16 ? 2 : 4, x, out);
-  dim3 grid = segsum_grid(n_segments, k, vec);
-  const dim3 aux_grid = segsum_grid(n_segments, 1, 1);
-  if (grid.x == 0 || aux_grid.x == 0 ||
-      (long long)grid.x + aux_grid.x > 2147483647LL)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int lanes = lanes_per_row(k, vec);
-  const int aux_blocks = lanes < kWarp ? (int)aux_grid.x : 0;
-  grid.x += aux_blocks;
-  const int* no_rows = nullptr;
-  dispatch<LaunchSegsumRows<kModeFull, false, true>>(
-      dtype, vec, grid, s, x, no_rows, offs, n_segments, k, lanes,
-      aux_blocks, 0, out,
-      static_cast<const void*>(aux), aux_out);
+  if (lanes_per_row(k, vec) < kWarp) {
+    const int rc = desco_sorted_segment_sum(x, dtype, nullptr, offs,
+                                            n_segments, k, out, stream);
+    if (rc != 0) return rc;
+    return desco_sorted_segment_sum(aux, dtype, nullptr, offs, n_segments, 1,
+                                    aux_out, stream);
+  }
+  const dim3 grid = segsum_grid(n_segments, k, vec);
+  if (grid.x == 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  dispatch<LaunchSegsumPair>(dtype, vec, grid, s, x,
+                             static_cast<const void*>(aux), offs, n_segments,
+                             k, out, aux_out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -24,7 +24,7 @@
 //
 // This file includes segment_sum.cu, so the first three variants are
 // instantiations of K1's own kernel template (segsum_rows_kernel<T, VEC,
-// MODE, GATHER = false, LANES, AUX = false>) with K1's own load width,
+// MODE, GATHER = false, LANES>) with K1's own load width,
 // grid, layout and column split. It is built into a library
 // of its own; the copies of K1-K4's C functions it carries are not used.
 
@@ -100,22 +100,21 @@ int desco_probe_segsum(void* msgs, const int* offs, int mode, int n_segments,
   if (grid.x == 0) return static_cast<int>(cudaErrorInvalidValue);
   const int lanes = lanes_per_row(k, vec);
   const int* no_rows = nullptr;
-  float* no_aux = nullptr;
   switch (mode) {
     case kModeFull:
       dispatch<LaunchSegsumRows<kModeFull, false>>(
           kBf16, vec, grid, s, msgs, no_rows, offs, n_segments, k, lanes, 0,
-          0, out, nullptr, no_aux);
+          0, out);
       break;
     case kModeNoOffs:
       dispatch<LaunchSegsumRows<kModeNoOffs, false>>(
           kBf16, vec, grid, s, msgs, no_rows, offs, n_segments, k, lanes, run,
-          n_rows, out, nullptr, no_aux);
+          n_rows, out);
       break;
     case kModeNoAcc:
       dispatch<LaunchSegsumRows<kModeNoAcc, false>>(
           kBf16, vec, grid, s, msgs, no_rows, offs, n_segments, k, lanes, run,
-          n_rows, out, nullptr, no_aux);
+          n_rows, out);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -37,9 +37,10 @@ nor the atomic ``index_add_`` behind ``index_select``: dx[s] = the sum
 of the cotangent rows g[dst*T + type] over the edges out of s, read in
 (src, type) order.
 K4: one thread per 16-byte output piece. ``sorted_segment_sum_pair``
-sums a one-column operand beside the rows in the same launch (GAT's
-softmax denominator beside its numerator), and its backward writes both
-cotangents in one K4 launch; a count of ones is ``segment_counts`` of the
+sums a one-column operand beside rows of more than 16 elements in the
+same launch, on the rows' own warps (GAT's softmax denominator beside its
+numerator; at 16 elements or fewer it is K1 on each, two launches), and
+its backward writes both cotangents in one K4 launch; a count of ones is ``segment_counts`` of the
 offsets, with no launch at all (PNA's degrees).
 
 K2 and K3 (``csrc/typed_aggregate.cu``, redesigned for Hopper) aggregate
@@ -319,7 +320,9 @@ def launch_k4(g, seg, n_segments: int, out) -> None:
 
 def launch_k1_pair(x, aux, offs, n_segments: int, out, aux_out) -> None:
     """K1 over identity rows with a one-column second operand: out as
-    ``launch_k1`` and aux_out[r] = sum of aux[e] over the same edges."""
+    ``launch_k1`` and aux_out[r] = sum of aux[e] over the same edges. One
+    launch for rows of more than 16 elements; K1 on each (two launches)
+    at 16 or fewer."""
     with torch.cuda.device(x.device):
         _check(library().desco_sorted_segment_sum_pair(
             x.data_ptr(), aux.data_ptr(), _DTYPE_CODE[x.dtype],
@@ -567,8 +570,9 @@ def sorted_segment_sum_pair(msgs: torch.Tensor, aux: torch.Tensor,
     """Two segment-sums over one sorted stream in one K1 launch: (out
     [n_segments, K] f32, the sums of msgs [E, K]; aux_out [n_segments]
     f32, the sums of aux [E]), as ``sorted_segment_sum`` computes each
-    (GAT's softmax numerator and denominator). msgs and aux are f32 or
-    both bf16. Differentiable in both: the backward is one K4 launch that
+    (GAT's softmax numerator and denominator); at K <= 16 the call makes
+    two K1 launches, counted as one call of the pair. msgs and aux are f32
+    or both bf16. Differentiable in both: the backward is one K4 launch that
     writes both cotangents from one read of seg. On the CPU the plain
     versions (two ``sorted_segment_sum_plain`` calls, two K4 gathers)."""
     return _SortedSegmentSumPair.apply(msgs, aux, seg, n_segments, offs)

@@ -554,32 +554,11 @@ def edge_order_sum(x, rows, offs):
     return out
 
 
-def narrow_order_sum(x, rows, offs):
-    """The same sum on rows of K <= 16 elements in the order of K1's
-    narrow layout: with lanes the power of two >= K and G = 32 / lanes,
-    group g takes edges g, g + G, ... of a segment and adds them in order
-    from 0, and the G partials fold as lane l adds lane l ^ off for off =
-    16, 8, ..., lanes."""
-    x = np.asarray(x, np.float32)
-    k = x.shape[1]
-    groups = 32 // (1 << (k - 1).bit_length())
-    lo, hi = offs[:-1].astype(np.int64), offs[1:].astype(np.int64)
-    part = np.zeros((len(lo), groups, k), np.float32)
-    for j in range(int((hi - lo).max(initial=0))):
-        m = np.nonzero(hi - lo > j)[0]
-        e = lo[m] + j
-        part[m, j % groups] = part[m, j % groups] + x[
-            e if rows is None else rows[e]]
-    off = groups // 2
-    while off >= 1:
-        part = part + part[:, np.arange(groups) ^ off]
-        off //= 2
-    return part[:, 0]
-
-
 def k1_order_sum(x, rows, offs):
     """K1's sum in its layout's order: edge order above 16 elements, the
     narrow fold order at or below."""
+    from chip_smoke import narrow_order_sum
+
     order = edge_order_sum if x.shape[1] > 16 else narrow_order_sum
     return order(x, rows, offs)
 
@@ -656,7 +635,7 @@ def test_k1_narrow_rows_are_fold_order_sums_on_gpu(rng, cuda_device, k,
     assert torch.equal(outs[0], outs[1])
     close(outs[0], ref)
     o = offs.cpu().numpy()
-    assert torch.equal(outs[0].cpu(), T(narrow_order_sum(
+    assert torch.equal(outs[0].cpu(), T(k1_order_sum(
         xd.float().cpu().numpy(), rows, o)))
     assert int((o[1:] - o[:-1] == 0).sum()) > 0 and o[0] == 3
 
@@ -665,8 +644,9 @@ def test_k1_narrow_rows_are_fold_order_sums_on_gpu(rng, cuda_device, k,
 @pytest.mark.parametrize("dtype", [torch.float32, BF], ids=["f32", "bf16"])
 @pytest.mark.parametrize("k", [1, 3, 16, 33, 64, 128])
 def test_k1_k4_pairs_equal_two_launches_on_gpu(rng, cuda_device, k, dtype):
-    """GAT's operand pair: one K1 launch sums the rows and the one-column
-    operand, bit-equal to K1 on each alone (the same layouts' sums), and
+    """GAT's operand pair: one K1 launch (two at K <= 16) sums the rows
+    and the one-column operand, bit-equal to K1 on each alone (the same
+    layouts' sums), and
     one K4 launch writes both cotangents, equal to K4 on each alone;
     under autograd the backward is that launch. Each pair counts one
     launch on its own counter; mixed dtypes raise."""
