@@ -60,14 +60,17 @@ nonzero on a failed check (no phase catches its own failure):
      times per gossip batch and no backward kernel. Counts must be
      finite and >= 0, verified rows must
      equal a VF2 recount, and CUDA must match the port on the CPU
-     (verify_budget=0) within rtol 1e-3 of each count (floored at 1).
+     (verify_budget=0; the request's first 64 graphs) within rtol 1e-3
+     of each count (floored at 1).
      Then the same 256-graph request with ``serve_bf16``: K2 runs 8 times
      per target batch on bf16 rows, counts finite and >= 0, verified rows
      equal the recount, and the raw log2(count + 1) predictions (before
      clamp and verification) stay within BF16_LOG2_ATOL of the f32
      tower's, CUDA bf16 against CUDA f32 on every batch and CUDA bf16
      against CPU bf16 on the first two.
-  4. daemon: ``python -m desco_tpu_torch.serve`` answers two JSON lines.
+  4. daemon: ``python -m desco_tpu_torch.serve`` answers two JSON lines
+     (started before phase 5, collected after it: the two run beside
+     each other).
   5. gradients: ``train_loss`` and ``gossip_loss`` gradients through the
      kernels against the same on the CPU through the plain versions, same
      weights and batch, dropout 0: max error <= 1e-4 of each tensor's
@@ -103,8 +106,9 @@ nonzero on a failed check (no phase catches its own failure):
      saved checkpoint is f32; the loss is finite and has fallen.
   7. entry point: ``python -m desco_tpu_torch.main --train_neigh
      --train_gossip --test_gossip`` in a subprocess on a small SynNp set
-     at paper width; then ``CountingService`` serves one request from the
-     two checkpoints it wrote.
+     at paper width, started before phase 8 and collected after it (the
+     two run beside each other); then ``CountingService`` serves one
+     request from the two checkpoints it wrote.
   8. datasets and the release/r4 replay: ``load_data`` makes Syn_1827,
      Syn_1827_test and the five TU proxies without networkx, each equal
      to desco_tpu's (graph, node and edge counts and the fingerprint of
@@ -207,7 +211,8 @@ nonzero on a failed check (no phase catches its own failure):
      kept), and two same-seed halo train steps (dropout 0.01, Adam)
      bit-equal; ``python -m desco_tpu_torch.serve
      --large_threshold 1000`` answering a 2,000-node graph as
-     ``count_large_graph`` does; (e) every kernel of the path launched,
+     ``count_large_graph`` does (started with the phase, beside (c)-(d));
+     (e) every kernel of the path launched,
      and the gather-fused K1 (forward and backward) on a gossip shard's
      interior, boundary and send streams and the 1-column degrees, K1,
      K4 and their pairs at the halo GAT / PNA sums, checked and timed as
@@ -243,21 +248,24 @@ nonzero on a failed check (no phase catches its own failure):
      ``compute_groundtruth --query_sizes 6`` (112 queries) on
      Syn_1827_test_max15, every count >= 0, every size 6, seven ids
      recounted alone and equal; (c) ``verify_sweep`` of release/r4 on
-     the replay set at budgets 0, 1e-3, 1e-2 (3e-2 cut): rows verified rise,
+     the replay set at budgets 0, 1e-3, 3e-3 (1e-2 and 3e-2 cut): rows
+     verified rise,
      normed MSE falls or stays level, and at r4's budget it is within
      rtol 1e-2 of the stored replay's (tests/data); (d) ``scaling`` at
      its defaults (20,000 nodes, degree 8, 4 layers, hidden 64, metis)
-     for ``er`` and ``comm`` at D = 1, 2, 4 shards on the one card (cut
+     for ``er`` and ``comm`` at D = 1 and 4 shards on the one card (cut
      from 1, 2, 4, 8), D = 4 within 1e-4 of max|out| of D = 1; (e)
-     ``large_graph_serving --nodes 20000 --devices 4``, a fresh service;
-     (f) ``runtime``, (g) ``dataset_statistics --sample 1000`` with
+     ``large_graph_serving --nodes 8000 --devices 4`` (cut from 20,000:
+     phase 13 serves that one), a fresh service; (f) ``runtime``, (g)
+     ``dataset_statistics --sample 300`` (cut from 2,000) with
      release/r4's embeddings and t-SNE on the card (CSV, ``.npy`` and
      SVG written, KL finite) and (h) ``downstream_task`` and
      ``complexity_analysis``, all on Syn_64. Launches zeroed before and
      read after each tool: K1, the gather-fused K1 (K1' on scaling's
      halo streams) and K2 launched, no backward kernel.
- 16. the compiled steps (run before the record), on the phase-6 training
-     set from the same weights and seed: (a) a read-back under the guard
+ 16. the compiled steps (run before the record; phase 18 (b)'s torchrun
+     ``main`` runs beside it), on the phase-6 training set from the same
+     weights and seed: (a) a read-back under the guard
      the graphed loops run under (``set_sync_debug_mode("error")``)
      raises; (b) 2 neighborhood epochs in f32 and with ``train_bf16``,
      and 3 at a learning rate of 1e-9 with patience 0 (a plateau decay
@@ -285,8 +293,9 @@ nonzero on a failed check (no phase catches its own failure):
      phase already serves, predicts, benches and trains the baselines
      through them, as the port does by default), each against
      ``graphed=False`` on the card: (a) phase 3's 256-graph request
-     through phase 3's service (its second, warm request timed) and an
-     eager service with the same buckets: counts, verified rows and every
+     through a fresh graphed service (twice, the second request timed)
+     and a fresh eager one (once), both with phase 3's buckets: counts,
+     verified rows and every
      field equal to phase 3's result, launches equal, the stage ms both
      ways (tools/serving_profile.stage_clock), the service's compiled
      forwards and the bytes of their memory pool; every target batch's
@@ -296,30 +305,31 @@ nonzero on a failed check (no phase catches its own failure):
      order); (b) a ``serve_bf16`` request of 32 graphs, a two-member
      ensemble request and phase 10's labeled request (784 queries) both
      ways; (c) D = 2 DP serving on the one
-     card both ways; (d) ``count_large_graph`` on phase 13's 20,000-node
+     card both ways; (d) ``count_large_graph`` on phase 18's 8,000-node
      graph, fresh services both ways, the halo serve's capture and gossip
      seconds; (e) ``bench.main`` both ways in this process (forward and
      train-step ms, launches per forward equal); (f) one epoch of the
      DIAMNet driver both ways, its printed losses and figures equal.
      Results are bit-equal both ways except counts of 2^24 and more that
      a bound over 2^24 clamped (rtol 1e-6; the count of such entries is
-     printed); about 90 s.
+     printed); about 80-100 s.
  18. data parallelism across processes (run before the record): two
      ranks of a gloo process group on the one card (this script with
      ``--dist_rank``, started by ``file://`` rendezvous, every child
      killed past its timeout): (a) each rank runs the D = 2 DP steps of
-     both stages (paper config, phase 6's batches, three groups, the
+     both stages (paper config, phase 6's batches, two groups, the
      gossip's at its dropout), eager and graphed (its part and the sum
      with Adam as two CUDA graphs, the gather between them), both DP
      predicts (phase 6's models, 8 batches each) and phase 14's 2 x 2 DP
-     x halo step (four calls each way); every result on both ranks, and
+     x halo step (two calls each way); every result on both ranks, and
      the D = 2 DP steps graphed in this process, bit-equal to the eager
      D = 2 in this process (its predicts and DP x halo step run eager
      alone); each rank's launches printed, K1, K1', K2, K3 and K4
      launched on both; the step ms of both ways and the gather's ms; (b) ``python -m torch.distributed.run --standalone
      --nproc_per_node 2 -m desco_tpu_torch.main --n_devices 2
-     --train_neigh --train_gossip --test_gossip`` at the paper width, 2
-     epochs per stage on SynNp_32_3 (test SynNp_16_4): exit 0, the mesh
+     --train_neigh --train_gossip --test_gossip`` at the paper width, 1
+     epoch per stage on SynNp_32_3 (test SynNp_16_4), started before
+     phase 16 and run beside phases 16-17: exit 0, the mesh
      line printed once (rank 0), one set of checkpoints, finite normed
      MSE; (c) the halo graph axis across the same two ranks, after (a):
      r4's 2-layer gossip train step (29 queries) on phase 14's
@@ -357,9 +367,11 @@ nonzero on a failed check (no phase catches its own failure):
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import copy
 import dataclasses
+import faulthandler
 import io
 import json
 import os
@@ -368,6 +380,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from typing import Optional
 
@@ -448,16 +461,23 @@ BASELINE_RTOL = {"DIAMNET": 1e-3, "LRP": 5e-2}
 
 # the seconds of every phase of this run, in order (``phase_done``)
 T_START = time.perf_counter()
+# a run still going this many seconds in prints every thread's stack to
+# stderr (and goes on): the run must end within 1200 s
+STACKS_AFTER_S = 1000
 PHASE_S: dict = {}
 _PHASE_MARK = [T_START]
 
 
 def phase_done(name: str) -> None:
-    """Print and keep the seconds since the previous phase ended."""
+    """Print and keep the seconds since the previous phase ended, on
+    stdout and, with the run's seconds so far, on stderr: a run stopped
+    from outside still shows there how far it came."""
     now = time.perf_counter()
     PHASE_S[name] = now - _PHASE_MARK[0]
     _PHASE_MARK[0] = now
     print(f"phase {name} ended after {PHASE_S[name]:.1f} s", flush=True)
+    print(f"chip_smoke: phase {name} ended after {PHASE_S[name]:.1f} s, "
+          f"{now - T_START:.1f} s into the run", file=sys.stderr, flush=True)
 
 
 def fail(msg: str) -> None:
@@ -492,6 +512,63 @@ def run_teed(fn, argv) -> tuple:
         rc = fn(argv)
     sys.stdout.flush()
     return rc, buf.getvalue()
+
+
+# processes started to run beside later phases (``start_beside``); one
+# not yet collected when the run exits is killed with its process group
+_BESIDE: list = []
+
+
+def start_beside(cmd, stdin: str = "") -> dict:
+    """Start ``cmd`` from the repository root in a session of its own,
+    ``stdin`` as its input and its output into files, to run beside the
+    phases that follow; ``collect`` waits for it."""
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    with tempfile.TemporaryFile("w+") as inp:
+        inp.write(stdin)
+        inp.seek(0)
+        proc = subprocess.Popen(cmd, cwd=REPO, stdin=inp, stdout=out,
+                                stderr=err, text=True,
+                                start_new_session=True)
+    _BESIDE.append(proc)
+    job = dict(proc=proc, out=out, err=err, t0=time.perf_counter())
+
+    def note_end():
+        proc.wait()
+        job["t1"] = time.perf_counter()
+
+    job["waiter"] = threading.Thread(target=note_end, daemon=True)
+    job["waiter"].start()
+    return job
+
+
+def collect(job: dict, timeout: float, what: str) -> tuple:
+    """(stdout, stderr, seconds from its start to its exit) of a process
+    from ``start_beside``; fails unless it exits 0 within ``timeout`` s
+    of now."""
+    proc = job["proc"]
+    job["waiter"].join(timeout=timeout)
+    if job["waiter"].is_alive():
+        fail(f"{what} did not finish within {timeout:.0f} s")
+    seconds = job["t1"] - job["t0"]
+    texts = []
+    for f in (job["out"], job["err"]):
+        f.seek(0)
+        texts.append(f.read())
+        f.close()
+    check(proc.returncode == 0, f"{what} exited {proc.returncode}:\n"
+          f"{texts[0][-3000:]}\n{texts[1][-3000:]}")
+    return texts[0], texts[1], seconds
+
+
+@atexit.register
+def _stop_beside() -> None:
+    import signal
+
+    for proc in _BESIDE:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait(timeout=30)
 
 
 def timing_of(text: str, name: str) -> float:
@@ -2421,6 +2498,17 @@ def halo_phase(torch, cs, probe, dev, seed: int, svc) -> dict:
           f"degree {HALO_DEGREE}, seed {HALO_GRAPH_SEED}); {HALO_SHARDS} "
           f"shards on {torch.cuda.device_count()} card(s)", flush=True)
     halo_launches = {k: 0 for k in cs.read_launches()}
+    # the daemon's --large_threshold over stdio, beside (c)-(d)
+    g2 = ba_graph(Graph, DAEMON_LARGE_NODES, HALO_DEGREE, HALO_GRAPH_SEED)
+    reqs = [{"id": 1, "graphs": [{"n": g2.n_nodes,
+                                  "edges": g2.edges.tolist()}]},
+            {"id": 2, "graphs": [{"n": 4, "edges": [[0, 1], [1, 2],
+                                                    [2, 3]]}]}]
+    daemon_job = start_beside(
+        [sys.executable, "-m", "desco_tpu_torch.serve", "--neigh_ckpt",
+         R4_NEIGH, "--gossip_ckpt", R4_GOSSIP, "--large_threshold",
+         str(DAEMON_THRESHOLD)],
+        "".join(json.dumps(r) + "\n" for r in reqs) + "quit\n")
 
     def add(got):
         for key, v in got.items():
@@ -2701,22 +2789,10 @@ def halo_phase(torch, cs, probe, dev, seed: int, svc) -> dict:
           f"(loss, gradients, parameters)", flush=True)
     del tb_dev, grads, steps
 
-    # the daemon's --large_threshold over stdio
-    g2 = ba_graph(Graph, DAEMON_LARGE_NODES, HALO_DEGREE, HALO_GRAPH_SEED)
-    reqs = [{"id": 1, "graphs": [{"n": g2.n_nodes,
-                                  "edges": g2.edges.tolist()}]},
-            {"id": 2, "graphs": [{"n": 4, "edges": [[0, 1], [1, 2],
-                                                    [2, 3]]}]}]
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "desco_tpu_torch.serve", "--neigh_ckpt",
-         R4_NEIGH, "--gossip_ckpt", R4_GOSSIP, "--large_threshold",
-         str(DAEMON_THRESHOLD)],
-        input="".join(json.dumps(r) + "\n" for r in reqs) + "quit\n",
-        capture_output=True, text=True, timeout=600, cwd=REPO)
-    check(proc.returncode == 0,
-          f"daemon exited {proc.returncode}: {proc.stderr[-2000:]}")
-    replies = [json.loads(line) for line in proc.stdout.splitlines()
+    # the daemon's --large_threshold over stdio, started with the phase
+    daemon_out, _, daemon_s = collect(daemon_job, 600,
+                                      "the --large_threshold daemon")
+    replies = [json.loads(line) for line in daemon_out.splitlines()
                if line.strip()]
     check([r.get("id") for r in replies] == [1, 2]
           and all("error" not in r for r in replies),
@@ -2728,8 +2804,8 @@ def halo_phase(torch, cs, probe, dev, seed: int, svc) -> dict:
           "the daemon's large-graph reply differs from count_large_graph")
     print(f"daemon --large_threshold {DAEMON_THRESHOLD}: a "
           f"{DAEMON_LARGE_NODES}-node graph served by count_large_graph and "
-          f"a 4-node one by count in {time.perf_counter() - t0:.1f} s "
-          f"(process start included)", flush=True)
+          f"a 4-node one by count in {daemon_s:.1f} s (process start "
+          f"included; the phase's parts (c)-(d) ran beside it)", flush=True)
 
     # (e) the halo use sites of the kernels, timed
     sites = {}
@@ -3246,9 +3322,14 @@ def dp_phase(torch, cs, dev, seed: int, svc, main_req, res_main,
 
 
 # ------------------------------------------------------- phase 15: tools
-# the verify budgets of desco_tpu's analysis/verify_sweep.py, its last
-# (3e-2, the slowest) cut: r4's budget is 1e-3
-VERIFY_BUDGETS = (0.0, 1e-3, 1e-2)
+# the verify budgets of desco_tpu's analysis/verify_sweep.py, its two
+# slowest (1e-2, 3e-2) cut to 3e-3: r4's budget is 1e-3
+VERIFY_BUDGETS = (0.0, 1e-3, 3e-3)
+# the cut scales of phase 15: scaling's shard counts, large_graph_serving's
+# nodes and dataset_statistics' neighborhoods
+SCALING_DEVICES = (1, 4)
+LARGE_TOOL_NODES = 8000
+STATS_SAMPLE = 300
 # seven size-6 atlas ids from 77-208 (the star, a path-like tree, cycles
 # with chords, K6), each recounted alone by the per-query truth
 GT_RECOUNT = (77, 100, 130, 150, 180, 200, 208)
@@ -3387,7 +3468,7 @@ def tools_phase(torch, cs, card: str, gen_root: str,
     sc = {}
     for kind in ("er", "comm"):
         sc[kind] = tool_run(f"scaling {kind}", scaling,
-                            ["--graph", kind, "--devices", 1, 2, 4])
+                            ["--graph", kind, "--devices", *SCALING_DEVICES])
         o1, o4 = sc[kind]["out"][1], sc[kind]["out"][4]
         err = float(np.abs(o4 - o1).max() / np.abs(o1).max())
         check(err <= 1e-4, f"scaling {kind}: D = 4 vs D = 1 {err:.2e} of "
@@ -3402,7 +3483,7 @@ def tools_phase(torch, cs, card: str, gen_root: str,
 
     # (e) large_graph_serving with a fresh service
     lg = tool_run("large_graph_serving", large_graph_serving,
-                  ["--nodes", 20000, "--devices", 4])
+                  ["--nodes", LARGE_TOOL_NODES, "--devices", 4])
     check(np.isfinite(lg["result"].node_counts).all(),
           "large_graph_serving: counts not finite")
     print(f"large_graph_serving on {card}: {lg['nodes']} nodes, wall "
@@ -3420,8 +3501,8 @@ def tools_phase(torch, cs, card: str, gen_root: str,
           f"edges, {rt['graphs']} graphs)", flush=True)
     out_dir = os.path.join(work.name, "stats")
     st = tool_run("dataset_statistics", dataset_statistics, [
-        "--datasets", "Syn_64", "--sample", 1000, "--checkpoint", R4_NEIGH,
-        "--data_root", syn_root, "--out", out_dir])
+        "--datasets", "Syn_64", "--sample", STATS_SAMPLE, "--checkpoint",
+        R4_NEIGH, "--data_root", syn_root, "--out", out_dir])
     for tag in ("neighborhood_features", "trained_embeddings"):
         check(np.isfinite(st[tag]["kl"]), f"dataset_statistics: t-SNE of "
                                           f"{tag} KL not finite")
@@ -3844,10 +3925,10 @@ def compiled_serving_phase(torch, cs, dev, seed: int, svc, main_req,
                            work_dir: str) -> dict:
     """Phase 17: the compiled serving forwards against the eager ones on
     the card. (a) phase 3's 256-graph request through a fresh graphed
-    service and a fresh eager one, both with phase 3's buckets, twice
-    each in the order graphed, eager, eager, graphed: every result
-    bit-equal to phase 3's, and the second request of each service (both
-    warm, the graphed one's captures made by its first) timed per stage;
+    service and a fresh eager one, both with phase 3's buckets, in the
+    order graphed, eager, graphed: every result bit-equal to phase 3's,
+    the graphed service's second request (its captures made by its
+    first) and the eager one's request timed per stage;
     the device stages' difference is the change's effect, the rest of the
     wall (host VF2 above all) no graph touches; the forwards' pool; every
     target batch's bounds through
@@ -3855,9 +3936,9 @@ def compiled_serving_phase(torch, cs, dev, seed: int, svc, main_req,
     2^24, rtol 1e-6 above); (b) a ``serve_bf16`` request, a two-member
     ensemble request and phase 10's labeled request (784 queries) both
     ways; (c) D = 2 DP serving
-    both ways; (d) ``count_large_graph`` on phase 13's 20,000-node graph,
-    fresh services both ways, the halo serve's capture and replay
-    seconds; (e) the bench both ways in this process; (f) one epoch of
+    both ways; (d) ``count_large_graph`` on phase 18's 8,000-node graph
+    (phase 13 serves the 20,000-node one), fresh services both ways, the
+    halo serve's capture and replay seconds; (e) the bench both ways in this process; (f) one epoch of
     the DIAMNet driver both ways. Launches equal both ways throughout."""
     from desco_tpu_torch import baseline as base_mod
     from desco_tpu_torch import bench as bench_mod
@@ -3880,13 +3961,13 @@ def compiled_serving_phase(torch, cs, dev, seed: int, svc, main_req,
                                                phase3_buckets)
         return s
 
-    # (a) the 256-graph request: a fresh service each way, two requests
-    # each (graphed, eager, eager, graphed); the second of each is timed,
-    # both services then warm (the graphed one's captures made by its
-    # first request)
+    # (a) the 256-graph request: a fresh service each way (graphed, eager,
+    # graphed); the graphed one's second request is timed, its captures
+    # made by its first, and the eager one's only request, in a process
+    # that phase 3 warmed
     services = {"graphed": service(True), "eager": service(False)}
     ways, captured = {}, []
-    for name in ("graphed", "eager", "eager", "graphed"):
+    for name in ("graphed", "eager", "graphed"):
         cs.reset_launches()
         with stage_clock(torch) as stages:
             t0 = time.perf_counter()
@@ -3904,7 +3985,8 @@ def compiled_serving_phase(torch, cs, dev, seed: int, svc, main_req,
           f"the graphed service's second request captured "
           f"{captured[1] - captured[0]} forwards again")
     for name, (res, wall, stages, _) in ways.items():
-        print(f"256-graph request {name} (second request): "
+        print(f"256-graph request {name} "
+              f"({'second' if name == 'graphed' else 'first'} request): "
               f"{wall * 1e3:.1f} ms; stage ms "
               f"{json.dumps({k: round(v * 1e3, 2) for k, v in stages.items()})}"
               f"; {len(res.verified_rows)} verified rows", flush=True)
@@ -3987,8 +4069,9 @@ def compiled_serving_phase(torch, cs, dev, seed: int, svc, main_req,
     both_ways(torch, cs, lambda g: service(g, n_devices=2).count(
         main_req[:64]), "D = 2 DP serving, 64 graphs")
 
-    # (d) count_large_graph on the 20,000-node graph, fresh services
-    big_g = ba_graph(Graph, HALO_NODES, HALO_DEGREE, HALO_GRAPH_SEED)
+    # (d) count_large_graph on phase 18's third graph, fresh services
+    big_g = ba_graph(Graph, DIST_GRID_THIRD[0], HALO_DEGREE,
+                     DIST_GRID_THIRD[1])
     large_stats = {}
 
     def large(graphed):
@@ -3997,7 +4080,7 @@ def compiled_serving_phase(torch, cs, dev, seed: int, svc, main_req,
         st = large_stats[graphed] = {}
         return s.count_large_graph(big_g, n_devices=HALO_SHARDS, stats=st)
 
-    lg = both_ways(torch, cs, large, f"count_large_graph ({HALO_NODES} "
+    lg = both_ways(torch, cs, large, f"count_large_graph ({big_g.n_nodes} "
                    f"nodes, {HALO_SHARDS} shards)")
     check(large_stats[True]["graphed"] and not large_stats[False]["graphed"],
           "the halo serve did not run graphed / eager as asked")
@@ -4184,7 +4267,7 @@ def dist_workload(torch, job, dev, reference: bool = False):
         best, tgt_cfg, q_embs, job["pred_tbs"], mesh, graphed=not reference)
     out["predict_gossip"] = dp.dp_predict_gossip_counts(
         gbest, q_embs, job["pred_gbs"], mesh, graphed=not reference)
-    # the 2 x 2 DP x halo step, four calls each way
+    # the 2 x 2 DP x halo step, two calls each way
     grid = topology.make_mesh2d(2, 2, devices=[dev])
     replicas = topology.place_replicas(
         topology.stack_partitions(job["parts"]), grid)
@@ -4195,7 +4278,7 @@ def dist_workload(torch, job, dev, reference: bool = False):
         step = topology.dp_halo_gossip_step_fn(opt, dropout=job["dropout"],
                                                graphed=graphed)
         calls, ms = [], []
-        for seed in range(4):
+        for seed in range(2):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             loss, ok = step(params, replicas, hq, 1e-3, seed=seed)
@@ -4651,19 +4734,21 @@ def dist_halo_job(seed: int, grid_specs: list, query_ids, shmp_cfg) -> dict:
 
 def dist_phase(torch, cs, dev, seed: int, tcfg, qb, train_stage, gbatches,
                best, gbest, q_embs, grid_parts, grid_specs, halo_gossip,
-               halo_q, shmp_cfg, shmp_params) -> dict:
+               halo_q, shmp_cfg, shmp_params, torchrun_job: dict,
+               torchrun_dir: str) -> dict:
     """Phase 18: data parallelism across processes, two ranks of a gloo
     group on the one card. (a) Each rank (``chip_smoke.py --dist_rank``)
     runs the D = 2 DP steps of both stages (paper config, phase 6's
-    batches, three groups; the gossip's at its dropout), eager and
-    graphed, both DP predicts and phase 14's 2 x 2 DP x halo step (four
+    batches, two groups; the gossip's at its dropout), eager and
+    graphed, both DP predicts and phase 14's 2 x 2 DP x halo step (two
     calls each way): every result bit-equal on both ranks, graphed to
     eager and to the same D = 2 in this process (eager; the in-process
     graphed steps timed beside). Each rank's launches are printed; K1, K1',
     K2, K3 and K4 must have launched on both. (b) ``python -m
     torch.distributed.run --nproc_per_node 2 -m desco_tpu_torch.main
     --n_devices 2 --train_neigh --train_gossip --test_gossip`` at the
-    paper width, 1 epoch per stage: exit 0, one set of checkpoints,
+    paper width, 1 epoch per stage (started before phase 16, collected
+    here): exit 0, one set of checkpoints,
     finite normed MSE. (c) The halo graph axis across the ranks
     (``dist_halo_workload``, the same ranks): r4's gossip train step on
     phase 14's 12,000-node graph in 4 shards, 2 per rank (two calls at
@@ -4690,7 +4775,7 @@ def dist_phase(torch, cs, dev, seed: int, tcfg, qb, train_stage, gbatches,
     halo_prep_s = time.perf_counter() - t0
     job = dict(
         init_method=f"file://{os.path.join(work.name, 'rendezvous')}",
-        out_dir=work.name, tcfg=tcfg, qb=qb, n_steps=3,
+        out_dir=work.name, tcfg=tcfg, qb=qb, n_steps=2,
         tbs=list(train_stage.batches[:6]), gbs=list(gbatches[:6]),
         pred_tbs=list(train_stage.batches[:8]), pred_gbs=list(gbatches[:8]),
         neigh=host(p_neigh), gossip=host(p_gossip), best=host(best),
@@ -4774,24 +4859,15 @@ def dist_phase(torch, cs, dev, seed: int, tcfg, qb, train_stage, gbatches,
         for name in PATH_KERNELS + ("gather_segment_sum_bwd",):
             check(res["launches"][name] > 0,
                   f"phase 18: {name} never launched on rank {r}")
-    # (b) main under torchrun, rank 0 writing
-    t0 = time.perf_counter()
-    [(out, err)] = run_children([[
-        sys.executable, "-m", "torch.distributed.run", "--standalone",
-        "--nproc_per_node", str(DIST_WORLD), "-m", "desco_tpu_torch.main",
-        "--n_devices", str(DIST_WORLD), "--train_neigh", "--train_gossip",
-        "--test_gossip", *DIST_MAIN_FLAGS,
-        "--data_root", os.path.join(work.name, "data"),
-        "--output_dir", os.path.join(work.name, "out"),
-        "--neigh_model_path", os.path.join(work.name, "ck", "neigh"),
-        "--gossip_model_path", os.path.join(work.name, "ck", "gossip")]],
-        DIST_JOIN_TIMEOUT_S)
-    main_s = time.perf_counter() - t0
+    # (b) main under torchrun, rank 0 writing: started before phase 16,
+    # collected here
+    out, _, main_s = collect(torchrun_job, DIST_JOIN_TIMEOUT_S,
+                             "torchrun main")
     mesh_line = (f"data-parallel mesh: {DIST_WORLD} devices over "
                  f"{DIST_WORLD} processes (backend gloo)")
     check(out.count(mesh_line) == 1, f"torchrun main printed no "
           f"'{mesh_line}' once:\n{out[-3000:]}")
-    ckpts = sorted(os.listdir(os.path.join(work.name, "ck")))
+    ckpts = sorted(os.listdir(os.path.join(torchrun_dir, "ck")))
     check(ckpts == sorted(f"{s}.{x}" for s in ("gossip", "neigh")
                           for x in ("best.params.npz", "best.json",
                                     "last.params.npz", "last.opt.npz",
@@ -4801,8 +4877,9 @@ def dist_phase(torch, cs, dev, seed: int, tcfg, qb, train_stage, gbatches,
     check(len(mse) == 3, f"torchrun main: normed MSE not finite: "
           f"{out[-2000:]}")
     print(f"torchrun main (2 ranks on the one card, paper width, "
-          f"{' '.join(DIST_MAIN_FLAGS)}): exit 0 in {main_s:.1f} s, "
-          f"checkpoints {ckpts}, gossip normed MSE {mse}", flush=True)
+          f"{' '.join(DIST_MAIN_FLAGS)}): exit 0 in {main_s:.1f} s (started "
+          f"before phase 16, which ran beside it), checkpoints {ckpts}, "
+          f"gossip normed MSE {mse}", flush=True)
     work.cleanup()
     took = time.perf_counter() - t18
     print(f"phase 18 (data parallelism across processes) launches (both "
@@ -4865,6 +4942,7 @@ def main() -> int:
     args = ap.parse_args()
     if args.dist_rank is not None:
         return dist_rank_main(args)
+    faulthandler.dump_traceback_later(STACKS_AFTER_S, exit=False)
 
     import torch
 
@@ -5104,16 +5182,22 @@ def main() -> int:
     close_counts(res_main2.neighborhood_counts, res_main.neighborhood_counts,
                  "repeat vs first 256-graph request")
 
-    # verified rows equal an independent VF2 recount
+    # verified rows equal an independent VF2 recount (a row's recount is
+    # kept: both requests below verify mostly the same rows)
+    recounted = {}
+
     def check_verified(res, what: str) -> None:
         rows = res.verified_rows
         check(len(rows) > 0, f"{what}: no neighborhood was verified")
-        idx = main_stage.nindex.index[rows]
+        new = [int(r) for r in rows if int(r) not in recounted]
+        idx = np.asarray(main_stage.nindex.index)[new]
         nbs = [canonical_neighborhood(main_req[int(g)], int(v),
                                       svc.cfg.depth) for g, v in idx]
         recount = truth_native.parallel_canonical_counts(
             [nb.graph for nb in nbs], pipeline_queries(svc.cfg))
-        exact = np.stack([c[nb.canonical] for nb, c in zip(nbs, recount)])
+        for r, nb, c in zip(new, nbs, recount):
+            recounted[r] = c[nb.canonical]
+        exact = np.stack([recounted[int(r)] for r in rows])
         got = res.neighborhood_counts[rows]
         check(np.array_equal(got, exact.astype(got.dtype)),
               f"{what}: verified rows differ from the VF2 recount")
@@ -5127,23 +5211,25 @@ def main() -> int:
         print(f"serving {name}: {sec * 1e3:.1f} ms, "
               f"{n_g / sec:.1f} graphs/s", flush=True)
 
-    # CUDA vs the port on the CPU, without the top-k recount
+    # CUDA vs the port on the CPU, without the top-k recount, on the
+    # request's first 64 graphs (the CPU's side costs a second per 16)
     over = {"verify_budget": 0.0}
     svc_gpu = CountingService(R4_NEIGH, R4_GOSSIP, config_overrides=over,
                               device="cuda")
     svc_cpu = CountingService(R4_NEIGH, R4_GOSSIP, config_overrides=over,
                               device="cpu")
-    r_gpu = svc_gpu.count(main_req)
+    cpu_req = main_req[:64]
+    r_gpu = svc_gpu.count(cpu_req)
     t0 = time.perf_counter()
-    r_cpu = svc_cpu.count(main_req)
+    r_cpu = svc_cpu.count(cpu_req)
     cpu_s = time.perf_counter() - t0
     d_neigh = close_counts(r_gpu.neighborhood_counts, r_cpu.neighborhood_counts,
                            "CUDA vs CPU neighborhood counts")
     d_node = close_counts(r_gpu.node_counts, r_cpu.node_counts,
                           "CUDA vs CPU node counts")
-    print(f"CUDA vs CPU (verify_budget=0): neighborhood counts max rel "
-          f"{d_neigh:.3g}, node counts max rel {d_node:.3g} (CPU request "
-          f"{cpu_s:.1f} s)", flush=True)
+    print(f"CUDA vs CPU (verify_budget=0, {len(cpu_req)} graphs): "
+          f"neighborhood counts max rel {d_neigh:.3g}, node counts max rel "
+          f"{d_node:.3g} (CPU request {cpu_s:.1f} s)", flush=True)
 
     # the same request on the bf16 target tower
     svc_bf = CountingService(R4_NEIGH, R4_GOSSIP, device="cuda",
@@ -5212,6 +5298,7 @@ def main() -> int:
 
     phase_done("3 (serving)")
     # --------------------------------------------------------- 4. daemon
+    # (started here, collected after phase 5, which runs beside it)
     reqs = [
         {"id": 1, "graphs": [{"n": g.n_nodes, "edges": g.edges.tolist()}
                              for g in main_req[:3]]},
@@ -5219,34 +5306,9 @@ def main() -> int:
                              for g in main_req[3:8]], "node_counts": True},
     ]
     stdin = "".join(json.dumps(r) + "\n" for r in reqs) + "quit\n"
-    t0 = time.perf_counter()
-    proc = subprocess.run(
+    daemon_job = start_beside(
         [sys.executable, "-m", "desco_tpu_torch.serve",
-         "--neigh_ckpt", R4_NEIGH, "--gossip_ckpt", R4_GOSSIP],
-        input=stdin, capture_output=True, text=True, timeout=600, cwd=REPO)
-    check(proc.returncode == 0,
-          f"daemon exited {proc.returncode}: {proc.stderr[-2000:]}")
-    replies = [json.loads(line) for line in proc.stdout.splitlines()
-               if line.strip()]
-    check([r.get("id") for r in replies] == [1, 2],
-          f"daemon replies {[r.get('id') for r in replies]}")
-    for req, rep in zip(reqs, replies):
-        check("error" not in rep, f"daemon error: {rep.get('error')}")
-        got = np.asarray(rep["graphlet_counts"])
-        n_g = len(req["graphs"])
-        check(got.shape == (n_g, 29) and np.isfinite(got).all()
-              and (got >= 0).all(), f"daemon reply {rep['id']} malformed")
-        want = svc.count([Graph(g["n"], np.asarray(g["edges"], np.int32))
-                          for g in req["graphs"]]).graphlet_counts
-        check(np.all(np.abs(got - want) <= np.maximum(1.0, 1e-3 * want)),
-              f"daemon reply {rep['id']} differs from the in-process "
-              f"service")
-    check(len(replies[1].get("node_counts", [])) ==
-          sum(g["n"] for g in reqs[1]["graphs"]), "daemon node_counts")
-    print(f"daemon: 2 requests answered in {time.perf_counter() - t0:.1f} s "
-          f"(process start and model load included)", flush=True)
-
-    phase_done("4 (daemon)")
+         "--neigh_ckpt", R4_NEIGH, "--gossip_ckpt", R4_GOSSIP], stdin)
     # ------------------------------------------------------ 5. gradients
     tgt_cfg, qry_cfg = model_configs(tcfg, dev)
     check(tgt_cfg.agg_mode == "kernel" and (
@@ -5358,7 +5420,30 @@ def main() -> int:
           flush=True)
     del tb0_dev, qb_dev, step_grads
 
-    phase_done("5 (gradients)")
+    phase_done("5 (gradients; the daemon beside it)")
+    # ------------------------------------------ 4. the daemon, collected
+    daemon_out, _, daemon_s = collect(daemon_job, 600, "the daemon")
+    replies = [json.loads(line) for line in daemon_out.splitlines()
+               if line.strip()]
+    check([r.get("id") for r in replies] == [1, 2],
+          f"daemon replies {[r.get('id') for r in replies]}")
+    for req, rep in zip(reqs, replies):
+        check("error" not in rep, f"daemon error: {rep.get('error')}")
+        got = np.asarray(rep["graphlet_counts"])
+        n_g = len(req["graphs"])
+        check(got.shape == (n_g, 29) and np.isfinite(got).all()
+              and (got >= 0).all(), f"daemon reply {rep['id']} malformed")
+        want = svc.count([Graph(g["n"], np.asarray(g["edges"], np.int32))
+                          for g in req["graphs"]]).graphlet_counts
+        check(np.all(np.abs(got - want) <= np.maximum(1.0, 1e-3 * want)),
+              f"daemon reply {rep['id']} differs from the in-process "
+              f"service")
+    check(len(replies[1].get("node_counts", [])) ==
+          sum(g["n"] for g in reqs[1]["graphs"]), "daemon node_counts")
+    print(f"daemon: 2 requests answered in {daemon_s:.1f} s (process start "
+          f"and model load included; phase 5 ran beside it)", flush=True)
+
+    phase_done("4 (daemon)")
     # ------------------------------------------- 6. training, full width
     cs.reset_launches()
     n_b = len(train_stage.batches)
@@ -5527,6 +5612,7 @@ def main() -> int:
 
     phase_done("6 (training)")
     # --------------------------------------------------- 7. entry point
+    # (started here, collected after phase 8, which runs beside it)
     cli_dir = os.path.join(workdir.name, "cli")
     cmd = [sys.executable, "-m", "desco_tpu_torch.main", "--train_neigh",
            "--train_gossip", "--test_gossip",
@@ -5537,42 +5623,8 @@ def main() -> int:
            "--output_dir", os.path.join(cli_dir, "out"),
            "--neigh_model_path", os.path.join(cli_dir, "neigh"),
            "--gossip_model_path", os.path.join(cli_dir, "gossip")]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900,
-                          cwd=REPO)
-    check(proc.returncode == 0, f"python -m desco_tpu_torch.main exited "
-          f"{proc.returncode}: {proc.stderr[-3000:]}")
-    metric_lines = [ln for ln in proc.stdout.splitlines()
-                    if ln.startswith("graphlet_")]
-    check(len(metric_lines) == 4 and "done" in proc.stdout,
-          f"entry point printed no metrics: {proc.stdout[-2000:]}")
-    check("(device cuda)" in proc.stdout,
-          "the entry point did not default to the CUDA device")
-    for stem in ("neigh", "gossip"):
-        check(os.path.exists(os.path.join(
-            cli_dir, stem + ".best.params.npz")),
-            f"entry point wrote no {stem}.best checkpoint")
-    print(f"entry point: python -m desco_tpu_torch.main trained and "
-          f"evaluated in {time.perf_counter() - t0:.1f} s (process start "
-          f"and kernel load included); {metric_lines[-2]}", flush=True)
-    svc_new = CountingService(os.path.join(cli_dir, "neigh.best"),
-                              os.path.join(cli_dir, "gossip.best"),
-                              device="cuda")
-    check(svc_new.tgt_cfg.agg_mode == "kernel"
-          and svc_new.cfg.neigh_hidden_dim == 64,
-          "the service did not rehydrate the trained config")
-    check_counts(svc_new.count(main_req[:16]), 16,
-                 "request served from the trained checkpoints")
-    print("service: one 16-graph request served on the card from the two "
-          "checkpoints the entry point wrote", flush=True)
-    # phase 10's second ensemble member: this checkpoint of r4's config
-    keep_dir = tempfile.TemporaryDirectory(prefix="desco_smoke_keep_")
-    for ext in (".params.npz", ".json"):
-        shutil.copy(os.path.join(cli_dir, "neigh.best" + ext), keep_dir.name)
-    second_member = os.path.join(keep_dir.name, "neigh.best")
-    workdir.cleanup()
+    cli_job = start_beside(cmd)
 
-    phase_done("7 (entry point)")
     # ------------------------------------- 8. datasets and the r4 replay
     from desco_tpu_torch import gen_dataset as gen_mod
     from desco_tpu_torch import main as main_mod
@@ -5694,7 +5746,42 @@ def main() -> int:
           f"{timing_of(replay_out, 'stage-1 predict+verify')} s, gossip "
           f"predict {timing_of(replay_out, 'gossip predict')} s", flush=True)
 
-    phase_done("8 (datasets, replay)")
+    phase_done("8 (datasets, replay; the entry point beside it)")
+    # ------------------------------------- 7. the entry point, collected
+    cli_out, _, cli_s = collect(cli_job, 900,
+                                "python -m desco_tpu_torch.main")
+    metric_lines = [ln for ln in cli_out.splitlines()
+                    if ln.startswith("graphlet_")]
+    check(len(metric_lines) == 4 and "done" in cli_out,
+          f"entry point printed no metrics: {cli_out[-2000:]}")
+    check("(device cuda)" in cli_out,
+          "the entry point did not default to the CUDA device")
+    for stem in ("neigh", "gossip"):
+        check(os.path.exists(os.path.join(
+            cli_dir, stem + ".best.params.npz")),
+            f"entry point wrote no {stem}.best checkpoint")
+    print(f"entry point: python -m desco_tpu_torch.main trained and "
+          f"evaluated in {cli_s:.1f} s (process start and kernel load "
+          f"included; phase 8 ran beside it); {metric_lines[-2]}",
+          flush=True)
+    svc_new = CountingService(os.path.join(cli_dir, "neigh.best"),
+                              os.path.join(cli_dir, "gossip.best"),
+                              device="cuda")
+    check(svc_new.tgt_cfg.agg_mode == "kernel"
+          and svc_new.cfg.neigh_hidden_dim == 64,
+          "the service did not rehydrate the trained config")
+    check_counts(svc_new.count(main_req[:16]), 16,
+                 "request served from the trained checkpoints")
+    print("service: one 16-graph request served on the card from the two "
+          "checkpoints the entry point wrote", flush=True)
+    # phase 10's second ensemble member: this checkpoint of r4's config
+    keep_dir = tempfile.TemporaryDirectory(prefix="desco_smoke_keep_")
+    for ext in (".params.npz", ".json"):
+        shutil.copy(os.path.join(cli_dir, "neigh.best" + ext), keep_dir.name)
+    second_member = os.path.join(keep_dir.name, "neigh.best")
+    workdir.cleanup()
+
+    phase_done("7 (entry point)")
     # ---------------------------------------------------- 9. ablations
     abl = ablation_phase(torch, cs, probe, dev, args.seed, gen_root,
                          replay_root, data_dir.name, main_stage.batches[0])
@@ -5771,6 +5858,18 @@ def main() -> int:
     tools = tools_phase(torch, cs, card, gen_root, replay_root)
 
     phase_done("15 (tools)")
+    # phase 18 (b)'s torchrun main, started here to run beside phase 16
+    torchrun_dir = tempfile.TemporaryDirectory(prefix="desco_smoke_trun_")
+    torchrun_job = start_beside([
+        sys.executable, "-m", "torch.distributed.run", "--standalone",
+        "--nproc_per_node", str(DIST_WORLD), "-m", "desco_tpu_torch.main",
+        "--n_devices", str(DIST_WORLD), "--train_neigh", "--train_gossip",
+        "--test_gossip", *DIST_MAIN_FLAGS,
+        "--data_root", os.path.join(torchrun_dir.name, "data"),
+        "--output_dir", os.path.join(torchrun_dir.name, "out"),
+        "--neigh_model_path", os.path.join(torchrun_dir.name, "ck", "neigh"),
+        "--gossip_model_path", os.path.join(torchrun_dir.name, "ck",
+                                            "gossip")])
     # ---------------------------------------------- 16. compiled steps
     with tempfile.TemporaryDirectory(prefix="desco_smoke_g16_") as g16_dir:
         graphed_phase(torch, cs, dev, tcfg, train_stage, qb, gbatches,
@@ -5791,7 +5890,9 @@ def main() -> int:
                       gbatches, best, gres.best_params, q_embs,
                       dpr.pop("grid_parts"), dpr.pop("grid_specs"),
                       svc.gossip_params, svc.member_embs[0], svc.tgt_cfg,
-                      svc.members[0]["target"])
+                      svc.members[0]["target"], torchrun_job,
+                      torchrun_dir.name)
+    torchrun_dir.cleanup()
 
     phase_done("18 (across processes)")
     # ----------------------------------------------------- 12. the record
@@ -5950,6 +6051,7 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+    faulthandler.cancel_dump_traceback_later()
     return 0
 
 
