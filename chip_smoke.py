@@ -297,7 +297,7 @@ nonzero on a failed check (no phase catches its own failure):
      and a fresh eager one (once), both with phase 3's buckets: counts,
      verified rows and every
      field equal to phase 3's result, launches equal, the stage ms both
-     ways (tools/serving_profile.stage_clock), the service's compiled
+     ways (the tracer's spans, utils/trace.py), the service's compiled
      forwards and the bytes of their memory pool; every target batch's
      bounds through the compiled ``_batch_bounds`` (one capture, replays
      under the guard) against the eager ones: bit-equal where under
@@ -3919,6 +3919,52 @@ def both_ways(torch, cs, run, what: str) -> dict:
     return out
 
 
+# phase 17's stages of a request by the tracer's spans (utils/trace.py)
+# that make them up; each device stage ends in a read-back to the host,
+# so its device work finishes inside its spans
+SERVING_STAGES = {
+    "prepare (host)": ("request.prepare",),
+    "neighborhood forward": ("stage1.stage", "stage1.replay",
+                             "stage1.readback"),
+    "bounds": ("bounds.host", "bounds.stage", "bounds.replay",
+               "bounds.readback"),
+    "verify (VF2)": ("verify",),
+    "gossip packing (host)": ("gossip.pack",),
+    "gossip forward": ("gossip.stage", "gossip.replay", "gossip.readback"),
+    "guards": ("guards",)}
+
+
+def traced_stages(fn):
+    """(``fn()``, its wall seconds, {stage: seconds}): each stage of
+    ``SERVING_STAGES`` the summed length of its spans, a span inside
+    another stage's span counted under that one only. The tracer is on
+    around ``fn`` and is turned on and drained outside the clock."""
+    from desco_tpu_torch.utils import trace
+
+    trace.drain()
+    trace.enable()
+    try:
+        t0 = time.perf_counter()
+        out = fn()
+        wall = time.perf_counter() - t0
+    finally:
+        trace.disable()
+    spans, _ = trace.drain()
+    stage_of = {name: stage for stage, names in SERVING_STAGES.items()
+                for name in names}
+    by_id = {sp.id: sp for sp in spans}
+    stages = dict.fromkeys(SERVING_STAGES, 0.0)
+    for sp in spans:
+        if sp.name not in stage_of:
+            continue
+        up = by_id.get(sp.parent)
+        while up is not None and up.name not in stage_of:
+            up = by_id.get(up.parent)
+        if up is None:
+            stages[stage_of[sp.name]] += (sp.t1 - sp.t0) / 1e9
+    return out, wall, stages
+
+
 def compiled_serving_phase(torch, cs, dev, seed: int, svc, main_req,
                            res_main, main_stage, phase3_buckets,
                            gen_root: str, replay_root: str,
@@ -3946,7 +3992,6 @@ def compiled_serving_phase(torch, cs, dev, seed: int, svc, main_req,
     from desco_tpu_torch.graph import Graph
     from desco_tpu_torch.pipeline import pipeline_queries
     from desco_tpu_torch.serving import CountingService
-    from desco_tpu_torch.tools.serving_profile import stage_clock
     from desco_tpu_torch.utils.cuda_graphs import ForwardCache, no_sync
     from desco_tpu_torch.truth.bounds import (_batch_bounds,
                                               _hashable_schedules)
@@ -3969,10 +4014,8 @@ def compiled_serving_phase(torch, cs, dev, seed: int, svc, main_req,
     ways, captured = {}, []
     for name in ("graphed", "eager", "graphed"):
         cs.reset_launches()
-        with stage_clock(torch) as stages:
-            t0 = time.perf_counter()
-            res = services[name].count(main_req)
-            wall = time.perf_counter() - t0
+        res, wall, stages = traced_stages(
+            lambda: services[name].count(main_req))
         same_result(res, res_main, f"256-graph request {name} vs phase 3")
         ways[name] = (res, wall, dict(stages), cs.read_launches())
         if name == "graphed":
@@ -4299,6 +4342,39 @@ DIST_HALO_SHARDS = 4
 DIST_GRID_THIRD = (8000, 5)
 
 
+def timed_replay(torch, compiled, fn):
+    """(``fn()``, its ms between two synchronizes, and for a compiled
+    step or forward the ms of the collectives its chain replayed in the
+    call, else None): the ``step.collective`` spans (utils/trace.py) of
+    ``compiled.held["step"]`` outside its capture, whose warm-up runs
+    them too. The tracer is on only for a compiled one, and is turned on
+    and drained outside the clock."""
+    from desco_tpu_torch.utils import trace
+
+    held = getattr(compiled, "held", None)
+    if held is not None:
+        trace.drain()
+        trace.enable()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        if held is not None:
+            trace.disable()
+    if held is None:
+        return out, ms, None
+    spans, _ = trace.drain()
+    step = id(held["step"])
+    captures = [(s.t0, s.t1) for s in spans if s.name == "graph.capture"]
+    ns = sum(s.t1 - s.t0 for s in spans if s.name == "step.collective"
+             and s.info.get("step") == step
+             and not any(a <= s.t0 and s.t1 <= b for a, b in captures))
+    return out, ms, ns / 1e6
+
+
 def timed_calls(torch, step, opt, params, place, q, seeds) -> dict:
     """Calls of a placed train step: per call the loss, the flag, the
     reduced gradient, the parameters and Adam's moments (numpy), the ms
@@ -4307,14 +4383,11 @@ def timed_calls(torch, step, opt, params, place, q, seeds) -> dict:
     calls, ms, exchange_ms = [], [], []
     held = getattr(step, "held", None)
     for seed in seeds:
-        before = held["step"].collective_s if held else 0.0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss, ok = step(params, place, q, 1e-3, seed=seed)
-        torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t0) * 1e3)
+        (loss, ok), call_ms, coll_ms = timed_replay(
+            torch, step, lambda: step(params, place, q, 1e-3, seed=seed))
+        ms.append(call_ms)
         if held:
-            exchange_ms.append((held["step"].collective_s - before) * 1e3)
+            exchange_ms.append(coll_ms)
         calls.append([float(loss), bool(ok)] + [
             t.cpu().numpy().copy()
             for t in (opt.grad, opt.flat, opt.mu, opt.nu)])
@@ -4461,15 +4534,12 @@ def dist_halo_workload(torch, job, dev, reference: bool = False) -> dict:
         ms, calls, exchange_ms = [], [], []
         with torch.inference_mode():
             for _ in range(2):
-                before = held["step"].collective_s if held else 0.0
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                embs = fwd(tparams, rows)[0]
-                torch.cuda.synchronize()
-                ms.append((time.perf_counter() - t0) * 1e3)
+                out, call_ms, coll_ms = timed_replay(
+                    torch, fwd, lambda: fwd(tparams, rows))
+                embs = out[0]
+                ms.append(call_ms)
                 if held:
-                    exchange_ms.append(
-                        (held["step"].collective_s - before) * 1e3)
+                    exchange_ms.append(coll_ms)
                 calls.append([None if e is None else e.cpu().numpy()
                               for e in embs])
         res = {"calls": calls, "ms": ms}

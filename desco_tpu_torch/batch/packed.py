@@ -26,6 +26,8 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
+from ..utils import trace
+
 # Padded edges carry this sentinel type (and dst = the pad node, the
 # largest slot): their combined segment id ``dst * T + type`` then sorts
 # after every real edge AND falls outside ``n_types * N`` (requires
@@ -79,9 +81,13 @@ class PackedGraphs:
         import torch
 
         drop = () if training else ("y", "node_y", "edge_bwd_perm")
-        out = {name: torch.as_tensor(np.ascontiguousarray(v)).to(device)
-               for name, v in self.fields() if name not in drop}
-        return PackedGraphs(**out)
+        host = {name: np.ascontiguousarray(v)
+                for name, v in self.fields() if name not in drop}
+        # the counter h2d_bytes: the host arrays copied to the device
+        if trace.enabled():
+            trace.add("h2d_bytes", sum(v.nbytes for v in host.values()))
+        return PackedGraphs(**{name: torch.as_tensor(v).to(device)
+                               for name, v in host.items()})
 
     def __getitem__(self, i) -> "PackedGraphs":
         """Batch ``i`` of a stacked batch (see ``stack_batches``)."""

@@ -67,7 +67,7 @@ import numpy as np
 import torch
 
 from ..batch.packed import PackedGraphs, stack_batches
-from ..utils import distributed
+from ..utils import distributed, trace
 from ..utils.cuda_graphs import ForwardCache, GraphedStep
 from ..utils.device import resolve_device
 from .halo import shard_devices
@@ -180,7 +180,9 @@ def place_batches(batches: Sequence[PackedGraphs], mesh: DataMesh,
     if remote:
         here = mesh.devices[mesh.local[0]]
         masks = torch.from_numpy(np.stack(
-            [np.asarray(batches[i].graph_mask) for i in remote])).to(here)
+            [np.asarray(batches[i].graph_mask) for i in remote]))
+        trace.add("h2d_bytes", masks.nbytes)
+        masks = masks.to(here)
         for j, i in enumerate(remote):
             out[i] = RemoteBatch(masks[j])
     return out
@@ -420,9 +422,15 @@ def stage_batches_for_dp(batches: List[PackedGraphs],
                          mesh)
 
 
+# the spans of each predict's stages: the batches' copy to the card, each
+# compiled forward's call, stacking and reading the predictions back
+STAGE1_SPANS = ("stage1.stage", "stage1.replay", "stage1.readback")
+GOSSIP_SPANS = ("gossip.stage", "gossip.replay", "gossip.readback")
+
+
 def _dp_predict(make_forward: Callable, params, query_embs: torch.Tensor,
                 batches: List[PackedGraphs], mesh: DataMesh,
-                mask_field: str, staged, graphed: bool, cache):
+                mask_field: str, staged, graphed: bool, cache, spans):
     from ..train.loop import _valid_rows
 
     home = query_embs.device
@@ -430,7 +438,8 @@ def _dp_predict(make_forward: Callable, params, query_embs: torch.Tensor,
         cache = ForwardCache()
     with torch.inference_mode():
         if staged is None:
-            staged = stage_batches_for_dp(batches, mesh)
+            with trace.span(spans[0]):
+                staged = stage_batches_for_dp(batches, mesh)
         # a cache keeps its replicas' copies: its graphs read their storage
         if cache is not None and cache.replicas is None:
             cache.replicas = ReplicaParams()
@@ -441,18 +450,22 @@ def _dp_predict(make_forward: Callable, params, query_embs: torch.Tensor,
         forwards = [make_forward(p, graphed, cache) for p in reps]
         embs = {dev: query_embs.to(dev) for dev in devs}
         # replica d runs the batches d, d + D, ... (the pad batches too)
-        per = []
+        outs = []
         for fwd, d, dev in zip(forwards, local, devs):
-            per.append(torch.stack([
-                fwd(staged[i], embs[dev])
-                for i in range(d, len(staged), mesh.size)]).to(home))
-        shape = per[0].shape  # [batches per replica, rows, Q]
-        every = distributed.gather_in_rank_order(
-            torch.stack([p.reshape(-1) for p in per]), device="cpu"
-        ).reshape((mesh.size,) + tuple(shape))
-        stitched = torch.stack([every[i % mesh.size, i // mesh.size]
-                                for i in range(len(batches))])
-        return _valid_rows(batches, stitched, mask_field)
+            mine = []
+            for i in range(d, len(staged), mesh.size):
+                with trace.span(spans[1]):
+                    mine.append(fwd(staged[i], embs[dev]))
+            outs.append(mine)
+        with trace.span(spans[2]):
+            per = [torch.stack(mine).to(home) for mine in outs]
+            shape = per[0].shape  # [batches per replica, rows, Q]
+            every = distributed.gather_in_rank_order(
+                torch.stack([p.reshape(-1) for p in per]), device="cpu"
+            ).reshape((mesh.size,) + tuple(shape))
+            stitched = torch.stack([every[i % mesh.size, i // mesh.size]
+                                    for i in range(len(batches))])
+            return _valid_rows(batches, stitched, mask_field)
 
 
 def dp_predict_neighborhood_counts(params, tgt_cfg, query_embs: torch.Tensor,
@@ -480,7 +493,7 @@ def dp_predict_neighborhood_counts(params, tgt_cfg, query_embs: torch.Tensor,
         return neighborhood_forward(p, tgt_cfg, g, c)
 
     return _dp_predict(make, params, query_embs, batches, mesh,
-                       "graph_mask", staged, graphed, cache)
+                       "graph_mask", staged, graphed, cache, STAGE1_SPANS)
 
 
 def dp_predict_gossip_counts(params, query_embs: torch.Tensor,
@@ -496,4 +509,4 @@ def dp_predict_gossip_counts(params, query_embs: torch.Tensor,
     if not batches:
         return np.zeros((0, int(query_embs.shape[0])), np.float32)
     return _dp_predict(gossip_forward, params, query_embs, batches, mesh,
-                       "node_mask", None, graphed, cache)
+                       "node_mask", None, graphed, cache, GOSSIP_SPANS)

@@ -49,6 +49,7 @@ from .models import neighborhood as neigh_mod
 from .models.shmp_gnn import neighborhood_target_config, query_config
 from .parallel import dp
 from .train import loop as train_loop
+from .utils import trace
 from .utils.device import resolve_device
 
 
@@ -256,10 +257,12 @@ def prepare_stage_data(cfg: PipelineConfig, graphs: List[Graph],
                                        num_workers=cfg.num_workers)
     # the sample cache under the dataset's root only where truth is
     # computed: a serving request sees its graphs once
-    samples, nindex = wl.neighborhood_samples(
-        cfg.depth, use_tconv=cfg.use_tconv, truth=truth,
-        num_workers=cfg.num_workers, order=cfg.order, use_cache=need_truth,
-        use_hetero=cfg.use_hetero, use_node_feat=cfg.use_node_feature)
+    with trace.span("prepare.decompose"):
+        samples, nindex = wl.neighborhood_samples(
+            cfg.depth, use_tconv=cfg.use_tconv, truth=truth,
+            num_workers=cfg.num_workers, order=cfg.order,
+            use_cache=need_truth, use_hetero=cfg.use_hetero,
+            use_node_feat=cfg.use_node_feature)
     if cfg.degree_feature:
         apply_degree_feature(samples)
     if callable(capacities):
@@ -268,8 +271,9 @@ def prepare_stage_data(cfg: PipelineConfig, graphs: List[Graph],
         return StageData(wl, samples, nindex, truth, [])
     caps = capacities or auto_capacities(samples, g_cap=cfg.neigh_batch_size)
     # the backward edge permutation only matters for training
-    batches = pack_samples(samples, *caps, n_queries=truth.shape[1],
-                           need_bwd_perm=need_truth)
+    with trace.span("prepare.pack"):
+        batches = pack_samples(samples, *caps, n_queries=truth.shape[1],
+                               need_bwd_perm=need_truth)
     return StageData(wl, samples, nindex, truth, batches)
 
 
@@ -339,13 +343,16 @@ def neighborhood_predictions(params, tgt_cfg, query_embs,
         raise ValueError(f"{len(members)} ensemble members but "
                          f"{len(embs)} query embeddings")
     mesh = mesh or dp.make_mesh(1, device)
-    device_stage = (graphs.lock if graphs is not None
-                    else contextlib.nullcontext())
+    device_stage = (trace.lock(graphs.lock, "device_lock.wait")
+                    if graphs is not None else contextlib.nullcontext())
     caches = (graphs.members if graphs is not None
               else [None] * len(members))
     with device_stage:
-        staged = (dp.stage_batches_for_dp(stage.batches, mesh)
-                  if len(members) > 1 else None)
+        staged = None
+        if len(members) > 1:
+            # the members share one copy of the batches on the card
+            with trace.span("stage1.stage"):
+                staged = dp.stage_batches_for_dp(stage.batches, mesh)
 
         def forward(p, e, cache):
             return dp.dp_predict_neighborhood_counts(
@@ -374,7 +381,8 @@ def neighborhood_predictions(params, tgt_cfg, query_embs,
         # verifier's per-column top-k sees exact values there
         counts, _ = exact_small_counts(counts, stage, cfg)
     if cfg.verify_budget > 0:
-        counts, verified = verify_tail_counts(counts, stage, cfg)
+        with trace.span("verify"):
+            counts, verified = verify_tail_counts(counts, stage, cfg)
     return counts, verified
 
 
@@ -538,16 +546,19 @@ def prepare_gossip_batches(
     cfg: PipelineConfig, stage: StageData, neigh_counts: np.ndarray,
     capacities=None, need_bwd_perm: bool = False,
 ) -> List[PackedGraphs]:
-    """Packed gossip batches over the original graphs. Serving leaves
-    ``need_bwd_perm`` off: the backward permutation is training-only and
-    costs a full-row host lexsort per batch."""
-    samples = stage.workload.gossip_samples(neigh_counts, stage.nindex,
-                                            stage.truth)
-    if callable(capacities):  # serving bucket selection sees the samples
-        capacities = capacities(samples)
-    caps = capacities or auto_capacities(samples, g_cap=cfg.gossip_batch_size)
-    return pack_samples(samples, *caps, n_queries=stage.truth.shape[1],
-                        need_bwd_perm=need_bwd_perm)
+    """Packed gossip batches over the original graphs (the span
+    ``gossip.pack``). Serving leaves ``need_bwd_perm`` off: the backward
+    permutation is training-only and costs a full-row host lexsort per
+    batch."""
+    with trace.span("gossip.pack"):
+        samples = stage.workload.gossip_samples(neigh_counts, stage.nindex,
+                                                stage.truth)
+        if callable(capacities):  # serving bucket selection sees them
+            capacities = capacities(samples)
+        caps = capacities or auto_capacities(samples,
+                                             g_cap=cfg.gossip_batch_size)
+        return pack_samples(samples, *caps, n_queries=stage.truth.shape[1],
+                            need_bwd_perm=need_bwd_perm)
 
 
 def train_gossip_stage(

@@ -84,6 +84,7 @@ from .pipeline import (
     prepare_stage_data,
 )
 from .train.checkpoint import load_checkpoint
+from .utils import trace
 from .utils.cuda_graphs import ServingGraphs
 from .utils.device import resolve_device
 
@@ -242,9 +243,12 @@ class CountingService:
         has a gossip model. Exact-verified rows always override the
         learned residual (pipeline.apply_verified_override)."""
         refine = self._check_refine(refine)
-        stage = prepare_stage_data(self.cfg, list(graphs),
-                                   capacities=self._select_neigh_caps)
-        return self._finish_request(stage, refine)
+        rid = trace.new_request()
+        with trace.span("request.prepare", request=rid):
+            stage = prepare_stage_data(self.cfg, list(graphs),
+                                       capacities=self._select_neigh_caps)
+        with trace.span("request.serve", request=rid):
+            return self._finish_request(stage, refine)
 
     def count_graph(self, graph: Graph, **kw) -> np.ndarray:
         """[n_queries] counts for a single graph."""
@@ -306,9 +310,10 @@ class CountingService:
         )
 
     def _device_stage(self):
-        """The lock over the device stages (none when eager)."""
-        return (self.graphs.lock if self.graphs is not None
-                else contextlib.nullcontext())
+        """The lock over the device stages (none when eager); taking it
+        is the span ``device_lock.wait``."""
+        return (trace.lock(self.graphs.lock, "device_lock.wait")
+                if self.graphs is not None else contextlib.nullcontext())
 
     def _stage1(self, stage):
         """(counts, verified rows) of stage 1: forward, bounds, clamp,
@@ -320,6 +325,8 @@ class CountingService:
 
     def _finish_request(self, stage, refine: bool) -> CountResult:
         """Device stages + guards for one prepared request."""
+        trace.add("requests", 1)
+        trace.add("graphs", len(stage.workload.graphs))
         if not stage.samples:
             return self._empty_result(stage)
         counts, verified = self._stage1(stage)
@@ -341,28 +348,30 @@ class CountingService:
                            verified) -> CountResult:
         """Post-refinement guard chain: combinatorial clamp ->
         exact-verified row override -> exact-small-query column
-        override -> graphlet aggregation."""
-        if self.cfg.clamp_counts:
-            with self._device_stage():
-                node_counts = clamp_node_counts(
-                    node_counts, stage, self.cfg,
-                    canonical_type=self.tgt_cfg.canonical_type,
-                    device=self.device, graphed=self.graphed,
-                    cache=self.graphs.bounds if self.graphs is not None
-                    else None)
-        node_counts = apply_verified_override(
-            node_counts, counts, verified, stage.nindex)
-        if self.cfg.exact_size > 0:
-            node_counts = apply_exact_column_override(
-                node_counts, counts, exact_columns(self.cfg), stage.nindex)
-        graphlet = stage.workload.aggregate_node_counts(node_counts)
-        return CountResult(
-            graphlet_counts=np.round(np.maximum(graphlet, 0.0)),
-            node_counts=node_counts,
-            neighborhood_counts=counts,
-            verified_rows=verified,
-            refined=True,
-        )
+        override -> graphlet aggregation (the span ``guards``)."""
+        with trace.span("guards"):
+            if self.cfg.clamp_counts:
+                with self._device_stage():
+                    node_counts = clamp_node_counts(
+                        node_counts, stage, self.cfg,
+                        canonical_type=self.tgt_cfg.canonical_type,
+                        device=self.device, graphed=self.graphed,
+                        cache=self.graphs.bounds if self.graphs is not None
+                        else None)
+            node_counts = apply_verified_override(
+                node_counts, counts, verified, stage.nindex)
+            if self.cfg.exact_size > 0:
+                node_counts = apply_exact_column_override(
+                    node_counts, counts, exact_columns(self.cfg),
+                    stage.nindex)
+            graphlet = stage.workload.aggregate_node_counts(node_counts)
+            return CountResult(
+                graphlet_counts=np.round(np.maximum(graphlet, 0.0)),
+                node_counts=node_counts,
+                neighborhood_counts=counts,
+                verified_rows=verified,
+                refined=True,
+            )
 
     @staticmethod
     def _package_unrefined(stage, counts, verified) -> CountResult:
@@ -414,10 +423,13 @@ class CountingService:
                 for graphs in requests:
                     if stop.is_set():
                         return
-                    stage = prepare_stage_data(
-                        self.cfg, list(graphs),
-                        capacities=self._select_neigh_caps)
-                    if not put(stage):
+                    rid = trace.new_request()
+                    with trace.span("request.prepare", request=rid):
+                        stage = prepare_stage_data(
+                            self.cfg, list(graphs),
+                            capacities=self._select_neigh_caps)
+                    # (the request, its id, when its preparation ended)
+                    if not put((stage, rid, trace.now())):
                         return
             except BaseException as e:  # re-raised in the consumer
                 put(e)
@@ -428,12 +440,22 @@ class CountingService:
         t.start()
         try:
             while True:
-                item = q.get()
+                with trace.span("stream.starved") as waited:
+                    item = q.get()
                 if item is sentinel:
                     break
                 if isinstance(item, BaseException):
                     raise item
-                yield self._finish_request(item, refine)
+                stage, rid, ready = item
+                if ready is not None:
+                    if waited is not None:
+                        waited.request = rid
+                    # on the producer's lane: it began there
+                    trace.record("request.wait", ready, trace.now(),
+                                 request=rid, thread=t.ident)
+                with trace.span("request.serve", request=rid):
+                    res = self._finish_request(stage, refine)
+                yield res
         finally:
             # consumer gone (break/close/exception): unblock + reap the
             # producer so no thread or prepared StageData lingers

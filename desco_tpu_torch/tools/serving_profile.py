@@ -8,15 +8,18 @@ Serves release/r4 on CUDA over random graphs drawn like Syn_1827
 pins its buckets and, graphed, captures their forwards, as a service's
 first request of a shape does), then the same request twice.
 
-1. Stage times, unprofiled: each serving stage function is wrapped with
-   a host clock that synchronizes the device on entry and exit (so a
-   stage owns its device work), and the request's wall time is taken
-   around the whole call.
-2. Device time, profiled: the request again under ``torch.profiler``
-   (CPU + CUDA activity): the device's busy time (union of its kernel
-   and copy intervals), its idle share over the profiled wall time, the
-   number of device operations, and the kernels with the most device
-   time. The profiler slows the host; its wall time is reported beside.
+1. Host time by span, unprofiled: the request under the port's tracer
+   (utils/trace.py), with no synchronize added: each span's self time
+   (its duration less its children's), summed by span name, and the
+   request's wall time around the whole call.
+2. Device time by span, profiled: the request again under the tracer
+   and ``torch.profiler`` (CUDA activity), whose device events carry the
+   tracer's clock: the device's busy time (union of its kernel and copy
+   intervals), its idle share over the profiled wall time, the number of
+   device operations, the kernels with the most device time, and, by
+   the innermost span open on the serving thread, the device time that
+   began under it and the device's idle time (each gap by its middle).
+   The profiler slows the host; its wall time is reported beside.
 
 The service replays its compiled forwards (CUDA graphs) as it does by
 default; ``--eager`` serves with the eager forwards. The object names the
@@ -29,15 +32,16 @@ Prints one JSON object (and writes it to ``--out``). Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
-import contextlib
-import functools
 import json
 import os
 import subprocess
+import threading
 import time
 from collections import defaultdict
 
 import numpy as np
+
+from ..utils import trace
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -56,47 +60,54 @@ def _busy_us(intervals) -> float:
     return total
 
 
-def stage_clock(torch):
-    """A context manager that wraps each serving stage function with a
-    host clock that synchronizes the device on entry and exit (so a stage
-    owns its device work) and puts the functions back on exit; it yields
-    {stage: seconds}."""
-    from .. import pipeline, serving
-    from ..parallel import dp
+def self_ms(spans) -> dict:
+    """{span name: {"ms": summed self time, "calls": spans}}, largest
+    first."""
+    out = defaultdict(lambda: {"ms": 0.0, "calls": 0})
+    for sp in spans:
+        out[sp.name]["ms"] += sp.self_ns / 1e6
+        out[sp.name]["calls"] += 1
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]["ms"]))
 
-    stages = [
-        (serving, "prepare_stage_data", "prepare (host)"),
-        (dp, "dp_predict_neighborhood_counts", "neighborhood forward"),
-        (pipeline, "stage_bounds", "bounds"),
-        (pipeline, "verify_tail_counts", "verify (VF2)"),
-        (serving, "prepare_gossip_batches", "gossip packing (host)"),
-        (serving, "dp_predict_gossip_counts", "gossip forward"),
-        (serving.CountingService, "_guard_and_package", "guards")]
 
-    @contextlib.contextmanager
-    def clock():
-        totals = {label: 0.0 for _, _, label in stages}
-        saved = [(owner, attr, getattr(owner, attr))
-                 for owner, attr, _ in stages]
-        for (owner, attr, label), (_, _, fn) in zip(stages, saved):
-            @functools.wraps(fn)
-            def timed(*a, _fn=fn, _label=label, **k):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                try:
-                    return _fn(*a, **k)
-                finally:
-                    torch.cuda.synchronize()
-                    totals[_label] += time.perf_counter() - t0
+def device_events(prof) -> list:
+    """(name, start ns, end ns) of every device kernel, copy and set in a
+    finished ``torch.profiler`` run, on ``time.time_ns``'s clock; user
+    annotations mirrored on the device timeline are not device work."""
+    out = []
+    for ev in prof.profiler.kineto_results.events():
+        if (str(ev.device_type()) != "DeviceType.CUDA"
+                or ev.is_user_annotation()):
+            continue
+        out.append((ev.name(), ev.start_ns(), ev.end_ns()))
+    return out
 
-            setattr(owner, attr, timed)
-        try:
-            yield totals
-        finally:
-            for owner, attr, fn in saved:
-                setattr(owner, attr, fn)
 
-    return clock()
+def under_spans(events, spans, lo: int, hi: int, threads: set) -> dict:
+    """The device's busy ms by the innermost span of ``threads`` open
+    when each event began, and its idle ms inside [lo, hi) by the one
+    open in the middle of each gap ("between spans" where none is)."""
+    busy, idle = defaultdict(float), defaultdict(float)
+    starts = [s for _, s, _ in events]
+    for (_, s, e), sp in zip(events, trace.innermost(spans, starts,
+                                                     threads)):
+        busy[sp.name if sp is not None else "between spans"] += (e - s) / 1e6
+    gaps, reach = [], lo
+    for _, s, e in sorted(events, key=lambda ev: ev[1]):
+        if s > reach:
+            gaps.append((reach, min(s, hi)))
+        reach = max(reach, e)
+    if hi > reach:
+        gaps.append((reach, hi))
+    gaps = [(a, b) for a, b in gaps if b > a]
+    for (a, b), sp in zip(gaps, trace.innermost(
+            spans, [(a + b) // 2 for a, b in gaps], threads)):
+        idle[sp.name if sp is not None else "between spans"] += (b - a) / 1e6
+
+    def order(d):
+        return dict(sorted(d.items(), key=lambda kv: -kv[1]))
+
+    return {"busy_ms": order(busy), "idle_ms": order(idle)}
 
 
 def main(argv=None) -> int:
@@ -110,7 +121,6 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from .. import serving
@@ -132,36 +142,39 @@ def main(argv=None) -> int:
     svc.count(warm)
     svc.count(req)
 
-    with stage_clock(torch) as totals:
+    trace.drain()
+    trace.enable()
+    try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         svc.count(req)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    stage_ms = {k: v * 1e3 for k, v in totals.items()}
-    # (the guards' re-read of the memoized bounds counts under both: it
-    # takes microseconds)
-    stage_ms["other"] = wall_ms - sum(stage_ms.values())
+        spans, counters = trace.drain()
+        span_ms = self_ms(spans)
+        # the serving thread's time outside every span
+        other_ms = wall_ms - sum(sp.self_ns for sp in spans
+                                 if sp.thread == threading.get_ident()
+                                 ) / 1e6
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        svc.count(req)
-        torch.cuda.synchronize()
-        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            lo = time.time_ns()
+            t0 = time.perf_counter()
+            svc.count(req)
+            torch.cuda.synchronize()
+            prof_wall_ms = (time.perf_counter() - t0) * 1e3
+            hi = time.time_ns()
+    finally:
+        trace.disable()
+    prof_spans, _ = trace.drain()
 
-    device, by_kernel = [], defaultdict(lambda: [0, 0.0])
-    for ev in prof.events():
-        # device-side kernels and copies; user annotations mirrored on
-        # the device timeline are not device work
-        if (ev.device_type != DeviceType.CUDA
-                or getattr(ev, "is_user_annotation", False)):
-            continue
-        device.append((ev.time_range.start, ev.time_range.end))
-        k = by_kernel[ev.name]
+    events = device_events(prof)
+    by_kernel = defaultdict(lambda: [0, 0.0])
+    for name, s, e in events:
+        k = by_kernel[name]
         k[0] += 1
-        k[1] += ev.time_range.elapsed_us()
-    busy_ms = _busy_us(device) / 1e3
+        k[1] += (e - s) / 1e3
+    busy_ms = _busy_us([(s, e) for _, s, e in events]) / 1e6
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:12]
     out = {
         "card": card,
@@ -170,11 +183,15 @@ def main(argv=None) -> int:
         "graphed": svc.graphed,
         "compiled": svc.graphs.stats() if svc.graphs is not None else None,
         "request_ms": wall_ms,
-        "stage_ms": stage_ms,
+        "span_ms": span_ms,
+        "other_ms": other_ms,
+        "counters": counters,
         "profiled_request_ms": prof_wall_ms,
         "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / prof_wall_ms,
-        "device_ops": len(device),
+        "device_ops": len(events),
+        "device_by_span": under_spans(events, prof_spans, lo, hi,
+                                      {threading.get_ident()}),
         "top_kernels": [{"name": n[:100], "calls": c, "ms": us / 1e3}
                         for n, (c, us) in top],
     }

@@ -88,7 +88,7 @@ from ..models import gossip as gossip_mod
 from ..models import neighborhood as neigh_mod
 from ..models.shmp_gnn import SHMPConfig, prepare_batch
 from ..parallel import dp
-from ..utils import distributed
+from ..utils import distributed, trace
 from ..utils.device import resolve_device
 from .checkpoint import jax_keys, load_checkpoint, save_checkpoint
 from ..utils.cuda_graphs import ForwardCache, GraphedStep, no_sync
@@ -729,7 +729,9 @@ def _compiled(forward: Callable, prepare: Callable, static, graphed: bool,
     cache = cache if cache is not None else ForwardCache()
 
     def run(b, e):
-        prepare(b)
+        # deriving the batch's state reads back (a synchronize)
+        with trace.span("forward.derive"):
+            prepare(b)
         return cache(forward, (b, e), static=static,
                      group=(b.g_cap, e.shape[0]))
 

@@ -36,6 +36,7 @@ import torch
 from ..batch.packed import PackedGraphs, stack_batches
 from ..graph.container import Graph
 from ..ops.segment import segment_sum
+from ..utils import trace
 from ..utils.cuda_graphs import ForwardCache
 from .vf2 import symmetric_factor
 
@@ -150,12 +151,17 @@ def neighborhood_count_bounds(
     one-hot node_feat). The structural divisor is larger (a
     (0, 0, 1)-labeled triangle has 6 structural automorphisms but 2 that
     keep its labels), so it would make the bounds too small and clamp
-    away correct labeled predictions."""
-    schedules = _hashable_schedules(queries)
-    auts = np.array([
-        symmetric_factor(q, (q.node_feat.argmax(-1).astype(np.int32)
-                             if labeled else None))
-        for q in queries], dtype=np.float32)
+    away correct labeled predictions.
+
+    Spans: ``bounds.host`` (the schedules and automorphism factors),
+    ``bounds.stage`` (the copy to ``device``), ``bounds.replay`` (each
+    batch's call), ``bounds.readback``."""
+    with trace.span("bounds.host"):
+        schedules = _hashable_schedules(queries)
+        auts = np.array([
+            symmetric_factor(q, (q.node_feat.argmax(-1).astype(np.int32)
+                                 if labeled else None))
+            for q in queries], dtype=np.float32)
 
     def forward(b):
         return _batch_bounds(b, schedules, canonical_type)
@@ -163,18 +169,22 @@ def neighborhood_count_bounds(
     if graphed and cache is None:
         cache = ForwardCache()
     with torch.inference_mode():
-        stacked = stack_batches(batches).to(device)
+        with trace.span("bounds.stage"):
+            stacked = stack_batches(batches).to(device)
         outs = []
         for i in range(len(batches)):
-            b = stacked[i]
-            outs.append(cache(forward, (b,),
-                              static=("bounds", schedules, canonical_type),
-                              group=b.g_cap)
-                        if graphed else forward(b))
-        ubs = torch.cat(outs).cpu().numpy()
-    ubs = ubs[np.concatenate([np.asarray(b.graph_mask) > 0
-                              for b in batches])]
-    return ubs / auts[None, :]
+            with trace.span("bounds.replay"):
+                b = stacked[i]
+                outs.append(cache(forward, (b,),
+                                  static=("bounds", schedules,
+                                          canonical_type),
+                                  group=b.g_cap)
+                            if graphed else forward(b))
+        with trace.span("bounds.readback"):
+            ubs = torch.cat(outs).cpu().numpy()
+            ubs = ubs[np.concatenate([np.asarray(b.graph_mask) > 0
+                                      for b in batches])]
+            return ubs / auts[None, :]
 
 
 def clamp_counts(counts: np.ndarray, bounds: np.ndarray) -> np.ndarray:

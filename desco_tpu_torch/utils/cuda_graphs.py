@@ -87,6 +87,7 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from ..ops import cuda_segment as cs
+from . import trace
 
 WARMUP_STEPS = 3
 # a forward's lazy set-up (kernel libraries and their shared-memory
@@ -121,6 +122,20 @@ def static_like(value):
             setattr(out, name, static_like(getattr(value, name)))
         return out
     return value
+
+
+def _nbytes(value) -> int:
+    """The bytes of every tensor in ``value`` (walked as ``static_like``
+    walks it): what ``copy_into`` copies into it."""
+    if isinstance(value, torch.Tensor):
+        return value.nbytes
+    if isinstance(value, (list, tuple)):
+        return sum(_nbytes(v) for v in value)
+    if dataclasses.is_dataclass(value):
+        return (sum(_nbytes(getattr(value, f.name))
+                    for f in dataclasses.fields(value))
+                + sum(_nbytes(getattr(value, n)) for n in _derived(value)))
+    return 0
 
 
 def copy_into(dst, src) -> None:
@@ -281,8 +296,13 @@ class GraphedStep:
     ends and begins captures on autograd's device thread. ``sequence``:
     the split points' keys, recorded at the first call (on the card the
     first warm-up); later calls, the capture included, must match them.
-    ``collective_s``: the host seconds of the replayed collectives,
-    summed over calls, each timed from the end of the piece before."""
+
+    Spans (utils/trace.py): ``graph.capture`` around the warm-up and
+    capture; per call ``step.copy_in`` (the batch into the static
+    buffers), ``step.replay`` (each graph's launch; on the CPU the
+    static-buffer run) and ``step.collective`` (each split point's
+    collective, after the host has waited for the piece before; its
+    ``info["step"]`` is the step's ``id``). Counters: ``replays`` (calls) and ``copy_in_bytes``."""
 
     def __init__(self, fn: Callable, example, *, capture: bool,
                  state: Sequence[torch.Tensor] = (),
@@ -299,7 +319,7 @@ class GraphedStep:
         self.outputs = None
         self.record = cs.LaunchRecord()
         self.capture_s = 0.0
-        self.collective_s = 0.0
+        self.batch_bytes = _nbytes(self.batch)
         self.device = None
         self._pool = self._drawn = self._capture_mode = None
         if capture:
@@ -352,13 +372,12 @@ class GraphedStep:
             self.graphs[-1].capture_end()
             self._begin_piece()
         else:
-            t0 = time.perf_counter()
             chain.inside = True
             try:
-                run(src, out)
+                with trace.span("step.collective", step=id(self)):
+                    run(src, out)
             finally:
                 chain.inside = False
-            self.collective_s += time.perf_counter() - t0
         return out
 
     def _begin_piece(self) -> None:
@@ -370,64 +389,64 @@ class GraphedStep:
         self.graphs.append(graph)
 
     def _capture(self, state, generators, pool, dev) -> None:
-        t0 = time.perf_counter()
-        counted = cs.read_launches()
-        saved = [t.clone() for t in state]
-        gen_states = [g.get_state() for g in generators]
-        self.device = dev
-        with torch.cuda.device(dev), self._mode():
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
-                self._run("run")
-                # a chain's second run checks that the first left nothing
-                # to set up, as a forward's does
-                for _ in range((WARMUP_FORWARDS
-                                if self.inference or self.sequence
-                                else WARMUP_STEPS) - 1):
-                    self._run("run")
-            torch.cuda.current_stream(dev).wait_stream(side)
-            for t, s in zip(state, saved):
-                t.copy_(s)
-            self._drawn = []
-            for gen, gen_state in zip(generators, gen_states):
-                draws = not torch.equal(gen.get_state(), gen_state)
-                gen.set_state(gen_state)
-                if draws:
-                    if not hasattr(torch.cuda.CUDAGraph,
-                                   "register_generator_state"):
-                        raise RuntimeError(
-                            "the step draws from a generator (dropout "
-                            "above 0) and this PyTorch cannot register a "
-                            "generator with a CUDA graph: train eagerly "
-                            "(graphed=False)")
-                    self._drawn.append(gen)
-            if self.sequence and pool is not None:
-                raise ValueError("a step split at collectives captures "
-                                 "into a memory pool of its own")
-            # a chain's pieces share a pool of their own
-            self._pool = (torch.cuda.graph_pool_handle()
-                          if self.sequence else pool)
-            self._capture_mode = "relaxed" if self.sequence else "global"
-            # as torch.cuda.graph begins a capture
-            with self.record.capture(), no_collection():
-                torch.cuda.synchronize()
-                gc.collect()
-                torch.cuda.empty_cache()
+        with trace.span("graph.capture"):
+            t0 = time.perf_counter()
+            counted = cs.read_launches()
+            saved = [t.clone() for t in state]
+            gen_states = [g.get_state() for g in generators]
+            self.device = dev
+            with torch.cuda.device(dev), self._mode():
+                side = torch.cuda.Stream(dev)
+                side.wait_stream(torch.cuda.current_stream(dev))
                 with torch.cuda.stream(side):
-                    self._begin_piece()
-                    try:
-                        self.outputs = self._run("capture")
-                    except BaseException:
-                        with contextlib.suppress(Exception):
-                            self.graphs[-1].capture_end()
-                        self.graphs = []
-                        raise
-                    self.graphs[-1].capture_end()
-        cs.reset_launches()
-        cs.add_launches(counted)
-        self.collective_s = 0.0
-        self.capture_s = time.perf_counter() - t0
+                    self._run("run")
+                    # a chain's second run checks that the first left nothing
+                    # to set up, as a forward's does
+                    for _ in range((WARMUP_FORWARDS
+                                    if self.inference or self.sequence
+                                    else WARMUP_STEPS) - 1):
+                        self._run("run")
+                torch.cuda.current_stream(dev).wait_stream(side)
+                for t, s in zip(state, saved):
+                    t.copy_(s)
+                self._drawn = []
+                for gen, gen_state in zip(generators, gen_states):
+                    draws = not torch.equal(gen.get_state(), gen_state)
+                    gen.set_state(gen_state)
+                    if draws:
+                        if not hasattr(torch.cuda.CUDAGraph,
+                                       "register_generator_state"):
+                            raise RuntimeError(
+                                "the step draws from a generator (dropout "
+                                "above 0) and this PyTorch cannot register a "
+                                "generator with a CUDA graph: train eagerly "
+                                "(graphed=False)")
+                        self._drawn.append(gen)
+                if self.sequence and pool is not None:
+                    raise ValueError("a step split at collectives captures "
+                                     "into a memory pool of its own")
+                # a chain's pieces share a pool of their own
+                self._pool = (torch.cuda.graph_pool_handle()
+                              if self.sequence else pool)
+                self._capture_mode = "relaxed" if self.sequence else "global"
+                # as torch.cuda.graph begins a capture
+                with self.record.capture(), no_collection():
+                    torch.cuda.synchronize()
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                    with torch.cuda.stream(side):
+                        self._begin_piece()
+                        try:
+                            self.outputs = self._run("capture")
+                        except BaseException:
+                            with contextlib.suppress(Exception):
+                                self.graphs[-1].capture_end()
+                            self.graphs = []
+                            raise
+                        self.graphs[-1].capture_end()
+            cs.reset_launches()
+            cs.add_launches(counted)
+            self.capture_s = time.perf_counter() - t0
 
     def pool_bytes(self) -> Optional[int]:
         """The bytes the step's memory pool holds on the card (None where
@@ -438,20 +457,25 @@ class GraphedStep:
                                   else self.graphs[0].pool())})
 
     def __call__(self, batch):
+        trace.add("replays", 1)
+        trace.add("copy_in_bytes", self.batch_bytes)
         with self._mode():
-            copy_into(self.batch, batch)
+            with trace.span("step.copy_in"):
+                copy_into(self.batch, batch)
             if not self.graphs:
-                return self._run("run")
-            self.graphs[0].replay()
+                with trace.span("step.replay"):
+                    return self._run("run")
+            with trace.span("step.replay"):
+                self.graphs[0].replay()
             if self.splits:
                 stream = torch.cuda.current_stream(self.device)
                 for (run, src), out, graph in zip(
                         self.splits, self.buffers, self.graphs[1:]):
                     stream.synchronize()
-                    t0 = time.perf_counter()
-                    run(src, out)
-                    self.collective_s += time.perf_counter() - t0
-                    graph.replay()
+                    with trace.span("step.collective", step=id(self)):
+                        run(src, out)
+                    with trace.span("step.replay"):
+                        graph.replay()
             self.record.replayed()
             return self.outputs
 
@@ -624,6 +648,7 @@ class ForwardCache:
                 if group is not None:
                     self.groups[slot] = key
                 self.captures += 1
+                trace.add("captures", 1)
                 self.capture_s += entry.capture_s
             return clone_outputs(entry(inputs))
 
